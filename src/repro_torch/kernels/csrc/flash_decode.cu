@@ -1,0 +1,261 @@
+// Flash decoding (single-token GQA attention over a KV cache) for sm_90a.
+//
+// Replaces the Pallas TPU kernel repro/kernels/flash_decode.py::flash_decode
+// (body _decode_kernel). q (B, 1, H, Dh); k, v (B, S, KVH, Dh); k_pos (B, S),
+// q_pos (B,), n_valid (B,) int32; optional window. Slot s of batch row b is
+// attended iff s < n_valid[b], k_pos[b, s] <= q_pos[b] and, with a window,
+// k_pos[b, s] > q_pos[b] - window. Output in q's dtype; softmax state in f32.
+//
+// What bounds it on this card: bytes. At the serving shapes (stablelm-1.6b,
+// B 4, 32 KV heads, Dh 64, ~528 valid slots, bf16) it must read ~17 MB of
+// K/V and does ~17 MFLOP: one FLOP per byte, far under the break-even.
+//
+// What the design does about it:
+//   * One thread block per (batch x KV head). The gq query rows of that KV
+//     head stay in registers, so each K/V slot is read from device memory
+//     exactly once for all of them; slots at or past n_valid are never read.
+//   * Every load is 16 bytes a lane, and the lanes of a slot group cover one
+//     slot's contiguous head-dim run (Dh * sizeof(T) bytes), so a warp reads
+//     several whole slots per instruction; each lane issues its K and V loads
+//     for U slots before it uses any of them, to keep bytes in flight.
+//   * Each warp carries its own online-softmax state (m, l, acc in f32) over
+//     its slots, with no block-wide barrier in the loop; the block's warps
+//     merge their states once at the end, through shared memory.
+// Splitting one (batch, KV head)'s slots over several blocks, which a long
+// cache needs to fill the card, is not done yet.
+//
+// Masking keeps the reference's finite NEG_INF = -2e38: a fully masked slot
+// gives p = exp(0) only while the running max is still NEG_INF, and the first
+// live slot cancels it through corr = exp(m_prev - m_new) = 0; with -inf this
+// would be NaN. In bf16, P is rounded to v's dtype before P.V, as the Pallas
+// kernel does.
+
+#include <cuda_runtime.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int WARPS = 8;
+constexpr int THREADS = WARPS * 32;
+constexpr int MAX_G = 8;  // query heads per KV head (must match flash_decode.py)
+
+// 16 bytes of T, widened to f32
+__device__ __forceinline__ void widen(const uint4& raw, float (&f)[4], float) {
+  f[0] = __uint_as_float(raw.x); f[1] = __uint_as_float(raw.y);
+  f[2] = __uint_as_float(raw.z); f[3] = __uint_as_float(raw.w);
+}
+__device__ __forceinline__ void widen(const uint4& raw, float (&f)[8], __nv_bfloat16) {
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 t = __bfloat1622float2(h[i]);
+    f[2 * i] = t.x; f[2 * i + 1] = t.y;
+  }
+}
+
+// G: query heads per KV head rounded up to a power of two (gq <= G).
+template <typename T, int DH, int G>
+__global__ void __launch_bounds__(THREADS)
+flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const int* __restrict__ k_pos, const int* __restrict__ q_pos,
+                    const int* __restrict__ n_valid, T* __restrict__ o,
+                    int S, int H, int KVH, int window, float scale) {
+  constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
+  constexpr int LPS = DH / VEC;        // lanes per slot
+  constexpr int SPW = 32 / LPS;        // slots per warp per load
+  constexpr int U = G <= 2 ? 4 : 2;    // loads in flight per lane, per tensor
+  constexpr int STEP = SPW * U;        // slots per warp per iteration
+  static_assert(LPS >= 1 && LPS <= 32 && 32 % LPS == 0, "head dim vs 16-byte lanes");
+
+  __shared__ float sm_m[WARPS][G], sm_l[WARPS][G];
+  __shared__ __align__(16) float sm_acc[WARPS][G][DH];
+
+  const int b = blockIdx.x / KVH, kvh = blockIdx.x % KVH;
+  const int gq = H / KVH;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int grp = lane / LPS, li = lane % LPS;
+
+  float qf[G][VEC], acc[G][VEC], m[G], l[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const T* qh = q + ((int64_t)b * H + kvh * gq + g) * DH + li * VEC;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      qf[g][e] = g < gq ? to_f(qh[e]) : 0.f;
+      acc[g][e] = 0.f;
+    }
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+  }
+
+  const int n_lim = max(0, min(n_valid[b], S));
+  const int qp = q_pos[b];
+  const int64_t slot_stride = (int64_t)KVH * DH;
+  const T* kb = k + ((int64_t)b * S * KVH + kvh) * DH + li * VEC;
+  const T* vb = v + ((int64_t)b * S * KVH + kvh) * DH + li * VEC;
+  const int* pb = k_pos + (int64_t)b * S;
+
+  for (int base = warp * STEP; base < n_lim; base += WARPS * STEP) {
+    uint4 kr[U], vr[U];
+    bool ok[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int slot = base + u * SPW + grp;
+      ok[u] = slot < n_lim;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (ok[u]) {
+        kr[u] = *reinterpret_cast<const uint4*>(kb + slot * slot_stride);
+        vr[u] = *reinterpret_cast<const uint4*>(vb + slot * slot_stride);
+        const int kp = pb[slot];
+        ok[u] = kp <= qp && (window <= 0 || kp > qp - window);
+      }
+    }
+
+    float s[U][G];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float kf[VEC];
+      widen(kr[u], kf, T());
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float part = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) part = fmaf(qf[g][e], kf[e], part);
+#pragma unroll
+        for (int off = LPS / 2; off > 0; off /= 2) part += __shfl_xor_sync(0xffffffffu, part, off);
+        s[u][g] = ok[u] ? part * scale : NEG_INF;
+      }
+    }
+
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float mx = s[0][g];
+#pragma unroll
+      for (int u = 1; u < U; ++u) mx = fmaxf(mx, s[u][g]);
+#pragma unroll
+      for (int off = LPS; off < 32; off *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[g], mx);
+      const float corr = expf(m[g] - m_new);
+      float ps = 0.f;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        s[u][g] = expf(s[u][g] - m_new);
+        ps += s[u][g];
+      }
+#pragma unroll
+      for (int off = LPS; off < 32; off *= 2) ps += __shfl_xor_sync(0xffffffffu, ps, off);
+      l[g] = l[g] * corr + ps;
+      m[g] = m_new;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[g][e] *= corr;
+    }
+
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      float vf[VEC];
+      widen(vr[u], vf, T());
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float p = round_as<T>(s[u][g]);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+      }
+    }
+  }
+
+  // merge the slot groups of this warp (same dims, same running max)
+#pragma unroll
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < VEC; ++e)
+#pragma unroll
+      for (int off = LPS; off < 32; off *= 2)
+        acc[g][e] += __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+  if (grp == 0) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sm_acc[warp][g][li * VEC + e] = acc[g][e];
+      if (li == 0) {
+        sm_m[warp][g] = m[g];
+        sm_l[warp][g] = l[g];
+      }
+    }
+  }
+  __syncthreads();
+
+  // merge the warps
+  for (int idx = threadIdx.x; idx < gq * DH; idx += THREADS) {
+    const int g = idx / DH, d = idx % DH;
+    float M = NEG_INF;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, sm_m[w][g]);
+    float L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const float c = expf(sm_m[w][g] - M);
+      L = fmaf(sm_l[w][g], c, L);
+      A = fmaf(sm_acc[w][g][d], c, A);
+    }
+    o[((int64_t)b * H + kvh * gq + g) * DH + d] = from_f<T>(A / fmaxf(L, 1e-37f));
+  }
+}
+
+template <typename T, int DH, int G>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* kp, const int* qp,
+                   const int* nv, void* o, int B, int S, int H, int KVH, int window, float scale,
+                   cudaStream_t stream) {
+  flash_decode_kernel<T, DH, G><<<B * KVH, THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kp, qp, nv,
+      static_cast<T*>(o), S, H, KVH, window, scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t dispatch_g(const void* q, const void* k, const void* v, const int* kp,
+                       const int* qp, const int* nv, void* o, int B, int S, int H, int KVH,
+                       int window, float scale, cudaStream_t s) {
+  const int gq = H / KVH;
+  if (gq <= 1) return launch<T, DH, 1>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
+  if (gq <= 2) return launch<T, DH, 2>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
+  if (gq <= 4) return launch<T, DH, 4>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
+  return launch<T, DH, 8>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
+}
+
+template <typename T>
+cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const int* kp,
+                        const int* qp, const int* nv, void* o, int B, int S, int H, int KVH,
+                        int Dh, int window, float scale, cudaStream_t s) {
+  switch (Dh) {
+    case 16: return dispatch_g<T, 16>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
+    case 32: return dispatch_g<T, 32>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
+    case 64: return dispatch_g<T, 64>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
+    case 128: return dispatch_g<T, 128>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
+extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, const void* k_pos,
+                                const void* q_pos, const void* n_valid, void* o, int dtype,
+                                int B, int S, int H, int KVH, int Dh, int window, float scale,
+                                void* stream) {
+  if (B <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0 || H / KVH > MAX_G)
+    return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * KVH > 2147483647LL) return (int)cudaErrorInvalidValue;
+  const int* kp = static_cast<const int*>(k_pos);
+  const int* qp = static_cast<const int*>(q_pos);
+  const int* nv = static_cast<const int*>(n_valid);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)dispatch_dh<float>(q, k, v, kp, qp, nv, o, B, S, H, KVH, Dh, window, scale, s);
+  if (dtype == 1)
+    return (int)dispatch_dh<__nv_bfloat16>(q, k, v, kp, qp, nv, o, B, S, H, KVH, Dh, window,
+                                           scale, s);
+  return (int)cudaErrorInvalidValue;
+}

@@ -1,0 +1,193 @@
+"""Shared model substrate: config schema, device choice, RMSNorm, RoPE.
+
+Port of ``repro.models.common``. The config schema is a copy (the reference
+module imports jax); ``compute_dtype()`` returns a torch dtype. There are no
+sharding hooks yet: the port runs on one device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+NEG_INF = -2.0e38  # finite mask value, as in the reference kernels
+
+
+# ---------------------------------------------------------------------------
+# Config schema
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    """One layer position inside a repeating group."""
+
+    mixer: str = "attention"  # "attention" | "mamba"
+    ffn: str = "dense"  # "dense" | "moe" | "none"
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    name: str
+    family: str  # dense | moe | hybrid | ssm | vlm | audio
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 0  # 0 -> d_model // n_heads
+    # repeating layout (len(layout) must divide n_layers)
+    layout: tuple = (LayerSpec(),)
+    # attention
+    attention: str = "full"  # full | swa | mla
+    window: int = 0  # SWA window (0 = unlimited)
+    qkv_bias: bool = False
+    rope_theta: float = 1e4
+    # MoE
+    n_experts: int = 0
+    top_k: int = 0
+    capacity_factor: float = 1.25
+    # MLA (minicpm3-style)
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_nope_dim: int = 0
+    qk_rope_dim: int = 0
+    v_head_dim: int = 0
+    # Mamba
+    ssm_state: int = 16
+    ssm_conv: int = 4
+    ssm_expand: int = 2
+    # encoder-decoder
+    encoder_layers: int = 0  # 0 -> decoder-only
+    cross_attention: bool = False
+    # modality frontend: "none" | "vision" | "audio"
+    frontend: str = "none"
+    frontend_len: int = 0
+    # numerics & structure
+    dtype: str = "bfloat16"
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-5
+    # runtime knobs of the reference (kept so that reduced() is identical)
+    remat: str = "block"  # none | block | full
+    block_q: int = 512
+    block_kv: int = 512
+    causal_skip: bool = False
+    moe_groups: int = 0
+    pad_heads: int = 0
+    moe_block_tokens: int = 0
+    moe_exact_tokens: int = 512
+    use_pallas: bool = False
+
+    # -- derived -----------------------------------------------------------
+    @property
+    def head_dim(self) -> int:
+        return self.d_head or (self.d_model // self.n_heads)
+
+    @property
+    def n_heads_eff(self) -> int:
+        """Padded head count (pad wo rows are zero at init)."""
+        return self.n_heads + self.pad_heads
+
+    @property
+    def n_groups(self) -> int:
+        if self.n_layers % len(self.layout):
+            raise ValueError(f"{self.name}: layout len {len(self.layout)} !| n_layers {self.n_layers}")
+        return self.n_layers // len(self.layout)
+
+    def compute_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    def reduced(self) -> "ArchConfig":
+        """Tiny same-family config for CPU smoke tests."""
+        return dataclasses.replace(
+            self,
+            name=self.name + "-smoke",
+            n_layers=len(self.layout) * 2,
+            d_model=64,
+            n_heads=4,
+            n_kv_heads=max(1, min(self.n_kv_heads, 2)) if self.n_kv_heads < self.n_heads else 4,
+            d_head=16,
+            d_ff=128 if self.d_ff else 0,
+            vocab=256,
+            n_experts=min(self.n_experts, 4),
+            top_k=min(self.top_k, 2),
+            q_lora_rank=32 if self.q_lora_rank else 0,
+            kv_lora_rank=16 if self.kv_lora_rank else 0,
+            qk_nope_dim=8 if self.qk_nope_dim else 0,
+            qk_rope_dim=8 if self.qk_rope_dim else 0,
+            v_head_dim=16 if self.v_head_dim else 0,
+            ssm_state=8,
+            encoder_layers=2 if self.encoder_layers else 0,
+            frontend_len=8 if self.frontend_len else 0,
+            window=min(self.window, 64) if self.window else 0,
+            block_q=16,
+            block_kv=16,
+            dtype="float32",
+            remat="none",
+        )
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. Raises for an absent CUDA device:
+    nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+    return dev
+
+
+# ---------------------------------------------------------------------------
+# Param init
+# ---------------------------------------------------------------------------
+
+
+class ParamBuilder:
+    """Draws parameters from one seeded ``torch.Generator`` on ``device``.
+
+    The stream differs from ``jax.random``'s: parity tests carry JAX weights
+    over with ``repro_torch.models.convert.params_from_jax`` instead."""
+
+    def __init__(self, generator: torch.Generator, dtype: torch.dtype, device: torch.device):
+        self.gen, self.dtype, self.device = generator, dtype, device
+
+    def dense(self, shape: tuple, scale: float | None = None) -> torch.Tensor:
+        fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+        s = scale if scale is not None else fan_in**-0.5
+        w = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
+        return (w * s).to(self.dtype)
+
+    def zeros(self, shape: tuple) -> torch.Tensor:
+        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+
+    def ones(self, shape: tuple) -> torch.Tensor:
+        return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+
+# ---------------------------------------------------------------------------
+# Norms & RoPE
+# ---------------------------------------------------------------------------
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm computed in f32 and cast back to x's dtype."""
+    xf = x.float()
+    rstd = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * rstd * weight.float()).to(x.dtype)
+
+
+def rope_frequencies(dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32, device=device) / dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., L, Dh), positions: (..., L). Split-half rotation (not
+    interleaved): the first and second halves of Dh form the pairs, in f32."""
+    dh = x.shape[-1]
+    freqs = rope_frequencies(dh, theta, x.device)  # (dh/2,)
+    angles = positions[..., None].float() * freqs  # (..., L, dh/2)
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
