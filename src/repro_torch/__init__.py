@@ -2,7 +2,8 @@
 
 The package mirrors ``src/repro/`` path for path: each module's reference is
 the file at the same path under ``repro/``. It imports ``torch`` and numpy
-only, never ``jax`` and never ``repro``. Attention runs through kernels
-written by hand for Hopper (``repro_torch.kernels``); the plain large matrix
-products stay ``torch.matmul``, as the JAX package leaves them to XLA.
+only, never ``jax`` and never ``repro``. Attention, the MoE experts' SwiGLU
+and the Mamba selective scan run through kernels written by hand for Hopper
+(``repro_torch.kernels``); the plain large matrix products stay
+``torch.matmul``, as the JAX package leaves them to XLA.
 """

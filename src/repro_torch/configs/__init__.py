@@ -1,9 +1,10 @@
 """Architecture registry of the port.
 
 Mirrors ``repro.configs``: ``--arch <id>`` names map to configs. The ids are
-the reference's ten; only the dense full-attention family is ported so far,
-and asking for any other architecture raises ``NotImplementedError`` naming
-the ``ROADMAP.md`` item that ports it.
+the reference's ten; the dense full-attention family, the MoE (phi3.5-moe),
+the hybrid (jamba) and the SSM (falcon-mamba) are ported so far, and asking
+for any other architecture raises ``NotImplementedError`` naming the
+``ROADMAP.md`` item that ports it.
 """
 
 from __future__ import annotations
@@ -16,17 +17,17 @@ _MODULES = {
     "internlm2-20b": "internlm2_20b",
     "qwen2.5-32b": "qwen2_5_32b",
     "stablelm-1.6b": "stablelm_1_6b",
+    "jamba-v0.1-52b": "jamba_v0_1_52b",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "phi3.5-moe-42b": "phi3_5_moe_42b",
 }
 
 # architecture -> the ROADMAP.md queue-1 item that will port it
 _NOT_PORTED = {
-    "jamba-v0.1-52b": "item 7 (Mamba and hybrid)",
-    "mixtral-8x7b": "item 6 (MoE)",
-    "phi3.5-moe-42b": "item 6 (MoE)",
-    "minicpm3-4b": "item 8 (remaining architectures: MLA)",
-    "falcon-mamba-7b": "item 7 (Mamba and hybrid)",
-    "internvl2-1b": "item 8 (remaining architectures: vision prefix)",
-    "seamless-m4t-medium": "item 8 (remaining architectures: encoder-decoder)",
+    "mixtral-8x7b": "item 3 (MoE: the SWA ring cache)",
+    "minicpm3-4b": "item 5 (remaining architectures: MLA)",
+    "internvl2-1b": "item 5 (remaining architectures: vision prefix)",
+    "seamless-m4t-medium": "item 5 (remaining architectures: encoder-decoder)",
 }
 
 ARCH_IDS = tuple(_MODULES) + tuple(_NOT_PORTED)

@@ -27,10 +27,17 @@ def make_serve_fns(model, device="cuda", *, max_len: int, global_batch: int):
             raise ValueError(
                 f"tokens {tuple(tokens.shape)} on {tokens.device}: want batch {global_batch} on {dev}"
             )
-        k = state["caches"][0]["k"]
-        if k.shape[:2] != (global_batch, max_len) or k.device.type != dev.type:
-            raise ValueError(f"state caches {tuple(k.shape)} on {k.device}: "
-                             f"want ({global_batch}, {max_len}, ...) on {dev}")
+        caches = state["caches"]
+        if len(caches) != model.cfg.n_layers:
+            raise ValueError(f"{len(caches)} caches for {model.cfg.n_layers} layers")
+        for i, c in enumerate(caches):
+            # attention: K/V (B, max_len, KVH, Dh); Mamba: h (B, Di, N), conv (B, K-1, Di)
+            arrays = (c["k"], c["v"]) if "k" in c else (c["h"], c["conv"])
+            lead = (global_batch, max_len) if "k" in c else (global_batch,)
+            for a in arrays:
+                if a.shape[: len(lead)] != lead or a.device.type != dev.type:
+                    raise ValueError(f"layer {i} cache {tuple(a.shape)} on {a.device}: "
+                                     f"want {lead + ('...',)} on {dev}")
 
     @torch.inference_mode()
     def prefill_fn(params, tokens, state):

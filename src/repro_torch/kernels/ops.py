@@ -11,12 +11,20 @@ from __future__ import annotations
 
 from .flash_attention import flash_attention
 from .flash_decode import flash_decode
+from .mamba_scan import mamba_scan
+from .moe_gmm import moe_gmm
 
-KERNELS = {"flash_attention": flash_attention, "flash_decode": flash_decode}
+KERNELS = {
+    "flash_attention": flash_attention,
+    "flash_decode": flash_decode,
+    "moe_gmm": moe_gmm,
+    "mamba_scan": mamba_scan,
+}
 
 
 def kernel_set() -> dict:
-    """The dict the model trunk consumes (keys: flash_attention, flash_decode)."""
+    """The dict the model trunk consumes (keys: flash_attention, flash_decode,
+    moe_gmm, mamba_scan)."""
     return dict(KERNELS)
 
 

@@ -1,6 +1,7 @@
 """Plain PyTorch oracles for the port's kernels (port of ``repro.kernels.ref``).
 
-Deliberately naive: full score matrices in f32. The kernel wrappers use them
+Deliberately naive: full score matrices in f32, dense per-expert products,
+a direct sequential scan over time. The kernel wrappers use them
 for tensors on the CPU (the tests); on a card they are what ``chip_smoke.py``
 holds each kernel against. Nothing on the serving path calls them when the
 tensors lie on a card.
@@ -63,3 +64,40 @@ def reference_decode(
     if window > 0:
         ok &= k_pos > (q_pos[:, None] - window)
     return _gqa_softmax_v(qg, k, v, ok[:, None, None, None, :], q.shape, q.dtype)
+
+
+def reference_gmm(
+    x: torch.Tensor,  # (E, C, D) per-expert token bins
+    w_gate: torch.Tensor,  # (E, D, F)
+    w_up: torch.Tensor,  # (E, D, F)
+    w_down: torch.Tensor,  # (E, F, D)
+) -> torch.Tensor:
+    """Per-expert SwiGLU: ``silu(x Wg) * (x Wu)`` in f32, cast to x's dtype,
+    then ``@ Wd`` in f32, cast to x's dtype -- where the Pallas kernel casts.
+    Returns (E, C, D)."""
+    f32 = torch.float32
+    g = torch.einsum("ecd,edf->ecf", x.to(f32), w_gate.to(f32))
+    u = torch.einsum("ecd,edf->ecf", x.to(f32), w_up.to(f32))
+    h = (torch.nn.functional.silu(g) * u).to(x.dtype)
+    return torch.einsum("ecf,efd->ecd", h.to(f32), w_down.to(f32)).to(x.dtype)
+
+
+def reference_selective_scan(
+    xc: torch.Tensor,  # (B, L, Di)
+    dt: torch.Tensor,  # (B, L, Di) f32 (post-softplus)
+    Bm: torch.Tensor,  # (B, L, N) f32
+    Cm: torch.Tensor,  # (B, L, N) f32
+    a: torch.Tensor,  # (Di, N) f32 negative
+    h0: torch.Tensor | None = None,  # (B, Di, N) f32
+):
+    """Direct sequential scan over time. Returns (y (B, L, Di) f32, h_final
+    (B, Di, N) f32)."""
+    B, L, Di = xc.shape
+    N = a.shape[1]
+    h = torch.zeros((B, Di, N), dtype=torch.float32, device=xc.device) if h0 is None else h0.float()
+    xcf = xc.float()
+    ys = []
+    for t in range(L):
+        h = torch.exp(dt[:, t, :, None] * a) * h + (dt[:, t] * xcf[:, t])[..., None] * Bm[:, t, None, :]
+        ys.append(torch.einsum("bin,bn->bi", h, Cm[:, t]))
+    return torch.stack(ys, dim=1), h

@@ -1,7 +1,9 @@
-"""Batched serving driver (prefill + decode against KV caches), PyTorch port.
+"""Batched serving driver (prefill + decode against KV / SSM caches), PyTorch port.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-1.6b \
       --batch 4 --prompt-len 512 --gen 32 --device cuda
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
+      --reduced --batch 2 --prompt-len 8 --gen 4 --device cpu
 
 Weights are random, drawn from ``--seed``; prompts from ``--seed + 1``.
 """
@@ -16,7 +18,7 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.dist.step import make_serve_fns
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import ArchConfig, resolve_device
 from repro_torch.models.registry import build_model, init_serve_state
 
 
@@ -29,6 +31,45 @@ def make_prompts(vocab: int, batch: int, prompt_len: int, seed: int, device) -> 
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def run(cfg: ArchConfig, batch: int, prompt_len: int, gen: int, seed: int, device) -> torch.Tensor:
+    """Serve ``batch`` random prompts of ``prompt_len`` tokens with ``cfg`` and
+    random weights from ``seed``, generating ``gen`` greedy tokens each.
+    Prints the prefill time and decode tok/s; returns (batch, gen) tokens."""
+    dev = resolve_device(device)
+    model = build_model(cfg)
+    max_len = prompt_len + gen + 8
+
+    prefill_fn, decode_fn = make_serve_fns(model, dev, max_len=max_len, global_batch=batch)
+    params = model.init(seed, dev)
+    state = init_serve_state(model, batch, max_len, dev)
+    prompts = make_prompts(cfg.vocab, batch, prompt_len, seed + 1, dev)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, state = prefill_fn(params, prompts, state)
+    tok = logits.argmax(dim=-1)[:, None]
+    _sync(dev)
+    prefill_s = time.perf_counter() - t0
+
+    outs = [tok]
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        logits, state = decode_fn(params, tok, state)
+        tok = logits.argmax(dim=-1)[:, None]
+        outs.append(tok)
+    _sync(dev)
+    decode_s = time.perf_counter() - t0
+    tokens = torch.cat(outs, dim=1)
+
+    print(f"{cfg.name}: prefill {batch}x{prompt_len}: {prefill_s:.3f}s")
+    print(f"decode  {gen - 1} steps: {decode_s:.3f}s "
+          f"({(gen - 1) * batch / max(decode_s, 1e-9):.1f} tok/s)")
+    print("sample generations (token ids):")
+    for row in tokens[: min(4, batch)]:
+        print("  ", row.tolist())
+    return tokens
 
 
 def main(argv=None):
@@ -49,41 +90,7 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
-    dev = resolve_device(args.device)
-    model = build_model(cfg)
-    max_len = args.prompt_len + args.gen + 8
-
-    prefill_fn, decode_fn = make_serve_fns(model, dev, max_len=max_len, global_batch=args.batch)
-    params = model.init(args.seed, dev)
-    state = init_serve_state(model, args.batch, max_len, dev)
-    prompts = make_prompts(cfg.vocab, args.batch, args.prompt_len, args.seed + 1, dev)
-
-    _sync(dev)
-    t0 = time.perf_counter()
-    logits, state = prefill_fn(params, prompts, state)
-    tok = logits.argmax(dim=-1)[:, None]
-    _sync(dev)
-    prefill_s = time.perf_counter() - t0
-
-    outs = [tok]
-    t0 = time.perf_counter()
-    for _ in range(args.gen - 1):
-        logits, state = decode_fn(params, tok, state)
-        tok = logits.argmax(dim=-1)[:, None]
-        outs.append(tok)
-    _sync(dev)
-    decode_s = time.perf_counter() - t0
-    gen = torch.cat(outs, dim=1)
-
-    print(f"prefill {args.batch}x{args.prompt_len}: {prefill_s:.3f}s")
-    print(
-        f"decode  {args.gen - 1} steps: {decode_s:.3f}s "
-        f"({(args.gen - 1) * args.batch / max(decode_s, 1e-9):.1f} tok/s)"
-    )
-    print("sample generations (token ids):")
-    for row in gen[: min(4, args.batch)]:
-        print("  ", row.tolist())
-    return gen
+    return run(cfg, args.batch, args.prompt_len, args.gen, args.seed, args.device)
 
 
 if __name__ == "__main__":

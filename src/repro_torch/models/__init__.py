@@ -1,2 +1,2 @@
-"""Dense decoder substrate of the port (configs schema, attention, FFN,
-assembly, serving API, weight conversion from the JAX package)."""
+"""Decoder substrate of the port (config schema, attention, Mamba, dense and
+MoE FFNs, assembly, serving API, weight conversion from the JAX package)."""

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 NEG_INF = -2.0e38  # finite mask value, as in the reference kernels
@@ -91,6 +92,14 @@ class ArchConfig:
         return self.n_heads + self.pad_heads
 
     @property
+    def d_inner(self) -> int:
+        return self.ssm_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return max(1, self.d_model // 16)
+
+    @property
     def n_groups(self) -> int:
         if self.n_layers % len(self.layout):
             raise ValueError(f"{self.name}: layout len {len(self.layout)} !| n_layers {self.n_layers}")
@@ -163,6 +172,10 @@ class ParamBuilder:
 
     def ones(self, shape: tuple) -> torch.Tensor:
         return torch.ones(shape, dtype=self.dtype, device=self.device)
+
+    def const(self, value: np.ndarray, dtype: torch.dtype | None = None) -> torch.Tensor:
+        """``value`` placed as it is (e.g. Mamba's f32 ``a_log``, ``dt_bias``)."""
+        return torch.as_tensor(value, dtype=dtype or self.dtype, device=self.device)
 
 
 # ---------------------------------------------------------------------------

@@ -4,7 +4,9 @@
 .Model.init`` with its leaves as numpy arrays (bfloat16 arrays included) and
 returns the port's params: the leading G group axis of every ``blocks``
 leaf is unstacked into one dict per layer, in the order the trunk visits
-them; every other layout (``wq (d, H, Dh)``, ``wo (H, Dh, d)``, ...) is kept.
+them; every other layout (``wq (d, H, Dh)``, ``wo (H, Dh, d)``, the experts'
+``(E, d, f)``, ...) is kept, and so is every leaf's dtype (a bf16 model's
+Mamba ``a_log`` and ``dt_bias`` stay f32).
 With it, both packages compute the same function from the same weights.
 """
 

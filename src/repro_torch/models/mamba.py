@@ -1,0 +1,121 @@
+"""Mamba-1 selective-state-space mixer (falcon-mamba / Jamba layers).
+
+Port of ``repro.models.mamba``. Where the reference runs its chunked
+associative ``selective_scan`` (or the Pallas kernel handed in as
+``scan_impl``), the port calls ``kernels["mamba_scan"]`` (default
+``repro_torch.kernels.ops.kernel_set()``), with the carry-in state ``h0`` and
+``chunk_len``; the kernel and its plain version take the place of the chunked
+scan. Decode is the O(1) single-token affine update plus a depthwise-conv
+window, in plain PyTorch as in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ops import kernel_set
+
+from .common import ArchConfig, ParamBuilder
+
+
+def init_mamba(pb: ParamBuilder, cfg: ArchConfig) -> dict:
+    d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+    r, k = cfg.dt_rank, cfg.ssm_conv
+    # S4D-real init for A; dt bias init so softplus(dt) spans [1e-3, 1e-1]
+    a_init = np.tile(np.arange(1, n + 1, dtype=np.float32)[None, :], (di, 1))
+    dt = np.exp(
+        np.random.RandomState(0).uniform(np.log(1e-3), np.log(1e-1), size=(di,))
+    ).astype(np.float32)
+    dt_bias = dt + np.log1p(-np.exp(-dt))  # inverse softplus
+    return {
+        "in_proj": pb.dense((d, 2 * di)),
+        "conv_w": pb.dense((k, di), scale=k**-0.5),
+        "conv_b": pb.zeros((di,)),
+        "x_proj": pb.dense((di, r + 2 * n)),
+        "dt_proj": pb.dense((r, di), scale=r**-0.5),
+        "dt_bias": pb.const(dt_bias, torch.float32),
+        "a_log": pb.const(np.log(a_init), torch.float32),
+        "d_skip": pb.ones((di,)),
+        "out_proj": pb.dense((di, d)),
+    }
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv. x: (B, L, Di), w: (K, Di) -> (B, L, Di)."""
+    K, L = w.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros_like(x)
+    for k in range(K):  # sum_k w[k] * x[t - (K-1) + k]
+        out = out + w[k] * xp[:, k : k + L]
+    return out + b
+
+
+def _ssm_params(p: dict, cfg: ArchConfig, xc: torch.Tensor):
+    """xc: (B, L, Di) post-conv activations -> dt (f32), Bmat, Cmat (f32)."""
+    r, n = cfg.dt_rank, cfg.ssm_state
+    proj = xc @ p["x_proj"]  # (B, L, r + 2n)
+    dt_in, Bm, Cm = proj[..., :r], proj[..., r : r + n], proj[..., r + n :]
+    dt = (dt_in @ p["dt_proj"]).float()
+    dt = F.softplus(dt + p["dt_bias"])  # (B, L, Di) f32
+    return dt, Bm.float().contiguous(), Cm.float().contiguous()  # the scan takes contiguous B, C
+
+
+def mamba_block(
+    p: dict,
+    cfg: ArchConfig,
+    x: torch.Tensor,  # (B, L, D)
+    positions: torch.Tensor,  # unused (kept for the mixer-uniform signature)
+    cache: Optional[dict] = None,  # {"h": (B, Di, N) f32, "conv": (B, K-1, Di)}
+    kernels: Optional[dict] = None,
+):
+    """Returns (y (B, L, D), new_cache); new_cache is None without a cache."""
+    kernels = kernels or kernel_set()
+    L, K = x.shape[1], cfg.ssm_conv
+    xr, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    a = -torch.exp(p["a_log"])  # (Di, N)
+
+    if cache is None:
+        xc = F.silu(_causal_conv(xr, p["conv_w"], p["conv_b"]))
+        dt, Bm, Cm = _ssm_params(p, cfg, xc)
+        y, _ = kernels["mamba_scan"](xc, dt, Bm, Cm, a, chunk_len=min(256, L))
+        new_cache = None
+    elif L == 1:
+        # decode: single-token affine update
+        conv_win = torch.cat([cache["conv"], xr], dim=1)  # (B, K, Di)
+        xc = F.silu(torch.einsum("bkd,kd->bd", conv_win, p["conv_w"]) + p["conv_b"])[:, None]
+        dt, Bm, Cm = _ssm_params(p, cfg, xc)
+        h = torch.exp(dt[:, 0, :, None] * a) * cache["h"] + (dt[:, 0] * xc[:, 0].float())[
+            ..., None
+        ] * Bm[:, 0, None, :]
+        y = torch.einsum("bin,bn->bi", h, Cm[:, 0])[:, None]  # (B, 1, Di)
+        new_cache = {"h": h, "conv": conv_win[:, 1:]}
+    else:
+        # prefill into an existing state: conv seeded from the cached window,
+        # scan seeded from the cached h
+        conv_in = torch.cat([cache["conv"], xr], dim=1)  # (B, K-1+L, Di)
+        acc = torch.zeros_like(xr)
+        for k in range(K):
+            acc = acc + p["conv_w"][k] * conv_in[:, k : k + L]
+        xc = F.silu(acc + p["conv_b"])
+        dt, Bm, Cm = _ssm_params(p, cfg, xc)
+        y, h_final = kernels["mamba_scan"](xc, dt, Bm, Cm, a, h0=cache["h"], chunk_len=min(256, L))
+        new_cache = {"h": h_final, "conv": conv_in[:, -(K - 1) :]}
+
+    y = y + xcf_skip(xc, p["d_skip"])
+    y = (y * F.silu(z.float())).to(x.dtype)
+    return y @ p["out_proj"], new_cache
+
+
+def xcf_skip(xc: torch.Tensor, d_skip: torch.Tensor) -> torch.Tensor:
+    return xc.float() * d_skip
+
+
+def init_mamba_cache(cfg: ArchConfig, batch: int, dtype, device) -> dict:
+    return {
+        "h": torch.zeros((batch, cfg.d_inner, cfg.ssm_state), dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.d_inner), dtype=dtype, device=device),
+    }

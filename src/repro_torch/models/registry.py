@@ -1,9 +1,10 @@
 """Public model API for serving: build a Model and step it.
 
 Port of the serving half of ``repro.models.registry``: ``prefill`` and
-``decode_step`` are functions of (params, tokens, state). The state's
-``t`` and each cache's ``index`` are host ``int``s; the caches' K/V are
-updated in place.
+``decode_step`` are functions of (params, tokens, state). The state holds
+one cache per layer, of that layer's mixer: an attention layer's K/V are
+updated in place, a Mamba layer's (h, conv window) state is replaced. The
+state's ``t`` and each attention cache's ``index`` are host ``int``s.
 """
 
 from __future__ import annotations
@@ -36,7 +37,7 @@ def prefill(
     x = model.embed(params, tokens)
     B, L, _ = x.shape
     positions = state["t"] + torch.arange(L, device=tokens.device).expand(B, L)
-    x, caches = model.trunk(params, x, positions, caches=state["caches"], kernels=kernels)
+    x, _, caches = model.trunk(params, x, positions, caches=state["caches"], kernels=kernels)
     logits = model.logits(params, x[:, -1:])[:, 0]
     return logits, {"caches": caches, "t": state["t"] + L}
 
@@ -48,11 +49,11 @@ def decode_step(
     state: dict,
     kernels: Optional[dict] = None,
 ):
-    """One autoregressive step against the KV caches."""
+    """One autoregressive step against the KV / SSM caches."""
     x = model.embed(params, tokens)
     B = tokens.shape[0]
     positions = torch.full((B, 1), state["t"], dtype=torch.int64, device=tokens.device)
-    x, caches = model.trunk(params, x, positions, caches=state["caches"], kernels=kernels)
+    x, _, caches = model.trunk(params, x, positions, caches=state["caches"], kernels=kernels)
     logits = model.logits(params, x)[:, 0]  # (B, V)
     return logits, {**state, "caches": caches, "t": state["t"] + 1}
 
