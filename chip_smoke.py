@@ -4,12 +4,15 @@
   python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero:
-  1. name the card, build the four CUDA kernels from
+  1. name the card, build the five CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel);
   2. hold each kernel against its plain PyTorch version on the card, over the
      shape sweeps of the reference kernel tests and the full-width serve
      shapes (attention f32 tol 2e-5, bf16 2e-2; moe_gmm the same; mamba_scan
-     1e-4), including empty capacity bins;
+     1e-4), including empty capacity bins; ``hash_tree`` bit-equal to its
+     plain version and to the host (numpy) digest of the same bytes, over
+     random words, ragged payloads, bf16/bool/int32, a non-contiguous view, a
+     misaligned slice and a one-byte flip;
   3. serve stablelm-1.6b at full width (24 layers, bf16, batch 4, prompt 512,
      32 generated tokens) through ``repro_torch.launch.serve.main``, count the
      kernel launches of that run, then run prefill and the first decode steps
@@ -20,9 +23,16 @@ Phases, in order; any failure raises and exits non-zero:
      prompt 512, 32 tokens, through ``repro_torch.launch.serve.run``: exact
      launch counts of all four kernels, kernels vs plain versions in bf16 and
      f32 with a routing diagnostic, steady and profiled serve times;
-  4. time each kernel at the serving shapes of both models beside its plain
+  3c. the Koalja circuit on the card: a ``repro_torch.workspace.Workspace``
+     (flat, inline executor, default store) with one task ``normalize``;
+     push B14's wave of 64 card-resident f32 tensors of 4.5 MiB, the same
+     wave again (64 memo hits), then one 1 GiB tensor: every tree-tier digest
+     runs ``hash_tree`` (exact launch count), every chash equals the host
+     digest of the ``.cpu()`` copy, and a profiled ``content_hash_batch`` of
+     the wave copies at most 64 x (32 KiB + 12 B) to the host;
+  4. time each kernel at the shapes of its main path beside its plain
      version, one PyTorch library call that computes the same function (three
-     for moe_gmm; none exists for mamba_scan), and its bound.
+     for moe_gmm; none exists for mamba_scan or hash_tree), and its bound.
 The last line is ``{"ok": true, "device": {...}}``. The compiler's reports
 (registers, spills) go to ``build/repro_torch_kernels/nvcc_report.txt``.
 """
@@ -36,6 +46,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -82,6 +94,8 @@ SCAN_CASES = [  # (B, L, Di, N, h0): tests/test_kernels.py::test_mamba_scan_swee
     (2, 256, 64, 16, False),
     (1, 32, 24, 4, True),
 ]
+# B14's data-plane wave (benchmarks/bench_koalja.py): 64 arrays of 4.5 MiB
+WAVE = dict(n=64, nbytes=(1 << 22) + (1 << 19), big_nbytes=1 << 30, seed=7)
 SERVE = dict(arch="stablelm-1.6b", batch=4, prompt_len=512, gen=32, seed=0)
 HYBRID = dict(arch="jamba-v0.1-52b", n_layers=8, batch=4, prompt_len=512, gen=32, seed=0)
 N_CHECK = 8  # decode steps compared with the plain versions
@@ -107,14 +121,17 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
+    from repro_torch.core import hashing
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.hash_tree import CHUNK_BLOCKS, hash_tree_state
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.launch import serve
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.registry import build_model, decode_step, init_serve_state, prefill
+    from repro_torch.workspace import InlineExecutor, Workspace
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32
     torch.backends.cudnn.allow_tf32 = False
@@ -230,6 +247,65 @@ def main() -> int:
         fail("fully masked rows produced non-finite output")
     print("  fully masked rows: finite")
 
+    # hash_tree: integer arithmetic mod 2**32, so every comparison is bit-equal
+    chunk_words = hashing.TREE_BLOCK_WORDS * CHUNK_BLOCKS
+
+    def u32(state):
+        return tuple(int(x) & 0xFFFFFFFF for x in state.tolist())
+
+    def host_state(words):
+        return hashing.tree_state_np(words.cpu().numpy().view(np.uint8))
+
+    def check_state(name, words):
+        got, want = u32(hash_tree_state(words)), u32(ref.reference_hash_tree(words))
+        host = host_state(words)
+        print(f"  hash_tree {name}: kernel {got[0]:08x}.. plain {'=' if got == want else '!='} "
+              f"host {'=' if got == host else '!='}")
+        if not got == want == host:
+            fail(f"hash_tree {name}: kernel {got} plain {want} host {host}")
+
+    def check_digest(name, t):
+        """The card route (kernel on the chunk-aligned bulk, the rest on the
+        host) against the host digest of the .cpu() copy, and the kernel on
+        the bulk against its plain version."""
+        card, host = hashing.content_hash(t), hashing.content_hash(t.cpu())
+        bulk = t.contiguous().reshape(-1).view(torch.uint8)
+        n = (bulk.numel() // 4 // chunk_words) * chunk_words
+        print(f"  hash_tree digest {name}: card {card} host {host}")
+        if card != host:
+            fail(f"hash_tree digest {name}: card {card} != host {host}")
+        check_state(f"{name} bulk ({n} words)", bulk[: 4 * n].clone().view(torch.int32))
+
+    i32_span = dict(dtype=torch.int32, generator=gen, device=dev)
+    for n in (8192, 3 * 8192):
+        check_state(f"{n} random words", torch.randint(-2**31, 2**31, (n,), **i32_span))
+    big = 1 << 22
+    check_digest("randn(1_300_001) f64", torch.randn(1_300_001, generator=gen, device=dev, dtype=torch.float64))
+    check_digest("4 MiB + 13 uint8", torch.randint(0, 255, (big + 13,), dtype=torch.uint8, generator=gen, device=dev))
+    check_digest("bf16 (4 MiB + 14 B)", rand(big // 2 + 7, dtype=torch.bfloat16))
+    check_digest("bool (4 MiB + 5 B)", rand(big + 5, dtype=torch.float32) > 0)
+    check_digest("int32 (4 MiB + 12 B)", torch.randint(-2**31, 2**31, (big // 4 + 3,), **i32_span))
+    check_digest("non-contiguous view (2048, 1024).T f32", rand(2048, 1024, dtype=torch.float32).T)
+    odd = torch.randint(0, 255, (2 * big + 64,), dtype=torch.uint8, generator=gen, device=dev)[1:]
+    check_digest(f"misaligned slice (data_ptr % 16 = {odd.data_ptr() % 16})", odd)
+    w = torch.randint(-2**31, 2**31, (chunk_words + 1,), **i32_span)[1:]
+    check_state(f"misaligned words (data_ptr % 16 = {w.data_ptr() % 16})", w)
+    x = rand(2 * big // 4, dtype=torch.float32)  # 8 MiB
+    h0 = hashing.content_hash(x)
+    x.view(torch.uint8)[5_000_001] ^= 1
+    h1 = hashing.content_hash(x)
+    print(f"  hash_tree one flipped byte at 5,000,001 of 8 MiB: {h0} -> {h1}")
+    if h1 == h0 or h1 != hashing.content_hash(x.cpu()):
+        fail("hash_tree: a flipped byte did not change the digest, or the card and host disagree")
+    # a mixed wave: small card tensors share one host copy, large ones the kernel
+    mixed = [rand(64, dtype=torch.float32), rand(7, 5, dtype=torch.bfloat16), torch.zeros(0, device=dev),
+             rand(big // 4 + 1, dtype=torch.float32), np.arange(12.0), {"k": [1, 2]}, rand(3, dtype=torch.float16)]
+    host_view = [p.cpu() if isinstance(p, torch.Tensor) else p for p in mixed]
+    if hashing.content_hash_batch(mixed) != hashing.content_hash_batch(host_view):
+        fail("content_hash_batch of a mixed card/host wave differs from its host copy")
+    print("  content_hash_batch of a mixed card/host wave: equal to the host digests")
+    del x, odd, w
+
     plain = {
         "flash_attention": ref.reference_attention,
         "flash_decode": ref.reference_decode,
@@ -261,7 +337,7 @@ def main() -> int:
             n[spec.mixer] += 1
             n["moe"] += spec.ffn == "moe"
         return {"flash_attention": n["attention"], "flash_decode": n["attention"] * (gen - 1),
-                "moe_gmm": n["moe"] * gen, "mamba_scan": n["mamba"]}
+                "moe_gmm": n["moe"] * gen, "mamba_scan": n["mamba"], "hash_tree": 0}
 
     def serve_checked(label, cfg, run_serve, spec):
         """Drive the serve entry once with every count at 0; returns (tokens, launches)."""
@@ -362,6 +438,14 @@ def main() -> int:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
+    def device_profile(fn):
+        """Run fn once under torch.profiler: (wall s, device-busy s, the CUDA
+        events, the profile)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = wall(fn)
+        kern = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        return t, sum(e.time_range.elapsed_us() for e in kern) / 1e6, kern, prof
+
     def steady_and_profiled(cfg, spec, prompts, max_len):
         """Warm serve times and the device's busy share (not part of the counted
         run: the launch counts are final)."""
@@ -388,10 +472,7 @@ def main() -> int:
             for name, fn in (("prefill", run_prefill), ("decode", run_decode)):
                 if name == "decode":
                     run_prefill()
-                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                    t = wall(fn)
-                kern = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
-                busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
+                t, busy, kern, _ = device_profile(fn)
                 by_name: dict = {}
                 for e in kern:
                     by_name[e.name[:48]] = by_name.get(e.name[:48], 0.0) + e.time_range.elapsed_us() / 1e3
@@ -426,6 +507,95 @@ def main() -> int:
     hprompts = serve.make_prompts(hcfg.vocab, HYBRID["batch"], HYBRID["prompt_len"], HYBRID["seed"] + 1, dev)
     compare_with_plain(hcfg, HYBRID, hprompts, htokens, hmax_len)
     steady_and_profiled(hcfg, HYBRID, hprompts, hmax_len)
+
+    del hprompts
+    torch.cuda.empty_cache()
+
+    # -- 3c. the Koalja circuit on the card --------------------------------------
+    n_wave, wave_el, big_el = WAVE["n"], WAVE["nbytes"] // 4, WAVE["big_nbytes"] // 4
+    print(f"phase 3c: the circuit on the card: {n_wave} pushes of {WAVE['nbytes']} B f32, "
+          f"the same {n_wave} again, then one of {WAVE['big_nbytes']} B")
+    wgen = torch.Generator(device=dev)
+    wgen.manual_seed(WAVE["seed"])
+    wave = [torch.randn(wave_el, generator=wgen, device=dev) for _ in range(n_wave)]
+    big_x = torch.randn(big_el, generator=wgen, device=dev)
+
+    def normalize(x):
+        return {"y": (x - x.mean()) / x.std()}
+
+    def circuit():
+        ws = Workspace("normalize-on-card", executor=InlineExecutor(), topology=False)
+        return ws, ws.task(normalize, name="normalize", inputs=["x"], outputs=["y"])
+
+    def push_all(ws, task, xs):
+        return [ws.push(task, x=x) for x in xs]
+
+    ws, task = circuit()
+    ops.reset_launch_counts()
+    trees0 = hashing.hashing_stats()["tree_hashes"]
+    first, last = [], []
+    first_s = wall(lambda: first.extend(push_all(ws, task, wave)))
+    after_first = dict(ws.stats()["tasks"]["normalize"])
+    replay_s = wall(lambda: push_all(ws, task, wave))
+    after_replay = dict(ws.stats()["tasks"]["normalize"])
+    wave_launches = ops.launch_counts()["hash_tree"]  # the 4.5 MiB digests
+    big_s = wall(lambda: last.append(ws.push(task, x=big_x)))
+    launches3c = ops.launch_counts()
+    trees = hashing.hashing_stats()["tree_hashes"] - trees0
+    # pipeline.py _inject -> store.put hashes each pushed input (1 digest);
+    # task.py _finish_execution hashes each executed output (1 digest); a memo
+    # hit hashes no output. All payloads are > 4 MiB and on the card.
+    want_trees = n_wave * 2 + n_wave + 2
+    print(f"  normalize after pass 1 {after_first}, after the replay {after_replay}, after 1 GiB "
+          f"{ws.stats()['tasks']['normalize']}")
+    print(f"  hash_tree launches {launches3c['hash_tree']}, tree-tier digests {trees} (want {want_trees} = "
+          f"{n_wave} inputs + {n_wave} outputs, {n_wave} replayed inputs, 1 GiB input + output)")
+    if after_first != {"executions": n_wave, "cache_hits": 0} or after_replay != {
+            "executions": n_wave, "cache_hits": n_wave}:
+        fail(f"circuit: want {n_wave} executions then {n_wave} memo hits, got {after_first} / {after_replay}")
+    if not launches3c["hash_tree"] == trees == want_trees or any(
+            v for k, v in launches3c.items() if k != "hash_tree"):
+        fail(f"circuit: launches {launches3c}, tree-tier digests {trees}, want {want_trees}")
+    seen = {}
+    for uid in ws.registry.all_avs():
+        av = ws.registry.get_av(uid)
+        if av.uri not in seen:
+            payload = ws.value_of(av)
+            seen[av.uri] = (av.chash, hashing.content_hash(payload.cpu()), payload)
+    bad = [(c, h) for c, h, _ in seen.values() if c != h]
+    print(f"  {len(ws.registry.all_avs())} AVs over {len(seen)} payloads: chash == host digest of the "
+          f".cpu() copy for {len(seen) - len(bad)}")
+    if bad or len(seen) != 2 * n_wave + 2:
+        fail(f"circuit: {len(bad)} chashes differ from the host digest, {len(seen)} payloads")
+    for y in (first[0]["normalize"]["y"], last[0]["normalize"]["y"]):
+        m, sd = y.mean().item(), y.std().item()
+        print(f"  normalize output of {y.numel()} elements: mean {m:.3e}, std {sd:.6f}")
+        if not (bool(torch.isfinite(y).all()) and abs(m) < 1e-3 and abs(sd - 1) < 1e-3):
+            fail(f"circuit: normalize output of {y.numel()} elements has mean {m}, std {sd}")
+    del seen, first, last
+    hash_s = min(wall(lambda: hashing.content_hash_batch(wave)) for _ in range(3))
+    wave_gb = n_wave * WAVE["nbytes"] / 1e9
+    print(f"  pass 1: {first_s * 1e3:.2f} ms, {n_wave / first_s:.1f} pushes/s; replay: {replay_s * 1e3:.2f} ms, "
+          f"{n_wave / replay_s:.1f} pushes/s; 1 GiB push {big_s * 1e3:.2f} ms; content_hash_batch of the wave "
+          f"(warm, best of 3) {hash_s * 1e3:.3f} ms, {wave_gb / hash_s:.1f} GB/s hashed")
+    t, busy, kern, prof = device_profile(lambda: hashing.content_hash_batch(wave))
+    trace = build.BUILD_DIR / "hash_wave_trace.json"
+    prof.export_chrome_trace(str(trace))
+    copies = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
+    d2h = sum(int(e.get("args", {}).get("bytes", 0)) for e in copies)
+    d2h_bound = n_wave * (32 * 1024 + 12)
+    print(f"  profiled content_hash_batch of the wave: wall {t * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms "
+          f"(idle share {1 - busy / t:.3f}), {len(kern)} device events; device-to-host {d2h} B in "
+          f"{len(copies)} copies (bound {d2h_bound} B)")
+    if not copies or d2h > d2h_bound:
+        fail(f"circuit: {d2h} B copied device-to-host in {len(copies)} copies, bound {d2h_bound}")
+    ws2, task2 = circuit()
+    t, busy, kern, _ = device_profile(lambda: push_all(ws2, task2, wave))
+    print(f"  profiled first pass on a fresh workspace: wall {t * 1e3:.2f} ms ({n_wave / t:.1f} pushes/s), "
+          f"device busy {busy * 1e3:.3f} ms (idle share {1 - busy / t:.3f}), {len(kern)} device events")
+    del ws, ws2, wave, big_x, prof
+    torch.cuda.empty_cache()
 
     # -- 4. time each kernel at the serving shapes -------------------------------
     print("phase 4: timing at the serving shapes (bf16, L2 flushed before each launch)")
@@ -557,6 +727,28 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=None, library="none",
     ))
+    del xc, dt, Bm, Cm, a, h0, y, h, yr, hr
+    # hash_tree at phase 3c's payloads: reads 4 bytes a word once, writes 12;
+    # about one integer add per word is far below any rate of the card, so
+    # the bound is bytes. No PyTorch call computes this function.
+    for label, nbytes, n_launch in (("4.5 MiB", WAVE["nbytes"], wave_launches),
+                                    ("1 GiB", WAVE["big_nbytes"], launches3c["hash_tree"] - wave_launches)):
+        w = torch.randint(-2**31, 2**31, (nbytes // 4,), dtype=torch.int32, generator=gen, device=dev)
+        got, want = hash_tree_state(w), ref.reference_hash_tree(w)
+        if not torch.equal(got, want):
+            fail(f"hash_tree at {label}: kernel {got.tolist()} != plain {want.tolist()}")
+        rows.append(dict(
+            name="hash_tree", path=f"circuit digest of a {label} payload", route="cuda",
+            source="src/repro_torch/kernels/csrc/hash_tree.cu",
+            replaces="src/repro/kernels/hash_tree.py:74", launches=n_launch,
+            max_abs_err=0.0,
+            ms=time_ms(lambda: hash_tree_state(w)),
+            plain_ms=time_ms(lambda: ref.reference_hash_tree(w), reps=5),
+            bound_ms=(nbytes + 12) / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None, library="none",
+        ))
+        del w
+        torch.cuda.empty_cache()
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']} [{r['path']}]: kernel_ms {r['ms']:.4f} library_ms {lib} "

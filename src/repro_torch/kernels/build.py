@@ -25,7 +25,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("flash_attention", "flash_decode", "moe_gmm", "mamba_scan")
+SOURCES = ("flash_attention", "flash_decode", "moe_gmm", "mamba_scan", "hash_tree")
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,7 @@
 """Plain PyTorch oracles for the port's kernels (port of ``repro.kernels.ref``).
 
 Deliberately naive: full score matrices in f32, dense per-expert products,
-a direct sequential scan over time. The kernel wrappers use them
+a direct sequential scan over time, the tree hash widened to int64. The kernel wrappers use them
 for tensors on the CPU (the tests); on a card they are what ``chip_smoke.py``
 holds each kernel against. Nothing on the serving path calls them when the
 tensors lie on a card.
@@ -64,6 +64,45 @@ def reference_decode(
     if window > 0:
         ok &= k_pos > (q_pos[:, None] - window)
     return _gqa_softmax_v(qg, k, v, ok[:, None, None, None, :], q.shape, q.dtype)
+
+
+_U32 = 0xFFFFFFFF
+
+
+def _mul_u32(a: torch.Tensor, b) -> torch.Tensor:
+    """``a * b mod 2**32`` for int64 tensors (or ``b`` an int) holding uint32 values, without
+    forming a product of 2**63 or more: ``b`` is split into 16-bit halves."""
+    lo = a * (b & 0xFFFF)
+    hi = ((a * (b >> 16)) & 0xFFFF) << 16
+    return (lo + hi) & _U32
+
+
+def _as_i32_bits(x: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2**32) -> int32 tensor of the same 32 bits."""
+    return torch.where(x >= 2**31, x - 2**32, x).to(torch.int32)
+
+
+def reference_hash_tree(words: torch.Tensor, *, block_words: int = 128) -> torch.Tensor:
+    """Plain oracle for ``hash_tree.hash_tree_state``: the blockwise tree state
+    (sum of mixed, xor of mixed, sum of block sums) mod 2**32, as a (3,) int32
+    tensor of uint32 bits. ``words`` is int32 (or any integer type) holding
+    uint32 bits; ``len(words)`` must be a multiple of ``block_words``.
+
+    Exact in int64 torch arithmetic: every sum is masked to 32 bits, products
+    go through ``_mul_u32``, and the XOR reduction (no PyTorch call reduces by
+    XOR) is pairwise folding, halving the vector per pass."""
+    w = words.reshape(-1, block_words).to(torch.int64) & _U32
+    s = w.sum(dim=1) & _U32
+    j = torch.arange(s.numel(), dtype=torch.int64, device=w.device) & _U32
+    c = ((_mul_u32(j, 0x9E3779B1) + 0x85EBCA77) & _U32) | 1
+    m = _mul_u32(s ^ c, c)
+    x = m
+    while x.numel() > 1:
+        if x.numel() % 2:
+            x = torch.cat([x, x.new_zeros(1)])
+        x = x[0::2] ^ x[1::2]
+    h2 = x.sum()  # the one element left, or 0 for no blocks
+    return _as_i32_bits(torch.stack([m.sum() & _U32, h2, s.sum() & _U32]))
 
 
 def reference_gmm(

@@ -22,6 +22,7 @@ from repro.models.mamba import selective_scan as jax_chunked_scan
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.hash_tree import hash_tree_state
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.moe_gmm import moe_gmm
 
@@ -234,7 +235,9 @@ def test_cpu_path_launches_no_kernel():
     moe_gmm(torch.randn(2, 3, 8), w, w, w)
     x = torch.randn(1, 5, 8)
     mamba_scan(x, x.abs(), torch.randn(1, 5, 4), torch.randn(1, 5, 4), -torch.rand(8, 4))
-    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0, "moe_gmm": 0, "mamba_scan": 0}
+    hash_tree_state(torch.zeros(8192, dtype=torch.int32))
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0, "moe_gmm": 0, "mamba_scan": 0,
+                                   "hash_tree": 0}
 
 
 @pytest.mark.parametrize(
