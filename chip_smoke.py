@@ -3,26 +3,35 @@
 
   python3 chip_smoke.py
 
-Phases, in order; any failure raises and exits non-zero:
+Phases, in order; any failure exits non-zero (a disagreement between the
+kernels' and the plain versions' logits is recorded and the later phases run
+on, so that their numbers are still printed):
   1. name the card, build the five CUDA kernels from
-     ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel);
+     ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel), and count
+     the tensor-core instructions in the built ``moe_gmm`` and
+     ``flash_attention`` libraries (``cuobjdump -sass``: HGMMA, HMMA);
   2. hold each kernel against its plain PyTorch version on the card, over the
-     shape sweeps of the reference kernel tests and the full-width serve
-     shapes (attention f32 tol 2e-5, bf16 2e-2; moe_gmm the same; mamba_scan
-     1e-4), including empty capacity bins; ``hash_tree`` bit-equal to its
+     shape sweeps of the reference kernel tests, the ragged edges of the
+     tensor-core tiles and the full-width serve shapes (attention f32 tol
+     2e-5, bf16 2e-2; moe_gmm the same; mamba_scan 1e-4), including empty
+     capacity bins; ``hash_tree`` bit-equal to its
      plain version and to the host (numpy) digest of the same bytes, over
      random words, ragged payloads, bf16/bool/int32, a non-contiguous view, a
      misaligned slice and a one-byte flip;
   3. serve stablelm-1.6b at full width (24 layers, bf16, batch 4, prompt 512,
      32 generated tokens) through ``repro_torch.launch.serve.main``, count the
-     kernel launches of that run, then run prefill and the first decode steps
-     again through the plain versions on the card and compare logits and
-     greedy tokens; steady and profiled serve times;
+     kernel launches of that run (every bf16 launch on its tensor-core
+     route), then run prefill and the first decode steps again through the
+     plain versions on the card and compare logits and greedy tokens; steady
+     and profiled serve times;
   3b. serve jamba-v0.1-52b at full width, cut to one layout period (8 of its
      32 layers: the full depth does not fit the card's 80 GB), bf16, batch 4,
      prompt 512, 32 tokens, through ``repro_torch.launch.serve.run``: exact
-     launch counts of all four kernels, kernels vs plain versions in bf16 and
-     f32 with a routing diagnostic, steady and profiled serve times;
+     launch counts of all four kernels and of their routes, kernels vs plain
+     versions in bf16 and f32 with a routing diagnostic, and in bf16 once more
+     with the plain run dispatched through the kernels run's routing (so the
+     comparison holds the kernels' arithmetic alone); steady and profiled
+     serve times;
   3c. the Koalja circuit on the card: a ``repro_torch.workspace.Workspace``
      (flat, inline executor, default store) with one task ``normalize``;
      push B14's wave of 64 card-resident f32 tensors of 4.5 MiB, the same
@@ -32,7 +41,13 @@ Phases, in order; any failure raises and exits non-zero:
      the wave copies at most 64 x (32 KiB + 12 B) to the host;
   4. time each kernel at the shapes of its main path beside its plain
      version, one PyTorch library call that computes the same function (three
-     for moe_gmm; none exists for mamba_scan or hash_tree), and its bound.
+     for moe_gmm; none exists for mamba_scan or hash_tree), and its bound;
+     each bf16 route's share of outputs equal to the plain version's, and
+     for moe_gmm also its FMA route (which serves bf16 shapes without
+     16-byte rows) on the same inputs. moe_gmm's bins are filled as phase
+     3b's served run filled them (the slots past each bin's tokens are
+     zeros, which slows the wgmma route); its time on fully random bins is
+     printed beside.
 The last line is ``{"ok": true, "device": {...}}``. The compiler's reports
 (registers, spills) go to ``build/repro_torch_kernels/nvcc_report.txt``.
 """
@@ -52,6 +67,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+# the tensor-core instructions each library's routes must contain (phase 1)
+TENSOR_CORE_SASS = {"moe_gmm": ("HGMMA", "HMMA"), "flash_attention": ("HMMA",)}
 # H100 SXM published peaks (dense): memory rate, and operations per type
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -70,6 +87,10 @@ ATTN_CASES = [  # (B, Lq, Lk, H, KVH, Dh, causal, window): tests/test_kernels.py
     (2, 96, 112, 40, 8, 128, True, 0),  # qwen2.5 / internlm2 head dim, gq 5
     (4, 512, 552, 32, 32, 64, True, 0),  # stablelm prefill over the serve cache
     (4, 512, 552, 32, 8, 128, True, 0),  # jamba prefill over the serve cache
+    # the ragged edges of the 64-key tiles of the mma route
+    (2, 200, 231, 40, 8, 128, True, 64),  # Lq, Lk not multiples of 64, gq 5, window
+    (2, 96, 112, 16, 2, 16, True, 0),  # head dim 16, gq 8
+    (1, 256, 256, 4, 2, 64, True, 16),  # window < tile: rows fully masked inside a live tile
 ]
 DECODE_CASES = [  # (B, S, H, KVH, Dh, window, n_valid, q_pos, ring): tests/test_flash_decode.py
     (2, 256, 8, 2, 64, 0, 200, 199, False),
@@ -87,6 +108,16 @@ GMM_CASES = [  # (E, C, D, F): tests/test_kernels.py::test_moe_gmm_sweep (then j
     (2, 100, 48, 80),  # ragged capacity
     (8, 16, 32, 32),
     (1, 64, 128, 64),
+    # the edges of the tensor-core tiles: bins of 1, 8 (swap_ab) and 9, 65,
+    # 129 rows (wgmma's 128-row tiles), D and F not multiples of 64
+    (3, 1, 200, 328),
+    (3, 8, 200, 328),
+    (3, 9, 200, 328),
+    (3, 65, 200, 328),
+    (3, 129, 200, 328),
+    # D not a multiple of 8: no TMA, no 16-byte copies, the FMA route in bf16 too
+    (2, 9, 44, 36),
+    (2, 5, 44, 36),
 ]
 SCAN_CASES = [  # (B, L, Di, N, h0): tests/test_kernels.py::test_mamba_scan_sweep (then jamba's)
     (2, 64, 32, 8, False),
@@ -128,6 +159,8 @@ def main() -> int:
     from repro_torch.kernels.hash_tree import CHUNK_BLOCKS, hash_tree_state
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.kernels.moe_gmm import _route as gmm_route
+    import repro_torch.kernels.moe_gmm as gmm_module
     from repro_torch.launch import serve
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.registry import build_model, decode_step, init_serve_state, prefill
@@ -154,6 +187,16 @@ def main() -> int:
         spills = [l.strip() for l in r.splitlines() if "spill" in l and " 0 bytes spill" not in l]
         regs = sorted({l.split("Used ")[1].split(" registers")[0] for l in r.splitlines() if "Used " in l})
         print(f"  {n}: registers per thread {regs}; spilling entries: {spills or 'none'}")
+        for l in r.splitlines():  # e.g. ptxas C7520: wgmma serialised
+            if "Potential Performance Loss" in l:
+                print(f"  {n}: {l.strip()}")
+    for n, wanted in TENSOR_CORE_SASS.items():
+        sass = subprocess.run([build.cuda_tool("cuobjdump"), "-sass", str(build.library_path(n))],
+                              capture_output=True, text=True, check=True).stdout
+        counts = {op: sass.count(op + ".") + sass.count(op + " ") for op in ("HGMMA", "HMMA")}
+        print(f"  {n}: tensor-core instructions in the SASS {counts}")
+        if not all(counts[op] for op in wanted):
+            fail(f"{n}: the built library lacks {[op for op in wanted if not counts[op]]}")
 
     def rand(*shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev, dtype=torch.float32) * scale).to(dtype)
@@ -318,11 +361,14 @@ def main() -> int:
     # recorded while kernels and plain versions are compared (diagnostic only)
     routes: list = []
     drops: list = []
+    # live slots per expert bin of the served run's first prefill and first
+    # decode MoE call: phase 4 times moe_gmm on bins filled the same way
+    served_fill: dict = {}
     route, moe_ffn = moe_mod.route, moe_mod.moe_ffn
 
     def recording_route(p, cfg, xf):
-        out = route(p, cfg, xf)
-        routes.append((out[0], out[2]))
+        out = route(p, cfg, xf)  # (probs, gate_w, gate_e)
+        routes.append(out)
         return out
 
     def recording_moe_ffn(p, cfg, x, kernels=None):
@@ -339,16 +385,33 @@ def main() -> int:
         return {"flash_attention": n["attention"], "flash_decode": n["attention"] * (gen - 1),
                 "moe_gmm": n["moe"] * gen, "mamba_scan": n["mamba"], "hash_tree": 0}
 
+    def expected_routes(cfg, spec, want):
+        """The served model is bf16: every launch of flash_attention and
+        moe_gmm takes its tensor-core route (moe_gmm by its bins' rows)."""
+        n_moe_calls = want["moe_gmm"] // spec["gen"]  # per prefill or decode step
+        steps = ((spec["batch"] * spec["prompt_len"], 1), (spec["batch"], spec["gen"] - 1))
+        gmm = dict.fromkeys(moe_gmm.route_launches, 0)
+        for n_tokens, n_steps in steps:
+            if n_moe_calls:
+                c = moe_mod.expert_capacity(n_tokens, cfg)
+                gmm[gmm_route(torch.bfloat16, cfg.n_experts, c, cfg.d_model, cfg.d_ff)] += n_moe_calls * n_steps
+        return {"flash_attention": {"fma": 0, "mma": want["flash_attention"]}, "moe_gmm": gmm}
+
     def serve_checked(label, cfg, run_serve, spec):
         """Drive the serve entry once with every count at 0; returns (tokens, launches)."""
         ops.reset_launch_counts()
         tokens = run_serve()
         torch.cuda.synchronize()
         launches = ops.launch_counts()
+        routes_run = {"flash_attention": dict(flash_attention.route_launches),
+                      "moe_gmm": dict(moe_gmm.route_launches)}
         want = expected_launches(cfg, spec["gen"])
-        print(f"  {label}: launches {launches} (want {want})")
+        want_routes = expected_routes(cfg, spec, want)
+        print(f"  {label}: launches {launches} (want {want}); by route {routes_run} (want {want_routes})")
         if launches != want:
             fail(f"{label}: launch counts {launches} != {want}")
+        if cfg.dtype != "bfloat16" or routes_run != want_routes or want_routes["moe_gmm"]["fma"]:
+            fail(f"{label}: route counts {routes_run} != {want_routes}: a bf16 launch missed its tensor-core route")
         if tokens.shape != (spec["batch"], spec["gen"]) or not bool(((tokens >= 0) & (tokens < cfg.vocab)).all()):
             fail(f"{label}: bad generations {tuple(tokens.shape)}")
         return tokens, launches
@@ -356,16 +419,26 @@ def main() -> int:
     def compare_with_plain(cfg, spec, prompts, served, max_len):
         """Prefill + N_CHECK teacher-forced decode steps through the kernels and
         through the plain versions, in bf16 (the served model) and then in f32
-        (the same seed's weights; one dtype's weights at a time)."""
+        (the same seed's weights; one dtype's weights at a time). In bf16, an
+        MoE model runs the plain versions a second time with ``moe_mod.route``
+        returning the kernels run's routing of the same call, so both runs
+        dispatch the same slots and the logits differ by arithmetic alone."""
         moe_mod.route, moe_mod.moe_ffn = recording_route, recording_moe_ffn
+        n_moe = sum(s.ffn == "moe" for s in cfg.layout) * cfg.n_groups
         try:
             for dtype in ("bfloat16", "float32"):
                 model = build_model(dataclasses.replace(cfg, dtype=dtype))
                 params = model.init(spec["seed"], dev)
                 runs, rec = {}, {}
-                for label, kernels in (("kernels", None), ("plain", plain)):
+                passes = [("kernels", None), ("plain", plain)]
+                if dtype == "bfloat16" and n_moe:
+                    passes.append(("plain, kernels' routing", plain))
+                for label, kernels in passes:
                     routes.clear()
                     drops.clear()
+                    if label == "plain, kernels' routing":
+                        replay = iter(rec["kernels"][0])
+                        moe_mod.route = lambda p, c, xf: next(replay)
                     with torch.inference_mode():
                         state = init_serve_state(model, spec["batch"], max_len, dev)
                         lg, state = prefill(model, params, prompts, state, kernels=kernels)
@@ -373,14 +446,28 @@ def main() -> int:
                         for t in range(N_CHECK):  # teacher-forced with the served tokens
                             lg, state = decode_step(model, params, served[:, t : t + 1], state, kernels=kernels)
                             steps.append(lg.float())
+                    moe_mod.route = recording_route
+                    if label == "plain, kernels' routing" and next(replay, None) is not None:
+                        fail(f"{cfg.name}: the forced-routing run used fewer routings than the kernels run")
                     runs[label] = torch.stack(steps, dim=1)  # (B, 1 + N_CHECK, V)
                     rec[label] = (list(routes), [d.item() for d in drops])
                     del state
+                if dtype == cfg.dtype and n_moe:
+                    for phase, (_, _, gate_e) in (("prefill", rec["kernels"][0][0]),
+                                                  ("decode", rec["kernels"][0][n_moe])):
+                        C = moe_mod.expert_capacity(gate_e.shape[0], cfg)  # the dispatch keeps the first C
+                        served_fill[phase] = torch.bincount(gate_e.reshape(-1), minlength=cfg.n_experts).clamp(max=C)
                 report_logits(cfg, dtype, runs, rec, spec["batch"], served)
                 del params, runs, rec
                 torch.cuda.empty_cache()
         finally:
             moe_mod.route, moe_mod.moe_ffn = route, moe_ffn
+
+    disagreements: list = []  # failed logit comparisons, reported at the end
+
+    def disagree(msg):
+        print(f"  FAIL: {msg}")
+        disagreements.append(msg)
 
     def report_logits(cfg, dtype, runs, rec, batch, served):
         name = cfg.name
@@ -398,7 +485,7 @@ def main() -> int:
         n_tok = n_flip = n_order = 0
         max_dprob = 0.0
         rerouted = torch.zeros(batch, 1 + N_CHECK, dtype=torch.bool, device=dev)
-        for i, ((pk, ek), (pp, ep)) in enumerate(zip(rk, rp)):
+        for i, ((pk, _, ek), (pp, _, ep)) in enumerate(zip(rk, rp)):
             n_tok += ek.shape[0]
             flip = (torch.zeros_like(pk, dtype=torch.bool).scatter_(1, ek, True)
                     != torch.zeros_like(pp, dtype=torch.bool).scatter_(1, ep, True)).any(-1)
@@ -427,7 +514,17 @@ def main() -> int:
                   f"{worst(~rerouted)}; prefill slots dropped (capacity) kernels {sum(dk[:n_moe]) / n_moe:.4%} "
                   f"plain {sum(dp[:n_moe]) / n_moe:.4%}")
         if diff > LOGIT_TOL[dtype] or not bool((agree | near_tie).all()) or not torch.isfinite(runs["kernels"]).all():
-            fail(f"{name} {dtype}: greedy tokens or logits through the kernels disagree with the plain versions")
+            disagree(f"{name} {dtype}: greedy tokens or logits through the kernels disagree with the plain versions")
+        forced = runs.get("plain, kernels' routing")
+        if forced is not None:
+            # both runs dispatch the same slots: the gap is the kernels' arithmetic
+            fdiff = (runs["kernels"] - forced).abs().max().item()
+            fagree = forced.argmax(-1) == mine
+            print(f"  {name} {dtype}, plain versions on the kernels' routing: max |logit diff| {fdiff:.4e} "
+                  f"(tol {LOGIT_TOL[dtype]}); greedy tokens agree {int(fagree.sum())}/{fagree.numel()}")
+            if fdiff > LOGIT_TOL[dtype] or not torch.isfinite(forced).all():
+                disagree(f"{name} {dtype}: on one routing, logits through the kernels and the plain versions "
+                         f"differ by {fdiff} > {LOGIT_TOL[dtype]}")
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -624,6 +721,26 @@ def main() -> int:
     es = 2
     rows = []
 
+    def on_fma(fn):
+        """fn() with moe_gmm's route forced to "fma": its FMA kernel on the
+        same bf16 inputs, timed beside the tensor-core route."""
+        chosen = gmm_module._route
+        gmm_module._route = lambda *args: "fma"
+        try:
+            return fn()
+        finally:
+            gmm_module._route = chosen
+
+    def equal_share(got, want):
+        """Share of the outputs bit-equal to the plain version's, in the working dtype."""
+        return (got == want.to(got.dtype)).float().mean().item()
+
+    def before_after(name, call, want):
+        fma_ms = time_ms(lambda: on_fma(call))
+        eq, eq_fma = equal_share(call(), want), equal_share(on_fma(call), want)
+        print(f"  {name}: the FMA route on the same inputs {fma_ms:.4f} ms; outputs equal to the "
+              f"plain version's: tensor-core route {eq:.5f}, FMA route {eq_fma:.5f}")
+
     def attention_rows(c, spec, n_launch_prefill, n_launch_decode):
         path = spec["arch"]
         B, Lp, S = spec["batch"], spec["prompt_len"], spec["prompt_len"] + spec["gen"] + 8
@@ -640,7 +757,7 @@ def main() -> int:
         lib_err = (F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa).transpose(1, 2)
                    - ref.reference_attention(q, k, v)).abs().max().item()
         rows.append(dict(
-            name="flash_attention", path=f"{path} prefill", route="cuda",
+            name="flash_attention", path=f"{path} prefill, route mma", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention.cu",
             replaces="src/repro/kernels/flash_attention.py:116", launches=n_launch_prefill,
             max_abs_err=err,
@@ -651,6 +768,8 @@ def main() -> int:
             library="scaled_dot_product_attention(is_causal=True)",
         ))
         print(f"  library (scaled_dot_product_attention, is_causal) vs plain: max_abs_err {lib_err:.3e}")
+        eq = equal_share(flash_attention(q, k, v), ref.reference_attention(q, k, v))
+        print(f"  flash_attention at {path} prefill: outputs equal to the plain version's {eq:.5f}")
 
         nv = Lp + N_CHECK * 2  # a mid-generation decode step
         q1 = rand(B, 1, H, Dh, dtype=bf)
@@ -683,29 +802,36 @@ def main() -> int:
         ("prefill", c_prefill, n_moe, 10),
         ("decode", c_decode, n_moe * (HYBRID["gen"] - 1), 30),
     ):
-        x, wg, wu, wd = gmm_inputs(E, C, D, Fd, "fan_in", bf)
+        x_full, wg, wu, wd = gmm_inputs(E, C, D, Fd, "fan_in", bf)
+        # the served run's bin fill: each bin's slots past its tokens are zeros
+        x = x_full.masked_fill((torch.arange(C, device=dev) >= served_fill[phase][:, None])[..., None], 0)
         nbytes = 2 * E * C * D * es + 3 * E * D * Fd * es  # x and out once; every expert's weights once
         b_ms, b_by = bound(nbytes, 6 * E * C * D * Fd, "bfloat16")
         err = check(f"moe_gmm at {HYBRID['arch']} {phase} shape (E{E} C{C})", moe_gmm(x, wg, wu, wd),
                     ref.reference_gmm(x, wg, wu, wd), bf)
 
-        def library():  # three torch.bmm calls and F.silu compute the same function
+        def library_gmm(x):  # three torch.bmm calls and F.silu compute the same function
             return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
 
-        lib_err = (library().float() - ref.reference_gmm(x, wg, wu, wd).float()).abs().max().item()
+        lib_err = (library_gmm(x).float() - ref.reference_gmm(x, wg, wu, wd).float()).abs().max().item()
         rows.append(dict(
-            name="moe_gmm", path=f"{HYBRID['arch']} {phase} (C {C})", route="cuda",
+            name="moe_gmm", path=f"{HYBRID['arch']} {phase} (C {C}), route {gmm_route(bf, E, C, D, Fd)}",
+            route="cuda",
             source="src/repro_torch/kernels/csrc/moe_gmm.cu",
             replaces="src/repro/kernels/moe_gmm.py:59", launches=n_launch,
             max_abs_err=err,
             ms=time_ms(lambda: moe_gmm(x, wg, wu, wd), reps=reps),
             plain_ms=time_ms(lambda: ref.reference_gmm(x, wg, wu, wd), reps=reps),
             bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(library, reps=reps),
+            library_ms=time_ms(lambda: library_gmm(x), reps=reps),
             library="3 calls: torch.bmm x3 + F.silu",
         ))
         print(f"  library (3x torch.bmm + F.silu) vs plain at {phase}: max_abs_err {lib_err:.3e}")
-        del x, wg, wu, wd
+        print(f"  moe_gmm at {phase}: {int(served_fill[phase].sum())} of {E * C} slots live as in the served run; "
+              f"on fully random bins {time_ms(lambda: moe_gmm(x_full, wg, wu, wd), reps=reps):.4f} ms, "
+              f"library {time_ms(lambda: library_gmm(x_full), reps=reps):.4f} ms")
+        before_after(f"moe_gmm at {phase}", lambda: moe_gmm(x, wg, wu, wd), ref.reference_gmm(x, wg, wu, wd))
+        del x, x_full, wg, wu, wd
         torch.cuda.empty_cache()
 
     B, L, Di, N = HYBRID["batch"], HYBRID["prompt_len"], hcfg.d_inner, hcfg.ssm_state
@@ -756,6 +882,8 @@ def main() -> int:
     torch.cuda.synchronize()
 
     print(json.dumps({"kernels": rows}))
+    if disagreements:
+        fail("; ".join(disagreements))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -41,7 +41,13 @@ def nvcc_path() -> str:
     return str(cand)
 
 
-def _target(name: str) -> Path:
+def cuda_tool(name: str) -> str:
+    """A tool of the CUDA toolkit that holds ``nvcc`` (e.g. ``cuobjdump``)."""
+    return str(Path(nvcc_path()).parent / name)
+
+
+def library_path(name: str) -> Path:
+    """Where the library for ``csrc/<name>.cu`` is (or will be) built."""
     h = hashlib.sha256()
     for f in sorted(CSRC.glob("*.cu*")):  # a header change rebuilds every source
         if f.suffix == ".cuh" or f.stem == name:
@@ -53,7 +59,7 @@ def _target(name: str) -> Path:
 def build_all(names=SOURCES) -> dict[str, str]:
     """Compile every source whose library is missing, all in parallel.
     Returns the compiler's report (registers, spills) for each name built."""
-    todo = {n: _target(n) for n in names if not _target(n).exists()}
+    todo = {n: library_path(n) for n in names if not library_path(n).exists()}
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -84,5 +90,5 @@ def load(name: str) -> ctypes.CDLL:
         lib = _LIBS.get(name)
         if lib is None:
             build_all((name,))
-            lib = _LIBS[name] = ctypes.CDLL(str(_target(name)))
+            lib = _LIBS[name] = ctypes.CDLL(str(library_path(name)))
         return lib

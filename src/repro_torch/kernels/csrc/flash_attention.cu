@@ -11,7 +11,7 @@
 // ~4.3 GFLOP of causal work: ~128 FLOP per byte, under the H100's ~295
 // FLOP per byte break-even for bf16 tensor cores).
 //
-// What the design does about it:
+// Both routes share the block mapping:
 //   * One thread block per (batch x KV head, q-tile). The tile's rows are the
 //     gq query heads of that KV head times bq positions (gq * bq <= ROWS), so
 //     each K/V tile is fetched from device memory once per KV head and q-tile,
@@ -19,26 +19,43 @@
 //   * A loop inside the block walks the KV tiles (the TPU's sequential grid
 //     axis); tiles that are dead for every row of the block (causal, window,
 //     past Lk) are skipped, boundary tiles are masked per element.
-//   * Scores never leave registers: four threads share one query row, each
-//     holding a quarter of its head dim (q slice and acc slice in registers);
-//     the row's dot products are finished with two warp shuffles.
-//   * K/V tiles are staged in shared memory as f32; all rows of a warp read the
-//     same key at once, so the reads are broadcasts without bank conflicts.
-// This is the simple, right first kernel: plain FMA math, no tensor cores
-// (mma.sync / wgmma) and no asynchronous copies; those come later.
+// The caller picks the route (flash_attention.py::_route):
+//   * route 1, "mma" (bf16): FlashAttention-2 on mma.sync m16n8k16 (bf16 in,
+//     f32 accumulate), 4 warps of 16 rows each. Q fragments are loaded once
+//     with ldmatrix and kept in registers; K/V tiles of 64 keys are staged in
+//     bf16 by 16-byte cp.async into a double-buffered ring, so the next
+//     tile's copy overlaps this tile's math, in a swizzled layout that keeps
+//     ldmatrix (K) and ldmatrix.trans (V) free of bank conflicts. S = Q.K^T
+//     stays in accumulator fragments; the online softmax works on them (row
+//     max and sum across the quad of threads sharing a row, in base 2 with
+//     the scale folded in); P is rounded to bf16 pairs -- the reference's
+//     p.astype(v.dtype) -- and reused directly as the A operand of P.V,
+//     since the m16n8k16 accumulator layout equals the A layout. Masks are
+//     evaluated only on boundary tiles. wgmma is not needed here: the shape
+//     is bound by bytes, and its 4.3-8.6 GFLOP take ~10-20 us even at half
+//     the mma.sync rate.
+//   * route 0, "fma" (f32 only): the first port's kernel. Four threads share
+//     one query row, each holding a quarter of its head dim (q slice and acc
+//     slice in registers); K/V tiles of 32 keys are staged in shared memory
+//     and read as broadcasts; plain FMA. f32 stays here because the tensor
+//     cores would compute f32 products in TF32, which breaks the reference's
+//     f32 parity.
 //
 // Masking keeps the reference's finite NEG_INF = -2e38: a row that is fully
 // masked within one tile takes p = exp(0) there, and a later live tile cancels
 // it through corr = exp(m_prev - m_new) = 0; with -inf this would be NaN.
-// In bf16, P is rounded to v's dtype before P.V, as the Pallas kernel does.
+// P is rounded to v's dtype before P.V, as the Pallas kernel does (a no-op in
+// f32).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tc.cuh"
 
 namespace {
+
 
 constexpr int ROWS = 64;         // query rows per block (must match flash_attention.py)
 constexpr int TPR = 4;           // threads per query row
@@ -47,10 +64,10 @@ constexpr int BK = 32;           // keys per KV tile
 
 // Thread (row r, lane-in-row t) owns head dims d = 16*i + 4*t + e, i < DH/16,
 // e < 4: the four threads of a row read one contiguous 64-byte run per i.
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ o,
                        int Lq, int Lk, int H, int KVH, int bq,
                        int causal, int window, float scale) {
   constexpr int NI = DH / 16;
@@ -77,14 +94,14 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < NI; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      qr[4 * i + e] = row_ok ? to_f(q[row_off + 16 * i + 4 * t + e]) : 0.f;
+      qr[4 * i + e] = row_ok ? q[row_off + 16 * i + 4 * t + e] : 0.f;
       acc[4 * i + e] = 0.f;
     }
   float m = NEG_INF, l = 0.f;
 
   const int64_t kv_stride = (int64_t)KVH * DH;  // between consecutive keys
-  const T* kb = k + ((int64_t)b * Lk * KVH + kvh) * DH;
-  const T* vb = v + ((int64_t)b * Lk * KVH + kvh) * DH;
+  const float* kb = k + ((int64_t)b * Lk * KVH + kvh) * DH;
+  const float* vb = v + ((int64_t)b * Lk * KVH + kvh) * DH;
   const int nkt = (Lk + BK - 1) / BK;
 
   for (int kt = 0; kt < nkt; ++kt) {
@@ -96,8 +113,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int idx = tid; idx < BK * DH; idx += THREADS) {
       const int j = idx / DH, d = idx % DH;
       const bool in = k_lo + j < Lk;
-      Ks[j][d] = in ? to_f(kb[(int64_t)(k_lo + j) * kv_stride + d]) : 0.f;
-      Vs[j][d] = in ? to_f(vb[(int64_t)(k_lo + j) * kv_stride + d]) : 0.f;
+      Ks[j][d] = in ? kb[(int64_t)(k_lo + j) * kv_stride + d] : 0.f;
+      Vs[j][d] = in ? vb[(int64_t)(k_lo + j) * kv_stride + d] : 0.f;
     }
     __syncthreads();
 
@@ -138,7 +155,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < ND; ++c) acc[c] *= corr;
 #pragma unroll
     for (int j = 0; j < BK; ++j) {
-      const float p = round_as<T>(s[j]);
+      const float p = s[j];
 #pragma unroll
       for (int i = 0; i < NI; ++i) {
         const float4 vv = *reinterpret_cast<const float4*>(&Vs[j][16 * i + 4 * t]);
@@ -156,52 +173,282 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < NI; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e)
-        o[row_off + 16 * i + 4 * t + e] = from_f<T>(acc[4 * i + e] / den);
+        o[row_off + 16 * i + 4 * t + e] = acc[4 * i + e] / den;
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Lq,
                    int Lk, int H, int KVH, int causal, int window, float scale,
                    cudaStream_t stream) {
   const int gq = H / KVH;
   const int bq = ROWS / gq;  // q positions per block
   dim3 grid(B * KVH, (Lq + bq - 1) / bq);
-  flash_attention_kernel<T, DH><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Lq, Lk, H, KVH, bq, causal, window, scale);
+  flash_attention_kernel<DH><<<grid, THREADS, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), Lq, Lk, H, KVH, bq, causal, window, scale);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o, int B, int Lq,
                         int Lk, int H, int KVH, int Dh, int causal, int window, float scale,
                         cudaStream_t s) {
   switch (Dh) {
-    case 16: return launch<T, 16>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 16: return launch<16>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 32: return launch<32>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 64: return launch<64>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 128: return launch<128>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
+
+// ---------------------------------------------------------------------------
+// route 1: FlashAttention-2 on mma.sync m16n8k16 (bf16)
+// ---------------------------------------------------------------------------
+namespace mma {
+
+constexpr int WARPS = 4, THREADS = 32 * WARPS;  // 16 rows a warp: ROWS in all
+constexpr int BKV = 64;                          // keys per K/V tile
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Element offset of 16-byte chunk c of row r in a [rows][DH] bf16 tile. The
+// chunk index is XORed with bits of the row so that the 8 rows one ldmatrix
+// phase reads (same chunk, consecutive rows) fall in 8 different bank groups
+// for every DH: rows of 256 or 128 bytes take r % 8, rows of 64 bytes (r / 2)
+// % 4, rows of 32 bytes (r / 4) % 2.
+template <int DH>
+__device__ __forceinline__ int tile_off(int r, int c) {
+  constexpr int NCH = DH / 8;
+  constexpr int SW = NCH >= 8 ? 8 : NCH;
+  constexpr int DIV = NCH >= 8 ? 1 : 8 / NCH;
+  return r * DH + ((c ^ ((r / DIV) & (SW - 1))) << 3);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(THREADS)
+attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Lq, int Lk, int H, int KVH,
+            int bq, int causal, int window, float scale_log2) {
+  constexpr int NCH = DH / 8;   // 16-byte chunks per row
+  constexpr int KS = DH / 16;   // k16 steps of Q.K^T over the head dim
+  constexpr int NT = BKV / 8;   // n8 tiles of S over the keys
+  constexpr int DT = DH / 8;    // n8 tiles of O over the head dim
+  extern __shared__ __align__(16) __nv_bfloat16 fa_smem[];
+  __nv_bfloat16* Qs = fa_smem;             // [64][DH]
+  __nv_bfloat16* Ks = Qs + 64 * DH;        // [2][BKV][DH]
+  __nv_bfloat16* Vs = Ks + 2 * BKV * DH;   // [2][BKV][DH]
+
+  const int bh = blockIdx.x;  // b * KVH + kvh
+  const int b = bh / KVH, kvh = bh % KVH;
+  const int gq = H / KVH;
+  const int q_lo = blockIdx.y * bq;
+  const int q_hi = min(q_lo + bq, Lq) - 1;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  // Q tile: row r is query head kvh * gq + r / bq at position q_lo + r % bq;
+  // rows past gq * bq or Lq are zeros and never stored.
+  for (int idx = tid; idx < 64 * NCH; idx += THREADS) {
+    const int r = idx / NCH, c = idx % NCH;
+    const int g = r / bq, qpos = q_lo + r % bq;
+    const bool ok = g < gq && qpos < Lq;
+    const int64_t off = ok ? ((int64_t)(b * Lq + qpos) * H + kvh * gq + g) * DH + 8 * c : 0;
+    cp_async16(Qs + tile_off<DH>(r, c), q + off, ok);
+  }
+
+  // the KV tiles some row of the block sees: [kt_begin, kt_end)
+  const int nkt = (Lk + BKV - 1) / BKV;
+  const int kt_end = causal ? min(nkt, q_hi / BKV + 1) : nkt;
+  int kt_begin = 0;
+  if (window > 0 && q_lo - window + 1 > 0) kt_begin = (q_lo - window + 1) / BKV;
+
+  const int64_t kv_stride = (int64_t)KVH * DH;  // between consecutive keys
+  const __nv_bfloat16* kb = k + ((int64_t)b * Lk * KVH + kvh) * DH;
+  const __nv_bfloat16* vb = v + ((int64_t)b * Lk * KVH + kvh) * DH;
+  auto load_kv = [&](int kt, int buf) {
+    const int k_lo = kt * BKV;
+    __nv_bfloat16* kd = Ks + buf * BKV * DH;
+    __nv_bfloat16* vd = Vs + buf * BKV * DH;
+    for (int idx = tid; idx < BKV * NCH; idx += THREADS) {
+      const int j = idx / NCH, c = idx % NCH;
+      const bool ok = k_lo + j < Lk;  // keys past Lk are zeros: 0 * p stays 0
+      const int64_t off = ok ? (int64_t)(k_lo + j) * kv_stride + 8 * c : 0;
+      cp_async16(kd + tile_off<DH>(j, c), kb + off, ok);
+      cp_async16(vd + tile_off<DH>(j, c), vb + off, ok);
+    }
+  };
+  if (kt_begin < kt_end) load_kv(kt_begin, 0);
+  cp_async_commit();
+
+  // this thread's two rows: r0 (accumulator values 0, 1) and r0 + 8 (2, 3)
+  const int r0 = warp * 16 + lane / 4;
+  const int qpos0 = q_lo + r0 % bq, qpos1 = q_lo + (r0 + 8) % bq;
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix and row this lane addresses
+
+  float acc[DT][4];
+#pragma unroll
+  for (int d = 0; d < DT; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.f, 0.f};  // l: this thread's share of the row sum
+  uint32_t qf[KS][4];
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int buf = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) load_kv(kt + 1, buf ^ 1);  // overlaps this tile's math
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();
+    if (kt == kt_begin) {
+#pragma unroll
+      for (int t = 0; t < KS; ++t)  // rows warp*16 + {0..7, 8..15}, chunks 2t, 2t + 1
+        ldsm_x4(qf[t], Qs + tile_off<DH>(warp * 16 + mr + 8 * (mi & 1), 2 * t + (mi >> 1)));
+    }
+    const __nv_bfloat16* kd = Ks + buf * BKV * DH;
+    const __nv_bfloat16* vd = Vs + buf * BKV * DH;
+
+    // S = Q . K^T (16 rows x 64 keys a warp)
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+    for (int t = 0; t < KS; ++t)
+#pragma unroll
+      for (int jp = 0; jp < NT / 2; ++jp) {
+        uint32_t kf[4];  // keys 8 (2jp + mi/2) + mr, chunk 2t + mi%2
+        ldsm_x4(kf, kd + tile_off<DH>(8 * (2 * jp + (mi >> 1)) + mr, 2 * t + (mi & 1)));
+        mma_16816(s[2 * jp], qf[t], kf[0], kf[1]);
+        mma_16816(s[2 * jp + 1], qf[t], kf[2], kf[3]);
+      }
+
+    // scale into base 2; mask per element only on boundary tiles
+    const int k_lo = kt * BKV;
+    const bool edge = k_lo + BKV > Lk || (causal && k_lo + BKV - 1 > q_lo) ||
+                      (window > 0 && k_lo <= q_hi - window);
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[j][e] * scale_log2;
+        if (edge) {
+          const int kpos = k_lo + 8 * j + 2 * (lane & 3) + (e & 1);
+          const int qpos = e < 2 ? qpos0 : qpos1;
+          bool ok = kpos < Lk;
+          if (causal) ok = ok && kpos <= qpos;
+          if (window > 0) ok = ok && kpos > qpos - window;
+          x = ok ? x : NEG_INF;
+        }
+        s[j][e] = x;
+      }
+
+    // online softmax on the fragments: the 4 threads of a quad share a row
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx = m_run[h];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      corr[h] = exp2f(m_run[h] - mx);
+      m_run[h] = mx;
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        s[j][2 * h] = exp2f(s[j][2 * h] - mx);
+        s[j][2 * h + 1] = exp2f(s[j][2 * h + 1] - mx);
+        sum += s[j][2 * h] + s[j][2 * h + 1];
+      }
+      l_run[h] = l_run[h] * corr[h] + sum;
+    }
+#pragma unroll
+    for (int d = 0; d < DT; ++d) {
+      acc[d][0] *= corr[0];
+      acc[d][1] *= corr[0];
+      acc[d][2] *= corr[1];
+      acc[d][3] *= corr[1];
+    }
+
+    // O += P . V, P rounded to bf16 and taken from the S fragments as they are
+#pragma unroll
+    for (int t = 0; t < BKV / 16; ++t) {
+      const uint32_t pa[4] = {pack_bf16(s[2 * t][0], s[2 * t][1]), pack_bf16(s[2 * t][2], s[2 * t][3]),
+                              pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]),
+                              pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DT / 2; ++dp) {
+        uint32_t vf[4];  // keys 16t + 8 (mi%2) + mr, chunk 2dp + mi/2, transposed
+        ldsm_x4_trans(vf, vd + tile_off<DH>(16 * t + 8 * (mi & 1) + mr, 2 * dp + (mi >> 1)));
+        mma_16816(acc[2 * dp], pa, vf[0], vf[1]);
+        mma_16816(acc[2 * dp + 1], pa, vf[2], vf[3]);
+      }
+    }
+    __syncthreads();  // this buffer is refilled two tiles on
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float l = l_run[h];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int r = r0 + 8 * h;
+    const int g = r / bq, qpos = q_lo + r % bq;
+    if (g >= gq || qpos >= Lq) continue;
+    const float inv = 1.f / fmaxf(l, 1e-37f);
+    __nv_bfloat16* orow = o + ((int64_t)(b * Lq + qpos) * H + kvh * gq + g) * DH;
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      *reinterpret_cast<uint32_t*>(orow + 8 * d + 2 * (lane & 3)) =
+          pack_bf16(acc[d][2 * h] * inv, acc[d][2 * h + 1] * inv);
+  }
+}
+
+template <int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Lq, int Lk, int H, int KVH,
+                   int causal, int window, float scale, cudaStream_t stream) {
+  const int gq = H / KVH;
+  const int bq = ROWS / gq;  // q positions per block
+  const int smem = (64 + 4 * BKV) * DH * 2;
+  cudaError_t err = cudaFuncSetAttribute(attn_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid(B * KVH, (Lq + bq - 1) / bq);
+  attn_kernel<DH><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Lq, Lk, H, KVH, bq, causal, window,
+      scale * LOG2E);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o, int B, int Lq, int Lk, int H,
+                        int KVH, int Dh, int causal, int window, float scale, cudaStream_t s) {
+  switch (Dh) {
+    case 16: return launch<16>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 32: return launch<32>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 64: return launch<64>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 128: return launch<128>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace mma
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                                   int dtype, int B, int Lq, int Lk, int H, int KVH, int Dh,
-                                   int causal, int window, float scale, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. route: 0 fma (f32 only), 1 mma (bf16
+// only); the wrapper's _route picks it. Returns the launch's cudaError_t.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int route,
+                                   int B, int Lq, int Lk, int H, int KVH, int Dh, int causal, int window,
+                                   float scale, void* stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0 || KVH <= 0 || H % KVH != 0 || H / KVH > ROWS)
     return (int)cudaErrorInvalidValue;
   const int bq = ROWS / (H / KVH);
   if ((int64_t)B * KVH > 2147483647LL || (Lq + bq - 1) / bq > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)dispatch_dh<float>(q, k, v, o, B, Lq, Lk, H, KVH, Dh, causal, window, scale, s);
-  if (dtype == 1)
-    return (int)dispatch_dh<__nv_bfloat16>(q, k, v, o, B, Lq, Lk, H, KVH, Dh, causal, window,
-                                           scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (route == 1) {
+    const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
+    if (dtype != 1 || (bases & 15)) return (int)cudaErrorInvalidValue;
+    return (int)mma::dispatch_dh(q, k, v, o, B, Lq, Lk, H, KVH, Dh, causal, window, scale, s);
+  }
+  if (route != 0 || dtype != 0) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_dh(q, k, v, o, B, Lq, Lk, H, KVH, Dh, causal, window, scale, s);
 }

@@ -6,40 +6,73 @@
 //   h[e]   = cast_T( silu(x[e] . Wg[e]) * (x[e] . Wu[e]) )   sums in f32
 //   out[e] = cast_T( h[e] . Wd[e] )                            sums in f32
 // h is cast to x's dtype exactly where the Pallas kernel casts it. Empty
-// capacity rows (zeros) are computed like any other and give zeros.
+// capacity rows (zeros) are computed like any other and give exact zeros.
 //
 // What bounds it on this card: at the prefill shape of jamba-v0.1-52b
 // (E 16, C 320, D 4096, F 14336, bf16) operations: 1.80e12 FLOP against
 // 5.7 GB of weights and bins (~315 FLOP per byte, above the H100's ~295
-// break-even for bf16 tensor cores). At the decode shape (C 4) bytes: all
-// 5.64 GB of expert weights are read to produce 16 x 4 rows.
+// break-even for bf16 tensor cores), so only the tensor cores come near the
+// bound. At the decode shape (C 4) bytes: all 5.64 GB of expert weights are
+// read to produce 16 x 4 rows.
 //
-// What the design does: the Pallas kernel keeps a (C-block, D) f32
-// accumulator in VMEM across its sequential F grid axis. At D = 4096 that
-// does not fit one CUDA block's registers or shared memory, and blocks run
-// in no order, so ONE CALL IS TWO CUDA LAUNCHES behind the same C entry:
-//   1. a fused gate/up pass: each block computes a tile of x.Wg and x.Wu at
-//      once (x tile read once for both), applies SiLU and the product in
-//      registers, and writes h (E, C, F) in x's dtype to device memory
-//      (scratch the wrapper allocates: 147 MB at the prefill shape);
-//   2. a tiled h.Wd pass with f32 accumulation over all of F in one block,
-//      so no split-F partial sums and no atomics: the result does not depend
-//      on launch order.
-// Both passes are one templated tiled product: A and B tiles staged in
-// shared memory as f32, each thread holding a TM x TN register tile of sums
-// (plain FMA). Two tile shapes: 64 x 128 for capacity bins of more than 8
-// rows, and 8 x 128 for decode (C <= 8), where a 64-row tile would spend
-// 8x the work on empty rows. This is the simple, right first kernel: no
-// tensor cores (mma.sync / wgmma), no TMA, no skipping of empty bins; those
-// come later.
+// ONE CALL IS TWO PASSES behind the same C entry. The Pallas kernel keeps a
+// (C-block, D) f32 accumulator in VMEM across its sequential F grid axis; at
+// D = 4096 and a 64-row block that is 1 MiB, which fits no SM, and blocks run
+// in no order. So:
+//   1. a gated pass reads each x tile once for two products, gate and up,
+//      applies SiLU and the product in f32 registers and writes h (E, C, F)
+//      in x's dtype (scratch the wrapper allocates: 147 MB at the prefill
+//      shape, whose round trip through HBM costs ~0.09 ms, 5% of the bound);
+//   2. a down pass h . Wd with f32 sums over all of F in one block: no
+//      split-F partial sums and no atomics, so the result does not depend on
+//      launch order.
+// The caller picks one of three routes (moe_gmm.py::_route):
+//   * route 1, "wgmma" (bf16, C > 8, D and F multiples of 8): both passes are
+//     one warp-specialised, persistent GEMM (one block per SM walking its
+//     tiles). One producer thread issues TMA loads (128-byte swizzle, zero
+//     fill past every edge, so nothing is padded in device memory) of the A
+//     tile (x or h, 128 x 64) and 256 B columns (Wg's 128 and Wu's 128, or
+//     Wd's 256; 64 k-rows) into a ring of 4 stages of 48 KiB, each with a
+//     full and an empty mbarrier; two consumer warpgroups each run wgmma
+//     m64n256k16 on 64 rows, so gate and up come out of one product and the
+//     A tile is read from shared memory once (128 f32 accumulators a
+//     thread). W is stored (K, N) with N contiguous, so B is read MN-major
+//     through the instruction's transpose bit: no copy of the weights is
+//     made. setmaxnreg gives the producer's registers to the consumers; the
+//     producer fills the next tile's stages while the consumers store this
+//     one. Tiles are walked with the M-tiles of one (expert, N-tile) adjacent,
+//     so the blocks in flight share each weight slab through L2. No branch
+//     surrounds the products (ptxas serialises wgmma on a divergent path), so
+//     the rows of C's ragged last tile past C are multiplied as TMA's zeros:
+//     at C 320 the tiles cover 384 rows.
+//   * route 2, "swap_ab" (bf16, C <= 8: decode): the operands are swapped so
+//     the weights fill the tensor core's M side: h^T (F x C) = Wg^T . x^T and
+//     out^T = Wd^T . h^T, with C padded to N = 8 by zeros. Each warp owns 64
+//     weight columns (128-byte rows) of one expert and streams its own 64-row
+//     weight tiles through a private ring of 3 cp.async stages (16-byte
+//     copies; 128 KiB of weight loads in flight per SM), with only
+//     __syncwarp between tiles; ldmatrix.trans feeds mma.sync m16n8k16, and
+//     each step's 16 products are added to the f32 sums with round-to-
+//     nearest. Empty bins are not skipped: every expert's weights are read.
+//   * route 0, "fma" (every f32 call, and bf16 where D or F is not a multiple
+//     of 8, which TMA's 16-byte strides and the 16-byte copies need): the
+//     first port's tiled product, unchanged: A and B tiles staged in shared
+//     memory as f32, a TM x TN register tile of sums per thread (plain FMA),
+//     64 x 128 tiles (8 x 128 for C <= 8). f32 stays here because the tensor
+//     cores would compute f32 products in TF32, which breaks the reference's
+//     f32 parity.
 
+#include <cuda.h>  // CUtensorMap and its enums (the entry point is found at run time)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <dlfcn.h>
 #include <stdint.h>
 
 #include "common.cuh"
+#include "tc.cuh"
 
 namespace {
+
 
 constexpr int BK = 16;  // depth of one staged k slice
 
@@ -152,18 +185,470 @@ cudaError_t dispatch_c(const void* x, const void* wg, const void* wu, const void
   return two_passes<T, 64, 4, 8>(x, wg, wu, wd, h, out, E, C, D, F, s);               // 256 threads
 }
 
+
+// ---------------------------------------------------------------------------
+// route 1: warp-specialised wgmma GEMM fed by TMA
+// ---------------------------------------------------------------------------
+namespace wg {
+
+constexpr int BM = 128, BK = 64, STAGES = 4;
+constexpr int THREADS = 384;                  // consumer warpgroups 0 and 1, producer warpgroup 2
+constexpr int A_BYTES = BM * BK * 2;          // 16 KiB: 128 rows of 128 bytes
+constexpr int B_HALF = BK * 64 * 2;           // 8 KiB: 64 k-rows of 64 columns (128 bytes)
+
+// A stage holds the A tile (128 x 64) and 256 B columns as four 64-column
+// chunks B_HALF bytes apart: Wg's 128 columns then Wu's for the gated pass,
+// Wd's 256 for the down pass. One wgmma m64n256k16 a warpgroup covers all of
+// them, so the A tile is read from shared memory once for gate and up: 128
+// f32 accumulators a thread (gate in the first 64, up in the last 64).
+constexpr int B_BYTES = 4 * B_HALF;           // 32 KiB
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int SMEM = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;  // + alignment slack
+template <bool GATED> struct Shape {
+  static constexpr int BN = GATED ? 128 : 256;  // output columns of a tile
+  static constexpr int NB = GATED ? 2 : 1;      // weight matrices read
+};
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
+}
+// returns once the phase of the given parity has completed; a barrier that
+// never completes is a fault, so after ~2^26 polls it traps instead of hanging
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done, polls = 0;
+  do {
+    if (++polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], "
+      "[%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a tile stored with the 128-byte swizzle
+// (the layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B; tiles 1024-byte aligned).
+//   A, K-major: rows of 64 k-values (128 bytes); 8-row groups 1024 bytes apart
+//     (stride byte offset); the leading offset is unused.
+//   B, MN-major: k-rows of 64 n-values (128 bytes); 8-k-row groups 1024 bytes
+//     apart (stride byte offset); the next 64 n-values B_HALF bytes on
+//     (leading byte offset).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)((lbo >> 4) & 0x3FFF) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | 1ull << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accumulator reads or writes across a wgmma wait
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d (128 f32 a thread) += A (64x16, K-major, from desc_a) . B (16x256, MN-major, from desc_b)
+__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+
+// out[e] (M x N) = A[e] (M x K) . B[e] (K x N), bf16 in, f32 sums, bf16 out,
+// for e < E. GATED: B0 = Wg, B1 = Wu and out = silu(A.B0) * (A.B1). Every
+// tile edge (M, N, K) is zero-filled by TMA; stores are masked.
+// Persistent: each block walks the tiles blockIdx.x, + gridDim.x, ..., with
+// the M-tiles of one (expert, N-tile) adjacent in that order, so the blocks
+// in flight share weight slabs through L2; the producer fills the next
+// tile's stages while the consumers store this one.
+template <bool GATED>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_kernel(__grid_constant__ const CUtensorMap mA, __grid_constant__ const CUtensorMap mB0,
+            __grid_constant__ const CUtensorMap mB1, __nv_bfloat16* __restrict__ out, int E, int M, int N, int K) {
+  using S = Shape<GATED>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * STAGE_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  const int m_tiles = (M + BM - 1) / BM, n_tiles = (N + S::BN - 1) / S::BN;
+  const int tiles = m_tiles * n_tiles * E;
+  const int nk = (K + BK - 1) / BK;
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread releases the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    // ---- producer: one thread keeps the ring full, across tiles ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      int it = 0;  // k-tiles loaded so far by this block
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % m_tiles) * BM, n0 = (tile / m_tiles % n_tiles) * S::BN;
+        const int e = tile / (m_tiles * n_tiles);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          uint8_t* st = smem + s * STAGE_BYTES;
+          mbar_expect_tx(&full[s], STAGE_BYTES);  // zero-filled bytes count too
+          tma_load_3d(st, &mA, &full[s], kt * BK, m0, e);
+#pragma unroll
+          for (int c = 0; c < 4; ++c)  // chunk c: columns 64 (c % (BN / 64)) of matrix c / (BN / 64)
+            tma_load_3d(st + A_BYTES + c * B_HALF, c < 4 / S::NB ? &mB0 : &mB1, &full[s],
+                        n0 + 64 * (c % (4 / S::NB)), kt * BK, e);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wgi owns rows m0 + 64 wgi .. + 63 of each tile ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    float acc[128];
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+    int it = 0;  // k-tiles consumed so far by this block
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % m_tiles) * BM, n0 = (tile / m_tiles % n_tiles) * S::BN;
+      const int e = tile / (m_tiles * n_tiles);
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const uint8_t* st = smem + s * STAGE_BYTES;
+        const uint8_t* a = st + wgi * (64 * 128);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) {
+          // 16 k-values are 32 bytes along an A row, 16 k-rows (2048 bytes) of B
+          wgmma_m64n256k16(acc, sw128_desc(a + kk * 32, 16, 1024),
+                           sw128_desc(st + A_BYTES + kk * 2048, B_HALF, 1024));
+        }
+        wgmma_commit();
+        // the previous k-tile's products are done: hand its stage back
+        wgmma_wait<1>();
+        fence_acc(acc);
+        if (kt > 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      mbar_arrive(&empty[(it - 1) % STAGES]);  // the tile's last stage
+
+      // accumulator layout: value 4j + 2i + c at row 16 warp + lane/4 + 8i,
+      // column 8j + 2 (lane % 4) + c of the 256; gated, gate column j pairs
+      // with up column j + 16
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = m0 + wgi * 64 + warp * 16 + lane / 4 + 8 * i;
+        if (row >= M) continue;
+        __nv_bfloat16* orow = out + ((int64_t)e * M + row) * N;
+#pragma unroll
+        for (int j = 0; j < S::BN / 8; ++j) {
+          const int col = n0 + 8 * j + 2 * (lane % 4);
+          if (col >= N) continue;  // N is a multiple of 8: the pair is whole
+          float v0 = acc[4 * j + 2 * i], v1 = acc[4 * j + 2 * i + 1];
+          if constexpr (GATED) {
+            v0 = silu(v0) * acc[4 * (j + 16) + 2 * i];
+            v1 = silu(v1) * acc[4 * (j + 16) + 2 * i + 1];
+          }
+          *reinterpret_cast<uint32_t*>(orow + col) = pack_bf16(v0, v1);
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver library the CUDA runtime has loaded
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
+    if (lib != nullptr) fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// A bf16 tensor (depth, rows, inner), inner contiguous, read in boxes of
+// (1, box_rows, 64) with the 128-byte swizzle; reads past any edge give zeros.
+bool make_map(CUtensorMap* map, const void* base, int depth, int rows, int inner, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)depth};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * 2, (cuuint64_t)inner * rows * 2};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// out (E, M, N) = A (E, M, K) . B (E, K, N) [gated with B1]
+template <bool GATED>
+cudaError_t launch(const void* A, const void* B0, const void* B1, void* out, int E, int M, int N, int K,
+                   cudaStream_t stream) {
+  using S = Shape<GATED>;
+  CUtensorMap mA, mB0, mB1;
+  if (!make_map(&mA, A, E, M, K, BM) || !make_map(&mB0, B0, E, K, N, BK) ||
+      !make_map(&mB1, GATED ? B1 : B0, E, K, N, BK))
+    return cudaErrorInvalidValue;
+  int dev, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(gemm_kernel<GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (int64_t)((M + BM - 1) / BM) * ((N + S::BN - 1) / S::BN) * E;
+  if (tiles > 2147483647LL) return cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);  // one persistent block per SM
+  gemm_kernel<GATED><<<grid, THREADS, SMEM, stream>>>(mA, mB0, mB1, static_cast<__nv_bfloat16*>(out), E, M,
+                                                          N, K);
+  return cudaGetLastError();
+}
+
+}  // namespace wg
+
+// ---------------------------------------------------------------------------
+// route 2: swapped operands for bins of at most 8 rows (decode)
+// ---------------------------------------------------------------------------
+namespace swab {
+
+constexpr int WARPS = 2, THREADS = 32 * WARPS;
+constexpr int MT = 64;           // weight columns per warp (the mma's M side): 128-byte rows
+constexpr int BK = 64;           // k-rows per stage
+constexpr int STAGES = 3;
+constexpr int NCH = MT / 8;      // 16-byte chunks per weight k-row
+constexpr int W_TILE = BK * MT;  // elements of one weight tile
+constexpr int XROW = BK + 8;     // padded row of the (8, BK) activation tile: conflict-free fragment loads
+constexpr int X_TILE = 8 * XROW;
+
+template <bool GATED>
+__host__ __device__ constexpr int stage_elems() { return (GATED ? 2 : 1) * W_TILE + X_TILE; }
+
+// Element offset of chunk c of weight k-row r. The chunk index is XORed with
+// bits of the row so that the 8 consecutive k-rows one ldmatrix.trans phase
+// reads fall in 8 different bank groups.
+__device__ __forceinline__ int w_off(int r, int c) {
+  constexpr int SW = NCH >= 8 ? 8 : NCH;
+  constexpr int DIV = 8 / SW;
+  return r * MT + ((c ^ ((r / DIV) & (SW - 1))) << 3);
+}
+
+// out[e] (C x M) = A[e] (C x K) . W[e] (K x M), computed as out^T = W^T . A^T
+// with the weights on the mma's M side and the C <= 8 rows of A zero-padded
+// to its N = 8. GATED: W0 = Wg, W1 = Wu, out = silu(A.W0) * (A.W1).
+template <bool GATED>
+__global__ void __launch_bounds__(THREADS)
+swap_ab_kernel(const __nv_bfloat16* __restrict__ A, const __nv_bfloat16* __restrict__ W0,
+               const __nv_bfloat16* __restrict__ W1, __nv_bfloat16* __restrict__ out, int C, int M, int K) {
+  constexpr int STAGE = stage_elems<GATED>();
+  constexpr int MTILES = MT / 16;
+  extern __shared__ __align__(16) __nv_bfloat16 sw_smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int e = blockIdx.y;
+  const int m0 = (blockIdx.x * WARPS + warp) * MT;
+  if (m0 >= M) return;  // the warps share nothing: no block barrier follows
+  __nv_bfloat16* ring = sw_smem + warp * STAGES * STAGE;
+  const __nv_bfloat16* Ae = A + (int64_t)e * C * K;
+  const __nv_bfloat16* W0e = W0 + (int64_t)e * K * M;
+  const __nv_bfloat16* W1e = GATED ? W1 + (int64_t)e * K * M : W0e;
+  const int nk = (K + BK - 1) / BK;
+
+  auto issue = [&](int kt) {
+    __nv_bfloat16* st = ring + (kt % STAGES) * STAGE;
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int idx = lane; idx < BK * NCH; idx += 32) {
+      const int r = idx / NCH, c = idx % NCH;
+      const int gk = k0 + r, gm = m0 + 8 * c;
+      const bool ok = gk < K && gm < M;  // M is a multiple of 8: a chunk is whole
+      const int64_t off = ok ? (int64_t)gk * M + gm : 0;
+      cp_async16(st + w_off(r, c), W0e + off, ok);
+      if constexpr (GATED) cp_async16(st + W_TILE + w_off(r, c), W1e + off, ok);
+    }
+    __nv_bfloat16* xs = st + (GATED ? 2 : 1) * W_TILE;
+#pragma unroll
+    for (int idx = lane; idx < BK; idx += 32) {  // 8 rows of BK / 8 chunks
+      const int n = idx / (BK / 8), c = idx % (BK / 8);
+      const int gk = k0 + 8 * c;
+      const bool ok = n < C && gk < K;  // rows past C are the zero padding
+      cp_async16(xs + n * XROW + 8 * c, Ae + (ok ? (int64_t)n * K + gk : 0), ok);
+    }
+  };
+
+  float g[MTILES][4], u[MTILES][4];
+#pragma unroll
+  for (int t = 0; t < MTILES; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) g[t][i] = u[t][i] = 0.f;
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < nk) issue(s);
+    cp_async_commit();
+  }
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix and row this lane addresses
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<STAGES - 2>();  // this lane's copies of tile kt have landed
+    __syncwarp();                 // ... and every lane's; tile kt-1 is read by all
+    if (kt + STAGES - 1 < nk) issue(kt + STAGES - 1);
+    cp_async_commit();
+    const __nv_bfloat16* st = ring + (kt % STAGES) * STAGE;
+    const __nv_bfloat16* xs = st + (GATED ? 2 : 1) * W_TILE;
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      // B fragment: x^T[k][n] = x[n][k], two consecutive k of row n = lane / 4
+      const __nv_bfloat16* xb = xs + (lane >> 2) * XROW + kk * 16 + 2 * (lane & 3);
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xb);
+      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xb + 8);
+      // A fragments (16 weight columns x 16 k) from k-rows stored column-contiguous
+      const int k = kk * 16 + mr + 8 * (mi >> 1);
+#pragma unroll
+      for (int t = 0; t < MTILES; ++t) {
+        // 16 products a step on the tensor cores, added to the sums in f32
+        // with round-to-nearest: the tensor cores' own accumulation rounds
+        // less exactly, and the adds cost nothing here (the loop waits on
+        // weight bytes)
+        uint32_t a[4];
+        float p[4] = {0.f, 0.f, 0.f, 0.f};
+        ldsm_x4_trans(a, st + w_off(k, 2 * t + (mi & 1)));
+        mma_16816(p, a, b0, b1);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) g[t][i] += p[i];
+        if constexpr (GATED) {
+          float q[4] = {0.f, 0.f, 0.f, 0.f};
+          ldsm_x4_trans(a, st + W_TILE + w_off(k, 2 * t + (mi & 1)));
+          mma_16816(q, a, b0, b1);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) u[t][i] += q[i];
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // value i of tile t at weight column m0 + 16 t + lane/4 + 8 (i / 2), bin row 2 (lane % 4) + i % 2
+#pragma unroll
+  for (int t = 0; t < MTILES; ++t)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int m = m0 + 16 * t + (lane >> 2) + 8 * (i >> 1), n = 2 * (lane & 3) + (i & 1);
+      if (n < C && m < M) {
+        const float r = GATED ? silu(g[t][i]) * u[t][i] : g[t][i];
+        out[((int64_t)e * C + n) * M + m] = __float2bfloat16(r);
+      }
+    }
+}
+
+template <bool GATED>
+cudaError_t launch(const void* A, const void* W0, const void* W1, void* out, int E, int C, int M, int K,
+                   cudaStream_t stream) {
+  const int smem = WARPS * STAGES * stage_elems<GATED>() * 2;
+  cudaError_t err =
+      cudaFuncSetAttribute(swap_ab_kernel<GATED>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((M + WARPS * MT - 1) / (WARPS * MT), E);
+  swap_ab_kernel<GATED><<<grid, THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(A), static_cast<const __nv_bfloat16*>(W0),
+      static_cast<const __nv_bfloat16*>(W1), static_cast<__nv_bfloat16*>(out), C, M, K);
+  return cudaGetLastError();
+}
+
+}  // namespace swab
+
+enum Route { ROUTE_FMA = 0, ROUTE_WGMMA = 1, ROUTE_SWAP_AB = 2 };
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. h is (E, C, F) scratch in x's dtype.
-// Launches the two passes on `stream`; returns the first non-zero cudaError_t.
-extern "C" int moe_gmm_fwd(const void* x, const void* w_gate, const void* w_up,
-                           const void* w_down, void* h, void* out, int dtype, int E, int C,
-                           int D, int F, void* stream) {
+// dtype: 0 = float32, 1 = bfloat16. route: 0 fma, 1 wgmma, 2 swap_ab (see the
+// note above; the wrapper's _route picks it). h is (E, C, F) scratch in x's
+// dtype. Launches the two passes on `stream`; returns the first non-zero
+// cudaError_t, or cudaErrorInvalidValue for a route these shapes cannot take.
+extern "C" int moe_gmm_fwd(const void* x, const void* w_gate, const void* w_up, const void* w_down, void* h,
+                           void* out, int dtype, int route, int E, int C, int D, int F, void* stream) {
   if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535 || (C + 7) / 8 > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return (int)dispatch_c<float>(x, w_gate, w_up, w_down, h, out, E, C, D, F, s);
-  if (dtype == 1)
-    return (int)dispatch_c<__nv_bfloat16>(x, w_gate, w_up, w_down, h, out, E, C, D, F, s);
+  if (route == ROUTE_FMA) {
+    if (dtype == 0) return (int)dispatch_c<float>(x, w_gate, w_up, w_down, h, out, E, C, D, F, s);
+    if (dtype == 1) return (int)dispatch_c<__nv_bfloat16>(x, w_gate, w_up, w_down, h, out, E, C, D, F, s);
+    return (int)cudaErrorInvalidValue;
+  }
+  // the tensor-core routes: bf16, 16-byte rows and 16-byte aligned bases
+  const uintptr_t bases = (uintptr_t)x | (uintptr_t)w_gate | (uintptr_t)w_up | (uintptr_t)w_down |
+                          (uintptr_t)h | (uintptr_t)out;
+  if (dtype != 1 || D % 8 || F % 8 || (bases & 15)) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if (route == ROUTE_WGMMA) {
+    err = wg::launch<true>(x, w_gate, w_up, h, E, C, F, D, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)wg::launch<false>(h, w_down, nullptr, out, E, C, D, F, s);
+  }
+  if (route == ROUTE_SWAP_AB) {
+    if (C > 8) return (int)cudaErrorInvalidValue;
+    err = swab::launch<true>(x, w_gate, w_up, h, E, C, F, D, s);
+    if (err != cudaSuccess) return (int)err;
+    return (int)swab::launch<false>(h, w_down, nullptr, out, E, C, D, F, s);
+  }
   return (int)cudaErrorInvalidValue;
 }

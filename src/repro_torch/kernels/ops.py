@@ -39,5 +39,11 @@ def launch_counts() -> dict:
 
 
 def reset_launch_counts() -> None:
+    """Zero every launch count, and the per-route counts of the kernels that
+    have routes (``route_launches``)."""
     for fn in KERNELS.values():
         fn.launches = 0
+        routes = getattr(fn, "route_launches", None)
+        if routes is not None:
+            for r in routes:
+                routes[r] = 0

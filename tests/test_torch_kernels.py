@@ -19,12 +19,15 @@ from repro.kernels.flash_decode import flash_decode as pallas_decode
 from repro.kernels.mamba_scan import mamba_scan as pallas_scan
 from repro.kernels.moe_gmm import moe_gmm as pallas_gmm
 from repro.models.mamba import selective_scan as jax_chunked_scan
+from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
 from repro_torch.kernels.hash_tree import hash_tree_state
 from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.kernels.moe_gmm import _route as gmm_route
 from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.models.moe import expert_capacity
 
 # f32: both sides accumulate in f32, in different orders (online vs full
 # softmax, XLA vs ATen sums) -- the reference kernel tests' 2e-5.
@@ -292,3 +295,56 @@ def test_mamba_scan_rejects_what_the_kernel_does_not_take(N, xc_dtype, dt_dtype,
     h0 = None if h0_shape is None else torch.zeros(h0_shape)
     with pytest.raises((ValueError, TypeError)):
         mamba_scan(xc, dt, bc, bc, torch.zeros(Di, N), h0)
+
+
+# Route choice of moe_gmm at jamba-v0.1-52b's serving bins (batch 4, prompt
+# 512), on both sides of the 8-row boundary between swap_ab and wgmma, and
+# where D is not a multiple of 8 (no 16-byte rows): bf16 takes a tensor-core
+# route where its strides allow one, f32 always takes "fma".
+_JAMBA = get_config("jamba-v0.1-52b")
+ROUTE_GMM_CASES = [  # (E, C, D, F, bf16 route)
+    (_JAMBA.n_experts, expert_capacity(4 * 512, _JAMBA), _JAMBA.d_model, _JAMBA.d_ff, "wgmma"),  # prefill
+    (_JAMBA.n_experts, expert_capacity(4, _JAMBA), _JAMBA.d_model, _JAMBA.d_ff, "swap_ab"),  # decode
+    (3, 8, 200, 328, "swap_ab"),
+    (3, 9, 200, 328, "wgmma"),
+    (2, 9, 44, 36, "fma"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("E,C,D,F,bf16_route", ROUTE_GMM_CASES)
+def test_moe_gmm_route(E, C, D, F, bf16_route, dtype):
+    assert gmm_route(dtype, E, C, D, F) == (bf16_route if dtype == torch.bfloat16 else "fma")
+
+
+def test_route_counts_reset_with_the_launch_counts():
+    moe_gmm.route_launches["wgmma"] = 3
+    flash_attention.route_launches["mma"] = 2
+    ops.reset_launch_counts()
+    assert set(moe_gmm.route_launches) == {"fma", "wgmma", "swap_ab"}
+    assert set(flash_attention.route_launches) == {"fma", "mma"}
+    assert not any(moe_gmm.route_launches.values()) and not any(flash_attention.route_launches.values())
+
+
+# The ragged edges of the new tiles, as chip_smoke.py phase 2 holds the CUDA
+# kernels there: the plain versions against the Pallas kernels (interpret mode).
+EDGE_ATTN_CASES = [  # (B, Lq, Lk, H, KVH, Dh, causal, window, block_q, block_kv)
+    (1, 200, 231, 40, 8, 128, True, 64, 64, 64),  # Lq, Lk not multiples of 64, gq 5, window
+    (2, 96, 112, 16, 2, 16, True, 0, 32, 64),  # head dim 16, gq 8
+    (1, 256, 256, 4, 2, 64, True, 16, 64, 64),  # window < tile: rows fully masked inside a live tile
+]
+EDGE_GMM_CASES = [  # (E, C, D, F, block_c, block_f)
+    (3, 9, 200, 328, 16, 128),  # D, F not multiples of 64, a 9-row bin
+    (2, 65, 200, 328, 64, 128),  # one row past a 64-row block
+    (2, 9, 44, 36, 16, 32),  # D not a multiple of 8
+]
+
+
+@pytest.mark.parametrize("B,Lq,Lk,H,KVH,Dh,causal,window,bq,bkv", EDGE_ATTN_CASES)
+def test_flash_attention_tile_edges_match_pallas(B, Lq, Lk, H, KVH, Dh, causal, window, bq, bkv):
+    test_flash_attention_matches_pallas(B, Lq, Lk, H, KVH, Dh, causal, window, bq, bkv)
+
+
+@pytest.mark.parametrize("E,C,D,F,bc,bf", EDGE_GMM_CASES)
+def test_moe_gmm_tile_edges_match_pallas(E, C, D, F, bc, bf):
+    test_moe_gmm_matches_pallas(E, C, D, F, bc, bf)
