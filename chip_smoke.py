@@ -28,10 +28,13 @@ on, so that their numbers are still printed):
      32 layers: the full depth does not fit the card's 80 GB), bf16, batch 4,
      prompt 512, 32 tokens, through ``repro_torch.launch.serve.run``: exact
      launch counts of all four kernels and of their routes, kernels vs plain
-     versions in bf16 and f32 with a routing diagnostic, and in bf16 once more
-     with the plain run dispatched through the kernels run's routing (so the
-     comparison holds the kernels' arithmetic alone); steady and profiled
-     serve times;
+     versions in f32 (gated) and bf16 with a routing diagnostic (printed: in
+     bf16 near-tied top-k routings flip between the two runs, with exact and
+     inexact kernels alike), and in bf16 once more with the plain run
+     dispatched through the kernels run's routing, which gates
+     (``forced_routing_gate``: logits, greedy tokens, and the router
+     probabilities of the two runs, whose hidden states differ by arithmetic
+     alone); steady and profiled serve times;
   3c. the Koalja circuit on the card: a ``repro_torch.workspace.Workspace``
      (flat, inline executor, default store) with one task ``normalize``;
      push B14's wave of 64 card-resident f32 tensors of 4.5 MiB, the same
@@ -44,7 +47,9 @@ on, so that their numbers are still printed):
      for moe_gmm; none exists for mamba_scan or hash_tree), and its bound;
      each bf16 route's share of outputs equal to the plain version's, and
      for moe_gmm also its FMA route (which serves bf16 shapes without
-     16-byte rows) on the same inputs. moe_gmm's bins are filled as phase
+     16-byte rows) on the same inputs; flash_decode's n_split at each serve
+     shape; mamba_scan's bound counts its exponentials on the special-function
+     units beside its bytes. moe_gmm's bins are filled as phase
      3b's served run filled them (the slots past each bin's tokens are
      zeros, which slows the wgmma route); its time on fully random bins is
      printed beside.
@@ -72,6 +77,7 @@ TENSOR_CORE_SASS = {"moe_gmm": ("HGMMA", "HMMA"), "flash_attention": ("HMMA",)}
 # H100 SXM published peaks (dense): memory rate, and operations per type
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+SFU_PER_CLOCK = 16  # exponentials an sm_90 SM retires a clock (special-function units)
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}  # (rtol, atol)
 # the scan's output is f32 in both dtypes (bf16 only for its xc input):
 # exp and FMA rounding over L steps, as the reference kernel tests
@@ -102,6 +108,13 @@ DECODE_CASES = [  # (B, S, H, KVH, Dh, window, n_valid, q_pos, ring): tests/test
     (2, 64, 16, 2, 16, 0, 40, 39, False),  # reduced-config head dim, gq 8
     (4, 552, 32, 32, 64, 0, 528, 527, False),  # stablelm decode at the serve cache
     (4, 552, 32, 8, 128, 0, 528, 527, False),  # jamba decode at the serve cache
+    # the edges of the cluster split (n_split 8 at B * KVH 32, 4 at 128)
+    (2, 256, 8, 2, 64, 0, 1, 0, False),  # one written slot
+    (4, 552, 32, 8, 128, 0, 5, 4, False),  # n_valid < n_split: empty chunks
+    (4, 552, 32, 32, 64, 0, 40, 39, False),  # n_valid < one chunk of the cache
+    (4, 551, 32, 8, 128, 0, 551, 550, False),  # S not a multiple of n_split
+    (8, 300, 40, 40, 64, 0, 290, 289, False),  # B * KVH 320 >= 2 x 132 SMs: n_split 1
+    (4, 552, 48, 8, 128, 64, 528, 527, False),  # gq 6 at Dh 128, a window masking whole chunks
 ]
 GMM_CASES = [  # (E, C, D, F): tests/test_kernels.py::test_moe_gmm_sweep (then jamba's, below)
     (4, 32, 64, 96),
@@ -124,7 +137,11 @@ SCAN_CASES = [  # (B, L, Di, N, h0): tests/test_kernels.py::test_mamba_scan_swee
     (1, 100, 48, 16, True),  # ragged L + seeded state
     (2, 256, 64, 16, False),
     (1, 32, 24, 4, True),
-]
+    # the edges of the one-thread-per-channel kernel (128 channels a block,
+    # B and C staged 32 steps at a time, dt and xc loaded 16 steps ahead)
+    (2, 1, 200, 16, True),  # L = 1
+    (2, 77, 136, 16, False),  # L not a multiple of 32 or 16, Di not of 128
+] + [(2, 45, 130, n, h0) for n in (4, 8, 16, 32) for h0 in (False, True)]  # every N, with and without h0
 # B14's data-plane wave (benchmarks/bench_koalja.py): 64 arrays of 4.5 MiB
 WAVE = dict(n=64, nbytes=(1 << 22) + (1 << 19), big_nbytes=1 << 30, seed=7)
 SERVE = dict(arch="stablelm-1.6b", batch=4, prompt_len=512, gen=32, seed=0)
@@ -137,10 +154,76 @@ N_STEADY = 16  # decode steps timed after warm-up
 # differences also break some near-tied top-k routings the other way. f32:
 # each kernel output differs at ~1e-6 relative.
 LOGIT_TOL = {"bfloat16": 0.25, "float32": 1e-3}
+# Phase 3b's router check (bf16, MoE): max |diff| of the router probabilities
+# of the kernels run and of the plain versions run on the kernels' routing,
+# over every (token, expert) of every MoE call. 2x the largest value measured
+# over seeds 0-7 with moe_gmm on its tensor-core and its FMA routes, before
+# flash_decode and mamba_scan were redesigned (tools/torch_moe_probe.py, NVIDIA
+# H100 80GB HBM3 at 700 W): 7.4454e-03 .. 1.1415e-02 (seed 1, tensor cores).
+ROUTER_PROB_TOL = 2 * 1.1415e-02
 
 
 def fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def logit_comparison(kernels, other, logit_tol: float):
+    """Logits (B, steps, V) of a kernels run against another run of the same
+    tokens. Returns (failures, stats): non-finite logits, a max |logit diff|
+    over ``logit_tol``, and greedy tokens that differ beyond a tie within
+    error (where they differ, the other run's top logit may beat the kernels'
+    token by at most twice that row's logit difference)."""
+    import torch
+
+    failures = []
+    if not (torch.isfinite(kernels).all() and torch.isfinite(other).all()):
+        failures.append("non-finite logits")
+    row_diff = (kernels - other).abs().amax(-1)  # (B, steps)
+    diff = row_diff.max().item()
+    mine = kernels.argmax(-1)
+    agree = other.argmax(-1) == mine
+    gap = other.amax(-1) - other.gather(-1, mine[..., None])[..., 0]
+    near_tie = (~agree) & (gap <= 2 * row_diff)
+    if not diff <= logit_tol:
+        failures.append(f"max |logit diff| {diff} > {logit_tol}")
+    if not bool((agree | near_tie).all()):
+        failures.append(f"{int((~(agree | near_tie)).sum())} greedy tokens differ beyond a tie within error")
+    return failures, dict(diff=diff, row_diff=row_diff, agree=int(agree.sum()), ties=int(near_tie.sum()),
+                          n=agree.numel())
+
+
+def forced_routing_gate(kernels, forced, probs_kernels, probs_forced, experts_kernels, *,
+                        logit_tol: float, prob_tol: float):
+    """Phase 3b's gate for a bf16 MoE model, on the plain versions run with the
+    kernels run's routing (both runs dispatch the same slots, so the hidden
+    states that reach each router differ by arithmetic alone).
+
+    kernels, forced: logits (B, steps, V) of the two runs; probs_kernels,
+    probs_forced: each MoE call's router probabilities (T, E), in call order;
+    experts_kernels: each call's top-k experts (T, K) in the kernels run.
+    Returns (failures, stats): the gate holds iff failures is empty. It holds
+    the logits as ``logit_comparison`` does, and every router probability
+    within ``prob_tol``. ``stats["rerouted"]`` counts the tokens whose top-k
+    set the forced run's own router would have chosen differently (printed,
+    not gated)."""
+    import torch
+
+    failures, stats = logit_comparison(kernels, forced, logit_tol)
+    if len(probs_kernels) != len(probs_forced) or len(experts_kernels) != len(probs_kernels):
+        failures.append(f"{len(probs_kernels)} / {len(probs_forced)} router calls recorded")
+    dprob, rerouted, n_tok = 0.0, 0, 0
+    for pk, pf, ek in zip(probs_kernels, probs_forced, experts_kernels):
+        if not (torch.isfinite(pk).all() and torch.isfinite(pf).all()):
+            failures.append("non-finite router probabilities")
+            break
+        dprob = max(dprob, (pk - pf).abs().max().item())
+        own = torch.sort(pf, dim=-1, descending=True, stable=True)[1][:, : ek.shape[1]]
+        rerouted += int((torch.zeros_like(pf, dtype=torch.bool).scatter_(1, own, True)
+                         != torch.zeros_like(pf, dtype=torch.bool).scatter_(1, ek, True)).any(-1).sum())
+        n_tok += ek.shape[0]
+    if not dprob <= prob_tol:
+        failures.append(f"max |router prob diff| {dprob} > {prob_tol}")
+    return failures, dict(stats, dprob=dprob, rerouted=rerouted, tokens=n_tok)
 
 
 def main() -> int:
@@ -177,6 +260,11 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()
     print(smi[0])
     print(f"torch {torch.__version__} cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    sm_clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    print(f"  {n_sms} SMs, highest SM clock {sm_clock_mhz} MHz")
     t0 = time.perf_counter()
     reports = build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f}s for {sorted(reports)} (nvcc in parallel)")
@@ -279,15 +367,20 @@ def main() -> int:
             check(name + " y", y, yr, torch.float32, SCAN_TOL)
             check(name + " h", h, hr, torch.float32, SCAN_TOL)
         torch.cuda.empty_cache()
-    # rows with no live key anywhere must stay finite (finite NEG_INF masking)
+    # rows with no live key anywhere must stay finite (finite NEG_INF masking);
+    # a decode step with every written slot masked weighs them all alike, as
+    # the plain version does when every slot is written
     q, k = rand(1, 128, 4, 32, dtype=torch.bfloat16), rand(1, 32, 2, 32, dtype=torch.bfloat16)
     dead = flash_attention(q, k, k, causal=True, window=16)  # rows >= 47 see no key
     i32 = dict(dtype=torch.int32, device=dev)
-    dead_dec = flash_decode(q[:, :1], k, k, torch.arange(32, **i32)[None].contiguous(),
-                            torch.full((1,), -1, **i32), torch.full((1,), 32, **i32))
+    dead_args = (q[:, :1].contiguous(), k, k, torch.arange(32, **i32)[None].contiguous(),
+                 torch.full((1,), -1, **i32), torch.full((1,), 32, **i32))
+    dead_dec = flash_decode(*dead_args)
     torch.cuda.synchronize()
     if not (torch.isfinite(dead.float()).all() and torch.isfinite(dead_dec.float()).all()):
         fail("fully masked rows produced non-finite output")
+    check("flash_decode with every slot masked by position", dead_dec, ref.reference_decode(*dead_args),
+          torch.bfloat16)
     print("  fully masked rows: finite")
 
     # hash_tree: integer arithmetic mod 2**32, so every comparison is bit-equal
@@ -422,7 +515,8 @@ def main() -> int:
         (the same seed's weights; one dtype's weights at a time). In bf16, an
         MoE model runs the plain versions a second time with ``moe_mod.route``
         returning the kernels run's routing of the same call, so both runs
-        dispatch the same slots and the logits differ by arithmetic alone."""
+        dispatch the same slots and the logits differ by arithmetic alone; that
+        run also records its own router's probabilities, for the gate."""
         moe_mod.route, moe_mod.moe_ffn = recording_route, recording_moe_ffn
         n_moe = sum(s.ffn == "moe" for s in cfg.layout) * cfg.n_groups
         try:
@@ -438,7 +532,12 @@ def main() -> int:
                     drops.clear()
                     if label == "plain, kernels' routing":
                         replay = iter(rec["kernels"][0])
-                        moe_mod.route = lambda p, c, xf: next(replay)
+
+                        def replay_route(p, c, xf):
+                            recording_route(p, c, xf)  # this run's own router, recorded
+                            return next(replay)
+
+                        moe_mod.route = replay_route
                     with torch.inference_mode():
                         state = init_serve_state(model, spec["batch"], max_len, dev)
                         lg, state = prefill(model, params, prompts, state, kernels=kernels)
@@ -493,17 +592,11 @@ def main() -> int:
             n_order += int(((ek != ep).any(-1) & ~flip).sum())
             max_dprob = max(max_dprob, (pk - pp).abs().max().item())
             rerouted[flip.view(batch, -1).any(-1), i // n_moe :] = True
-        row_diff = (runs["kernels"] - runs["plain"]).abs().amax(-1)  # (B, 1 + N_CHECK)
-        diff = row_diff.max().item()
-        mine = runs["kernels"].argmax(-1)
-        agree = runs["plain"].argmax(-1) == mine
-        # where the tokens differ, the plain run's top logit may beat the
-        # kernels' token by at most twice that row's logit difference: a tie within error
-        gap = runs["plain"].amax(-1) - runs["plain"].gather(-1, mine[..., None])[..., 0]
-        near_tie = (~agree) & (gap <= 2 * row_diff)
+        free_failures, st = logit_comparison(runs["kernels"], runs["plain"], LOGIT_TOL[dtype])
+        row_diff = st["row_diff"]
         print(f"  {name} {dtype}: prefill + {N_CHECK} decode steps, kernels vs plain on the card: max |logit diff| "
-              f"{diff:.4e} (tol {LOGIT_TOL[dtype]}); greedy tokens agree {int(agree.sum())}/{agree.numel()}, "
-              f"ties within error {int(near_tie.sum())}")
+              f"{st['diff']:.4e} (tol {LOGIT_TOL[dtype]}); greedy tokens agree {st['agree']}/{st['n']}, "
+              f"ties within error {st['ties']}")
         if n_moe:
             def worst(mask):
                 return f"{row_diff[mask].max().item():.4e}" if mask.any() else "-"
@@ -513,18 +606,27 @@ def main() -> int:
                   f"(row, step) a flip reaches {worst(rerouted)}, on the other {int((~rerouted).sum())} "
                   f"{worst(~rerouted)}; prefill slots dropped (capacity) kernels {sum(dk[:n_moe]) / n_moe:.4%} "
                   f"plain {sum(dp[:n_moe]) / n_moe:.4%}")
-        if diff > LOGIT_TOL[dtype] or not bool((agree | near_tie).all()) or not torch.isfinite(runs["kernels"]).all():
-            disagree(f"{name} {dtype}: greedy tokens or logits through the kernels disagree with the plain versions")
         forced = runs.get("plain, kernels' routing")
-        if forced is not None:
-            # both runs dispatch the same slots: the gap is the kernels' arithmetic
-            fdiff = (runs["kernels"] - forced).abs().max().item()
-            fagree = forced.argmax(-1) == mine
-            print(f"  {name} {dtype}, plain versions on the kernels' routing: max |logit diff| {fdiff:.4e} "
-                  f"(tol {LOGIT_TOL[dtype]}); greedy tokens agree {int(fagree.sum())}/{fagree.numel()}")
-            if fdiff > LOGIT_TOL[dtype] or not torch.isfinite(forced).all():
-                disagree(f"{name} {dtype}: on one routing, logits through the kernels and the plain versions "
-                         f"differ by {fdiff} > {LOGIT_TOL[dtype]}")
+        if forced is None:
+            if free_failures:
+                disagree(f"{name} {dtype}: kernels vs plain versions: {'; '.join(free_failures)}")
+            return
+        # bf16 with a router: near-tied top-k routings flip between the two free
+        # runs on every seed, with exact and inexact moe_gmm alike, so the free
+        # comparison above measures which ties flip. The gate is the run on the
+        # kernels' routing: both dispatch the same slots, the gap is arithmetic.
+        print(f"    the free-routing comparison above does not gate ({'would fail' if free_failures else 'would pass'}):"
+              f" its outcome depends on which near-tied top-k routings flip; the run on the kernels' routing gates")
+        (rf, _) = rec["plain, kernels' routing"]
+        failures, st = forced_routing_gate(
+            runs["kernels"], forced, [r[0] for r in rk], [r[0] for r in rf], [r[2] for r in rk],
+            logit_tol=LOGIT_TOL[dtype], prob_tol=ROUTER_PROB_TOL)
+        print(f"  {name} {dtype}, plain versions on the kernels' routing: max |logit diff| {st['diff']:.4e} "
+              f"(tol {LOGIT_TOL[dtype]}); greedy tokens agree {st['agree']}/{st['n']}, ties within error "
+              f"{st['ties']}; max |router prob diff| {st['dprob']:.4e} (tol {ROUTER_PROB_TOL:.4e}); the plain run's "
+              f"own router would choose another top-k set for {st['rerouted']} of {st['tokens']} tokens")
+        if failures:
+            disagree(f"{name} {dtype}: on the kernels' routing: {'; '.join(failures)}")
 
     from torch.profiler import ProfilerActivity, profile
 
@@ -839,6 +941,14 @@ def main() -> int:
     # xc (bf16) and dt read once, B/C/a/h0 read once, y and h written once
     nbytes = B * L * Di * (es + 4 + 4) + 2 * B * L * N * 4 + Di * N * 4 + 2 * B * Di * N * 4
     b_ms, b_by = bound(nbytes, 7 * B * L * Di * N, "float32")  # exp, 2 mul, 2 fma, mul-add for y
+    # and the B * L * Di * N exponentials, which the special-function units
+    # retire at 16 a clock per SM, at the card's highest SM clock
+    sfu_ms = B * L * Di * N / (SFU_PER_CLOCK * n_sms * sm_clock_mhz * 1e6) * 1e3
+    print(f"  mamba_scan bound at {HYBRID['arch']} prefill: bytes {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms, f32 "
+          f"operations {7 * B * L * Di * N / PEAK_FLOPS['float32'] * 1e3:.4f} ms, {B * L * Di * N} exponentials "
+          f"on {n_sms} SMs x {SFU_PER_CLOCK} a clock at {sm_clock_mhz} MHz {sfu_ms:.4f} ms")
+    if sfu_ms > b_ms:
+        b_ms, b_by = sfu_ms, "operations"
     y, h = mamba_scan(xc, dt, Bm, Cm, a, h0)
     yr, hr = ref.reference_selective_scan(xc, dt, Bm, Cm, a, h0)
     err = max(check(f"mamba_scan at {HYBRID['arch']} prefill shape y", y, yr, torch.float32, SCAN_TOL),

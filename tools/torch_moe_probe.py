@@ -3,16 +3,20 @@
 beside ``chip_smoke.py`` phase 3b (full width, 8 of 32 layers, bf16, batch 4,
 prompt 512; random weights from each seed):
 
-  python3 tools/torch_moe_probe.py [--seeds 0 1 2 ...] [--part routing|timing|both]
+  python3 tools/torch_moe_probe.py [--seeds 0 1 2 ...] [--part routing|timing|both] [--faults]
 
 routing: for each seed, prefill + 8 decode steps through the kernels (greedy),
-  then teacher-forced on those tokens through the plain versions, through the
-  plain versions on the kernels' routing, and through the kernels with
-  ``moe_gmm`` on its FMA route. For the kernels and the FMA run it prints what
-  phase 3b's free-routing comparison prints (top-k sets that differ from the
-  plain run's, max |logit diff| over all compared rows and over the rows no
-  flip reaches) and whether that comparison would pass; for the kernels also
-  the forced-routing difference.
+  then teacher-forced on those tokens through the plain versions and through
+  the kernels with ``moe_gmm`` on its FMA route. For the kernels and the FMA
+  run it prints phase 3b's free-routing comparison (top-k sets that differ
+  from the plain run's, max |logit diff| over all compared rows and over the
+  rows no flip reaches; it does not gate), then phase 3b's gate
+  (``chip_smoke.forced_routing_gate``): the plain versions run on that run's
+  routing, logits within 0.25, greedy tokens equal or tied within error, and
+  every router probability within ``chip_smoke.ROUTER_PROB_TOL``. With
+  ``--faults`` the gate also runs on two planted faults, which live here
+  only: expert 0's ``moe_gmm`` output scaled by 1.05, and one Mamba layer's
+  scan carrying no state from the first half of the prompt into the second.
 timing: ``moe_gmm`` (and the same function as 3 ``torch.bmm`` + ``F.silu``)
   in the served prefill, timed by CUDA events around each call, beside the
   same calls on the captured inputs and on phase 4's random inputs, timed as
@@ -48,9 +52,15 @@ import repro_torch.kernels.moe_gmm as gmm_module  # noqa: E402
 from repro_torch.launch.serve import make_prompts  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.registry import build_model, decode_step, init_serve_state, prefill  # noqa: E402
+from repro_torch.kernels.mamba_scan import mamba_scan  # noqa: E402
+
+sys.path.insert(0, str(ROOT))
+from chip_smoke import LOGIT_TOL as SMOKE_LOGIT_TOL  # noqa: E402
+from chip_smoke import ROUTER_PROB_TOL, forced_routing_gate, logit_comparison  # noqa: E402
 
 BATCH, PROMPT, N_CHECK, N_LAYERS = 4, 512, 8, 8
-LOGIT_TOL = 0.25  # chip_smoke.py's LOGIT_TOL["bfloat16"]
+LOGIT_TOL = SMOKE_LOGIT_TOL["bfloat16"]
+ROUTE = moe_mod.route
 PLAIN = {
     "flash_attention": ref.reference_attention,
     "flash_decode": ref.reference_decode,
@@ -73,6 +83,10 @@ def fma_gmm(x, wg, wu, wd):
         return gmm_module.moe_gmm(x, wg, wu, wd)
     finally:
         gmm_module._route = chosen
+
+
+def fma_gmm_set():
+    return dict(ops.kernel_set(), moe_gmm=fma_gmm)
 
 
 def run_steps(model, params, prompts, kernels, teacher=None):
@@ -111,55 +125,145 @@ def free_comparison(run, plain, routes_run, routes_plain, n_moe):
     return dict(flips=n_flip, rows_reached=int(rerouted.sum()), diff=diff, diff_unreached=other, passes=ok)
 
 
-def routing(seeds, cfg, dev):
+def forced(model, params, prompts, run_routes, teacher, kernels=PLAIN):
+    """``kernels`` (the plain versions by default) teacher-forced on
+    ``teacher``, each MoE call dispatched by ``run_routes`` (the routing a run
+    under test recorded), while this run's own router is recorded too.
+    Returns (logits, this run's own routings)."""
+    replay, own = iter(run_routes), []
+
+    def replay_route(p, c, xf):
+        own.append(ROUTE(p, c, xf))
+        return next(replay)
+
+    moe_mod.route = replay_route
+    try:
+        logits, _ = run_steps(model, params, prompts, kernels, teacher=teacher)
+    finally:
+        moe_mod.route = ROUTE
+    if next(replay, None) is not None:
+        raise RuntimeError("the forced run used fewer routings than the run it replays")
+    return logits, own
+
+
+def gate(run, run_routes, forced_logits, forced_routes):
+    """chip_smoke.py phase 3b's bf16 gate of ``run`` against the plain versions
+    on its routing."""
+    return forced_routing_gate(run, forced_logits, [r[0] for r in run_routes], [r[0] for r in forced_routes],
+                               [r[2] for r in run_routes], logit_tol=LOGIT_TOL, prob_tol=ROUTER_PROB_TOL)
+
+
+def expert_fault(x, wg, wu, wd):
+    """A planted fault: moe_gmm with expert 0's output scaled by 1.05."""
+    out = gmm_module.moe_gmm(x, wg, wu, wd)
+    out[0] *= 1.05
+    return out
+
+
+def carry_fault(n_mamba: int, faulty_call: int):
+    """A planted fault: the ``faulty_call``-th mamba_scan of each prefill (one
+    Mamba layer) scans its second half from a zero state where it should
+    carry the first half's final state as h0. (The served prefill's own h0 is
+    the zero state of a fresh cache, so dropping it would change nothing.)"""
+    calls = [0]
+
+    def scan(xc, dt, Bm, Cm, a, h0=None, chunk_len=256):
+        i = calls[0]
+        calls[0] += 1
+        if i % n_mamba != faulty_call:
+            return mamba_scan(xc, dt, Bm, Cm, a, h0)
+        m = xc.shape[1] // 2
+        half = lambda t, sl: t[:, sl].contiguous()  # noqa: E731
+        y1, _ = mamba_scan(*(half(t, slice(0, m)) for t in (xc, dt, Bm, Cm)), a, h0)
+        y2, h = mamba_scan(*(half(t, slice(m, None)) for t in (xc, dt, Bm, Cm)), a, None)
+        return torch.cat([y1, y2], dim=1), h
+
+    return scan
+
+
+def routing(seeds, cfg, dev, faults: bool):
+    """Phase 3b's comparisons over seeds; its gate is the bf16 run on each
+    run's own routing together with the f32 kernels-vs-plain comparison."""
     routes: list = []
-    route = moe_mod.route
 
     def recording_route(p, c, xf):
-        out = route(p, c, xf)
+        out = ROUTE(p, c, xf)
         routes.append(out)
         return out
 
     n_moe = sum(s.ffn == "moe" for s in cfg.layout) * cfg.n_groups
-    fma_set = dict(ops.kernel_set(), moe_gmm=fma_gmm)
-    summary = {"kernels": 0, "moe_gmm fma": 0}
-    moe_mod.route = recording_route
-    try:
-        for seed in seeds:
-            model = build_model(cfg)
-            params = model.init(seed, dev)
-            prompts = make_prompts(cfg.vocab, BATCH, PROMPT, seed + 1, dev)
-            rec = {}
-            routes.clear()
-            runs = {"kernels": None}
-            runs["kernels"], tokens = run_steps(model, params, prompts, None)
-            rec["kernels"] = list(routes)
-            for label, kernels in (("plain", PLAIN), ("moe_gmm fma", fma_set)):
+    n_mamba = sum(cfg.layout[i % len(cfg.layout)].mixer == "mamba" for i in range(cfg.n_layers))
+    planted = {"expert 0 x1.05": dict(ops.kernel_set(), moe_gmm=expert_fault),
+               "carry dropped": dict(ops.kernel_set(), mamba_scan=carry_fault(n_mamba, n_mamba // 2))
+               } if faults else {}
+    bf16_runs = ("kernels", "moe_gmm fma", *planted)
+    free_passes = {"kernels": 0, "moe_gmm fma": 0}
+    results: dict = {}  # label -> per seed (bf16 gate stats, failures, f32 failures)
+    for seed in seeds:
+        model = build_model(cfg)
+        params = model.init(seed, dev)
+        prompts = make_prompts(cfg.vocab, BATCH, PROMPT, seed + 1, dev)
+        runs, rec = {}, {}
+        moe_mod.route = recording_route
+        try:
+            for label, kernels in (("kernels", None), ("plain", PLAIN), ("moe_gmm fma", fma_gmm_set()),
+                                   *planted.items()):
                 routes.clear()
-                runs[label], _ = run_steps(model, params, prompts, kernels, teacher=tokens)
+                runs[label], fed = run_steps(model, params, prompts, kernels,
+                                             teacher=None if label == "kernels" else tokens)
+                if label == "kernels":
+                    tokens = fed
                 rec[label] = list(routes)
-            replay = iter(rec["kernels"])
-            moe_mod.route = lambda p, c, xf: next(replay)
-            forced, _ = run_steps(model, params, prompts, PLAIN, teacher=tokens)
-            moe_mod.route = recording_route
-            fdiff = (runs["kernels"] - forced).abs().max().item()
-            n_tok = sum(r[2].shape[0] for r in rec["kernels"])
-            for label in ("kernels", "moe_gmm fma"):
-                r = free_comparison(runs[label], runs["plain"], rec[label], rec["plain"], n_moe)
-                summary[label] += r["passes"]
-                extra = f"; on the kernels' routing {fdiff:.4e}" if label == "kernels" else ""
-                print(f"  seed {seed} {label}: {r['flips']} of {n_tok} top-k sets differ from the plain run's, "
-                      f"reaching {r['rows_reached']} of {BATCH * (1 + N_CHECK)} (row, step); max |logit diff| "
-                      f"{r['diff']:.4e}, on the rows no flip reaches {r['diff_unreached']:.4e}{extra}; "
-                      f"free comparison {'passes' if r['passes'] else 'FAILS'}", flush=True)
-            del model, params, runs, forced, rec
-            routes.clear()
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
-    finally:
-        moe_mod.route = route
-    for label, n in summary.items():
+        finally:
+            moe_mod.route = ROUTE
+        n_tok = sum(r[2].shape[0] for r in rec["kernels"])
+        for label in ("kernels", "moe_gmm fma"):
+            r = free_comparison(runs[label], runs["plain"], rec[label], rec["plain"], n_moe)
+            free_passes[label] += r["passes"]
+            print(f"  seed {seed} {label}: {r['flips']} of {n_tok} top-k sets differ from the plain run's, "
+                  f"reaching {r['rows_reached']} of {BATCH * (1 + N_CHECK)} (row, step); max |logit diff| "
+                  f"{r['diff']:.4e}, on the rows no flip reaches {r['diff_unreached']:.4e}; "
+                  f"free comparison {'passes' if r['passes'] else 'FAILS'} (does not gate)", flush=True)
+        bf16 = {}
+        for label in bf16_runs:
+            f_logits, f_routes = forced(model, params, prompts, rec[label], tokens)
+            bf16[label] = gate(runs[label], rec[label], f_logits, f_routes)
+        del model, params, runs, rec, f_logits, f_routes
+        routes.clear()
+        # f32, free routing (no top-k flips in f32): the kernels, and each
+        # planted fault, against the plain versions
+        f32_cfg = dataclasses.replace(cfg, dtype="float32")
+        model = build_model(f32_cfg)
+        params = model.init(seed, dev)
+        f32 = {}
+        plain32, _ = run_steps(model, params, prompts, PLAIN, teacher=tokens)
+        for label, kernels in (("kernels", None), *planted.items()):
+            run32, _ = run_steps(model, params, prompts, kernels, teacher=tokens)
+            f32[label] = logit_comparison(run32, plain32, SMOKE_LOGIT_TOL["float32"])
+        f32["moe_gmm fma"] = f32["kernels"]  # f32 moe_gmm always takes its FMA route
+        del model, params, plain32, run32
+        for label in bf16_runs:
+            (fails, st), (fails32, st32) = bf16[label], f32[label]
+            results.setdefault(label, []).append((st, fails, fails32))
+            print(f"  seed {seed} {label}{' (planted fault)' if label in planted else ''}: bf16 on its routing: "
+                  f"max |logit diff| {st['diff']:.4e}, greedy tokens agree {st['agree']}/{st['n']} (ties "
+                  f"{st['ties']}), max |router prob diff| {st['dprob']:.4e} (tol {ROUTER_PROB_TOL:.4e}), the "
+                  f"plain run's own router would choose another top-k set for {st['rerouted']} of {st['tokens']} "
+                  f"tokens: {'FAILS: ' + '; '.join(fails) if fails else 'passes'}; f32 vs plain: max |logit "
+                  f"diff| {st32['diff']:.4e} (tol {SMOKE_LOGIT_TOL['float32']}): "
+                  f"{'FAILS: ' + '; '.join(fails32) if fails32 else 'passes'}", flush=True)
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    for label, n in free_passes.items():
         print(f"routing: {label}: the free comparison passes for {n} of {len(seeds)} seeds")
+    honest = [st for label in ("kernels", "moe_gmm fma") for st, _, _ in results[label]]
+    print(f"routing: honest bf16 runs ({len(honest)}): max |router prob diff| "
+          f"{min(st['dprob'] for st in honest):.4e} .. {max(st['dprob'] for st in honest):.4e}, max |logit diff| "
+          f"{min(st['diff'] for st in honest):.4e} .. {max(st['diff'] for st in honest):.4e}")
+    for label, per_seed in results.items():
+        print(f"routing: {'planted ' if label in planted else ''}{label}: phase 3b's gate passes for "
+              f"{sum(not f and not f32 for _, f, f32 in per_seed)} of {len(per_seed)} seeds (its bf16 part for "
+              f"{sum(not f for _, f, _ in per_seed)}, its f32 part for {sum(not f32 for _, _, f32 in per_seed)})")
 
 
 class Sampler:
@@ -311,6 +415,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--seeds", type=int, nargs="+", default=list(range(8)))
     ap.add_argument("--part", choices=("routing", "timing", "both"), default="both")
+    ap.add_argument("--faults", action="store_true",
+                    help="also run the two planted faults through the routing part's gate")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true", help="the reduced config (for a rehearsal on the host)")
     args = ap.parse_args()
@@ -325,7 +431,7 @@ def main() -> int:
         print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True).stdout.strip())
     if args.part in ("routing", "both"):
-        routing(args.seeds, cfg, dev)
+        routing(args.seeds, cfg, dev, args.faults)
     if args.part in ("timing", "both"):
         if dev.type != "cuda":
             raise SystemExit("the timing part needs the card")
