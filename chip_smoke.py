@@ -42,7 +42,8 @@ on, so that their numbers are still printed):
      runs ``hash_tree`` (exact launch count), every chash equals the host
      digest of the ``.cpu()`` copy, and a profiled ``content_hash_batch`` of
      the wave copies at most 64 x (32 KiB + 12 B) to the host;
-  4. time each kernel at the shapes of its main path beside its plain
+  4. time each kernel at the shapes of its main path (CUDA events, L2
+     evicted before each launch by a read of 256 MiB) beside its plain
      version, one PyTorch library call that computes the same function (three
      for moe_gmm; none exists for mamba_scan or hash_tree), and its bound;
      each bf16 route's share of outputs equal to the plain version's, and
@@ -238,7 +239,7 @@ def main() -> int:
     from repro_torch.core import hashing
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.flash_decode import flash_decode, split_for
     from repro_torch.kernels.hash_tree import CHUNK_BLOCKS, hash_tree_state
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.moe_gmm import moe_gmm
@@ -797,15 +798,17 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4. time each kernel at the serving shapes -------------------------------
-    print("phase 4: timing at the serving shapes (bf16, L2 flushed before each launch)")
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+    print("phase 4: timing at the serving shapes (bf16, L2 evicted before each launch by reading 256 MiB)")
+    # a read leaves L2 holding clean lines; a write (zero_) would leave dirty
+    # lines for the timed kernel to write back
+    flush = torch.zeros(64 * 2**20, dtype=torch.float32, device=dev)
 
     def time_ms(fn, reps=30, warmup=3):
         for _ in range(warmup):
             fn()
         evs = []
         for _ in range(reps):
-            flush.zero_()
+            flush.sum()
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()
             fn()
@@ -894,7 +897,12 @@ def main() -> int:
             bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(q1t, kt, vt, attn_mask=mask, **gqa)),
             library="scaled_dot_product_attention(boolean mask)",
+            n_split=split_for(q1, k),
         ))
+        eq = equal_share(flash_decode(q1, k, v, kpos, qpos, nval), ref.reference_decode(q1, k, v, kpos, qpos, nval))
+        print(f"  flash_decode at {path} decode: n_split {rows[-1]['n_split']} (clusters of "
+              f"{rows[-1]['n_split']} blocks, {B * KVH * rows[-1]['n_split']} blocks on {n_sms} SMs); outputs "
+              f"equal to the plain version's {eq:.5f}")
 
     attention_rows(cfg, SERVE, launches["flash_attention"], launches["flash_decode"])
     attention_rows(hcfg, HYBRID, hlaunches["flash_attention"], hlaunches["flash_decode"])
@@ -953,6 +961,8 @@ def main() -> int:
     yr, hr = ref.reference_selective_scan(xc, dt, Bm, Cm, a, h0)
     err = max(check(f"mamba_scan at {HYBRID['arch']} prefill shape y", y, yr, torch.float32, SCAN_TOL),
               check(f"mamba_scan at {HYBRID['arch']} prefill shape h", h, hr, torch.float32, SCAN_TOL))
+    print(f"  mamba_scan at {HYBRID['arch']} prefill: outputs equal to the plain version's: y "
+          f"{equal_share(y, yr):.5f}, h {equal_share(h, hr):.5f}")
     rows.append(dict(
         name="mamba_scan", path=f"{HYBRID['arch']} prefill", route="cuda",
         source="src/repro_torch/kernels/csrc/mamba_scan.cu",

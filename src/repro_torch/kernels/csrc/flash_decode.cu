@@ -8,39 +8,61 @@
 //
 // What bounds it on this card: bytes. At the serving shapes (stablelm-1.6b,
 // B 4, 32 KV heads, Dh 64, ~528 valid slots, bf16) it must read ~17 MB of
-// K/V and does ~17 MFLOP: one FLOP per byte, far under the break-even.
+// K/V and does ~17 MFLOP: one FLOP per byte, far under the break-even. A
+// decode step has only B * KVH = 128 (stablelm) or 32 (jamba) (batch, KV head)
+// pairs, fewer than two per SM, so one block per pair leaves the card idle.
 //
 // What the design does about it:
-//   * One thread block per (batch x KV head). The gq query rows of that KV
-//     head stay in registers, so each K/V slot is read from device memory
-//     exactly once for all of them; slots at or past n_valid are never read.
+//   * The KV axis is split over the n_split blocks of a thread-block cluster:
+//     grid B * KVH * n_split, cluster dims (n_split, 1, 1). Block j of the
+//     cluster of (batch b, KV head h) takes the j-th contiguous chunk of
+//     ceil(n / n_split) slots of the n = min(n_valid[b], S) written ones.
+//     The host picks n_split so that the grid stays inside one wave of
+//     resident blocks (flash_decode_blocks_per_sm); past one wave every
+//     extra wave cost ~4.5 us at stablelm's decode shape.
+//   * Each of a block's 8 warps takes a contiguous run of the block's slots
+//     and carries its own online-softmax state (m, l, acc in f32) for all gq
+//     query rows of the KV head, which stay in registers, so each K/V slot is
+//     read from device memory exactly once for all of them; slots at or past
+//     n_valid are never read.
 //   * Every load is 16 bytes a lane, and the lanes of a slot group cover one
 //     slot's contiguous head-dim run (Dh * sizeof(T) bytes), so a warp reads
 //     several whole slots per instruction; each lane issues its K and V loads
-//     for U slots before it uses any of them, to keep bytes in flight.
-//   * Each warp carries its own online-softmax state (m, l, acc in f32) over
-//     its slots, with no block-wide barrier in the loop; the block's warps
-//     merge their states once at the end, through shared memory.
-// Splitting one (batch, KV head)'s slots over several blocks, which a long
-// cache needs to fill the card, is not done yet.
+//     for U slots before it uses any of them, to keep bytes in flight (staging
+//     them in shared memory with cp.async, more slots in flight, measured no
+//     faster).
+//   * One launch: the warps merge into the block's state in shared memory;
+//     after cluster.sync() every block reads the cluster's (m, l, acc)
+//     through distributed shared memory and merges its slice of the outputs.
+//     A second cluster.sync() keeps every block's shared memory alive until
+//     the others have read it. No global scratch, no second launch.
 //
 // Masking keeps the reference's finite NEG_INF = -2e38: a fully masked slot
 // gives p = exp(0) only while the running max is still NEG_INF, and the first
 // live slot cancels it through corr = exp(m_prev - m_new) = 0; with -inf this
-// would be NaN. In bf16, P is rounded to v's dtype before P.V, as the Pallas
-// kernel does.
+// would be NaN. Every merge (warps, then blocks) weights a state by
+// exp(m_j - M) and special-cases nothing: an empty chunk publishes
+// m = NEG_INF, l = 0, acc = 0 and adds nothing; a chunk whose slots are all
+// masked by position publishes m = NEG_INF with l = its slot count, which
+// weighs 0 beside a live chunk and 1 when every chunk is masked, as the
+// single pass over all slots would. In bf16, P is rounded to v's dtype before
+// P.V, as the Pallas kernel does.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "common.cuh"
 
+namespace cg = cooperative_groups;
+
 namespace {
 
 constexpr int WARPS = 8;
 constexpr int THREADS = WARPS * 32;
-constexpr int MAX_G = 8;  // query heads per KV head (must match flash_decode.py)
+constexpr int MAX_G = 8;       // query heads per KV head (must match flash_decode.py)
+constexpr int MAX_SPLIT = 8;   // blocks per cluster: the portable cluster size
 
 // 16 bytes of T, widened to f32
 __device__ __forceinline__ void widen(const uint4& raw, float (&f)[4], float) {
@@ -62,18 +84,23 @@ __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ k_pos, const int* __restrict__ q_pos,
                     const int* __restrict__ n_valid, T* __restrict__ o,
-                    int S, int H, int KVH, int window, float scale) {
+                    int S, int H, int KVH, int window, float scale, int n_split) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int LPS = DH / VEC;        // lanes per slot
   constexpr int SPW = 32 / LPS;        // slots per warp per load
-  constexpr int U = G <= 2 ? 4 : 2;    // loads in flight per lane, per tensor
+  constexpr int U = G <= 1 ? 8 : (G <= 2 ? 4 : 2);  // loads in flight per lane, per tensor
   constexpr int STEP = SPW * U;        // slots per warp per iteration
   static_assert(LPS >= 1 && LPS <= 32 && 32 % LPS == 0, "head dim vs 16-byte lanes");
 
   __shared__ float sm_m[WARPS][G], sm_l[WARPS][G];
   __shared__ __align__(16) float sm_acc[WARPS][G][DH];
+  __shared__ float blk_m[G], blk_l[G];  // the block's merged state, read by the cluster
+  __shared__ __align__(16) float blk_acc[G][DH];
 
-  const int b = blockIdx.x / KVH, kvh = blockIdx.x % KVH;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int split = static_cast<int>(cluster.block_rank());
+  const int bh = blockIdx.x / n_split;
+  const int b = bh / KVH, kvh = bh % KVH;
   const int gq = H / KVH;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int grp = lane / LPS, li = lane % LPS;
@@ -91,29 +118,31 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     l[g] = 0.f;
   }
 
+  // this block's chunk of the written slots, then this warp's run of it
   const int n_lim = max(0, min(n_valid[b], S));
+  const int chunk = (n_lim + n_split - 1) / n_split;
+  const int lo_b = min(n_lim, split * chunk), hi_b = min(n_lim, lo_b + chunk);
+  const int per = (hi_b - lo_b + WARPS - 1) / WARPS;
+  const int lo = min(hi_b, lo_b + warp * per), hi = min(hi_b, lo + per);
+
   const int qp = q_pos[b];
   const int64_t slot_stride = (int64_t)KVH * DH;
   const T* kb = k + ((int64_t)b * S * KVH + kvh) * DH + li * VEC;
   const T* vb = v + ((int64_t)b * S * KVH + kvh) * DH + li * VEC;
   const int* pb = k_pos + (int64_t)b * S;
 
-  for (int base = warp * STEP; base < n_lim; base += WARPS * STEP) {
-    uint4 kr[U], vr[U];
+  // one online-softmax update over U slot groups (zeros where !in)
+  auto consume = [&](const uint4 (&kr)[U], const uint4 (&vr)[U], const int (&slot)[U],
+                     const bool (&in)[U]) {
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      const int slot = base + u * SPW + grp;
-      ok[u] = slot < n_lim;
-      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
-      if (ok[u]) {
-        kr[u] = *reinterpret_cast<const uint4*>(kb + slot * slot_stride);
-        vr[u] = *reinterpret_cast<const uint4*>(vb + slot * slot_stride);
-        const int kp = pb[slot];
+      ok[u] = false;
+      if (in[u]) {
+        const int kp = pb[slot[u]];
         ok[u] = kp <= qp && (window <= 0 || kp > qp - window);
       }
     }
-
     float s[U][G];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -129,12 +158,12 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         s[u][g] = ok[u] ? part * scale : NEG_INF;
       }
     }
-
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      float mx = s[0][g];
+      // slot groups past the run take no part: -inf scores give p = 0 here
+      float mx = -INFINITY;
 #pragma unroll
-      for (int u = 1; u < U; ++u) mx = fmaxf(mx, s[u][g]);
+      for (int u = 0; u < U; ++u) mx = in[u] ? fmaxf(mx, s[u][g]) : mx;
 #pragma unroll
       for (int off = LPS; off < 32; off *= 2) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
       const float m_new = fmaxf(m[g], mx);
@@ -142,7 +171,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       float ps = 0.f;
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        s[u][g] = expf(s[u][g] - m_new);
+        s[u][g] = in[u] ? expf(s[u][g] - m_new) : 0.f;
         ps += s[u][g];
       }
 #pragma unroll
@@ -152,7 +181,6 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int e = 0; e < VEC; ++e) acc[g][e] *= corr;
     }
-
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       float vf[VEC];
@@ -164,6 +192,23 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
         for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
       }
     }
+  };
+
+  for (int base = lo; base < hi; base += STEP) {
+    uint4 kr[U], vr[U];
+    int slot[U];
+    bool in[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      slot[u] = base + u * SPW + grp;
+      in[u] = slot[u] < hi;
+      kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (in[u]) {
+        kr[u] = *reinterpret_cast<const uint4*>(kb + slot[u] * slot_stride);
+        vr[u] = *reinterpret_cast<const uint4*>(vb + slot[u] * slot_stride);
+      }
+    }
+    consume(kr, vr, slot, in);
   }
 
   // merge the slot groups of this warp (same dims, same running max)
@@ -187,7 +232,7 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
   __syncthreads();
 
-  // merge the warps
+  // merge the warps into the block's state
   for (int idx = threadIdx.x; idx < gq * DH; idx += THREADS) {
     const int g = idx / DH, d = idx % DH;
     float M = NEG_INF;
@@ -200,62 +245,122 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       L = fmaf(sm_l[w][g], c, L);
       A = fmaf(sm_acc[w][g][d], c, A);
     }
+    blk_acc[g][d] = A;
+    if (d == 0) {
+      blk_m[g] = M;
+      blk_l[g] = L;
+    }
+  }
+  cluster.sync();  // every block's state is visible to the cluster
+
+  // merge the cluster's blocks through distributed shared memory, each
+  // block a slice of the outputs (block 0 alone measured ~1 us slower)
+  for (int idx = split * THREADS + threadIdx.x; idx < gq * DH; idx += n_split * THREADS) {
+    const int g = idx / DH, d = idx % DH;
+    float M = NEG_INF;
+    for (int r = 0; r < n_split; ++r) M = fmaxf(M, cluster.map_shared_rank(&blk_m[0], r)[g]);
+    float L = 0.f, A = 0.f;
+    for (int r = 0; r < n_split; ++r) {
+      const float c = expf(cluster.map_shared_rank(&blk_m[0], r)[g] - M);
+      L = fmaf(cluster.map_shared_rank(&blk_l[0], r)[g], c, L);
+      A = fmaf(cluster.map_shared_rank(&blk_acc[0][0], r)[g * DH + d], c, A);
+    }
     o[((int64_t)b * H + kvh * gq + g) * DH + d] = from_f<T>(A / fmaxf(L, 1e-37f));
   }
+  cluster.sync();  // no block leaves while another may still read its shared memory
 }
 
 template <typename T, int DH, int G>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* kp, const int* qp,
                    const int* nv, void* o, int B, int S, int H, int KVH, int window, float scale,
-                   cudaStream_t stream) {
-  flash_decode_kernel<T, DH, G><<<B * KVH, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kp, qp, nv,
-      static_cast<T*>(o), S, H, KVH, window, scale);
-  return cudaGetLastError();
+                   int n_split, cudaStream_t stream) {
+  auto kern = flash_decode_kernel<T, DH, G>;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * KVH * n_split);
+  cfg.blockDim = dim3(THREADS);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kp,
+      qp, nv, static_cast<T*>(o), S, H, KVH, window, scale, n_split);
+  return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+template <typename T, int DH, int G>
+cudaError_t resident(int* blocks) {
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_decode_kernel<T, DH, G>, THREADS, 0);
+}
+
+// one entry per (dtype, head dim, G): launch, or with blocks != null report
+// how many blocks of that kernel an SM holds
 template <typename T, int DH>
 cudaError_t dispatch_g(const void* q, const void* k, const void* v, const int* kp,
                        const int* qp, const int* nv, void* o, int B, int S, int H, int KVH,
-                       int window, float scale, cudaStream_t s) {
+                       int window, float scale, int n_split, int* blocks, cudaStream_t s) {
   const int gq = H / KVH;
-  if (gq <= 1) return launch<T, DH, 1>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
-  if (gq <= 2) return launch<T, DH, 2>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
-  if (gq <= 4) return launch<T, DH, 4>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
-  return launch<T, DH, 8>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
+#define FD_CASE(GG)                                                                            \
+  return blocks ? resident<T, DH, GG>(blocks)                                                  \
+                : launch<T, DH, GG>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, n_split, s)
+  if (gq <= 1) FD_CASE(1);
+  if (gq <= 2) FD_CASE(2);
+  if (gq <= 4) FD_CASE(4);
+  FD_CASE(8);
+#undef FD_CASE
 }
 
 template <typename T>
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const int* kp,
                         const int* qp, const int* nv, void* o, int B, int S, int H, int KVH,
-                        int Dh, int window, float scale, cudaStream_t s) {
+                        int Dh, int window, float scale, int n_split, int* blocks, cudaStream_t s) {
   switch (Dh) {
-    case 16: return dispatch_g<T, 16>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
-    case 32: return dispatch_g<T, 32>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
-    case 64: return dispatch_g<T, 64>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
-    case 128: return dispatch_g<T, 128>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, s);
+    case 16: return dispatch_g<T, 16>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, n_split, blocks, s);
+    case 32: return dispatch_g<T, 32>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, n_split, blocks, s);
+    case 64: return dispatch_g<T, 64>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, n_split, blocks, s);
+    case 128: return dispatch_g<T, 128>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, n_split, blocks, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; n_split: blocks per (batch, KV head), in
+// one cluster (1..8). Returns the launch's cudaError_t.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, const void* k_pos,
                                 const void* q_pos, const void* n_valid, void* o, int dtype,
                                 int B, int S, int H, int KVH, int Dh, int window, float scale,
-                                void* stream) {
+                                int n_split, void* stream) {
   if (B <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0 || H / KVH > MAX_G)
     return (int)cudaErrorInvalidValue;
-  if ((int64_t)B * KVH > 2147483647LL) return (int)cudaErrorInvalidValue;
+  if (n_split < 1 || n_split > MAX_SPLIT) return (int)cudaErrorInvalidValue;
+  if ((int64_t)B * KVH * n_split > 2147483647LL) return (int)cudaErrorInvalidValue;
   const int* kp = static_cast<const int*>(k_pos);
   const int* qp = static_cast<const int*>(q_pos);
   const int* nv = static_cast<const int*>(n_valid);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_dh<float>(q, k, v, kp, qp, nv, o, B, S, H, KVH, Dh, window, scale, s);
+    return (int)dispatch_dh<float>(q, k, v, kp, qp, nv, o, B, S, H, KVH, Dh, window, scale,
+                                   n_split, nullptr, s);
   if (dtype == 1)
     return (int)dispatch_dh<__nv_bfloat16>(q, k, v, kp, qp, nv, o, B, S, H, KVH, Dh, window,
-                                           scale, s);
+                                           scale, n_split, nullptr, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of the kernel for (dtype, Dh, gq) that one SM holds at once, into
+// *blocks. Returns a cudaError_t.
+extern "C" int flash_decode_blocks_per_sm(int dtype, int Dh, int gq, int* blocks) {
+  if (gq < 1 || gq > MAX_G) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)dispatch_dh<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1,
+                                   1, gq, 1, Dh, 0, 1.f, 1, blocks, nullptr);
+  if (dtype == 1)
+    return (int)dispatch_dh<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                           nullptr, 1, 1, gq, 1, Dh, 0, 1.f, 1, blocks, nullptr);
   return (int)cudaErrorInvalidValue;
 }

@@ -8,24 +8,33 @@
 // an optional h0 (B, Di, N), all f32. Writes y (B, L, Di) f32 and the final
 // h (B, Di, N) f32.
 //
-// What bounds it on this card: bytes. At the prefill shape of jamba-v0.1-52b
-// (B 4, L 512, Di 8192, N 16) it must read xc (bf16) and dt (f32) and write
-// y (f32), ~172 MB, against ~2e9 f32 operations.
+// What bounds it on this card: the special-function unit, then bytes. At the
+// prefill shape of jamba-v0.1-52b (B 4, L 512, Di 8192, N 16) it must read xc
+// (bf16) and dt (f32) and write y (f32), ~172 MB (0.052 ms at 3.35 TB/s), and
+// take B * L * Di * N = 2.7e8 exponentials, which sm_90 retires at 16 a clock
+// per SM (~0.064 ms at 1980 MHz); ~2e9 f32 operations are below both.
 //
 // What the design does:
-//   * N lanes of a warp own one (batch, channel) pair: lane n keeps h[n] in a
-//     register for the whole sequence, so the (B, L, Di, N) discretised
-//     tensors never exist, as in the Pallas kernel.
+//   * One thread per (batch, channel), with all N states h[n] and A[d, n] in
+//     its registers, so the (B, L, Di, N) discretised tensors never exist, as
+//     in the Pallas kernel. Consecutive threads own consecutive channels: a
+//     warp's reads of dt and xc and its writes of y are whole 128-byte lines
+//     a step, and y_t is a sum inside the thread, with no shuffles.
+//   * B_t and C_t are the same for every thread of a batch row: a block (one
+//     batch row, CH channels) stages them in shared memory, T steps at a
+//     time, double-buffered with cp.async, and reads them as broadcasts.
+//   * Each thread loads dt and xc for the next U steps while it computes the
+//     current U, to keep bytes in flight across the recurrence; the N
+//     exponentials of a step are independent, so they fill the pipelines.
+//     A step past L reads dt = x = 0 and zero B, which leaves h as it is, so
+//     the steps carry no branch (a branch a step cut the compiler's schedule
+//     to one step: 0.23 ms against 0.19 without).
+//   * exp(dt * A) is exp2(dt * A * log2(e)) by ex2.approx.ftz, one MUFU.EX2
+//     each, with A's factor taken once per thread; within 1e-4 of the plain
+//     version over L (a result below 2^-126 flushes to 0, as it would round).
 //   * One loop over all L steps inside the block. The Pallas kernel's chunk
-//     grid axis exists only because TPU grid axes run in order; here the loop
-//     does the same work, so there is no chunking and no padding: ragged L
-//     and ragged Di are bounds checks.
-//   * Each lane loads the inputs of U steps before it uses any of them, to
-//     keep loads in flight across the dependent recurrence.
-//   * y_t is the sum of the N lanes' h[n] * C_t[n], finished with shuffles
-//     inside the lane group; one lane writes it.
-// expf (not __expf) keeps f32 within 1e-4 of the plain version. This is the
-// simple, right first kernel; coalescing dt/x across channels is later work.
+//     grid axis exists only because TPU grid axes run in order; ragged L,
+//     ragged Di and every N in {4, 8, 16, 32} are bounds checks, not padding.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -35,83 +44,155 @@
 
 namespace {
 
-constexpr int THREADS = 256;
-constexpr int U = 8;  // time steps loaded ahead
+constexpr int CH = 128;  // channels (threads) per block
+constexpr int T = 32;    // steps of B and C staged per chunk
+constexpr int U = 8;     // steps of dt and xc loaded ahead, per thread
+static_assert(T % U == 0, "the staged chunk holds whole load groups");
 
-template <typename T, int N>
-__global__ void __launch_bounds__(THREADS)
-mamba_scan_kernel(const T* __restrict__ xc, const float* __restrict__ dt,
+// 16 bytes from global to shared memory; src_bytes 0 writes 16 zero bytes
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
+}
+
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+template <typename T_, int N>
+__global__ void __launch_bounds__(CH)
+mamba_scan_kernel(const T_* __restrict__ xc, const float* __restrict__ dt,
                   const float* __restrict__ Bm, const float* __restrict__ Cm,
                   const float* __restrict__ A, const float* __restrict__ h0,
                   float* __restrict__ y, float* __restrict__ h_out, int L, int Di) {
-  constexpr int CPW = 32 / N;                  // channels per warp
-  constexpr int CPB = (THREADS / 32) * CPW;    // channels per block
+  __shared__ __align__(16) float sB[2][T][N];
+  __shared__ __align__(16) float sC[2][T][N];
+  constexpr int PIECES = T * N / 4;  // 16-byte pieces of one tensor's chunk
+
   const int b = blockIdx.y;
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int n = lane % N;
-  const int d = blockIdx.x * CPB + warp * CPW + lane / N;
-  const bool live = d < Di;  // the same for all N lanes of a group
-
-  const float an = live ? A[(int64_t)d * N + n] : 0.f;
-  float h = (live && h0 != nullptr) ? h0[((int64_t)b * Di + d) * N + n] : 0.f;
+  const int d = blockIdx.x * CH + threadIdx.x;
+  const bool live = d < Di;
   const int64_t row0 = (int64_t)b * L;  // index of (b, t = 0) in the (B, L) rows
+  // this thread's column; step t is t * Di further (L * Di < 2^31, checked)
+  const float* dtp = dt + row0 * Di + d;
+  const T_* xp = xc + row0 * Di + d;
+  float* yp = y + row0 * Di + d;
+  const float* bp = Bm + row0 * N;
+  const float* cp = Cm + row0 * N;
 
-  for (int t0 = 0; t0 < L; t0 += U) {
-    float dtv[U], xv[U], bv[U], cv[U];
+  float a2[N], h[N];
 #pragma unroll
-    for (int u = 0; u < U; ++u) {
-      const int64_t r = row0 + t0 + u;
-      const bool in = t0 + u < L;
-      dtv[u] = (in && live) ? dt[r * Di + d] : 0.f;
-      xv[u] = (in && live) ? to_f(xc[r * Di + d]) : 0.f;
-      bv[u] = in ? Bm[r * N + n] : 0.f;
-      cv[u] = in ? Cm[r * N + n] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < U; ++u) {
-      if (t0 + u >= L) break;  // uniform across the block
-      h = expf(dtv[u] * an) * h + (dtv[u] * xv[u]) * bv[u];
-      float p = h * cv[u];
-#pragma unroll
-      for (int off = N / 2; off > 0; off /= 2) p += __shfl_xor_sync(0xffffffffu, p, off);
-      if (live && n == 0) y[(row0 + t0 + u) * Di + d] = p;
-    }
+  for (int n = 0; n < N; ++n) {
+    a2[n] = live ? A[(int64_t)d * N + n] * 1.4426950408889634f : 0.f;  // exp(x) = exp2(x log2 e)
+    h[n] = (live && h0 != nullptr) ? h0[((int64_t)b * Di + d) * N + n] : 0.f;
   }
-  if (live) h_out[((int64_t)b * Di + d) * N + n] = h;
+
+  // stage steps [t0, t0 + T) of B and C; rows past L are zeros
+  auto stage = [&](int buf, int t0) {
+    const int rows = min(T, L - t0);
+    for (int i = threadIdx.x; i < 2 * PIECES; i += CH) {
+      const int piece = i % PIECES;
+      const bool in = piece / (N / 4) < rows;
+      const float* src = (i < PIECES ? bp : cp) + (int64_t)t0 * N + (in ? piece * 4 : 0);
+      float* dst = (i < PIECES ? &sB[buf][0][0] : &sC[buf][0][0]) + piece * 4;
+      cp_async16(dst, src, in ? 16 : 0);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  };
+  // dt and xc of steps [t0, t0 + U); zeros past L, where a step leaves h as
+  // it is: exp2(0 * A) = 1 and dt * x = 0
+  auto load = [&](float (&dv)[U], float (&xv)[U], int t0) {
+    int off = t0 * Di;
+#pragma unroll
+    for (int u = 0; u < U; ++u, off += Di) {
+      const bool in = live && t0 + u < L;
+      dv[u] = in ? dtp[off] : 0.f;
+      xv[u] = in ? to_f(xp[off]) : 0.f;
+    }
+  };
+
+  float dn[U], xn[U];
+  stage(0, 0);
+  load(dn, xn, 0);
+  for (int c = 0; c * T < L; ++c) {
+    const int t0 = c * T, buf = c & 1;
+    if (t0 + T < L) {
+      stage(buf ^ 1, t0 + T);
+    } else {
+      asm volatile("cp.async.commit_group;\n" ::);  // an empty group keeps the count
+    }
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // this chunk's copies are in
+    __syncthreads();
+    for (int s = 0; s < T && t0 + s < L; s += U) {
+      float dv[U], xv[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        dv[u] = dn[u];
+        xv[u] = xn[u];
+      }
+      load(dn, xn, t0 + s + U);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {  // no branch: steps past L change nothing
+        const float bx = dv[u] * xv[u];
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};  // 4 sums: a short dependent chain
+#pragma unroll
+        for (int n = 0; n < N; n += 4) {
+          const float4 bq = *reinterpret_cast<const float4*>(&sB[buf][s + u][n]);
+          const float4 cq = *reinterpret_cast<const float4*>(&sC[buf][s + u][n]);
+          const float bb[4] = {bq.x, bq.y, bq.z, bq.w}, cc[4] = {cq.x, cq.y, cq.z, cq.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            h[n + i] = fmaf(ex2_ftz(dv[u] * a2[n + i]), h[n + i], bx * bb[i]);
+            acc[i] = fmaf(h[n + i], cc[i], acc[i]);
+          }
+        }
+        if (live && t0 + s + u < L) yp[(t0 + s + u) * Di] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+      }
+    }
+    __syncthreads();  // every thread is done with this buffer before it is staged again
+  }
+  if (live) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) h_out[((int64_t)b * Di + d) * N + n] = h[n];
+  }
 }
 
-template <typename T, int N>
+template <typename T_, int N>
 cudaError_t launch(const void* xc, const float* dt, const float* Bm, const float* Cm,
                    const float* A, const float* h0, float* y, float* h_out, int B, int L,
                    int Di, cudaStream_t stream) {
-  constexpr int CPB = (THREADS / 32) * (32 / N);
-  dim3 grid((Di + CPB - 1) / CPB, B);
-  mamba_scan_kernel<T, N><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(xc), dt, Bm, Cm, A, h0, y, h_out, L, Di);
+  dim3 grid((Di + CH - 1) / CH, B);
+  mamba_scan_kernel<T_, N><<<grid, CH, 0, stream>>>(
+      static_cast<const T_*>(xc), dt, Bm, Cm, A, h0, y, h_out, L, Di);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T_>
 cudaError_t dispatch_n(const void* xc, const float* dt, const float* Bm, const float* Cm,
                        const float* A, const float* h0, float* y, float* h_out, int B, int L,
                        int Di, int N, cudaStream_t s) {
   switch (N) {
-    case 4: return launch<T, 4>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, s);
-    case 8: return launch<T, 8>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, s);
-    case 16: return launch<T, 16>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, s);
-    case 32: return launch<T, 32>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, s);
+    case 4: return launch<T_, 4>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, s);
+    case 8: return launch<T_, 8>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, s);
+    case 16: return launch<T_, 16>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, s);
+    case 32: return launch<T_, 32>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// dtype (of xc): 0 = float32, 1 = bfloat16; h0 may be null (zero state).
-// Returns the launch's cudaError_t.
+// dtype (of xc): 0 = float32, 1 = bfloat16; h0 may be null (zero state). Bm and
+// Cm must be 16-byte aligned (cp.async). Returns the launch's cudaError_t.
 extern "C" int mamba_scan_fwd(const void* xc, const void* dt, const void* Bm, const void* Cm,
                               const void* A, const void* h0, void* y, void* h_out, int dtype,
                               int B, int L, int Di, int N, void* stream) {
   if (B <= 0 || L <= 0 || Di <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
+  if ((int64_t)(L + 2 * U) * Di > 2147483647LL) return (int)cudaErrorInvalidValue;  // 32-bit step offsets
+  if (reinterpret_cast<uintptr_t>(Bm) % 16 || reinterpret_cast<uintptr_t>(Cm) % 16)
+    return (int)cudaErrorMisalignedAddress;
   const float* f[5] = {static_cast<const float*>(dt), static_cast<const float*>(Bm),
                        static_cast<const float*>(Cm), static_cast<const float*>(A),
                        static_cast<const float*>(h0)};

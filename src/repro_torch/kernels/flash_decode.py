@@ -1,10 +1,13 @@
 """Flash decoding: single-token GQA attention against a KV cache, for Hopper.
 
 Port of ``repro.kernels.flash_decode`` (Pallas). The kernel is hand-written
-CUDA C++ in ``csrc/flash_decode.cu``: one thread block per (batch x KV head)
-keeps the ``gq`` query rows of that KV head resident while its warps stream
-the cache's K/V once, each warp carrying its own online-softmax state over
-its slots; the warps' states are merged at the end. Masking is by position,
+CUDA C++ in ``csrc/flash_decode.cu``: the written slots of each (batch x KV
+head) are split into ``n_split`` contiguous chunks, one per block of a
+thread-block cluster; each block keeps the ``gq`` query rows of that KV head
+resident while its warps stream their slots' K/V once, each warp carrying its
+own online-softmax state; the warps' states merge in the block, and the
+cluster's blocks merge through distributed shared memory, each writing a
+slice of the output, all in one launch. Masking is by position,
 as in ``repro.models.attention._cached_attention``: slot ``s`` of batch row
 ``b`` is attended iff ``s < n_valid[b]``, ``k_pos[b, s] <= q_pos[b]`` and,
 with a window, ``k_pos[b, s] > q_pos[b] - window``. The kernel reads no
@@ -18,6 +21,8 @@ For tensors on the CPU the wrapper computes the plain version
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Optional
 
 import torch
 
@@ -26,6 +31,9 @@ from .ref import reference_decode
 
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GQ = 8  # query heads per KV head held in registers
+MAX_SPLIT = 8  # blocks per cluster: the portable cluster size of sm_90
+MIN_SPLIT_SLOTS = 64  # no chunk of fewer cache slots than this: 8 a warp
+WAVE_SHARE = 0.75  # of the card's resident blocks one launch may take
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -33,9 +41,37 @@ def _fn():
     lib = build.load("flash_decode")
     fn = lib.flash_decode_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _resident(index: int, dtype: int, Dh: int, gq: int) -> int:
+    """SMs of card ``index`` times the blocks of the kernel for (dtype, Dh,
+    gq) that one SM holds."""
+    fn = build.load("flash_decode").flash_decode_blocks_per_sm
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = fn(dtype, Dh, gq, ctypes.byref(blocks))
+    if rc != 0 or blocks.value < 1:
+        raise RuntimeError(f"flash_decode occupancy query failed: cudaError_t {rc}, {blocks.value} blocks")
+    return blocks.value * torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def pick_split(pairs: int, S: int, resident: int) -> int:
+    """Blocks per (batch, KV head), for ``pairs`` (batch, KV head) pairs, an
+    S-slot cache and a card that holds ``resident`` blocks at once: as many
+    as keep the grid within ``WAVE_SHARE`` of one wave (on an H100 at
+    jamba's decode shape 6 a pair, 192 blocks, ran faster than 8, 256, and
+    each wave past the first cost more than it saved), with at least
+    ``MIN_SPLIT_SLOTS`` slots a chunk, up to ``MAX_SPLIT``."""
+    n = max(1, min(MAX_SPLIT, int(WAVE_SHARE * resident) // pairs))
+    while n > 1 and S // n < MIN_SPLIT_SLOTS:
+        n -= 1
+    return n
 
 
 def _check_inputs(q, k, v, k_pos, q_pos, n_valid, window: int):
@@ -72,9 +108,14 @@ def flash_decode(
     n_valid: torch.Tensor,  # (B,) int32 number of written slots
     *,
     window: int = 0,
+    n_split: Optional[int] = None,
 ) -> torch.Tensor:
-    """Returns (B, 1, H, Dh) in q's dtype."""
+    """Returns (B, 1, H, Dh) in q's dtype. ``n_split`` (blocks per batch row
+    and KV head, 1..8) defaults to ``pick_split``'s choice for the card
+    (``split_for``); ``tools/torch_kernel_probe.py`` sets it to time each."""
     _check_inputs(q, k, v, k_pos, q_pos, n_valid, window)
+    if n_split is not None and not 1 <= n_split <= MAX_SPLIT:
+        raise ValueError(f"n_split {n_split} not in 1..{MAX_SPLIT}")
     if q.device.type == "cpu":
         return reference_decode(q, k, v, k_pos, q_pos, n_valid, window=window)
     if q.device.type != "cuda":
@@ -85,18 +126,28 @@ def flash_decode(
         raise ValueError("flash_decode: k and v must be 16-byte aligned (16-byte loads)")
     B, _, H, Dh = q.shape
     S, KVH = k.shape[1], k.shape[2]
+    if n_split is None:
+        n_split = split_for(q, k)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pos.data_ptr(), q_pos.data_ptr(),
             n_valid.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, S, H, KVH, Dh, int(window), Dh**-0.5, stream,
+            _DTYPES[q.dtype], B, S, H, KVH, Dh, int(window), Dh**-0.5, n_split, stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError_t {rc}")
     flash_decode.launches += 1
     return out
+
+
+def split_for(q: torch.Tensor, k: torch.Tensor) -> int:
+    """The ``n_split`` that ``flash_decode`` picks for these CUDA tensors."""
+    B, _, H, Dh = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
+    return pick_split(B * KVH, S, _resident(index, _DTYPES[q.dtype], Dh, H // KVH))
 
 
 flash_decode.launches = 0

@@ -1,12 +1,14 @@
 """Mamba-1 selective scan, for Hopper.
 
 Port of ``repro.kernels.mamba_scan`` (Pallas). The kernel is hand-written
-CUDA C++ in ``csrc/mamba_scan.cu``: N lanes of a warp own one (batch,
-channel) pair, each holding one state element ``h[n]`` in a register through
-one loop over all L steps; ``y_t`` is finished with shuffles over the N lanes.
-The Pallas kernel's chunk grid exists only because TPU grid axes run in
-order, so ``chunk_len`` is accepted, for the reference's signature, and
-ignored: ragged L and ragged Di are bounds checks in the kernel, not padding.
+CUDA C++ in ``csrc/mamba_scan.cu``: one thread owns one (batch, channel)
+pair and holds all N state elements ``h[n]`` in registers through one loop
+over all L steps, consecutive threads on consecutive channels (whole lines of
+``dt``, ``xc`` and ``y`` a warp and step); ``B_t`` and ``C_t``, shared by a
+batch row's threads, are staged in shared memory with ``cp.async``. The Pallas
+kernel's chunk grid exists only because TPU grid axes run in order, so
+``chunk_len`` is accepted, for the reference's signature, and ignored: ragged
+L and ragged Di are bounds checks in the kernel, not padding.
 
 For tensors on the CPU the wrapper computes the plain version
 (``ref.reference_selective_scan``); for CUDA tensors it launches the kernel
@@ -23,7 +25,8 @@ import torch
 from . import build
 from .ref import reference_selective_scan
 
-STATE_SIZES = (4, 8, 16, 32)  # N lanes per channel: a divisor of the warp
+STATE_SIZES = (4, 8, 16, 32)  # N states per thread, in registers
+MAX_AHEAD = 16  # the kernel computes step offsets t * Di up to t = L + 16
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -55,6 +58,8 @@ def _check_inputs(xc, dt, Bm, Cm, a, h0):
                         f"others {[t.dtype for t in rest]}")
     if N not in STATE_SIZES:
         raise ValueError(f"state size {N} not in {STATE_SIZES}")
+    if (L + MAX_AHEAD) * Di >= 2**31:
+        raise ValueError(f"L * Di = {L * Di}: too large for the kernel's 32-bit step offsets")
 
 
 def mamba_scan(
@@ -74,6 +79,8 @@ def mamba_scan(
         raise ValueError(f"mamba_scan: unsupported device {xc.device}")
     if not all(t.is_contiguous() for t in (xc, dt, Bm, Cm, a, h0) if t is not None):
         raise ValueError("mamba_scan: inputs must be contiguous")
+    if Bm.data_ptr() % 16 or Cm.data_ptr() % 16:
+        raise ValueError("mamba_scan: Bm and Cm must be 16-byte aligned (cp.async)")
     B, L, Di = xc.shape
     N = a.shape[1]
     y = torch.empty((B, L, Di), dtype=torch.float32, device=xc.device)

@@ -66,6 +66,54 @@ def reference_decode(
     return _gqa_softmax_v(qg, k, v, ok[:, None, None, None, :], q.shape, q.dtype)
 
 
+def split_decode_reference(
+    q: torch.Tensor,  # (B, 1, H, Dh)
+    k: torch.Tensor,  # (B, S, KVH, Dh)
+    v: torch.Tensor,  # (B, S, KVH, Dh)
+    k_pos: torch.Tensor,  # (B, S)
+    q_pos: torch.Tensor,  # (B,)
+    n_valid: torch.Tensor,  # (B,)
+    *,
+    window: int = 0,
+    n_split: int = 1,
+) -> torch.Tensor:
+    """Plain model of ``flash_decode``'s split and merge, for the tests: the
+    n = min(n_valid, S) written slots of a batch row are cut into ``n_split``
+    contiguous chunks of ceil(n / n_split) slots. Each chunk's softmax state
+    stands alone: m its max score (NEG_INF where every slot is masked, and for
+    an empty chunk), l = sum exp(s - m) and acc = sum p v with p rounded to v's
+    dtype (l = 0, acc = 0 for an empty chunk). The states merge with weights
+    exp(m_j - M), M the largest m_j, with no special case."""
+    B, _, H, Dh = q.shape
+    S, KVH = k.shape[1], k.shape[2]
+    qg = q.reshape(B, KVH, H // KVH, Dh).float()
+    out = torch.empty(qg.shape, dtype=torch.float32, device=q.device)
+    for b in range(B):
+        n = max(0, min(int(n_valid[b]), S))
+        chunk = -(-n // n_split)
+        ms, ls, accs = [], [], []
+        for j in range(n_split):
+            lo = min(n, j * chunk)
+            hi = min(n, lo + chunk)
+            s = torch.einsum("hgd,chd->hgc", qg[b], k[b, lo:hi].float()) * Dh**-0.5
+            pos = k_pos[b, lo:hi]
+            ok = pos <= q_pos[b]
+            if window > 0:
+                ok &= pos > q_pos[b] - window
+            s = torch.where(ok, s, torch.full((), NEG_INF, device=s.device))
+            m = s.amax(-1) if hi > lo else torch.full(qg.shape[1:3], NEG_INF, device=s.device)
+            p = torch.exp(s - m[..., None])
+            ms.append(m)
+            ls.append(p.sum(-1))
+            accs.append(torch.einsum("hgc,chd->hgd", p.to(v.dtype).float(), v[b, lo:hi].float()))
+        m = torch.stack(ms)  # (n_split, KVH, gq)
+        w = torch.exp(m - m.amax(0))
+        L = (w * torch.stack(ls)).sum(0)
+        A = (w[..., None] * torch.stack(accs)).sum(0)
+        out[b] = A / L.clamp_min(1e-37)[..., None]
+    return out.reshape(q.shape).to(q.dtype)
+
+
 _U32 = 0xFFFFFFFF
 
 

@@ -20,10 +20,11 @@ from repro.kernels.mamba_scan import mamba_scan as pallas_scan
 from repro.kernels.moe_gmm import moe_gmm as pallas_gmm
 from repro.models.mamba import selective_scan as jax_chunked_scan
 from repro_torch.configs import get_config
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import flash_decode, pick_split
 from repro_torch.kernels.hash_tree import hash_tree_state
+from repro_torch.kernels.mamba_scan import _check_inputs as _check_scan_inputs
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.moe_gmm import _route as gmm_route
 from repro_torch.kernels.moe_gmm import moe_gmm
@@ -152,6 +153,82 @@ def test_flash_decode_ring_positions(dtype):
     np.testing.assert_allclose(_np(out), _np(jax_ref.reference_decode(*args, window=W)), **TOL[dtype])
 
 
+def _decode_inputs(rng, B, S, H, KVH, Dh, dtype=torch.float32):
+    return [_both(rng.randn(B, L, n, Dh).astype(np.float32), dtype) for L, n in ((1, H), (S, KVH), (S, KVH))]
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 8])
+@pytest.mark.parametrize("B,S,H,KVH,Dh,window,bkv,nv,qp", DECODE_CASES)
+def test_split_decode_model_matches_pallas(B, S, H, KVH, Dh, window, bkv, nv, qp, n_split):
+    """flash_decode's split and merge (ref.split_decode_reference) against the
+    port's plain version and the Pallas kernel over the reference sweep."""
+    (qt, qj), (kt, kj), (vt, vj) = _decode_inputs(np.random.RandomState(2), B, S, H, KVH, Dh)
+    kpos = np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S)).copy()
+    qpos, nval = np.full((B,), qp, np.int32), np.full((B,), nv, np.int32)
+    pos = [torch.from_numpy(a) for a in (kpos, qpos, nval)]
+    out = ref.split_decode_reference(qt, kt, vt, *pos, window=window, n_split=n_split)
+    args = (qj, kj, vj, jnp.asarray(kpos), jnp.asarray(qpos), jnp.asarray(nval))
+    np.testing.assert_allclose(_np(out), _np(ref.reference_decode(qt, kt, vt, *pos, window=window)),
+                               **TOL[torch.float32])
+    np.testing.assert_allclose(_np(out), _np(pallas_decode(*args, window=window, block_kv=bkv)),
+                               **TOL[torch.float32])
+
+
+# (S, window, n_valid, q_pos, n_split): the hazards of the split. Where every
+# slot is masked, the kernel and the reference both weigh the masked slots
+# alike, the reference over all S slots and the kernel over the written ones,
+# so those cases write every slot (n_valid = S).
+SPLIT_EDGE_CASES = [
+    (64, 0, 1, 0, 8),  # one written slot: seven chunks wholly past n_valid
+    (64, 0, 5, 4, 8),  # n_valid < n_split: empty chunks beside one-slot chunks
+    (64, 0, 6, 5, 3),  # n_valid < one chunk of the cache
+    (100, 16, 100, 99, 8),  # the window masks the first six chunks whole
+    (96, 0, 96, -1, 3),  # every slot masked by position: exp(0) weights everywhere
+    (96, 40, 96, 200, 8),  # every slot masked by the window
+    (77, 0, 77, 76, 8),  # S not a multiple of n_split
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S,window,nv,qp,n_split", SPLIT_EDGE_CASES)
+def test_split_decode_model_edges(S, window, nv, qp, n_split, dtype):
+    B, H, KVH, Dh = 2, 8, 2, 32
+    (qt, qj), (kt, kj), (vt, vj) = _decode_inputs(np.random.RandomState(9), B, S, H, KVH, Dh, dtype)
+    kpos = np.broadcast_to(np.arange(S, dtype=np.int32)[None], (B, S)).copy()
+    qpos, nval = np.full((B,), qp, np.int32), np.full((B,), nv, np.int32)
+    pos = [torch.from_numpy(a) for a in (kpos, qpos, nval)]
+    out = ref.split_decode_reference(qt, kt, vt, *pos, window=window, n_split=n_split)
+    assert out.dtype == dtype and bool(torch.isfinite(out.float()).all())
+    args = (qj, kj, vj, jnp.asarray(kpos), jnp.asarray(qpos), jnp.asarray(nval))
+    np.testing.assert_allclose(_np(out), _np(ref.reference_decode(qt, kt, vt, *pos, window=window)), **TOL[dtype])
+    np.testing.assert_allclose(_np(out), _np(jax_ref.reference_decode(*args, window=window)), **TOL[dtype])
+    np.testing.assert_allclose(_np(out), _np(pallas_decode(*args, window=window, block_kv=32)), **TOL[dtype])
+
+
+@pytest.mark.parametrize("pairs,S,resident,want", [
+    (4 * 32, 552, 2 * 132, 1),  # stablelm-1.6b decode, 2 blocks an SM: 128 blocks already
+    (4 * 8, 552, 2 * 132, 6),  # jamba-v0.1-52b decode: 192 blocks within 3/4 of one wave
+    (4 * 8, 552, 132, 3),  # the same where an SM holds one block (gq > 4)
+    (8 * 40, 552, 2 * 132, 1),  # B * KVH >= 2 x 132 SMs
+    (2, 100, 2 * 132, 1),  # too short to split
+    (2, 300, 2 * 132, 4),  # chunks of at least 64 slots
+    (1, 1 << 16, 2 * 132, 8),  # never past the portable cluster size
+])
+def test_flash_decode_split_choice(pairs, S, resident, want):
+    """Blocks per (batch, KV head): as many as keep the grid within 3/4 of a
+    wave of resident blocks, with chunks of 64 slots or more, up to 8."""
+    assert pick_split(pairs, S, resident) == want
+
+
+@pytest.mark.parametrize("n_split", [0, 9])
+def test_flash_decode_rejects_a_split_the_kernel_does_not_take(n_split):
+    q, k = torch.zeros(1, 1, 4, 32), torch.zeros(1, 64, 2, 32)
+    pos = torch.arange(64, dtype=torch.int32)[None]
+    one = torch.ones(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="n_split"):
+        flash_decode(q, k, k, pos, one * 63, one * 64, n_split=n_split)
+
+
 def _gmm_inputs(rng, E, C, D, F):
     return (rng.randn(E, C, D).astype(np.float32) * 0.5, rng.randn(E, D, F).astype(np.float32) * 0.1,
             rng.randn(E, D, F).astype(np.float32) * 0.1, rng.randn(E, F, D).astype(np.float32) * 0.1)
@@ -202,6 +279,20 @@ def test_mamba_scan_matches_pallas(B, L, Di, N, Lc, db, with_h0):
     yr, hr = jax_ref.reference_selective_scan(js["xc"], js["dt"], js["Bm"], js["Cm"], js["a"], js["h0"])
     for got, want in ((y, yp), (h, hp), (y, yr), (h, hr)):
         np.testing.assert_allclose(_np(got), _np(want), **SCAN_TOL)
+
+
+def test_mamba_scan_rejects_what_its_offsets_cannot_reach():
+    """The kernel indexes steps with 32-bit offsets t * Di, up to t = L + 16."""
+    meta = dict(device="meta")
+    Di, N = 2048, 16
+    for L, ok in ((2**20 - 16, False), (2**20 - 17, True)):
+        args = (torch.empty(1, L, Di, **meta), torch.empty(1, L, Di, **meta), torch.empty(1, L, N, **meta),
+                torch.empty(1, L, N, **meta), torch.empty(Di, N, **meta))
+        if ok:
+            _check_scan_inputs(*args, None)
+        else:
+            with pytest.raises(ValueError, match="32-bit"):
+                _check_scan_inputs(*args, None)
 
 
 def test_mamba_scan_matches_model_chunked_scan():

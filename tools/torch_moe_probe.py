@@ -13,10 +13,12 @@ routing: for each seed, prefill + 8 decode steps through the kernels (greedy),
   rows no flip reaches; it does not gate), then phase 3b's gate
   (``chip_smoke.forced_routing_gate``): the plain versions run on that run's
   routing, logits within 0.25, greedy tokens equal or tied within error, and
-  every router probability within ``chip_smoke.ROUTER_PROB_TOL``. With
-  ``--faults`` the gate also runs on two planted faults, which live here
-  only: expert 0's ``moe_gmm`` output scaled by 1.05, and one Mamba layer's
-  scan carrying no state from the first half of the prompt into the second.
+  every router probability within ``chip_smoke.ROUTER_PROB_TOL``; then, in
+  f32, the kernels against the plain versions with free routing (phase 3b's
+  f32 comparison) and on the kernels' routing. With ``--faults`` the same
+  runs take two planted faults, which live here only: expert 0's
+  ``moe_gmm`` output scaled by 1.05, and one Mamba layer's scan carrying no
+  state from the first half of the prompt into the second.
 timing: ``moe_gmm`` (and the same function as 3 ``torch.bmm`` + ``F.silu``)
   in the served prefill, timed by CUDA events around each call, beside the
   same calls on the captured inputs and on phase 4's random inputs, timed as
@@ -182,8 +184,10 @@ def carry_fault(n_mamba: int, faulty_call: int):
 
 
 def routing(seeds, cfg, dev, faults: bool):
-    """Phase 3b's comparisons over seeds; its gate is the bf16 run on each
-    run's own routing together with the f32 kernels-vs-plain comparison."""
+    """Phase 3b's comparisons over seeds: its gate is the bf16 run on each
+    run's own routing together with the f32 kernels-vs-plain comparison
+    (free routing); the f32 comparison on the run's own routing is printed
+    beside it."""
     routes: list = []
 
     def recording_route(p, c, xf):
@@ -230,40 +234,56 @@ def routing(seeds, cfg, dev, faults: bool):
             bf16[label] = gate(runs[label], rec[label], f_logits, f_routes)
         del model, params, runs, rec, f_logits, f_routes
         routes.clear()
-        # f32, free routing (no top-k flips in f32): the kernels, and each
-        # planted fault, against the plain versions
+        # f32: the kernels, and each planted fault, against the plain versions,
+        # with free routing (phase 3b's f32 comparison) and on the run's own
+        # routing (the arithmetic alone)
         f32_cfg = dataclasses.replace(cfg, dtype="float32")
         model = build_model(f32_cfg)
         params = model.init(seed, dev)
-        f32 = {}
-        plain32, _ = run_steps(model, params, prompts, PLAIN, teacher=tokens)
-        for label, kernels in (("kernels", None), *planted.items()):
-            run32, _ = run_steps(model, params, prompts, kernels, teacher=tokens)
-            f32[label] = logit_comparison(run32, plain32, SMOKE_LOGIT_TOL["float32"])
-        f32["moe_gmm fma"] = f32["kernels"]  # f32 moe_gmm always takes its FMA route
-        del model, params, plain32, run32
+        f32, rec32 = {}, {}
+        moe_mod.route = recording_route
+        try:
+            for label, kernels in (("plain", PLAIN), ("kernels", None), *planted.items()):
+                routes.clear()
+                f32[label], _ = run_steps(model, params, prompts, kernels, teacher=tokens)
+                rec32[label] = list(routes)
+        finally:
+            moe_mod.route = ROUTE
+        free32, forced32 = {}, {}
+        for label in ("kernels", *planted):
+            flips = free_comparison(f32[label], f32["plain"], rec32[label], rec32["plain"], n_moe)["flips"]
+            free32[label] = (logit_comparison(f32[label], f32["plain"], SMOKE_LOGIT_TOL["float32"]), flips)
+            f_logits, _ = forced(model, params, prompts, rec32[label], tokens)
+            forced32[label] = logit_comparison(f32[label], f_logits, SMOKE_LOGIT_TOL["float32"])
+        for table in (free32, forced32):
+            table["moe_gmm fma"] = table["kernels"]  # f32 moe_gmm always takes its FMA route
+        del model, params, f32, rec32, f_logits
+        routes.clear()
         for label in bf16_runs:
-            (fails, st), (fails32, st32) = bf16[label], f32[label]
-            results.setdefault(label, []).append((st, fails, fails32))
+            (fails, st), ((fails32, st32), flips32), (ffails32, fst32) = bf16[label], free32[label], forced32[label]
+            results.setdefault(label, []).append((st, fails, fails32, ffails32))
             print(f"  seed {seed} {label}{' (planted fault)' if label in planted else ''}: bf16 on its routing: "
                   f"max |logit diff| {st['diff']:.4e}, greedy tokens agree {st['agree']}/{st['n']} (ties "
                   f"{st['ties']}), max |router prob diff| {st['dprob']:.4e} (tol {ROUTER_PROB_TOL:.4e}), the "
                   f"plain run's own router would choose another top-k set for {st['rerouted']} of {st['tokens']} "
-                  f"tokens: {'FAILS: ' + '; '.join(fails) if fails else 'passes'}; f32 vs plain: max |logit "
-                  f"diff| {st32['diff']:.4e} (tol {SMOKE_LOGIT_TOL['float32']}): "
-                  f"{'FAILS: ' + '; '.join(fails32) if fails32 else 'passes'}", flush=True)
+                  f"tokens: {'FAILS: ' + '; '.join(fails) if fails else 'passes'}; f32 vs plain, free routing "
+                  f"({flips32} top-k sets differ): max |logit diff| {st32['diff']:.4e} (tol "
+                  f"{SMOKE_LOGIT_TOL['float32']}): {'FAILS' if fails32 else 'passes'}; f32 on its routing: max "
+                  f"|logit diff| {fst32['diff']:.4e}: {'FAILS' if ffails32 else 'passes'}", flush=True)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     for label, n in free_passes.items():
         print(f"routing: {label}: the free comparison passes for {n} of {len(seeds)} seeds")
-    honest = [st for label in ("kernels", "moe_gmm fma") for st, _, _ in results[label]]
+    honest = [r[0] for label in ("kernels", "moe_gmm fma") for r in results[label]]
     print(f"routing: honest bf16 runs ({len(honest)}): max |router prob diff| "
           f"{min(st['dprob'] for st in honest):.4e} .. {max(st['dprob'] for st in honest):.4e}, max |logit diff| "
           f"{min(st['diff'] for st in honest):.4e} .. {max(st['diff'] for st in honest):.4e}")
     for label, per_seed in results.items():
-        print(f"routing: {'planted ' if label in planted else ''}{label}: phase 3b's gate passes for "
-              f"{sum(not f and not f32 for _, f, f32 in per_seed)} of {len(per_seed)} seeds (its bf16 part for "
-              f"{sum(not f for _, f, _ in per_seed)}, its f32 part for {sum(not f32 for _, _, f32 in per_seed)})")
+        print(f"routing: {'planted ' if label in planted else ''}{label}: the bf16 gate on its routing passes for "
+              f"{sum(not f for _, f, _, _ in per_seed)} of {len(per_seed)} seeds; the f32 comparison with free "
+              f"routing for {sum(not f for _, _, f, _ in per_seed)}, on its routing for "
+              f"{sum(not f for _, _, _, f in per_seed)}; phase 3b's gate (the bf16 gate and the f32 comparison) "
+              f"for {sum(not a and not b for _, a, b, _ in per_seed)}")
 
 
 class Sampler:
