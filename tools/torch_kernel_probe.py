@@ -5,17 +5,17 @@ kernels on one card, at the shapes of ``chip_smoke.py``'s serve paths:
   python3 tools/torch_kernel_probe.py [--src DIR] [--part check|timing|both] [--sweep]
 
 check: each kernel against its plain version over ``chip_smoke.py``'s phase 2
-  cases (flash_decode f32 2e-5, bf16 2e-2; mamba_scan 1e-4), for
-  flash_decode at every ``n_split`` the kernel takes with ``--sweep``.
+  cases (flash_decode f32 2e-5, bf16 2e-2; mamba_scan 1e-4), flash_decode
+  also at n_split 1, 2, 3, 4, 6 and 8 with ``--sweep``.
 timing: flash_decode at stablelm-1.6b's and jamba-v0.1-52b's decode shapes
   (B 4, cache 552 slots, 528 written, bf16) and mamba_scan at jamba's
   prefill shape (B 4, L 512, Di 8192, N 16, bf16 xc, h0): CUDA events
   around each launch (median of 30) with L2 evicted before each by reading
   256 MiB, as phase 4 times them, and by writing 256 MiB (which leaves dirty
   lines for the timed kernel to write back); the launches' device time from
-  torch.profiler; SDPA and the bound beside. With ``--sweep`` flash_decode at each ``n_split``, and at
-  stablelm's bytes and pairs with each pair's K/V one contiguous run (B 128,
-  one KV head).
+  torch.profiler; SDPA and the bound beside. With ``--sweep`` flash_decode
+  at each ``n_split``, at stablelm's bytes and pairs with each pair's K/V
+  one contiguous run (B 128, one KV head), and ``k.sum()`` + ``v.sum()``.
 
 ``--src DIR`` imports ``repro_torch`` from another checkout's ``src`` (its
 wrappers' defaults only), so two trees can be timed in one call.
@@ -70,8 +70,7 @@ def main() -> int:
                 print(f"  {name} {entry}: {line.split(':', 1)[-1].strip()}")
             elif "spill" in line and " 0 bytes spill" not in line:
                 print(f"  {name} {entry}: {line.strip()}")
-    sweepable = args.sweep and hasattr(fd_module, "MAX_SPLIT")
-    splits = [None] + ([1, 2, 3, 4, 6, 8] if sweepable else [])
+    splits = [None] + ([1, 2, 3, 4, 6, 8] if args.sweep and hasattr(fd_module, "split_for") else [])
 
     def decode(q, k, v, kp, qp, nv, window=0, n_split=None):
         kw = {"n_split": n_split} if n_split is not None else {}
