@@ -28,10 +28,10 @@ on, so that their numbers are still printed):
      32 layers: the full depth does not fit the card's 80 GB), bf16, batch 4,
      prompt 512, 32 tokens, through ``repro_torch.launch.serve.run``: exact
      launch counts of all four kernels and of their routes, kernels vs plain
-     versions in f32 (gated) and bf16 with a routing diagnostic (printed: in
-     bf16 near-tied top-k routings flip between the two runs, with exact and
-     inexact kernels alike), and in bf16 once more with the plain run
-     dispatched through the kernels run's routing, which gates
+     versions in bf16 and f32 with a routing diagnostic (printed: near-tied
+     top-k routings flip between the two runs, in bf16 with exact and inexact
+     kernels alike, in f32 on some seeds), and in each dtype once more with
+     the plain run dispatched through the kernels run's routing, which gates
      (``forced_routing_gate``: logits, greedy tokens, and the router
      probabilities of the two runs, whose hidden states differ by arithmetic
      alone); steady and profiled serve times;
@@ -43,14 +43,14 @@ on, so that their numbers are still printed):
      digest of the ``.cpu()`` copy, and a profiled ``content_hash_batch`` of
      the wave copies at most 64 x (32 KiB + 12 B) to the host;
   4. time each kernel at the shapes of its main path (CUDA events, L2
-     evicted before each launch by a read of 256 MiB) beside its plain
+     flushed before each launch by writing 256 MiB) beside its plain
      version, one PyTorch library call that computes the same function (three
      for moe_gmm; none exists for mamba_scan or hash_tree), and its bound;
      each bf16 route's share of outputs equal to the plain version's, and
      for moe_gmm also its FMA route (which serves bf16 shapes without
      16-byte rows) on the same inputs; flash_decode's n_split at each serve
-     shape; mamba_scan's bound counts its exponentials on the special-function
-     units beside its bytes. moe_gmm's bins are filled as phase
+     shape; mamba_scan's bound counts its exponentials, shared between the
+     special-function units and the FMA pipes, beside its bytes. moe_gmm's bins are filled as phase
      3b's served run filled them (the slots past each bin's tokens are
      zeros, which slows the wgmma route); its time on fully random bins is
      printed beside.
@@ -79,6 +79,11 @@ TENSOR_CORE_SASS = {"moe_gmm": ("HGMMA", "HMMA"), "flash_attention": ("HMMA",)}
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 SFU_PER_CLOCK = 16  # exponentials an sm_90 SM retires a clock (special-function units)
+# FMA-pipe instructions of an exp2 computed without the SFU: round (an FFMA
+# by a magic number), 2 FADD for the fraction, 3 FFMA for a cubic; the
+# exponent goes in by an integer shift and add, on the integer pipe
+EXP_FMA_INSTRS = 6
+SCAN_FMA_INSTRS = 4  # of mamba_scan's (b, t, d, n) step beside its exponential
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}  # (rtol, atol)
 # the scan's output is f32 in both dtypes (bf16 only for its xc input):
 # exp and FMA rounding over L steps, as the reference kernel tests
@@ -155,13 +160,33 @@ N_STEADY = 16  # decode steps timed after warm-up
 # differences also break some near-tied top-k routings the other way. f32:
 # each kernel output differs at ~1e-6 relative.
 LOGIT_TOL = {"bfloat16": 0.25, "float32": 1e-3}
-# Phase 3b's router check (bf16, MoE): max |diff| of the router probabilities
-# of the kernels run and of the plain versions run on the kernels' routing,
-# over every (token, expert) of every MoE call. 2x the largest value measured
-# over seeds 0-7 with moe_gmm on its tensor-core and its FMA routes, before
-# flash_decode and mamba_scan were redesigned (tools/torch_moe_probe.py, NVIDIA
-# H100 80GB HBM3 at 700 W): 7.4454e-03 .. 1.1415e-02 (seed 1, tensor cores).
+# Phase 3b's router check (MoE): max |diff| of the router probabilities of the
+# kernels run and of the plain versions run on the kernels' routing, over every
+# (token, expert) of every MoE call, in bf16 and in f32 (where it is loose: the
+# f32 logits, within 1e-3, catch what bf16 rounding hides). 2x the largest bf16
+# value measured over seeds 0-7 with moe_gmm on its tensor-core and its FMA
+# routes, before flash_decode and mamba_scan were redesigned
+# (tools/torch_moe_probe.py, NVIDIA H100 80GB HBM3 at 700 W):
+# 7.4454e-03 .. 1.1415e-02 (seed 1, tensor cores).
 ROUTER_PROB_TOL = 2 * 1.1415e-02
+
+
+def scan_bound(n_el: int, nbytes: int, n_sms: int, sm_clock_mhz: float):
+    """The least time (ms) of a selective scan of ``n_el`` (b, t, d, n)
+    elements moving ``nbytes``, and what bounds it ("bytes" or "operations");
+    and, as a diagnostic, the time of its exponentials on the special-function
+    units alone. An element is SCAN_FMA_INSTRS on the FMA pipes (dt*A,
+    dA*h + dt*x*B, y += C*h) and one exponential, which the SFU retires at
+    SFU_PER_CLOCK a clock per SM or the FMA pipes in EXP_FMA_INSTRS. The
+    least time for the operations shares the exponentials between the two
+    units so that both are busy to the end, or is the FMA pipes' own work
+    where the SFU takes every exponential in less."""
+    fma_rate = PEAK_FLOPS["float32"] / 2  # FMA-pipe instructions a second; an FFMA is 2 operations
+    sfu_rate = SFU_PER_CLOCK * n_sms * sm_clock_mhz * 1e6
+    t_ops = max(SCAN_FMA_INSTRS * n_el / fma_rate,
+                (SCAN_FMA_INSTRS + EXP_FMA_INSTRS) * n_el / (fma_rate + EXP_FMA_INSTRS * sfu_rate)) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_el / sfu_rate * 1e3
 
 
 def fail(msg: str):
@@ -195,7 +220,7 @@ def logit_comparison(kernels, other, logit_tol: float):
 
 def forced_routing_gate(kernels, forced, probs_kernels, probs_forced, experts_kernels, *,
                         logit_tol: float, prob_tol: float):
-    """Phase 3b's gate for a bf16 MoE model, on the plain versions run with the
+    """Phase 3b's gate for an MoE model, on the plain versions run with the
     kernels run's routing (both runs dispatch the same slots, so the hidden
     states that reach each router differ by arithmetic alone).
 
@@ -513,11 +538,12 @@ def main() -> int:
     def compare_with_plain(cfg, spec, prompts, served, max_len):
         """Prefill + N_CHECK teacher-forced decode steps through the kernels and
         through the plain versions, in bf16 (the served model) and then in f32
-        (the same seed's weights; one dtype's weights at a time). In bf16, an
-        MoE model runs the plain versions a second time with ``moe_mod.route``
-        returning the kernels run's routing of the same call, so both runs
-        dispatch the same slots and the logits differ by arithmetic alone; that
-        run also records its own router's probabilities, for the gate."""
+        (the same seed's weights; one dtype's weights at a time). In each
+        dtype, an MoE model runs the plain versions a second time with
+        ``moe_mod.route`` returning the kernels run's routing of the same call,
+        so both runs dispatch the same slots and the logits differ by
+        arithmetic alone; that run also records its own router's
+        probabilities, for the gate."""
         moe_mod.route, moe_mod.moe_ffn = recording_route, recording_moe_ffn
         n_moe = sum(s.ffn == "moe" for s in cfg.layout) * cfg.n_groups
         try:
@@ -526,7 +552,7 @@ def main() -> int:
                 params = model.init(spec["seed"], dev)
                 runs, rec = {}, {}
                 passes = [("kernels", None), ("plain", plain)]
-                if dtype == "bfloat16" and n_moe:
+                if n_moe:
                     passes.append(("plain, kernels' routing", plain))
                 for label, kernels in passes:
                     routes.clear()
@@ -612,10 +638,11 @@ def main() -> int:
             if free_failures:
                 disagree(f"{name} {dtype}: kernels vs plain versions: {'; '.join(free_failures)}")
             return
-        # bf16 with a router: near-tied top-k routings flip between the two free
-        # runs on every seed, with exact and inexact moe_gmm alike, so the free
-        # comparison above measures which ties flip. The gate is the run on the
-        # kernels' routing: both dispatch the same slots, the gap is arithmetic.
+        # With a router, near-tied top-k routings flip between the two free
+        # runs: in bf16 on every seed, with exact and inexact moe_gmm alike, and
+        # in f32 on some seeds too, so the free comparison above measures which
+        # ties flip. The gate is the run on the kernels' routing: both dispatch
+        # the same slots, the gap is arithmetic.
         print(f"    the free-routing comparison above does not gate ({'would fail' if free_failures else 'would pass'}):"
               f" its outcome depends on which near-tied top-k routings flip; the run on the kernels' routing gates")
         (rf, _) = rec["plain, kernels' routing"]
@@ -798,17 +825,15 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 4. time each kernel at the serving shapes -------------------------------
-    print("phase 4: timing at the serving shapes (bf16, L2 evicted before each launch by reading 256 MiB)")
-    # a read leaves L2 holding clean lines; a write (zero_) would leave dirty
-    # lines for the timed kernel to write back
-    flush = torch.zeros(64 * 2**20, dtype=torch.float32, device=dev)
+    print("phase 4: timing at the serving shapes (bf16, L2 flushed before each launch)")
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
 
     def time_ms(fn, reps=30, warmup=3):
         for _ in range(warmup):
             fn()
         evs = []
         for _ in range(reps):
-            flush.sum()
+            flush.zero_()
             s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             s.record()
             fn()
@@ -948,15 +973,11 @@ def main() -> int:
     xc, dt, Bm, Cm, a, h0 = scan_inputs(B, L, Di, N, True, bf)
     # xc (bf16) and dt read once, B/C/a/h0 read once, y and h written once
     nbytes = B * L * Di * (es + 4 + 4) + 2 * B * L * N * 4 + Di * N * 4 + 2 * B * Di * N * 4
-    b_ms, b_by = bound(nbytes, 7 * B * L * Di * N, "float32")  # exp, 2 mul, 2 fma, mul-add for y
-    # and the B * L * Di * N exponentials, which the special-function units
-    # retire at 16 a clock per SM, at the card's highest SM clock
-    sfu_ms = B * L * Di * N / (SFU_PER_CLOCK * n_sms * sm_clock_mhz * 1e6) * 1e3
-    print(f"  mamba_scan bound at {HYBRID['arch']} prefill: bytes {nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms, f32 "
-          f"operations {7 * B * L * Di * N / PEAK_FLOPS['float32'] * 1e3:.4f} ms, {B * L * Di * N} exponentials "
-          f"on {n_sms} SMs x {SFU_PER_CLOCK} a clock at {sm_clock_mhz} MHz {sfu_ms:.4f} ms")
-    if sfu_ms > b_ms:
-        b_ms, b_by = sfu_ms, "operations"
+    b_ms, b_by, sfu_ms = scan_bound(B * L * Di * N, nbytes, n_sms, sm_clock_mhz)
+    print(f"  mamba_scan bound at {HYBRID['arch']} prefill: {b_ms:.4f} ms ({b_by}; bytes "
+          f"{nbytes / PEAK_BYTES_PER_S * 1e3:.4f} ms; {B * L * Di * N} exponentials shared between the SFU, "
+          f"{SFU_PER_CLOCK} a clock per SM on {n_sms} SMs at {sm_clock_mhz} MHz, and the FMA pipes); the SFU "
+          f"alone would take {sfu_ms:.4f} ms")
     y, h = mamba_scan(xc, dt, Bm, Cm, a, h0)
     yr, hr = ref.reference_selective_scan(xc, dt, Bm, Cm, a, h0)
     err = max(check(f"mamba_scan at {HYBRID['arch']} prefill shape y", y, yr, torch.float32, SCAN_TOL),

@@ -22,7 +22,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
 
 import torch
 
@@ -108,14 +107,10 @@ def flash_decode(
     n_valid: torch.Tensor,  # (B,) int32 number of written slots
     *,
     window: int = 0,
-    n_split: Optional[int] = None,
 ) -> torch.Tensor:
-    """Returns (B, 1, H, Dh) in q's dtype. ``n_split`` (blocks per batch row
-    and KV head, 1..8) defaults to ``pick_split``'s choice for the card
-    (``split_for``); ``tools/torch_kernel_probe.py`` sets it to time each."""
+    """Returns (B, 1, H, Dh) in q's dtype. The blocks per batch row and KV
+    head are ``split_for``'s choice for the card."""
     _check_inputs(q, k, v, k_pos, q_pos, n_valid, window)
-    if n_split is not None and not 1 <= n_split <= MAX_SPLIT:
-        raise ValueError(f"n_split {n_split} not in 1..{MAX_SPLIT}")
     if q.device.type == "cpu":
         return reference_decode(q, k, v, k_pos, q_pos, n_valid, window=window)
     if q.device.type != "cuda":
@@ -126,8 +121,7 @@ def flash_decode(
         raise ValueError("flash_decode: k and v must be 16-byte aligned (16-byte loads)")
     B, _, H, Dh = q.shape
     S, KVH = k.shape[1], k.shape[2]
-    if n_split is None:
-        n_split = split_for(q, k)
+    n_split = split_for(q, k)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -142,12 +136,20 @@ def flash_decode(
     return out
 
 
+_splits: dict = {}  # (device, dtype, q's shape, k's shape) -> n_split
+
+
 def split_for(q: torch.Tensor, k: torch.Tensor) -> int:
-    """The ``n_split`` that ``flash_decode`` picks for these CUDA tensors."""
-    B, _, H, Dh = q.shape
-    S, KVH = k.shape[1], k.shape[2]
-    index = q.device.index if q.device.index is not None else torch.cuda.current_device()
-    return pick_split(B * KVH, S, _resident(index, _DTYPES[q.dtype], Dh, H // KVH))
+    """The ``n_split`` that ``flash_decode`` picks for these CUDA tensors:
+    ``pick_split``'s choice, worked out once for each device, dtype and shape
+    and then found by one dict lookup."""
+    key = (q.device, q.dtype, q.shape, k.shape)
+    n_split = _splits.get(key)
+    if n_split is None:
+        B, _, H, Dh = q.shape
+        S, KVH = k.shape[1], k.shape[2]
+        n_split = _splits[key] = pick_split(B * KVH, S, _resident(q.device.index, _DTYPES[q.dtype], Dh, H // KVH))
+    return n_split
 
 
 flash_decode.launches = 0

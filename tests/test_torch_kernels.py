@@ -22,6 +22,7 @@ from repro.models.mamba import selective_scan as jax_chunked_scan
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.flash_attention import flash_attention
+import repro_torch.kernels.flash_decode as fd_module
 from repro_torch.kernels.flash_decode import flash_decode, pick_split
 from repro_torch.kernels.hash_tree import hash_tree_state
 from repro_torch.kernels.mamba_scan import _check_inputs as _check_scan_inputs
@@ -220,13 +221,24 @@ def test_flash_decode_split_choice(pairs, S, resident, want):
     assert pick_split(pairs, S, resident) == want
 
 
-@pytest.mark.parametrize("n_split", [0, 9])
-def test_flash_decode_rejects_a_split_the_kernel_does_not_take(n_split):
-    q, k = torch.zeros(1, 1, 4, 32), torch.zeros(1, 64, 2, 32)
-    pos = torch.arange(64, dtype=torch.int32)[None]
-    one = torch.ones(1, dtype=torch.int32)
-    with pytest.raises(ValueError, match="n_split"):
-        flash_decode(q, k, k, pos, one * 63, one * 64, n_split=n_split)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_split_is_worked_out_once_a_shape(monkeypatch, dtype):
+    """``split_for`` asks for the card's resident blocks once for each device,
+    dtype and shape, and then answers from its table."""
+    asked = []
+
+    def resident(index, dtype_code, Dh, gq):
+        asked.append((dtype_code, Dh, gq))
+        return 2 * 132
+
+    monkeypatch.setattr(fd_module, "_resident", resident)
+    monkeypatch.setattr(fd_module, "_splits", {})
+    q, k = torch.zeros(4, 1, 32, 128, dtype=dtype), torch.zeros(4, 552, 8, 128, dtype=dtype)
+    assert [fd_module.split_for(q, k) for _ in range(3)] == [pick_split(4 * 8, 552, 2 * 132)] * 3
+    assert asked == [(fd_module._DTYPES[dtype], 128, 4)]
+    q, k = torch.zeros(4, 1, 32, 64, dtype=dtype), torch.zeros(4, 552, 32, 64, dtype=dtype)
+    assert fd_module.split_for(q, k) == pick_split(4 * 32, 552, 2 * 132)
+    assert len(asked) == 2
 
 
 def _gmm_inputs(rng, E, C, D, F):

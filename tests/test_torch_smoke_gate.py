@@ -1,6 +1,7 @@
-"""Phase 3b's bf16 gate of ``chip_smoke.py`` (``forced_routing_gate``), on CPU
+"""Phase 3b's gate of ``chip_smoke.py`` (``forced_routing_gate``), on CPU
 tensors: the logits, greedy tokens and router probabilities of a kernels run
-against the plain versions run on the kernels' routing."""
+against the plain versions run on the kernels' routing, in bf16 and in f32;
+and phase 4's bound for ``mamba_scan`` (``scan_bound``)."""
 
 import importlib.util
 from pathlib import Path
@@ -137,3 +138,44 @@ def test_logit_comparison_alone(tol):
     assert chip_smoke.logit_comparison(logits, logits + 0.5 * tol, tol)[0] == []
     failures, st = chip_smoke.logit_comparison(logits, logits + 2 * tol, tol)
     assert [f for f in failures if "max |logit diff|" in f] and st["diff"] == pytest.approx(2 * tol, rel=1e-4)
+
+
+@pytest.mark.parametrize("scale,passes", [(0.5, True), (2.0, False)])
+def test_the_f32_gate_holds_the_logits_at_the_f32_tolerance(scale, passes):
+    """In f32 the same gate runs at LOGIT_TOL["float32"]: a difference far
+    inside the bf16 tolerance still fails there."""
+    tol = chip_smoke.LOGIT_TOL["float32"]
+    logits, probs, experts = _run(12)
+    failures, st = chip_smoke.forced_routing_gate(logits, logits + scale * tol, probs, [p.clone() for p in probs],
+                                                  experts, logit_tol=tol, prob_tol=PROB_TOL)
+    assert (failures == []) == passes, failures
+    assert st["diff"] == pytest.approx(scale * tol, rel=1e-3)
+
+
+# jamba-v0.1-52b's prefill scan: B 4, L 512, Di 8192, N 16, bf16 xc, f32 dt,
+# B/C, A and h0 read once, y and the final h written once
+SCAN_ELEMENTS = 4 * 512 * 8192 * 16
+SCAN_BYTES = 4 * 512 * 8192 * (2 + 4 + 4) + 2 * 4 * 512 * 16 * 4 + 8192 * 16 * 4 + 2 * 4 * 8192 * 16 * 4
+
+
+def test_scan_bound_at_jambas_prefill_is_bytes():
+    """On 132 SMs at 1980 MHz the exponentials alone on the SFU would take
+    longer than the bytes, but shared with the FMA pipes they take less."""
+    ms, by, sfu_ms = chip_smoke.scan_bound(SCAN_ELEMENTS, SCAN_BYTES, 132, 1980.0)
+    assert by == "bytes" and ms == pytest.approx(SCAN_BYTES / chip_smoke.PEAK_BYTES_PER_S * 1e3)
+    assert sfu_ms == pytest.approx(SCAN_ELEMENTS / (16 * 132 * 1980e6) * 1e3) and sfu_ms > ms
+
+
+@pytest.mark.parametrize("n_sms,clock", [(132, 1980.0), (132, 1000.0), (2000, 1980.0)])
+def test_scan_bound_operations(n_sms, clock):
+    """With no bytes the bound is the operations: the exponentials shared so
+    that the SFU and the FMA pipes finish together, which is below the SFU
+    alone and above the FMA pipes' own work, or that work alone where the
+    SFU is fast enough to take every exponential."""
+    ms, by, sfu_ms = chip_smoke.scan_bound(SCAN_ELEMENTS, 0, n_sms, clock)
+    fma_ms = chip_smoke.SCAN_FMA_INSTRS * SCAN_ELEMENTS / (chip_smoke.PEAK_FLOPS["float32"] / 2) * 1e3
+    assert by == "operations" and ms >= fma_ms
+    if sfu_ms <= fma_ms:
+        assert ms == pytest.approx(fma_ms)
+    else:
+        assert fma_ms < ms < sfu_ms

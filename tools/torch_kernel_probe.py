@@ -10,12 +10,13 @@ check: each kernel against its plain version over ``chip_smoke.py``'s phase 2
 timing: flash_decode at stablelm-1.6b's and jamba-v0.1-52b's decode shapes
   (B 4, cache 552 slots, 528 written, bf16) and mamba_scan at jamba's
   prefill shape (B 4, L 512, Di 8192, N 16, bf16 xc, h0): CUDA events
-  around each launch (median of 30) with L2 evicted before each by reading
-  256 MiB, as phase 4 times them, and by writing 256 MiB (which leaves dirty
-  lines for the timed kernel to write back); the launches' device time from
-  torch.profiler; SDPA and the bound beside. With ``--sweep`` flash_decode
-  at each ``n_split``, at stablelm's bytes and pairs with each pair's K/V
-  one contiguous run (B 128, one KV head), and ``k.sum()`` + ``v.sum()``.
+  around each launch (median of 30) with L2 flushed before each by writing
+  256 MiB, as phase 4 times them; the launches' device time from
+  torch.profiler; SDPA and the bound beside; flash_decode's host time per
+  call (its wrapper, launched back to back, and ``split_for`` alone). With
+  ``--sweep`` flash_decode at each ``n_split`` (``split_for`` replaced here),
+  at stablelm's bytes and pairs with each pair's K/V one contiguous run
+  (B 128, one KV head), and ``k.sum()`` + ``v.sum()``.
 
 ``--src DIR`` imports ``repro_torch`` from another checkout's ``src`` (its
 wrappers' defaults only), so two trees can be timed in one call.
@@ -27,6 +28,7 @@ import argparse
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -73,8 +75,16 @@ def main() -> int:
     splits = [None] + ([1, 2, 3, 4, 6, 8] if args.sweep and hasattr(fd_module, "split_for") else [])
 
     def decode(q, k, v, kp, qp, nv, window=0, n_split=None):
-        kw = {"n_split": n_split} if n_split is not None else {}
-        return flash_decode(q, k, v, kp, qp, nv, window=window, **kw)
+        """flash_decode with ``n_split`` blocks a (batch, KV head), or with its
+        own choice for None."""
+        if n_split is None:
+            return flash_decode(q, k, v, kp, qp, nv, window=window)
+        chosen = fd_module.split_for
+        fd_module.split_for = lambda q, k: n_split
+        try:
+            return flash_decode(q, k, v, kp, qp, nv, window=window)
+        finally:
+            fd_module.split_for = chosen
 
     def rand(*shape, dtype, scale=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
@@ -118,20 +128,15 @@ def main() -> int:
         print(f"check: {bad} failures")
 
     if args.part in ("timing", "both"):
-        flush = torch.zeros(64 * 2**20, dtype=torch.float32, device=dev)  # 256 MiB, read to flush
-        dirty = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # written to flush
-
-        def evict():  # read 256 MiB: L2 holds clean lines of it, nothing to write back
-            return flush.sum()
-
+        flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)  # written to flush L2, as phase 4
         torch.cuda.synchronize()
 
-        def flushed(fn, reps=30, write=False):
+        def flushed(fn, reps=30):
             for _ in range(3):
                 fn()
             evs = []
             for _ in range(reps):
-                dirty.zero_() if write else evict()
+                flush.zero_()
                 s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
                 s.record()
                 fn()
@@ -146,12 +151,29 @@ def main() -> int:
             fn()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 for _ in range(reps):
-                    evict()
+                    flush.zero_()
                     fn()
                 torch.cuda.synchronize()
             durs = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
                     if str(getattr(e, "device_type", "")).endswith("CUDA") and kernel in e.name]
             return statistics.median(durs) if durs else float("nan")
+
+        pick_fn = hasattr(fd_module, "split_for")
+
+        def host_us(fn, reps=2000, sync=True):
+            """Host clock per call of ``fn`` over ``reps`` calls back to back
+            (median of 5 rounds), the queue drained before and, with
+            ``sync``, after each round."""
+            rounds = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                if sync:
+                    torch.cuda.synchronize()
+                rounds.append((time.perf_counter() - t0) / reps * 1e6)
+            return statistics.median(rounds)
 
         bf = torch.bfloat16
         shapes = [("stablelm-1.6b", 4, 32, 32, 64), ("jamba-v0.1-52b", 4, 32, 8, 128)]
@@ -168,20 +190,20 @@ def main() -> int:
             qt, kt, vt = (x.transpose(1, 2) for x in (q1, k, v))
             gqa = dict(enable_gqa=True) if H != KVH else {}
             sdpa = flushed(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa))
-            sdpa_w = flushed(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa), write=True)
             pick = fd_module.split_for(q1, k) if hasattr(fd_module, "split_for") else 1
             print(f"timing: flash_decode at {label} decode (B{B} S{S} nv{nv} H{H}/{KVH} Dh{Dh} bf16): bound "
-                  f"{nbytes / 3.35e12 * 1e3:.4f} ms (bytes), SDPA {sdpa:.4f} ms (write-evicted {sdpa_w:.4f}); default "
-                  f"n_split {pick}")
+                  f"{nbytes / 3.35e12 * 1e3:.4f} ms (bytes), SDPA {sdpa:.4f} ms; default n_split {pick}")
+            print(f"  host time a call: {host_us(lambda: flash_decode(q1, k, v, kpos, qpos, nval)):.2f} us "
+                  f"launched back to back (the wrapper, or the device where it is slower); split_for alone "
+                  f"{host_us(lambda: fd_module.split_for(q1, k), sync=False) if pick_fn else float('nan'):.3f} us")
             if args.sweep:  # what reading the same K and V once takes, as two PyTorch reductions
                 fn = lambda: (k.sum(), v.sum())  # noqa: E731
-                print(f"  k.sum() + v.sum(): L2 evicted by a read {flushed(fn):.4f} ms, device (profiler) "
+                print(f"  k.sum() + v.sum(): {flushed(fn):.4f} ms, device (profiler) "
                       f"{device_ms(fn, 'reduce'):.4f} ms a kernel")
             for n_split in splits:
                 fn = lambda: decode(q1, k, v, kpos, qpos, nval, 0, n_split)  # noqa: E731
-                print(f"  n_split {n_split or 'default'}: L2 evicted by a read {flushed(fn):.4f} ms, "
-                      f"by a write {flushed(fn, write=True):.4f} ms, device (profiler, "
-                      f"read-evicted) {device_ms(fn, 'flash_decode'):.4f} ms")
+                print(f"  n_split {n_split or 'default'}: {flushed(fn):.4f} ms, device (profiler) "
+                      f"{device_ms(fn, 'flash_decode'):.4f} ms")
         B, L, Di, N = 4, 512, 8192, 16
         xc = rand(B, L, Di, dtype=bf)
         dt = rand(B, L, Di, dtype=torch.float32).abs() * 0.1
@@ -196,8 +218,7 @@ def main() -> int:
               f"{nbytes / 3.35e12 * 1e3:.4f} ms; exponentials {B * L * Di * N} over {sms} SMs x 16 a clock "
               f"(clock_rate {clock} kHz)")
         fn = lambda: mamba_scan(xc, dt, Bm, Cm, a, h0)  # noqa: E731
-        print(f"  L2 evicted by a read {flushed(fn):.4f} ms, by a write {flushed(fn, write=True):.4f} ms, "
-              f"device (profiler) {device_ms(fn, 'mamba_scan'):.4f} ms")
+        print(f"  {flushed(fn):.4f} ms, device (profiler) {device_ms(fn, 'mamba_scan'):.4f} ms")
     return 1 if bad else 0
 
 

@@ -14,8 +14,9 @@ routing: for each seed, prefill + 8 decode steps through the kernels (greedy),
   (``chip_smoke.forced_routing_gate``): the plain versions run on that run's
   routing, logits within 0.25, greedy tokens equal or tied within error, and
   every router probability within ``chip_smoke.ROUTER_PROB_TOL``; then, in
-  f32, the kernels against the plain versions with free routing (phase 3b's
-  f32 comparison) and on the kernels' routing. With ``--faults`` the same
+  f32, the kernels against the plain versions with free routing (printed)
+  and phase 3b's f32 gate, the same gate on the kernels' routing with the
+  f32 logit tolerance (1e-3). With ``--faults`` the same
   runs take two planted faults, which live here only: expert 0's
   ``moe_gmm`` output scaled by 1.05, and one Mamba layer's scan carrying no
   state from the first half of the prompt into the second.
@@ -148,11 +149,11 @@ def forced(model, params, prompts, run_routes, teacher, kernels=PLAIN):
     return logits, own
 
 
-def gate(run, run_routes, forced_logits, forced_routes):
-    """chip_smoke.py phase 3b's bf16 gate of ``run`` against the plain versions
-    on its routing."""
+def gate(run, run_routes, forced_logits, forced_routes, logit_tol=LOGIT_TOL):
+    """chip_smoke.py phase 3b's gate of ``run`` against the plain versions on
+    its routing (bf16's logit tolerance unless given)."""
     return forced_routing_gate(run, forced_logits, [r[0] for r in run_routes], [r[0] for r in forced_routes],
-                               [r[2] for r in run_routes], logit_tol=LOGIT_TOL, prob_tol=ROUTER_PROB_TOL)
+                               [r[2] for r in run_routes], logit_tol=logit_tol, prob_tol=ROUTER_PROB_TOL)
 
 
 def expert_fault(x, wg, wu, wd):
@@ -184,10 +185,9 @@ def carry_fault(n_mamba: int, faulty_call: int):
 
 
 def routing(seeds, cfg, dev, faults: bool):
-    """Phase 3b's comparisons over seeds: its gate is the bf16 run on each
-    run's own routing together with the f32 kernels-vs-plain comparison
-    (free routing); the f32 comparison on the run's own routing is printed
-    beside it."""
+    """Phase 3b's comparisons over seeds: its gate is the plain versions run
+    on each run's own routing, in bf16 and in f32; the f32 comparison with
+    free routing is printed beside it."""
     routes: list = []
 
     def recording_route(p, c, xf):
@@ -235,8 +235,8 @@ def routing(seeds, cfg, dev, faults: bool):
         del model, params, runs, rec, f_logits, f_routes
         routes.clear()
         # f32: the kernels, and each planted fault, against the plain versions,
-        # with free routing (phase 3b's f32 comparison) and on the run's own
-        # routing (the arithmetic alone)
+        # with free routing (printed) and on the run's own routing (phase 3b's
+        # f32 gate: the arithmetic alone)
         f32_cfg = dataclasses.replace(cfg, dtype="float32")
         model = build_model(f32_cfg)
         params = model.init(seed, dev)
@@ -253,23 +253,24 @@ def routing(seeds, cfg, dev, faults: bool):
         for label in ("kernels", *planted):
             flips = free_comparison(f32[label], f32["plain"], rec32[label], rec32["plain"], n_moe)["flips"]
             free32[label] = (logit_comparison(f32[label], f32["plain"], SMOKE_LOGIT_TOL["float32"]), flips)
-            f_logits, _ = forced(model, params, prompts, rec32[label], tokens)
-            forced32[label] = logit_comparison(f32[label], f_logits, SMOKE_LOGIT_TOL["float32"])
+            f_logits, f_routes = forced(model, params, prompts, rec32[label], tokens)
+            forced32[label] = gate(f32[label], rec32[label], f_logits, f_routes, SMOKE_LOGIT_TOL["float32"])
         for table in (free32, forced32):
             table["moe_gmm fma"] = table["kernels"]  # f32 moe_gmm always takes its FMA route
-        del model, params, f32, rec32, f_logits
+        del model, params, f32, rec32, f_logits, f_routes
         routes.clear()
         for label in bf16_runs:
             (fails, st), ((fails32, st32), flips32), (ffails32, fst32) = bf16[label], free32[label], forced32[label]
-            results.setdefault(label, []).append((st, fails, fails32, ffails32))
+            results.setdefault(label, []).append((st, fails, fails32, ffails32, fst32))
             print(f"  seed {seed} {label}{' (planted fault)' if label in planted else ''}: bf16 on its routing: "
                   f"max |logit diff| {st['diff']:.4e}, greedy tokens agree {st['agree']}/{st['n']} (ties "
                   f"{st['ties']}), max |router prob diff| {st['dprob']:.4e} (tol {ROUTER_PROB_TOL:.4e}), the "
                   f"plain run's own router would choose another top-k set for {st['rerouted']} of {st['tokens']} "
                   f"tokens: {'FAILS: ' + '; '.join(fails) if fails else 'passes'}; f32 vs plain, free routing "
                   f"({flips32} top-k sets differ): max |logit diff| {st32['diff']:.4e} (tol "
-                  f"{SMOKE_LOGIT_TOL['float32']}): {'FAILS' if fails32 else 'passes'}; f32 on its routing: max "
-                  f"|logit diff| {fst32['diff']:.4e}: {'FAILS' if ffails32 else 'passes'}", flush=True)
+                  f"{SMOKE_LOGIT_TOL['float32']}): {'FAILS' if fails32 else 'passes'} (does not gate); f32 on its "
+                  f"routing: max |logit diff| {fst32['diff']:.4e}, max |router prob diff| {fst32['dprob']:.4e}: "
+                  f"{'FAILS: ' + '; '.join(ffails32) if ffails32 else 'passes'}", flush=True)
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     for label, n in free_passes.items():
@@ -278,12 +279,17 @@ def routing(seeds, cfg, dev, faults: bool):
     print(f"routing: honest bf16 runs ({len(honest)}): max |router prob diff| "
           f"{min(st['dprob'] for st in honest):.4e} .. {max(st['dprob'] for st in honest):.4e}, max |logit diff| "
           f"{min(st['diff'] for st in honest):.4e} .. {max(st['diff'] for st in honest):.4e}")
+    honest32 = [r[4] for r in results["kernels"]]  # f32 moe_gmm always takes its FMA route
+    print(f"routing: honest f32 runs ({len(honest32)}) on their routing: max |logit diff| "
+          f"{min(st['diff'] for st in honest32):.4e} .. {max(st['diff'] for st in honest32):.4e}, max |router "
+          f"prob diff| {min(st['dprob'] for st in honest32):.4e} .. {max(st['dprob'] for st in honest32):.4e}")
     for label, per_seed in results.items():
         print(f"routing: {'planted ' if label in planted else ''}{label}: the bf16 gate on its routing passes for "
-              f"{sum(not f for _, f, _, _ in per_seed)} of {len(per_seed)} seeds; the f32 comparison with free "
-              f"routing for {sum(not f for _, _, f, _ in per_seed)}, on its routing for "
-              f"{sum(not f for _, _, _, f in per_seed)}; phase 3b's gate (the bf16 gate and the f32 comparison) "
-              f"for {sum(not a and not b for _, a, b, _ in per_seed)}")
+              f"{sum(not r[1] for r in per_seed)} of {len(per_seed)} seeds, the f32 gate on its routing for "
+              f"{sum(not r[3] for r in per_seed)} (max |logit diff| {min(r[4]['diff'] for r in per_seed):.4e} .. "
+              f"{max(r[4]['diff'] for r in per_seed):.4e}); phase 3b's gate (both) for "
+              f"{sum(not r[1] and not r[3] for r in per_seed)}; the f32 comparison with free routing (printed) "
+              f"for {sum(not r[2] for r in per_seed)}")
 
 
 class Sampler:
