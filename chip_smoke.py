@@ -50,7 +50,9 @@ on, so that their numbers are still printed):
      for moe_gmm also its FMA route (which serves bf16 shapes without
      16-byte rows) on the same inputs; flash_decode's n_split at each serve
      shape; mamba_scan's bound counts its exponentials, shared between the
-     special-function units and the FMA pipes, beside its bytes. moe_gmm's bins are filled as phase
+     special-function units and the FMA pipes, beside its bytes, and the
+     scan cut into 3 segments (offset limit patched small) is bit-equal to
+     one launch. moe_gmm's bins are filled as phase
      3b's served run filled them (the slots past each bin's tokens are
      zeros, which slows the wgmma route); its time on fully random bins is
      printed beside.
@@ -267,6 +269,7 @@ def main() -> int:
     from repro_torch.kernels.flash_decode import flash_decode, split_for
     from repro_torch.kernels.hash_tree import CHUNK_BLOCKS, hash_tree_state
     from repro_torch.kernels.mamba_scan import mamba_scan
+    import repro_torch.kernels.mamba_scan as scan_module
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.moe_gmm import _route as gmm_route
     import repro_torch.kernels.moe_gmm as gmm_module
@@ -994,7 +997,24 @@ def main() -> int:
         bound_ms=b_ms, bound_by=b_by,
         library_ms=None, library="none",
     ))
-    del xc, dt, Bm, Cm, a, h0, y, h, yr, hr
+    # F1: the same scan cut into segments of 200 steps (the offset limit
+    # patched small: 3 launches, each seeded with the last one's h), against
+    # the one launch above; the scan is sequential, so the two are bit-equal
+    limit = scan_module.OFFSET_LIMIT
+    scan_module.OFFSET_LIMIT = (200 + scan_module.MAX_AHEAD) * Di + 1
+    try:
+        n0 = mamba_scan.launches
+        ys, hs = mamba_scan(xc, dt, Bm, Cm, a, h0)
+        n_seg = mamba_scan.launches - n0
+    finally:
+        scan_module.OFFSET_LIMIT = limit
+    seg_diff = max((ys - y).abs().max().item(), (hs - h).abs().max().item())
+    seg_equal = torch.equal(ys, y) and torch.equal(hs, h)
+    print(f"  mamba_scan at {HYBRID['arch']} prefill in {n_seg} segments (offset limit patched small) vs one "
+          f"launch: max |diff| {seg_diff:.3e}, bit-equal {seg_equal}")
+    if n_seg != 3 or not seg_equal:
+        fail(f"mamba_scan: {n_seg} segment launches (want 3), bit-equal to one launch: {seg_equal}")
+    del xc, dt, Bm, Cm, a, h0, y, h, yr, hr, ys, hs
     # hash_tree at phase 3c's payloads: reads 4 bytes a word once, writes 12;
     # about one integer add per word is far below any rate of the card, so
     # the bound is bytes. No PyTorch call computes this function.

@@ -35,6 +35,10 @@
 //   * One loop over all L steps inside the block. The Pallas kernel's chunk
 //     grid axis exists only because TPU grid axes run in order; ragged L,
 //     ragged Di and every N in {4, 8, 16, 32} are bounds checks, not padding.
+//   * Step offsets t * Di are 32-bit, so one launch takes (L + 16) * Di < 2^31.
+//     A longer scan is cut by the wrapper into segments of L steps, each a
+//     launch seeded with the last one's h; batch strides (sx, sbc) let a
+//     segment be read and written in place inside the whole tensors.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -66,7 +70,8 @@ __global__ void __launch_bounds__(CH)
 mamba_scan_kernel(const T_* __restrict__ xc, const float* __restrict__ dt,
                   const float* __restrict__ Bm, const float* __restrict__ Cm,
                   const float* __restrict__ A, const float* __restrict__ h0,
-                  float* __restrict__ y, float* __restrict__ h_out, int L, int Di) {
+                  float* __restrict__ y, float* __restrict__ h_out, int L, int Di,
+                  int64_t sx, int64_t sbc) {
   __shared__ __align__(16) float sB[2][T][N];
   __shared__ __align__(16) float sC[2][T][N];
   constexpr int PIECES = T * N / 4;  // 16-byte pieces of one tensor's chunk
@@ -74,13 +79,13 @@ mamba_scan_kernel(const T_* __restrict__ xc, const float* __restrict__ dt,
   const int b = blockIdx.y;
   const int d = blockIdx.x * CH + threadIdx.x;
   const bool live = d < Di;
-  const int64_t row0 = (int64_t)b * L;  // index of (b, t = 0) in the (B, L) rows
-  // this thread's column; step t is t * Di further (L * Di < 2^31, checked)
-  const float* dtp = dt + row0 * Di + d;
-  const T_* xp = xc + row0 * Di + d;
-  float* yp = y + row0 * Di + d;
-  const float* bp = Bm + row0 * N;
-  const float* cp = Cm + row0 * N;
+  // this thread's column at t = 0; step t is t * Di further ((L + 2U) * Di < 2^31,
+  // checked). Batch row b starts sx (xc, dt, y) and sbc (B, C) elements on.
+  const float* dtp = dt + b * sx + d;
+  const T_* xp = xc + b * sx + d;
+  float* yp = y + b * sx + d;
+  const float* bp = Bm + b * sbc;
+  const float* cp = Cm + b * sbc;
 
   float a2[N], h[N];
 #pragma unroll
@@ -162,22 +167,22 @@ mamba_scan_kernel(const T_* __restrict__ xc, const float* __restrict__ dt,
 template <typename T_, int N>
 cudaError_t launch(const void* xc, const float* dt, const float* Bm, const float* Cm,
                    const float* A, const float* h0, float* y, float* h_out, int B, int L,
-                   int Di, cudaStream_t stream) {
+                   int Di, int64_t sx, int64_t sbc, cudaStream_t stream) {
   dim3 grid((Di + CH - 1) / CH, B);
   mamba_scan_kernel<T_, N><<<grid, CH, 0, stream>>>(
-      static_cast<const T_*>(xc), dt, Bm, Cm, A, h0, y, h_out, L, Di);
+      static_cast<const T_*>(xc), dt, Bm, Cm, A, h0, y, h_out, L, Di, sx, sbc);
   return cudaGetLastError();
 }
 
 template <typename T_>
 cudaError_t dispatch_n(const void* xc, const float* dt, const float* Bm, const float* Cm,
                        const float* A, const float* h0, float* y, float* h_out, int B, int L,
-                       int Di, int N, cudaStream_t s) {
+                       int Di, int N, int64_t sx, int64_t sbc, cudaStream_t s) {
   switch (N) {
-    case 4: return launch<T_, 4>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, s);
-    case 8: return launch<T_, 8>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, s);
-    case 16: return launch<T_, 16>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, s);
-    case 32: return launch<T_, 32>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, s);
+    case 4: return launch<T_, 4>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, sx, sbc, s);
+    case 8: return launch<T_, 8>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, sx, sbc, s);
+    case 16: return launch<T_, 16>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, sx, sbc, s);
+    case 32: return launch<T_, 32>(xc, dt, Bm, Cm, A, h0, y, h_out, B, L, Di, sx, sbc, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -185,11 +190,18 @@ cudaError_t dispatch_n(const void* xc, const float* dt, const float* Bm, const f
 }  // namespace
 
 // dtype (of xc): 0 = float32, 1 = bfloat16; h0 may be null (zero state). Bm and
-// Cm must be 16-byte aligned (cp.async). Returns the launch's cudaError_t.
+// Cm must be 16-byte aligned (cp.async). L steps from the given pointers; batch
+// row b of xc, dt and y starts sx elements after row b - 1, of Bm and Cm sbc
+// (L * Di and L * N for whole tensors; the full length's for a segment of L
+// steps inside them, which the caller scans in turn, h_out seeding the next).
+// Returns the launch's cudaError_t.
 extern "C" int mamba_scan_fwd(const void* xc, const void* dt, const void* Bm, const void* Cm,
                               const void* A, const void* h0, void* y, void* h_out, int dtype,
-                              int B, int L, int Di, int N, void* stream) {
-  if (B <= 0 || L <= 0 || Di <= 0 || B > 65535) return (int)cudaErrorInvalidValue;
+                              int B, int L, int Di, int N, long long sx, long long sbc,
+                              void* stream) {
+  if (B <= 0 || L <= 0 || Di <= 0 || B > 65535 || sx < (long long)L * Di || sbc < (long long)L * N)
+    return (int)cudaErrorInvalidValue;
+  if (sbc % 4) return (int)cudaErrorMisalignedAddress;  // every row of B and C 16-byte aligned
   if ((int64_t)(L + 2 * U) * Di > 2147483647LL) return (int)cudaErrorInvalidValue;  // 32-bit step offsets
   if (reinterpret_cast<uintptr_t>(Bm) % 16 || reinterpret_cast<uintptr_t>(Cm) % 16)
     return (int)cudaErrorMisalignedAddress;
@@ -200,9 +212,10 @@ extern "C" int mamba_scan_fwd(const void* xc, const void* dt, const void* Bm, co
   float* ho = static_cast<float*>(h_out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch_n<float>(xc, f[0], f[1], f[2], f[3], f[4], yo, ho, B, L, Di, N, s);
+    return (int)dispatch_n<float>(xc, f[0], f[1], f[2], f[3], f[4], yo, ho, B, L, Di, N, sx,
+                                  sbc, s);
   if (dtype == 1)
     return (int)dispatch_n<__nv_bfloat16>(xc, f[0], f[1], f[2], f[3], f[4], yo, ho, B, L, Di,
-                                          N, s);
+                                          N, sx, sbc, s);
   return (int)cudaErrorInvalidValue;
 }

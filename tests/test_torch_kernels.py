@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 import repro_torch.kernels.flash_decode as fd_module
 from repro_torch.kernels.flash_decode import flash_decode, pick_split
 from repro_torch.kernels.hash_tree import hash_tree_state
+import repro_torch.kernels.mamba_scan as scan_module
 from repro_torch.kernels.mamba_scan import _check_inputs as _check_scan_inputs
 from repro_torch.kernels.mamba_scan import mamba_scan
 from repro_torch.kernels.moe_gmm import _route as gmm_route
@@ -294,17 +295,40 @@ def test_mamba_scan_matches_pallas(B, L, Di, N, Lc, db, with_h0):
 
 
 def test_mamba_scan_rejects_what_its_offsets_cannot_reach():
-    """The kernel indexes steps with 32-bit offsets t * Di, up to t = L + 16."""
+    """The kernel indexes steps with 32-bit offsets t * Di, up to t = L + 16:
+    one launch scans at most ``segment_len(Di)`` steps, a longer L is taken in
+    segments (no longer refused), and a Di at which not one step fits raises."""
     meta = dict(device="meta")
-    Di, N = 2048, 16
-    for L, ok in ((2**20 - 16, False), (2**20 - 17, True)):
-        args = (torch.empty(1, L, Di, **meta), torch.empty(1, L, Di, **meta), torch.empty(1, L, N, **meta),
-                torch.empty(1, L, N, **meta), torch.empty(Di, N, **meta))
-        if ok:
-            _check_scan_inputs(*args, None)
-        else:
-            with pytest.raises(ValueError, match="32-bit"):
-                _check_scan_inputs(*args, None)
+    N = 16
+    assert scan_module.segment_len(2048) == 2**20 - 17  # (2**20 - 17 + 16) * 2048 < 2**31
+    for L, Di in ((2**20 - 17, 2048), (2**20 - 16, 2048), (2**20, 8192)):
+        _check_scan_inputs(torch.empty(1, L, Di, **meta), torch.empty(1, L, Di, **meta),
+                           torch.empty(1, L, N, **meta), torch.empty(1, L, N, **meta),
+                           torch.empty(Di, N, **meta), None)
+    Di = 2**27  # (1 + 16) * Di > 2**31
+    with pytest.raises(ValueError, match="32-bit"):
+        _check_scan_inputs(torch.empty(1, 1, Di, **meta), torch.empty(1, 1, Di, **meta),
+                           torch.empty(1, 1, N, **meta), torch.empty(1, 1, N, **meta),
+                           torch.empty(Di, N, **meta), None)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("xc_dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_segments_a_scan_past_the_offset_limit(monkeypatch, with_h0, xc_dtype):
+    """With the limit patched small, an L that needs 3 launches is scanned in
+    3 segments, each seeded with the last one's state: y and h bit-equal to
+    the unsegmented plain scan."""
+    B, L, Di, N = 2, 45, 24, 8
+    monkeypatch.setattr(scan_module, "OFFSET_LIMIT", (20 + scan_module.MAX_AHEAD) * Di + 1)
+    assert scan_module.segment_len(Di) == 20  # segments of 20, 20 and 5 steps
+    ins = {k: None if v is None else torch.from_numpy(v)
+           for k, v in _scan_inputs(np.random.RandomState(11), B, L, Di, N, with_h0).items()}
+    ins["xc"] = ins["xc"].to(xc_dtype)
+    y, h = mamba_scan(**ins)
+    yr, hr = ref.reference_selective_scan(**ins)
+    assert torch.equal(y, yr) and torch.equal(h, hr)
+    y1, h1 = mamba_scan(**{k: v[:, :20] if k in ("xc", "dt", "Bm", "Cm") else v for k, v in ins.items()})
+    assert torch.equal(y1, yr[:, :20]) and not torch.equal(h1, hr)  # the first segment alone stops short
 
 
 def test_mamba_scan_matches_model_chunked_scan():
