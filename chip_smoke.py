@@ -15,9 +15,11 @@ on, so that their numbers are still printed):
      tensor-core tiles and the full-width serve shapes (attention f32 tol
      2e-5, bf16 2e-2; moe_gmm the same; mamba_scan 1e-4), including empty
      capacity bins; ``hash_tree`` bit-equal to its
-     plain version and to the host (numpy) digest of the same bytes, over
-     random words, ragged payloads, bf16/bool/int32, a non-contiguous view, a
-     misaligned slice and a one-byte flip;
+     plain version and to the host (numpy) state and digest of the same bytes,
+     over random words, ragged payloads (tails of 1-3 bytes, partial last
+     blocks, payloads shorter than a block, an empty one, odd-offset slices;
+     many in one launch, twice, on a side stream, and 300 in 3 launches),
+     bf16/bool/int32, a non-contiguous view and a one-byte flip;
   3. serve stablelm-1.6b at full width (24 layers, bf16, batch 4, prompt 512,
      32 generated tokens) through ``repro_torch.launch.serve.main``, count the
      kernel launches of that run (every bf16 launch on its tensor-core
@@ -40,12 +42,16 @@ on, so that their numbers are still printed):
      push B14's wave of 64 card-resident f32 tensors of 4.5 MiB, the same
      wave again (64 memo hits), then one 1 GiB tensor: every tree-tier digest
      runs ``hash_tree`` (exact launch count), every chash equals the host
-     digest of the ``.cpu()`` copy, and a profiled ``content_hash_batch`` of
-     the wave copies at most 64 x (32 KiB + 12 B) to the host;
+     digest of the ``.cpu()`` copy; ``content_hash_batch`` of the whole wave
+     is exactly 1 ``hash_tree`` launch, its digests equal the host's, and,
+     profiled, it copies at most 64 x 12 B to the host in one copy; where a
+     first pass spends its host time, by layer (a ``torch.profiler`` CPU
+     trace);
   4. time each kernel at the shapes of its main path (CUDA events, L2
      flushed before each launch by writing 256 MiB) beside its plain
      version, one PyTorch library call that computes the same function (three
-     for moe_gmm; none exists for mamba_scan or hash_tree), and its bound;
+     for moe_gmm; none exists for mamba_scan or hash_tree), and its bound
+     (hash_tree at 4.5 MiB and 1 GiB, and the wave of 64 in one launch);
      each bf16 route's share of outputs equal to the plain version's, and
      for moe_gmm also its FMA route (which serves bf16 shapes without
      16-byte rows) on the same inputs; flash_decode's n_split at each serve
@@ -191,6 +197,80 @@ def scan_bound(n_el: int, nbytes: int, n_sms: int, sm_clock_mhz: float):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), n_el / sfu_rate * 1e3
 
 
+def engine_layers():
+    """(layer, owner, attribute) of the circuit engine's entry points that
+    phase 3c's host trace times, from the push down to the task's function."""
+    from repro_torch.cache.memo import MemoCache
+    from repro_torch.core import store as store_mod
+    from repro_torch.core import task as task_mod
+    from repro_torch.core.provenance import ProvenanceRegistry
+    from repro_torch.core.scheduler import Scheduler
+    from repro_torch.workspace import Workspace
+
+    return [
+        ("workspace, pipeline", Workspace, "push"),
+        ("hashing", store_mod, "content_hash_batch"),
+        ("hashing", task_mod, "content_hash_batch"),
+        ("store", store_mod.ArtifactStore, "put"),
+        ("store", store_mod.ArtifactStore, "put_batch"),
+        ("store", store_mod.ArtifactStore, "get"),
+        ("provenance", ProvenanceRegistry, "register_av"),
+        ("provenance", ProvenanceRegistry, "log_visit"),
+        ("memo", MemoCache, "lookup"),
+        ("memo", MemoCache, "insert"),
+        ("scheduler", Scheduler, "drain"),
+        ("task engine", task_mod.SmartTask, "_begin_execution"),
+        ("task engine", task_mod.SmartTask, "_finish_execution"),
+        ("task function", task_mod.SmartTask, "run_user_fn"),
+    ]
+
+
+def host_time_by_layer(run, layers, sync=lambda: None):
+    """Run ``run()`` once under a CPU-only ``torch.profiler`` trace, each
+    (layer, owner, attribute) of ``layers`` wrapped in a ``record_function``
+    range named after its layer. Returns ({layer: exclusive host ms, "other":
+    the rest of the wall time}, wall ms); a range's exclusive time is its
+    own less the layer ranges nested in it, its torch operations included."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    saved = []
+    for layer, owner, attr in layers:
+        fn = getattr(owner, attr)
+
+        def traced(*args, _fn=fn, _name=f"layer:{layer}", **kwargs):
+            with record_function(_name):
+                return _fn(*args, **kwargs)
+
+        saved.append((owner, attr, owner.__dict__[attr]))
+        setattr(owner, attr, traced)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            t0 = time.perf_counter()
+            run()
+            sync()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        for owner, attr, fn in reversed(saved):
+            setattr(owner, attr, fn)
+
+    def nested(e):  # the layer ranges nearest below e
+        out, stack = [], list(e.cpu_children)
+        while stack:
+            c = stack.pop()
+            if c.name.startswith("layer:"):
+                out.append(c)
+            else:
+                stack.extend(c.cpu_children)
+        return out
+
+    by_layer = {layer: 0.0 for layer, _, _ in layers}
+    for e in prof.events():
+        if e.name.startswith("layer:"):
+            by_layer[e.name[6:]] += (e.cpu_time_total - sum(c.cpu_time_total for c in nested(e))) / 1e3
+    by_layer["other"] = wall_ms - sum(by_layer.values())
+    return by_layer, wall_ms
+
+
 def fail(msg: str):
     raise RuntimeError(f"chip_smoke: {msg}")
 
@@ -267,7 +347,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode, split_for
-    from repro_torch.kernels.hash_tree import CHUNK_BLOCKS, hash_tree_state
+    from repro_torch.kernels.hash_tree import CHUNK_BLOCKS, hash_tree_state, hash_tree_states, max_payloads
     from repro_torch.kernels.mamba_scan import mamba_scan
     import repro_torch.kernels.mamba_scan as scan_module
     from repro_torch.kernels.moe_gmm import moe_gmm
@@ -418,28 +498,39 @@ def main() -> int:
     def u32(state):
         return tuple(int(x) & 0xFFFFFFFF for x in state.tolist())
 
-    def host_state(words):
-        return hashing.tree_state_np(words.cpu().numpy().view(np.uint8))
-
     def check_state(name, words):
         got, want = u32(hash_tree_state(words)), u32(ref.reference_hash_tree(words))
-        host = host_state(words)
+        host = hashing.tree_state_np(words.cpu().numpy().view(np.uint8))
         print(f"  hash_tree {name}: kernel {got[0]:08x}.. plain {'=' if got == want else '!='} "
               f"host {'=' if got == host else '!='}")
         if not got == want == host:
             fail(f"hash_tree {name}: kernel {got} plain {want} host {host}")
 
+    def check_states(name, u8s):
+        """One hash_tree_states call on card payloads of any length: each state
+        against its plain version and the host's numpy state, and each tree
+        digest against the host digest of the .cpu() copy."""
+        n0 = hash_tree_states.launches
+        got = [u32(row) for row in hash_tree_states(u8s)]
+        n_launch = hash_tree_states.launches - n0
+        bad = []
+        for i, (g, u8) in enumerate(zip(got, u8s)):
+            want, host = u32(ref.reference_hash_tree_bytes(u8)), hashing.tree_state_np(u8.cpu().numpy())
+            if not g == want == host or hashing.tree_digest(u8) != hashing.tree_digest(u8.cpu()):
+                bad.append((i, u8.numel(), g, want, host))
+        print(f"  hash_tree {name}: {len(u8s)} payloads in {n_launch} launch(es), kernel = plain = host "
+              f"and card digest = host digest for {len(u8s) - len(bad)}")
+        if bad or n_launch != -(-len(u8s) // max_payloads()):
+            fail(f"hash_tree {name}: {n_launch} launches; (payload, bytes, kernel, plain, host) differing: {bad[:4]}")
+
     def check_digest(name, t):
-        """The card route (kernel on the chunk-aligned bulk, the rest on the
-        host) against the host digest of the .cpu() copy, and the kernel on
-        the bulk against its plain version."""
+        """The card route (the kernel on the whole payload) against the host
+        digest of the .cpu() copy, and the kernel against its plain version."""
         card, host = hashing.content_hash(t), hashing.content_hash(t.cpu())
-        bulk = t.contiguous().reshape(-1).view(torch.uint8)
-        n = (bulk.numel() // 4 // chunk_words) * chunk_words
         print(f"  hash_tree digest {name}: card {card} host {host}")
         if card != host:
             fail(f"hash_tree digest {name}: card {card} != host {host}")
-        check_state(f"{name} bulk ({n} words)", bulk[: 4 * n].clone().view(torch.int32))
+        check_states(f"{name} ({t.nbytes} B)", [t.contiguous().reshape(-1).view(torch.uint8)])
 
     i32_span = dict(dtype=torch.int32, generator=gen, device=dev)
     for n in (8192, 3 * 8192):
@@ -455,6 +546,25 @@ def main() -> int:
     check_digest(f"misaligned slice (data_ptr % 16 = {odd.data_ptr() % 16})", odd)
     w = torch.randint(-2**31, 2**31, (chunk_words + 1,), **i32_span)[1:]
     check_state(f"misaligned words (data_ptr % 16 = {w.data_ptr() % 16})", w)
+
+    def u8_rand(n):
+        return torch.randint(0, 256, (n,), dtype=torch.uint8, generator=gen, device=dev)
+
+    # ragged payloads in one launch: tails of 1-3 bytes, partial last blocks,
+    # payloads shorter than one block (one CTA each) and long ones (many CTAs,
+    # whose last reduces), an empty one and an odd-offset slice; run twice
+    # (the tickets are back at 0), on a side stream, and 300 at once (3 launches)
+    ragged = [u8_rand(n) for n in (1, 2, 3, 4, 5, 300, 511, 512, 513, 512 * 7 + 129, 8192 * 4 + 2,
+                                   big + 1, big + 2, big + 3, 3 * big + 511, 0)]
+    ragged.append(u8_rand(big + 64)[5:])
+    check_states("ragged", ragged)
+    check_states("ragged, again", ragged)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        check_states("ragged, on a side stream", ragged)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    check_states("300 payloads", [u8_rand(n) for n in range(0, 300 * 4099, 4099)])
     x = rand(2 * big // 4, dtype=torch.float32)  # 8 MiB
     h0 = hashing.content_hash(x)
     x.view(torch.uint8)[5_000_001] ^= 1
@@ -803,28 +913,57 @@ def main() -> int:
         if not (bool(torch.isfinite(y).all()) and abs(m) < 1e-3 and abs(sd - 1) < 1e-3):
             fail(f"circuit: normalize output of {y.numel()} elements has mean {m}, std {sd}")
     del seen, first, last
-    hash_s = min(wall(lambda: hashing.content_hash_batch(wave)) for _ in range(3))
+    # the wave's 64 payloads in one content_hash_batch: one launch, digests
+    # equal to the host's
+    n0 = hash_tree_states.launches
+    wave_digests = hashing.content_hash_batch(wave)
+    wave_hash_launches = hash_tree_states.launches - n0
+    host_digests = hashing.content_hash_batch([x.cpu() for x in wave])
+    print(f"  content_hash_batch of the wave: {wave_hash_launches} hash_tree launch; digests equal to the host "
+          f"digests of the .cpu() copies for {sum(a == b for a, b in zip(wave_digests, host_digests))} of {n_wave}")
+    if wave_hash_launches != 1 or wave_digests != host_digests:
+        fail(f"circuit: content_hash_batch of the wave made {wave_hash_launches} launches (want 1), "
+             f"digests equal to the host's: {wave_digests == host_digests}")
+    hash_s = min(wall(lambda: hashing.content_hash_batch(wave)) for _ in range(5))
     wave_gb = n_wave * WAVE["nbytes"] / 1e9
     print(f"  pass 1: {first_s * 1e3:.2f} ms, {n_wave / first_s:.1f} pushes/s; replay: {replay_s * 1e3:.2f} ms, "
           f"{n_wave / replay_s:.1f} pushes/s; 1 GiB push {big_s * 1e3:.2f} ms; content_hash_batch of the wave "
-          f"(warm, best of 3) {hash_s * 1e3:.3f} ms, {wave_gb / hash_s:.1f} GB/s hashed")
-    t, busy, kern, prof = device_profile(lambda: hashing.content_hash_batch(wave))
+          f"(warm, best of 5) {hash_s * 1e3:.3f} ms, {wave_gb / hash_s:.1f} GB/s hashed")
+    # profiled: each call one copy of <= 768 B to the host (its one launch is
+    # counted by the wrapper above). The profiler drops the device records of
+    # about one call of a window here (1 of 1, then 1 of 3, in two runs), so 4
+    # calls, after 20 ms of idle, must show 3 or 4 copies: 2 copies a call
+    # would show at least 6
+    n_calls, box = 4, {}
+
+    def hash_calls():
+        time.sleep(0.02)
+        box["t"] = wall(lambda: [hashing.content_hash_batch(wave) for _ in range(n_calls)])
+
+    _, busy, kern, prof = device_profile(hash_calls)
+    t = box["t"]
     trace = build.BUILD_DIR / "hash_wave_trace.json"
     prof.export_chrome_trace(str(trace))
-    copies = [e for e in json.loads(trace.read_text())["traceEvents"]
+    copies = [int(e.get("args", {}).get("bytes", 0)) for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", "")]
-    d2h = sum(int(e.get("args", {}).get("bytes", 0)) for e in copies)
-    d2h_bound = n_wave * (32 * 1024 + 12)
-    print(f"  profiled content_hash_batch of the wave: wall {t * 1e3:.3f} ms, device busy {busy * 1e3:.3f} ms "
-          f"(idle share {1 - busy / t:.3f}), {len(kern)} device events; device-to-host {d2h} B in "
-          f"{len(copies)} copies (bound {d2h_bound} B)")
-    if not copies or d2h > d2h_bound:
-        fail(f"circuit: {d2h} B copied device-to-host in {len(copies)} copies, bound {d2h_bound}")
+    d2h_bound = n_wave * 12  # the 12-byte states, in one copy a call
+    n_rec = max(1, len(copies))
+    print(f"  profiled content_hash_batch of the wave ({n_calls} calls): wall {t / n_calls * 1e3:.3f} ms a call; "
+          f"{len(kern)} device events recorded ({sum('hash_tree' in e.name for e in kern)} hash_tree), device busy "
+          f"{busy / n_rec * 1e3:.3f} ms a recorded call (idle share {1 - busy / n_rec / (t / n_calls):.3f}); "
+          f"device-to-host copies {copies} B (bound {d2h_bound} B in 1 a call)")
+    if not n_calls - 1 <= len(copies) <= n_calls or max(copies) > d2h_bound:
+        fail(f"circuit: device-to-host copies {copies} B in {n_calls} calls, want 1 copy of <= {d2h_bound} B a call")
     ws2, task2 = circuit()
     t, busy, kern, _ = device_profile(lambda: push_all(ws2, task2, wave))
     print(f"  profiled first pass on a fresh workspace: wall {t * 1e3:.2f} ms ({n_wave / t:.1f} pushes/s), "
           f"device busy {busy * 1e3:.3f} ms (idle share {1 - busy / t:.3f}), {len(kern)} device events")
-    del ws, ws2, wave, big_x, prof
+    ws3, task3 = circuit()
+    by_layer, t_ms = host_time_by_layer(lambda: push_all(ws3, task3, wave), engine_layers(), torch.cuda.synchronize)
+    print(f"  host time of a first pass by layer (torch.profiler CPU trace, fresh workspace; exclusive ms, "
+          f"us a push): wall {t_ms:.2f} ms; "
+          + "; ".join(f"{k} {v:.3f} ({v / n_wave * 1e3:.1f})" for k, v in by_layer.items()))
+    del ws, ws2, ws3, wave, big_x, prof
     torch.cuda.empty_cache()
 
     # -- 4. time each kernel at the serving shapes -------------------------------
@@ -1015,17 +1154,20 @@ def main() -> int:
     if n_seg != 3 or not seg_equal:
         fail(f"mamba_scan: {n_seg} segment launches (want 3), bit-equal to one launch: {seg_equal}")
     del xc, dt, Bm, Cm, a, h0, y, h, yr, hr, ys, hs
-    # hash_tree at phase 3c's payloads: reads 4 bytes a word once, writes 12;
-    # about one integer add per word is far below any rate of the card, so
-    # the bound is bytes. No PyTorch call computes this function.
+    # hash_tree at phase 3c's payloads: reads each byte once, writes 12 bytes a
+    # payload; about one integer add per word is far below any rate of the
+    # card, so the bound is bytes. No PyTorch call computes this function.
+    def payload(nbytes):
+        return torch.randint(-2**31, 2**31, (nbytes // 4,), dtype=torch.int32, generator=gen, device=dev)
+
     for label, nbytes, n_launch in (("4.5 MiB", WAVE["nbytes"], wave_launches),
                                     ("1 GiB", WAVE["big_nbytes"], launches3c["hash_tree"] - wave_launches)):
-        w = torch.randint(-2**31, 2**31, (nbytes // 4,), dtype=torch.int32, generator=gen, device=dev)
+        w = payload(nbytes)
         got, want = hash_tree_state(w), ref.reference_hash_tree(w)
         if not torch.equal(got, want):
             fail(f"hash_tree at {label}: kernel {got.tolist()} != plain {want.tolist()}")
         rows.append(dict(
-            name="hash_tree", path=f"circuit digest of a {label} payload", route="cuda",
+            name="hash_tree", path=f"circuit digest of a {label} payload, one launch", route="cuda",
             source="src/repro_torch/kernels/csrc/hash_tree.cu",
             replaces="src/repro/kernels/hash_tree.py:74", launches=n_launch,
             max_abs_err=0.0,
@@ -1036,6 +1178,24 @@ def main() -> int:
         ))
         del w
         torch.cuda.empty_cache()
+    # B14's wave (64 x 4.5 MiB) as phase 3c's content_hash_batch hashes it: one launch
+    wave_u8 = [payload(WAVE["nbytes"]).view(torch.uint8) for _ in range(WAVE["n"])]
+    got = hash_tree_states(wave_u8)
+    want = torch.stack([ref.reference_hash_tree_bytes(u) for u in wave_u8])
+    if not torch.equal(got, want):
+        fail(f"hash_tree on the wave: {int((got != want).any(-1).sum())} of {WAVE['n']} states differ from the plain")
+    rows.append(dict(
+        name="hash_tree", path=f"content_hash_batch of the wave ({WAVE['n']} x 4.5 MiB), one launch", route="cuda",
+        source="src/repro_torch/kernels/csrc/hash_tree.cu",
+        replaces="src/repro/kernels/hash_tree.py:74", launches=wave_hash_launches,
+        max_abs_err=0.0,
+        ms=time_ms(lambda: hash_tree_states(wave_u8)),
+        plain_ms=time_ms(lambda: torch.stack([ref.reference_hash_tree_bytes(u) for u in wave_u8]), reps=3),
+        bound_ms=WAVE["n"] * (WAVE["nbytes"] + 12) / PEAK_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None, library="none",
+    ))
+    del wave_u8, got, want
+    torch.cuda.empty_cache()
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']} [{r['path']}]: kernel_ms {r['ms']:.4f} library_ms {lib} "

@@ -37,11 +37,11 @@ where they are hashed:
   tree tier), zero-copy;
 - small CUDA tensors are copied to the host once per wave — one ``torch.cat``
   and one copy per device — and hashed with sha256 there;
-- large CUDA tensors stay on their card: the chunk-aligned bulk goes through
-  the hand-written ``hash_tree`` kernel (``repro_torch.kernels.hash_tree``),
-  and only the 12-byte state and the ragged rest (< 32 KiB of words plus a
-  0..3-byte tail) cross to the host, once per wave and device, where the rest
-  is finished exactly as the JAX package's ``_tree_state`` finishes it.
+- large CUDA tensors stay on their card: one launch of the hand-written
+  ``hash_tree`` kernel (``repro_torch.kernels.hash_tree``) folds every large
+  tensor of the wave on a device, whole, its partial last block and 0..3-byte
+  tail included, and only the 12-byte states cross to the host, in one copy
+  per wave and device, to be finished through sha256 there.
 
 ``KOALJA_HASH_BACKEND`` stays validated (a typo raises) but chooses nothing:
 the payload's device does. There is no fallback: a kernel that fails to build
@@ -169,10 +169,26 @@ def is_ghost(payload: Any) -> bool:
 # ---------------------------------------------------------------------------
 
 
-def _mix_blocks_np(s, j0: int):
-    """Mix + combine uint32 blocksums ``s`` whose global block indices start
-    at ``j0``. Returns the partial state ``(h1, h2, h3)`` as Python ints."""
-    j = (np.arange(s.size, dtype=np.uint64) + np.uint64(j0)).astype(np.uint32)
+def tree_state_np(u8) -> tuple:
+    """Reference tree state over a 1-D uint8 array (pure numpy, zero-copy:
+    the bulk is viewed as uint32 in place, only the <4-byte tail is packed
+    separately). The canonical definition the kernel must match bit for
+    bit. Returns ``(h1, h2, h3)`` as Python ints."""
+    u8 = np.ascontiguousarray(u8, dtype=np.uint8).reshape(-1)
+    n4 = (u8.size // 4) * 4
+    w = u8[:n4].view(np.uint32)
+    tail_bytes = u8[n4:].tobytes()
+    B = TREE_BLOCK_WORDS
+    nb = w.size // B
+    if nb:
+        s = np.add.reduceat(w[: nb * B], np.arange(0, nb * B, B), dtype=np.uint32)
+    else:
+        s = np.empty(0, dtype=np.uint32)
+    rem = w[nb * B :]
+    if rem.size or tail_bytes:  # the partial last block, the tail packed LE
+        s_tail = (int(rem.sum(dtype=np.uint32)) + int.from_bytes(tail_bytes, "little")) & 0xFFFFFFFF
+        s = np.concatenate([s, np.asarray([s_tail], dtype=np.uint32)])
+    j = np.arange(s.size, dtype=np.uint64).astype(np.uint32)
     c = (j * np.uint32(_TREE_GOLD) + np.uint32(_TREE_SALT)) | np.uint32(1)
     m = (s ^ c) * c
     h1 = int(m.sum(dtype=np.uint32))
@@ -181,78 +197,14 @@ def _mix_blocks_np(s, j0: int):
     return h1, h2, h3
 
 
-def _state_from_words(w, tail_bytes: bytes, j0: int):
-    """Tree state over uint32 word array ``w`` plus an optional 0..3-byte
-    tail, with block numbering starting at global index ``j0``."""
-    B = TREE_BLOCK_WORDS
-    nb = w.size // B
-    if nb:
-        s = np.add.reduceat(w[: nb * B], np.arange(0, nb * B, B), dtype=np.uint32)
-    else:
-        s = np.empty(0, dtype=np.uint32)
-    rem = w[nb * B :]
-    if rem.size or tail_bytes:
-        s_tail = np.uint32(rem.sum(dtype=np.uint32))
-        if tail_bytes:
-            s_tail = np.uint32(
-                (int(s_tail) + int.from_bytes(tail_bytes, "little")) & 0xFFFFFFFF
-            )
-        s = np.concatenate([s, np.asarray([s_tail], dtype=np.uint32)])
-    return _mix_blocks_np(s, j0)
-
-
-def _combine_states(a, b):
-    return (
-        (a[0] + b[0]) & 0xFFFFFFFF,
-        a[1] ^ b[1],
-        (a[2] + b[2]) & 0xFFFFFFFF,
-    )
-
-
-def tree_state_np(u8) -> tuple:
-    """Reference tree state over a 1-D uint8 array (pure numpy, zero-copy:
-    the bulk is viewed as uint32 in place, only the <4-byte tail is packed
-    separately). The canonical definition the kernel must match bit for
-    bit."""
-    u8 = np.ascontiguousarray(u8, dtype=np.uint8).reshape(-1)
-    n4 = (u8.size // 4) * 4
-    w = u8[:n4].view(np.uint32)
-    return _state_from_words(w, u8[n4:].tobytes(), 0)
-
-
 def _tree_states_card(u8s: list) -> list:
-    """Tree states of card-resident uint8 tensors (one device), in order.
+    """Tree states of card-resident 1-D uint8 tensors (one device), in order:
+    one ``hash_tree_states`` call folds every payload whole on the card, and
+    one device-to-host copy brings back their 12-byte states."""
+    from repro_torch.kernels.hash_tree import hash_tree_states
 
-    The chunk-aligned bulk of each goes through the ``hash_tree`` kernel; one
-    device-to-host copy then brings back every 12-byte state and every ragged
-    rest (< 32 KiB of words plus a 0..3-byte tail), and the rest is finished
-    with numpy from its global block index on, as the JAX package's
-    ``_tree_state`` does."""
-    from repro_torch.kernels.hash_tree import CHUNK_BLOCKS, hash_tree_state
-
-    chunk_words = TREE_BLOCK_WORDS * CHUNK_BLOCKS
-    parts, layout = [], []
-    for u8 in u8s:
-        if u8.data_ptr() % 16:  # an odd slice: the int32 view and the kernel need alignment
-            u8 = u8.clone()
-        n4 = (u8.numel() // 4) * 4
-        nk = (n4 // 4 // chunk_words) * chunk_words
-        if nk:
-            parts.append(hash_tree_state(u8[: nk * 4].view(torch.int32)).view(torch.uint8))
-        parts.append(u8[nk * 4 :])
-        layout.append((nk, n4 - nk * 4, u8.numel() - n4))
-    host = torch.cat(parts).cpu().numpy()
-    states, off = [], 0
-    for nk, n_rest, n_tail in layout:
-        head = (0, 0, 0)
-        if nk:
-            head = tuple(int(x) for x in host[off : off + 12].view(np.uint32))
-            off += 12
-        rest = host[off : off + n_rest].view(np.uint32)
-        tail = host[off + n_rest : off + n_rest + n_tail].tobytes()
-        off += n_rest + n_tail
-        states.append(_combine_states(head, _state_from_words(rest, tail, nk // TREE_BLOCK_WORDS)))
-    return states
+    host = hash_tree_states(u8s).cpu().numpy().view(np.uint32)
+    return [tuple(int(x) for x in row) for row in host]
 
 
 def _tree_finish(state, nbytes: int, shape: str, dtype: str) -> str:
@@ -461,8 +413,9 @@ def _fuse_small(small: List[_Deferred], out: list) -> None:
 
 
 def _fuse_large_card(large: List[_Deferred], out: list) -> None:
-    """Tree digests of the batch's large card tensors, one kernel launch
-    each and one device-to-host copy per device."""
+    """Tree digests of the batch's large card tensors: per device, one
+    ``hash_tree`` launch (for up to 128 of them) and one device-to-host
+    copy of their states."""
     for group in _by_device(large).values():
         for s, state in zip(group, _tree_states_card([s.u8 for s in group])):
             out[s.index] = _tree_finish(state, s.u8.numel(), s.shape, s.dtype)

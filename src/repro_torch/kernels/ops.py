@@ -14,7 +14,7 @@ from __future__ import annotations
 
 from .flash_attention import flash_attention
 from .flash_decode import flash_decode
-from .hash_tree import hash_tree_state
+from .hash_tree import hash_tree_states
 from .mamba_scan import mamba_scan
 from .moe_gmm import moe_gmm
 
@@ -23,7 +23,7 @@ KERNELS = {
     "flash_decode": flash_decode,
     "moe_gmm": moe_gmm,
     "mamba_scan": mamba_scan,
-    "hash_tree": hash_tree_state,
+    "hash_tree": hash_tree_states,
 }
 
 

@@ -153,6 +153,21 @@ def reference_hash_tree(words: torch.Tensor, *, block_words: int = 128) -> torch
     return _as_i32_bits(torch.stack([m.sum() & _U32, h2, s.sum() & _U32]))
 
 
+def reference_hash_tree_bytes(u8: torch.Tensor, *, block_words: int = 128) -> torch.Tensor:
+    """Plain oracle for ``hash_tree.hash_tree_states``: the tree state of a 1-D
+    uint8 payload of any length, as a (3,) int32 tensor of uint32 bits. The
+    bytes are read as little-endian uint32 words; a partial last block and a
+    0..3-byte tail (packed little-endian into one more word) form one more
+    block, which zero bytes pad to a whole one without changing its sum. Then
+    ``reference_hash_tree`` over the words, in its int64 arithmetic."""
+    if u8.dim() != 1 or u8.dtype != torch.uint8:
+        raise TypeError(f"want 1-D uint8 bytes, got {u8.dtype} {tuple(u8.shape)}")
+    pad = -u8.numel() % (4 * block_words)
+    b = torch.cat([u8, u8.new_zeros(pad)]).to(torch.int64).reshape(-1, 4)
+    words = b[:, 0] | (b[:, 1] << 8) | (b[:, 2] << 16) | (b[:, 3] << 24)
+    return reference_hash_tree(words, block_words=block_words)
+
+
 def reference_gmm(
     x: torch.Tensor,  # (E, C, D) per-expert token bins
     w_gate: torch.Tensor,  # (E, D, F)

@@ -7,6 +7,11 @@ mod 2**32, and a digest either matches or does not.
 - The plain version of the ``hash_tree`` kernel (``ref.reference_hash_tree``)
   against the Pallas kernel in interpret mode, the JAX package's jnp oracle
   and numpy ``tree_state_np``, on the sizes of ``tests/test_hashing.py``.
+- The plain version of the redesigned kernel's whole-payload entry
+  (``ref.reference_hash_tree_bytes``: ragged bytes, tail included) against
+  numpy ``tree_state_np`` over ragged lengths, and on the chunk-aligned bulk
+  against the Pallas kernel; ``hash_tree_states`` and the card tier's
+  ``_tree_states_card`` on CPU tensors against the JAX package's digests.
 - ``content_hash_batch`` over the payload zoo of ``tests/test_hashing.py``
   plus bf16, bool, 0-d, empty, non-contiguous and > 4 MiB ragged arrays, each
   array given to the port both as numpy and as a CPU tensor of the same
@@ -26,7 +31,7 @@ from repro.kernels import ref as jax_ref
 from repro.kernels.hash_tree import hash_tree_state as pallas_hash_tree
 from repro_torch.core import hashing
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.hash_tree import CHUNK_BLOCKS, hash_tree_state
+from repro_torch.kernels.hash_tree import CHUNK_BLOCKS, hash_tree_state, hash_tree_states
 
 LARGE = hashing.LARGE_ARRAY_BYTES
 CHUNK_WORDS = hashing.TREE_BLOCK_WORDS * CHUNK_BLOCKS
@@ -110,6 +115,72 @@ def test_wrapper_rejects_bad_length_and_dtype():
         hash_tree_state(torch.zeros(2, 8192, dtype=torch.int32))
     with pytest.raises(ValueError, match="multiple of 4096"):
         hash_tree_state(torch.zeros(8192 + 128, dtype=torch.int32), blocks_per_chunk=32)
+
+
+@pytest.mark.parametrize("nbytes", [0, 1, 3, 4, 511, 512, 513, 8192 * 4 + 13, LARGE + 13])
+def test_plain_hash_tree_bytes_matches_references(nbytes):
+    """A whole payload of any length, its partial last block and tail included,
+    through the plain version of ``hash_tree_states``: equal to the JAX
+    package's numpy ``tree_state_np``; its chunk-aligned bulk (the Pallas
+    kernel's contract) equal to the Pallas kernel in interpret mode."""
+    u8 = np.random.RandomState(nbytes % 1000).randint(0, 256, size=nbytes, dtype=np.uint64).astype(np.uint8)
+    got = _u32(ref.reference_hash_tree_bytes(torch.from_numpy(u8)))
+    assert got == jax_hashing.tree_state_np(u8) == hashing.tree_state_np(u8)
+    bulk = (nbytes // 4 // CHUNK_WORDS) * CHUNK_WORDS
+    if bulk:
+        w = u8[: 4 * bulk].view(np.uint32)
+        assert _u32(ref.reference_hash_tree_bytes(torch.from_numpy(u8[: 4 * bulk]))) == _u32(
+            np.asarray(pallas_hash_tree(w, interpret=True)))
+
+
+def _ragged_payloads():
+    """CPU uint8 tensors of mixed lengths: tails of 1-3 bytes, a partial last
+    block, one shorter than a block, an empty one, and an odd-offset slice."""
+    rng = np.random.RandomState(9)
+    lengths = [LARGE + 13, 8192 * 4 + 2, 512 * 3 + 100, 300, 0, LARGE // 2 + 511]
+    out = [torch.from_numpy(rng.randint(0, 256, size=n, dtype=np.uint64).astype(np.uint8)) for n in lengths]
+    odd = torch.from_numpy(rng.randint(0, 256, size=LARGE + 64, dtype=np.uint64).astype(np.uint8))[3:]
+    return out + [odd]
+
+
+def test_hash_tree_states_of_cpu_tensors_equal_the_plain_states():
+    u8s = _ragged_payloads()
+    got = hash_tree_states(u8s)
+    assert got.shape == (len(u8s), 3) and got.dtype == torch.int32
+    for row, u8 in zip(got, u8s):
+        assert _u32(row) == _u32(ref.reference_hash_tree_bytes(u8)) == jax_hashing.tree_state_np(u8.numpy())
+
+
+def test_tree_states_card_gives_the_jax_package_digests():
+    """The card tier's path (``_tree_states_card``, then the sha256 finish) on
+    CPU tensors, for a mixed wave of large payloads of several dtypes and
+    ragged lengths: each digest equals the JAX package's for the numpy copy."""
+    rng = np.random.RandomState(10)
+    wave = [
+        rng.randn(LARGE // 4 + 1).astype(np.float32),
+        rng.randint(0, 255, size=LARGE + 13, dtype=np.uint8),
+        rng.randn(LARGE // 2 + 9).astype(ml_dtypes.bfloat16),  # 2-byte tail
+        rng.randint(-5, 5, size=(LARGE // 16 + 1, 4)).astype(np.int32),
+        rng.randn(LARGE + 3) > 0,  # bool: 1 byte an element, 3-byte tail
+        rng.randint(0, 255, size=LARGE + 64, dtype=np.uint8)[3:],  # odd offset
+    ]
+    want = jax_hashing.content_hash_batch([_jax_view(a) for a in wave])
+    parts = [hashing._tensor_bytes(_as_tensor(a)) for a in wave]
+    states = hashing._tree_states_card([u8 for u8, _, _ in parts])
+    got = [hashing._tree_finish(st, u8.numel(), shape, dtype) for st, (u8, shape, dtype) in zip(states, parts)]
+    assert got == want
+
+
+def test_hash_tree_states_rejects_mixed_devices_and_non_uint8():
+    u8 = torch.zeros(600, dtype=torch.uint8)
+    with pytest.raises(ValueError, match="different devices"):
+        hash_tree_states([u8, torch.zeros(600, dtype=torch.uint8, device="meta")])
+    with pytest.raises(TypeError, match="uint8"):
+        hash_tree_states([u8, torch.zeros(150, dtype=torch.int32)])
+    with pytest.raises(TypeError, match="1-D"):
+        hash_tree_states([u8.view(2, 300)])
+    with pytest.raises(ValueError, match="at least one"):
+        hash_tree_states([])
 
 
 def test_cpu_tensors_launch_no_kernel():

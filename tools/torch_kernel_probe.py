@@ -1,19 +1,28 @@
 #!/usr/bin/env python3
-"""Check and time the PyTorch port's ``flash_decode`` and ``mamba_scan``
-kernels on one card, at the shapes of ``chip_smoke.py``'s serve paths:
+"""Check and time the PyTorch port's ``flash_decode``, ``mamba_scan`` and
+``hash_tree`` kernels on one card, at the shapes of ``chip_smoke.py``'s serve
+paths and circuit:
 
   python3 tools/torch_kernel_probe.py [--src DIR] [--part check|timing|both] [--sweep]
+      [--kernels flash_decode mamba_scan hash_tree]
 
 check: each kernel against its plain version over ``chip_smoke.py``'s phase 2
   cases (flash_decode f32 2e-5, bf16 2e-2; mamba_scan 1e-4), flash_decode
-  also at n_split 1, 2, 3, 4, 6 and 8 with ``--sweep``.
+  also at n_split 1, 2, 3, 4, 6 and 8 with ``--sweep``; mamba_scan also cut
+  into segments (offset limit patched small) against one launch, bit for
+  bit; hash_tree's states of ragged payloads (many in one launch) bit-equal
+  to the plain version and the host's, and their tree digests to the host's.
 timing: flash_decode at stablelm-1.6b's and jamba-v0.1-52b's decode shapes
   (B 4, cache 552 slots, 528 written, bf16) and mamba_scan at jamba's
   prefill shape (B 4, L 512, Di 8192, N 16, bf16 xc, h0): CUDA events
   around each launch (median of 30) with L2 flushed before each by writing
   256 MiB, as phase 4 times them; the launches' device time from
   torch.profiler; SDPA and the bound beside; flash_decode's host time per
-  call (its wrapper, launched back to back, and ``split_for`` alone). With
+  call (its wrapper, launched back to back, and ``split_for`` alone);
+  hash_tree at 4.5 MiB and 1 GiB (one payload a call) and on B14's wave of
+  64 x 4.5 MiB (one call, where the tree has ``hash_tree_states``), with the
+  host time of a call launched back to back, and the
+  host clock of ``content_hash_batch`` over that wave (median of 5). With
   ``--sweep`` flash_decode at each ``n_split`` (``split_for`` replaced here),
   at stablelm's bytes and pairs with each pair's K/V one contiguous run
   (B 128, one KV head), and ``k.sum()`` + ``v.sum()``.
@@ -39,9 +48,11 @@ def main() -> int:
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--part", choices=("check", "timing", "both"), default="both")
     ap.add_argument("--sweep", action="store_true", help="flash_decode at each n_split, and on a contiguous cache")
+    ap.add_argument("--kernels", nargs="+", choices=("flash_decode", "mamba_scan", "hash_tree"),
+                    default=("flash_decode", "mamba_scan", "hash_tree"))
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
-    from chip_smoke import DECODE_CASES, SCAN_CASES, SCAN_TOL, TOL
+    from chip_smoke import DECODE_CASES, SCAN_CASES, SCAN_TOL, TOL, WAVE
 
     sys.path.insert(0, args.src)  # ahead of the path chip_smoke put first
     import torch
@@ -51,6 +62,9 @@ def main() -> int:
         print("torch_kernel_probe: no CUDA device", file=sys.stderr)
         return 2
     import repro_torch.kernels.flash_decode as fd_module
+    import repro_torch.kernels.hash_tree as ht_module
+    import repro_torch.kernels.mamba_scan as scan_module
+    from repro_torch.core import hashing
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import build, ref
     from repro_torch.kernels.flash_decode import flash_decode
@@ -62,7 +76,8 @@ def main() -> int:
     gen.manual_seed(0)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip(), f"(src {args.src})")
-    reports = build.build_all(("flash_decode", "mamba_scan"))
+    kernels = set(args.kernels)
+    reports = build.build_all(tuple(args.kernels))
     for name, rep in reports.items():
         entry = None
         for line in rep.splitlines():
@@ -98,7 +113,7 @@ def main() -> int:
     if args.part in ("check", "both"):
         for dtype in (torch.float32, torch.bfloat16):
             rtol, atol = TOL[str(dtype).split(".")[-1]]
-            for B, S, H, KVH, Dh, window, nv, qp, ring_pos in DECODE_CASES:
+            for B, S, H, KVH, Dh, window, nv, qp, ring_pos in DECODE_CASES if "flash_decode" in kernels else []:
                 q, k, v = rand(B, 1, H, Dh, dtype=dtype), rand(B, S, KVH, Dh, dtype=dtype), rand(B, S, KVH, Dh, dtype=dtype)
                 kpos = torch.arange(S, dtype=torch.int32, device=dev)
                 if ring_pos:
@@ -113,7 +128,7 @@ def main() -> int:
                     bad += not ok
                     res.append(f"{n_split or 'auto'} {e:.2e}{'' if ok else ' FAIL'}")
                 print(f"  flash_decode {dtype} B{B} S{S} H{H}/{KVH} Dh{Dh} w{window} nv{nv}: " + ", ".join(res))
-            for B, L, Di, N, with_h0 in SCAN_CASES + [(4, 512, 8192, 16, True)]:
+            for B, L, Di, N, with_h0 in SCAN_CASES + [(4, 512, 8192, 16, True)] if "mamba_scan" in kernels else []:
                 xc = rand(B, L, Di, dtype=dtype)
                 dt = rand(B, L, Di, dtype=torch.float32).abs() * 0.1
                 Bm, Cm = rand(B, L, N, dtype=torch.float32), rand(B, L, N, dtype=torch.float32)
@@ -125,6 +140,43 @@ def main() -> int:
                 bad += not (oy and oh)
                 print(f"  mamba_scan {dtype} B{B} L{L} Di{Di} N{N} h0={with_h0}: y {ey:.2e} h {eh:.2e}"
                       f"{'' if oy and oh else ' FAIL'}")
+        if "mamba_scan" in kernels and hasattr(scan_module, "OFFSET_LIMIT"):
+            B, L, Di, N = 4, 512, 8192, 16  # jamba's prefill, cut into segments of 200 steps
+            ins = (rand(B, L, Di, dtype=torch.bfloat16), rand(B, L, Di, dtype=torch.float32).abs() * 0.1,
+                   rand(B, L, N, dtype=torch.float32), rand(B, L, N, dtype=torch.float32),
+                   -rand(Di, N, dtype=torch.float32).abs() - 0.1, rand(B, Di, N, dtype=torch.float32))
+            y, h = mamba_scan(*ins)
+            limit, scan_module.OFFSET_LIMIT = scan_module.OFFSET_LIMIT, (200 + scan_module.MAX_AHEAD) * Di + 1
+            try:
+                n0 = mamba_scan.launches
+                ys, hs = mamba_scan(*ins)
+                n_seg = mamba_scan.launches - n0
+            finally:
+                scan_module.OFFSET_LIMIT = limit
+            equal = torch.equal(y, ys) and torch.equal(h, hs)
+            bad += not equal or n_seg != 3
+            print(f"  mamba_scan in {n_seg} segments vs one launch: max |diff| "
+                  f"{max((y - ys).abs().max().item(), (h - hs).abs().max().item()):.3e}, bit-equal {equal}")
+        if "hash_tree" in kernels and hasattr(ht_module, "hash_tree_states"):
+            def u8_rand(n):
+                return torch.randint(0, 256, (n,), dtype=torch.uint8, generator=gen, device=dev)
+
+            big = 1 << 22
+            ragged = [u8_rand(n) for n in (1, 2, 3, 4, 5, 300, 511, 512, 513, 512 * 7 + 129, 8192 * 4 + 2,
+                                           big + 1, big + 2, big + 3, 3 * big + 511, 0)] + [u8_rand(big + 64)[5:]]
+            for label, u8s in (("ragged", ragged), ("ragged, again", ragged),
+                               ("300 payloads", [u8_rand(n) for n in range(0, 300 * 4099, 4099)]),
+                               ("the wave", [u8_rand(WAVE["nbytes"]) for _ in range(WAVE["n"])])):
+                n0 = ht_module.hash_tree_states.launches
+                got = ht_module.hash_tree_states(u8s)
+                n_launch = ht_module.hash_tree_states.launches - n0
+                diff = [i for i, u8 in enumerate(u8s)
+                        if not torch.equal(got[i], ref.reference_hash_tree_bytes(u8))
+                        or tuple(int(x) & 0xFFFFFFFF for x in got[i].tolist()) != hashing.tree_state_np(u8.cpu().numpy())
+                        or hashing.tree_digest(u8) != hashing.tree_digest(u8.cpu())]
+                bad += bool(diff)
+                print(f"  hash_tree {label}: {len(u8s)} payloads in {n_launch} launch(es); kernel, plain, host "
+                      f"and digests differ for {diff[:8]}")
         print(f"check: {bad} failures")
 
     if args.part in ("timing", "both"):
@@ -179,7 +231,7 @@ def main() -> int:
         shapes = [("stablelm-1.6b", 4, 32, 32, 64), ("jamba-v0.1-52b", 4, 32, 8, 128)]
         if args.sweep:  # stablelm's bytes and pairs, each pair's K/V one contiguous run
             shapes.append(("contiguous-cache probe", 128, 1, 1, 64))
-        for label, B, H, KVH, Dh in shapes:
+        for label, B, H, KVH, Dh in shapes if "flash_decode" in kernels else []:
             S, nv = 552, 528
             q1, k, v = rand(B, 1, H, Dh, dtype=bf), rand(B, S, KVH, Dh, dtype=bf), rand(B, S, KVH, Dh, dtype=bf)
             kpos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S).contiguous()
@@ -204,21 +256,48 @@ def main() -> int:
                 fn = lambda: decode(q1, k, v, kpos, qpos, nval, 0, n_split)  # noqa: E731
                 print(f"  n_split {n_split or 'default'}: {flushed(fn):.4f} ms, device (profiler) "
                       f"{device_ms(fn, 'flash_decode'):.4f} ms")
-        B, L, Di, N = 4, 512, 8192, 16
-        xc = rand(B, L, Di, dtype=bf)
-        dt = rand(B, L, Di, dtype=torch.float32).abs() * 0.1
-        Bm, Cm = rand(B, L, N, dtype=torch.float32), rand(B, L, N, dtype=torch.float32)
-        a = -rand(Di, N, dtype=torch.float32).abs() - 0.1
-        h0 = rand(B, Di, N, dtype=torch.float32)
-        nbytes = B * L * Di * (2 + 4 + 4) + 2 * B * L * N * 4 + Di * N * 4 + 2 * B * Di * N * 4
-        clock = torch.cuda.get_device_properties(0).clock_rate if hasattr(
-            torch.cuda.get_device_properties(0), "clock_rate") else None
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        print(f"timing: mamba_scan at jamba-v0.1-52b prefill (B{B} L{L} Di{Di} N{N}, bf16 xc, h0): bytes bound "
-              f"{nbytes / 3.35e12 * 1e3:.4f} ms; exponentials {B * L * Di * N} over {sms} SMs x 16 a clock "
-              f"(clock_rate {clock} kHz)")
-        fn = lambda: mamba_scan(xc, dt, Bm, Cm, a, h0)  # noqa: E731
-        print(f"  {flushed(fn):.4f} ms, device (profiler) {device_ms(fn, 'mamba_scan'):.4f} ms")
+        if "mamba_scan" in kernels:
+            B, L, Di, N = 4, 512, 8192, 16
+            xc = rand(B, L, Di, dtype=bf)
+            dt = rand(B, L, Di, dtype=torch.float32).abs() * 0.1
+            Bm, Cm = rand(B, L, N, dtype=torch.float32), rand(B, L, N, dtype=torch.float32)
+            a = -rand(Di, N, dtype=torch.float32).abs() - 0.1
+            h0 = rand(B, Di, N, dtype=torch.float32)
+            nbytes = B * L * Di * (2 + 4 + 4) + 2 * B * L * N * 4 + Di * N * 4 + 2 * B * Di * N * 4
+            clock = torch.cuda.get_device_properties(0).clock_rate if hasattr(
+                torch.cuda.get_device_properties(0), "clock_rate") else None
+            sms = torch.cuda.get_device_properties(0).multi_processor_count
+            print(f"timing: mamba_scan at jamba-v0.1-52b prefill (B{B} L{L} Di{Di} N{N}, bf16 xc, h0): bytes bound "
+                  f"{nbytes / 3.35e12 * 1e3:.4f} ms; exponentials {B * L * Di * N} over {sms} SMs x 16 a clock "
+                  f"(clock_rate {clock} kHz)")
+            fn = lambda: mamba_scan(xc, dt, Bm, Cm, a, h0)  # noqa: E731
+            print(f"  {flushed(fn):.4f} ms, device (profiler) {device_ms(fn, 'mamba_scan'):.4f} ms")
+        if "hash_tree" in kernels:
+            def words(nbytes):
+                return torch.randint(-2**31, 2**31, (nbytes // 4,), dtype=torch.int32, generator=gen, device=dev)
+
+            for label, nbytes in (("4.5 MiB", WAVE["nbytes"]), ("1 GiB", WAVE["big_nbytes"])):
+                w = words(nbytes)
+                fn = lambda: ht_module.hash_tree_state(w)  # noqa: E731
+                print(f"timing: hash_tree at {label} (one payload a call): bound {(nbytes + 12) / 3.35e12 * 1e3:.4f} ms "
+                      f"(bytes); {flushed(fn):.4f} ms, device (profiler) {device_ms(fn, 'hash_tree'):.4f} ms; host "
+                      f"{host_us(fn, reps=200):.2f} us a call launched back to back")
+                del w
+            wave = [words(WAVE["nbytes"]).view(torch.float32) for _ in range(WAVE["n"])]
+            bound = WAVE["n"] * (WAVE["nbytes"] + 12) / 3.35e12 * 1e3
+            if hasattr(ht_module, "hash_tree_states"):
+                u8s = [x.view(torch.uint8) for x in wave]
+                fn = lambda: ht_module.hash_tree_states(u8s)  # noqa: E731
+                print(f"timing: hash_tree on the wave ({WAVE['n']} x 4.5 MiB, one call): bound {bound:.4f} ms "
+                      f"(bytes); {flushed(fn):.4f} ms, device (profiler) {device_ms(fn, 'hash_tree'):.4f} ms; host "
+                      f"{host_us(fn, reps=50):.2f} us a call launched back to back")
+            counter = getattr(ht_module, "hash_tree_states", ht_module.hash_tree_state)
+            n0 = counter.launches
+            hashing.content_hash_batch(wave)
+            n_launch = counter.launches - n0
+            med = host_us(lambda: hashing.content_hash_batch(wave), reps=1)
+            print(f"timing: content_hash_batch of the wave: {n_launch} hash_tree launches; host clock (median of 5, "
+                  f"synchronised) {med / 1e3:.3f} ms ({WAVE['n'] * WAVE['nbytes'] / med / 1e3:.1f} GB/s hashed)")
     return 1 if bad else 0
 
 
