@@ -229,8 +229,9 @@ def host_time_by_layer(run, layers, sync=lambda: None):
     """Run ``run()`` once under a CPU-only ``torch.profiler`` trace, each
     (layer, owner, attribute) of ``layers`` wrapped in a ``record_function``
     range named after its layer. Returns ({layer: exclusive host ms, "other":
-    the rest of the wall time}, wall ms); a range's exclusive time is its
-    own less the layer ranges nested in it, its torch operations included."""
+    the rest of the wall time}, {layer: {torch operation: its own ms inside
+    the layer}}, wall ms); a range's exclusive time is its own less the layer
+    ranges nested in it, its torch operations included."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     saved = []
@@ -253,22 +254,23 @@ def host_time_by_layer(run, layers, sync=lambda: None):
         for owner, attr, fn in reversed(saved):
             setattr(owner, attr, fn)
 
-    def nested(e):  # the layer ranges nearest below e
-        out, stack = [], list(e.cpu_children)
-        while stack:
+    by_layer = {layer: 0.0 for layer, _, _ in layers}
+    ops = {layer: {} for layer in by_layer}
+    for e in prof.events():
+        if not e.name.startswith("layer:"):
+            continue
+        layer, own = e.name[6:], e.cpu_time_total
+        stack = list(e.cpu_children)
+        while stack:  # down to the layer ranges nested in e
             c = stack.pop()
             if c.name.startswith("layer:"):
-                out.append(c)
+                own -= c.cpu_time_total
             else:
+                ops[layer][c.name] = ops[layer].get(c.name, 0.0) + c.self_cpu_time_total / 1e3
                 stack.extend(c.cpu_children)
-        return out
-
-    by_layer = {layer: 0.0 for layer, _, _ in layers}
-    for e in prof.events():
-        if e.name.startswith("layer:"):
-            by_layer[e.name[6:]] += (e.cpu_time_total - sum(c.cpu_time_total for c in nested(e))) / 1e3
+        by_layer[layer] += own / 1e3
     by_layer["other"] = wall_ms - sum(by_layer.values())
-    return by_layer, wall_ms
+    return by_layer, ops, wall_ms
 
 
 def fail(msg: str):
@@ -930,10 +932,10 @@ def main() -> int:
           f"{n_wave / replay_s:.1f} pushes/s; 1 GiB push {big_s * 1e3:.2f} ms; content_hash_batch of the wave "
           f"(warm, best of 5) {hash_s * 1e3:.3f} ms, {wave_gb / hash_s:.1f} GB/s hashed")
     # profiled: each call one copy of <= 768 B to the host (its one launch is
-    # counted by the wrapper above). The profiler drops the device records of
-    # about one call of a window here (1 of 1, then 1 of 3, in two runs), so 4
-    # calls, after 20 ms of idle, must show 3 or 4 copies: 2 copies a call
-    # would show at least 6
+    # counted by the wrapper above). torch.profiler has dropped the device
+    # records of one call of such a window (a window of 1 call recorded none,
+    # windows of 3 recorded 2), so 4 calls, after 20 ms of idle, must show 3
+    # or 4 copies: 2 copies a call would show at least 6
     n_calls, box = 4, {}
 
     def hash_calls():
@@ -959,10 +961,14 @@ def main() -> int:
     print(f"  profiled first pass on a fresh workspace: wall {t * 1e3:.2f} ms ({n_wave / t:.1f} pushes/s), "
           f"device busy {busy * 1e3:.3f} ms (idle share {1 - busy / t:.3f}), {len(kern)} device events")
     ws3, task3 = circuit()
-    by_layer, t_ms = host_time_by_layer(lambda: push_all(ws3, task3, wave), engine_layers(), torch.cuda.synchronize)
+    by_layer, layer_ops, t_ms = host_time_by_layer(lambda: push_all(ws3, task3, wave), engine_layers(),
+                                                   torch.cuda.synchronize)
     print(f"  host time of a first pass by layer (torch.profiler CPU trace, fresh workspace; exclusive ms, "
           f"us a push): wall {t_ms:.2f} ms; "
           + "; ".join(f"{k} {v:.3f} ({v / n_wave * 1e3:.1f})" for k, v in by_layer.items()))
+    for layer in sorted(layer_ops, key=lambda k: -by_layer[k])[:3]:
+        top = sorted(layer_ops[layer].items(), key=lambda kv: -kv[1])[:4]
+        print(f"    {layer}: its torch operations' own ms: " + "; ".join(f"{n} {ms:.3f}" for n, ms in top))
     del ws, ws2, ws3, wave, big_x, prof
     torch.cuda.empty_cache()
 

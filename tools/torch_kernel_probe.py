@@ -22,7 +22,8 @@ timing: flash_decode at stablelm-1.6b's and jamba-v0.1-52b's decode shapes
   hash_tree at 4.5 MiB and 1 GiB (one payload a call) and on B14's wave of
   64 x 4.5 MiB (one call, where the tree has ``hash_tree_states``), with the
   host time of a call launched back to back, and the
-  host clock of ``content_hash_batch`` over that wave (median of 5). With
+  host clock of ``content_hash_batch`` over that wave (median of 5) and of
+  one payload, as a push hashes it, with its parts. With
   ``--sweep`` flash_decode at each ``n_split`` (``split_for`` replaced here),
   at stablelm's bytes and pairs with each pair's K/V one contiguous run
   (B 128, one KV head), and ``k.sum()`` + ``v.sum()``.
@@ -298,6 +299,18 @@ def main() -> int:
             med = host_us(lambda: hashing.content_hash_batch(wave), reps=1)
             print(f"timing: content_hash_batch of the wave: {n_launch} hash_tree launches; host clock (median of 5, "
                   f"synchronised) {med / 1e3:.3f} ms ({WAVE['n'] * WAVE['nbytes'] / med / 1e3:.1f} GB/s hashed)")
+            # a push hashes one payload a call: that call's host time, and its parts
+            x, state = wave[0], torch.zeros(3, dtype=torch.int32, device=dev)
+            parts = {
+                "content_hash_batch([x])": lambda: hashing.content_hash_batch([x]),
+                "_tensor_bytes(x)": lambda: hashing._tensor_bytes(x),
+                "hash_tree_state(x's words)": lambda: ht_module.hash_tree_state(x.view(torch.int32)),
+                "a (3,) state's .cpu()": lambda: state.cpu(),
+                "_tree_finish (sha256)": lambda: hashing._tree_finish((1, 2, 3), WAVE["nbytes"], "(1179648,)",
+                                                                     "float32"),
+            }
+            print("timing: host us a call, one 4.5 MiB payload, launched back to back: "
+                  + "; ".join(f"{k} {host_us(fn, reps=200):.2f}" for k, fn in parts.items()))
     return 1 if bad else 0
 
 
