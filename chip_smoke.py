@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero (a disagreement between the
 kernels' and the plain versions' logits is recorded and the later phases run
 on, so that their numbers are still printed):
-  1. name the card, build the five CUDA kernels from
+  1. name the card, build the six CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel), and count
      the tensor-core instructions in the built ``moe_gmm`` and
      ``flash_attention`` libraries (``cuobjdump -sass``: HGMMA, HMMA);
@@ -19,7 +19,11 @@ on, so that their numbers are still printed):
      over random words, ragged payloads (tails of 1-3 bytes, partial last
      blocks, payloads shorter than a block, an empty one, odd-offset slices;
      many in one launch, twice, on a side stream, and 300 in 3 launches),
-     bf16/bool/int32, a non-contiguous view and a one-byte flip;
+     bf16/bool/int32, a non-contiguous view and a one-byte flip; the
+     forward's log-sum-exp on both routes and the backward
+     ``flash_attention_bwd`` (dQ, dK, dV) against ``reference_attention_bwd``
+     at stablelm-1.6b's training shape, GQA (gq 4, Dh 128), a window and
+     ragged L, in f32 and bf16 (``BWD_TOL``), and bit-equal when run twice;
   3. serve stablelm-1.6b at full width (24 layers, bf16, batch 4, prompt 512,
      32 generated tokens) through ``repro_torch.launch.serve.main``, count the
      kernel launches of that run (every bf16 launch on its tensor-core
@@ -62,6 +66,19 @@ on, so that their numbers are still printed):
      3b's served run filled them (the slots past each bin's tokens are
      zeros, which slows the wgmma route); its time on fully random bins is
      printed beside.
+  5. train stablelm-1.6b at full width (24 layers, bf16, batch 8, seq 2048,
+     remat "block") through ``repro_torch.launch.train.main``: exact launch
+     counts a step (the forward twice a layer, once more under remat, and
+     the backward once), no plain version called (a spy on ``ref``), finite
+     loss, grad norm and clip scale, the final checkpoint's copy and write
+     times; then ``make_train_step`` on one repeated batch, whose loss must
+     fall (step time, tokens/s, MFU against 6 N tokens, peak memory, a
+     profiled step); one step's gradient, every leaf, against the same step
+     through the plain versions (batch 2, relative L2 error within
+     ``GRAD_REL_TOL``); the ``--fail-at-step`` drill on a reduced bf16 model,
+     whose restored checkpoint must equal the saved state bit for bit and
+     whose run goes on to ``--steps``; and K1 and the forward timed at the
+     training shape beside their bounds, their plain versions and SDPA.
 The last line is ``{"ok": true, "device": {...}}``. The compiler's reports
 (registers, spills) go to ``build/repro_torch_kernels/nvcc_report.txt``.
 """
@@ -156,6 +173,28 @@ SCAN_CASES = [  # (B, L, Di, N, h0): tests/test_kernels.py::test_mamba_scan_swee
     (2, 1, 200, 16, True),  # L = 1
     (2, 77, 136, 16, False),  # L not a multiple of 32 or 16, Di not of 128
 ] + [(2, 45, 130, n, h0) for n in (4, 8, 16, 32) for h0 in (False, True)]  # every N, with and without h0
+BWD_CASES = [  # (B, L, H, KVH, Dh, window): the backward's checks (causal self-attention)
+    (8, 2048, 32, 32, 64, 0),  # stablelm-1.6b's training shape
+    (2, 512, 32, 8, 128, 0),  # GQA: gq 4, Dh 128
+    (2, 300, 16, 4, 64, 128),  # a window, L not a multiple of the tiles
+    (3, 197, 8, 2, 32, 0),  # ragged L
+    (1, 77, 4, 4, 16, 5),  # Dh 16, a window shorter than a tile
+]
+# dQ, dK, dV against the plain backward: sums over up to L products in
+# another order (f32), and one rounding of each output to bf16 on top of
+# bf16 inputs (bf16). (rtol, atol as a share of the tensor's largest |value|)
+BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+TRAIN = dict(arch="stablelm-1.6b", batch=8, seq=2048, steps=3, seed=0, lr=3e-4)
+TRAIN_REPEAT = 4  # make_train_step steps on one repeated batch
+GRAD_BATCH = 2  # rows of the gradient comparison with the plain versions
+# one step's gradient of each leaf, kernels vs plain versions, as a relative
+# L2 error. Both runs are bf16 and round at different places (the forward
+# kernel rounds P to bf16 before P.V, the plain version keeps f32): one bf16
+# rounding is 2^-9 relative, and ~20 rounding steps a layer (forward and
+# backward) over 24 layers add up like a random walk, sqrt(480) x 2^-9 ~ 0.04.
+GRAD_REL_TOL = 2**-4
+DRILL = ["--arch", "stablelm-1.6b", "--reduced", "--dtype", "bfloat16", "--steps", "6", "--batch", "4",
+         "--seq", "64", "--ckpt-every", "2", "--fail-at-step", "3", "--seed", "0"]
 # B14's data-plane wave (benchmarks/bench_koalja.py): 64 arrays of 4.5 MiB
 WAVE = dict(n=64, nbytes=(1 << 22) + (1 << 19), big_nbytes=1 << 30, seed=7)
 SERVE = dict(arch="stablelm-1.6b", batch=4, prompt_len=512, gen=32, seed=0)
@@ -336,6 +375,325 @@ def forced_routing_gate(kernels, forced, probs_kernels, probs_forced, experts_ke
     return failures, dict(stats, dprob=dprob, rerouted=rerouted, tokens=n_tok)
 
 
+class PlainSpy:
+    """Counts the calls of the attention oracles (``reference_attention``,
+    ``reference_attention_bwd``) made through ``repro_torch.kernels.ref`` or
+    the names the kernels' wrapper module holds: on card tensors the main
+    path must make none. (The ``plain`` dict of the comparisons keeps the
+    unwrapped functions.)"""
+
+    NAMES = ("reference_attention", "reference_attention_bwd")
+
+    def __enter__(self):
+        from repro_torch.kernels import ref
+        import repro_torch.kernels.flash_attention as fa_module
+
+        self.calls = dict.fromkeys(self.NAMES, 0)
+        self.saved = []
+        for mod in (ref, fa_module):
+            for name in self.NAMES:
+                orig = getattr(mod, name)
+                self.saved.append((mod, name, orig))
+
+                def spy(*args, _orig=orig, _name=name, **kwargs):
+                    self.calls[_name] += 1
+                    return _orig(*args, **kwargs)
+
+                setattr(mod, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, orig in self.saved:
+            setattr(mod, name, orig)
+        return False
+
+
+def leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [n for i, t in enumerate(tree) for n in leaf_names(t, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def run_main_captured(main_fn, argv):
+    """Run a driver's main(argv), its standard output captured and echoed
+    indented; returns (result, output)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main_fn(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"    | {line}")
+    return result, out
+
+
+def step_losses(out: str) -> list:
+    import re
+
+    return [(int(s), float(l)) for s, l in re.findall(r"^step\s+(\d+) loss (\S+)", out, re.M)]
+
+
+def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, fail):
+    """Phase 5: the training run of stablelm-1.6b at full width, and K1 timed."""
+    import shutil
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.checkpoint import checkpoint as ckpt_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import build_data_pipeline, next_batch
+    from repro_torch.dist.step import make_train_step
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.launch import train
+    from repro_torch.models.registry import build_model, train_loss
+    from repro_torch.optim import adamw_init, constant_lr
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    cfg = get_config(TRAIN["arch"])
+    B, L = TRAIN["batch"], TRAIN["seq"]
+    tokens_a_step = B * L
+    # remat "block": each layer's attention forward runs in the forward pass and
+    # again when the backward pass recomputes the layer; its backward once
+    if cfg.remat != "block":
+        fail(f"{cfg.name}: remat {cfg.remat!r}, the launch counts below assume 'block'")
+    per_step = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+
+    def want_launches(n_steps):
+        out = dict.fromkeys(ops.KERNELS, 0)
+        out.update({k: v * n_steps for k, v in per_step.items()})
+        return out
+
+    print(f"phase 5: train {cfg.name} at full width, bf16, batch {B}, seq {L}, remat {cfg.remat!r}")
+    # 5a. the driver, as a user runs it
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    argv = ["--arch", cfg.name, "--batch", str(B), "--seq", str(L), "--steps", str(TRAIN["steps"]),
+            "--ckpt-every", "1000", "--seed", str(TRAIN["seed"]), "--lr", str(TRAIN["lr"]), "--device", "cuda",
+            "--ckpt-dir", str(ckpt_dir)]
+    copy_s, write_s = [], []
+    save_async, save_checkpoint = ckpt_mod.CheckpointManager.save_async, ckpt_mod.save_checkpoint
+
+    def timed_save_async(self, *args, **kwargs):
+        t0 = time.perf_counter()
+        save_async(self, *args, **kwargs)
+        copy_s.append(time.perf_counter() - t0)
+
+    def timed_save_checkpoint(*args, **kwargs):
+        t0 = time.perf_counter()
+        av = save_checkpoint(*args, **kwargs)
+        write_s.append(time.perf_counter() - t0)
+        return av
+
+    ckpt_mod.CheckpointManager.save_async, ckpt_mod.save_checkpoint = timed_save_async, timed_save_checkpoint
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with PlainSpy() as spy:
+            state, out = run_main_captured(train.main, argv)
+        torch.cuda.synchronize()
+    finally:
+        ckpt_mod.CheckpointManager.save_async, ckpt_mod.save_checkpoint = save_async, save_checkpoint
+    launches = ops.launch_counts()
+    routes = dict(flash_attention.route_launches)
+    want_main = want_launches(TRAIN["steps"])
+    losses = step_losses(out)
+    ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*.npz"))
+    print(f"  train.main: launches {launches} (want {want_main}); flash_attention by route {routes}; plain versions "
+          f"called {spy.calls}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    print(f"  final checkpoint ({ckpt_bytes / 2**30:.2f} GiB): device-to-host copy {copy_s} s, npz write {write_s} s")
+    if launches != want_main or routes != {"fma": 0, "mma": want_main["flash_attention"]}:
+        fail(f"train.main: launch counts {launches}, routes {routes}: want {want_main}, every forward on mma")
+    if any(spy.calls.values()):
+        fail(f"train.main: the plain versions ran on the card path: {spy.calls}")
+    if [s for s, _ in losses] != list(range(TRAIN["steps"])) or not all(np.isfinite(l) for _, l in losses):
+        fail(f"train.main: step losses {losses}")
+    if int(state["step"]) != TRAIN["steps"] or len(copy_s) != 1 or len(write_s) != 1:
+        fail(f"train.main: step {int(state['step'])}, {len(copy_s)} / {len(write_s)} checkpoint saves")
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    del state
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 5b. make_train_step on one repeated batch: the loss falls; time, MFU, memory
+    model = build_model(cfg)
+    params = model.init(TRAIN["seed"], dev)
+    state = {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    data = build_data_pipeline(cfg, B, L, seed=TRAIN["seed"])
+    batch = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in next_batch(data, cfg).items()}
+    step = make_train_step(model, dev, constant_lr(TRAIN["lr"]), global_batch=B)
+    mets, times = [], []
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with PlainSpy() as spy:
+        for _ in range(TRAIN_REPEAT):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            mets.append({k: v.item() for k, v in met.items()})
+    launches, peak = ops.launch_counts(), torch.cuda.max_memory_allocated()
+    for i, m in enumerate(mets):
+        print(f"  repeated batch step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
+              + f" ({times[i]:.3f} s)")
+    if launches != want_launches(TRAIN_REPEAT) or any(spy.calls.values()):
+        fail(f"make_train_step: launches {launches} (want {want_launches(TRAIN_REPEAT)}), plain calls {spy.calls}")
+    if not all(np.isfinite(v) for m in mets for v in m.values()):
+        fail(f"make_train_step: non-finite metrics {mets}")
+    if not mets[-1]["loss"] < mets[0]["loss"]:
+        fail(f"make_train_step: the loss on a repeated batch did not fall: {[m['loss'] for m in mets]}")
+    step_s = statistics.median(times[1:])
+    flops = 6 * n_params * tokens_a_step
+    print(f"  step time {step_s:.4f} s (median of steps 1-{TRAIN_REPEAT - 1}), {tokens_a_step / step_s:.1f} tokens/s, "
+          f"MFU {flops / step_s / PEAK_FLOPS['bfloat16']:.4f} (6 N tokens = {flops:.4e} FLOP, N = {n_params}, "
+          f"against {PEAK_FLOPS['bfloat16']:.3e} FLOP/s bf16), peak memory {peak / 2**30:.2f} GiB")
+    t, busy, kern, _ = device_profile(lambda: step(state, batch))
+    by_name: dict = {}
+    for e in kern:
+        by_name[e.name[:48]] = by_name.get(e.name[:48], 0.0) + e.time_range.elapsed_us() / 1e3
+    k1_ms = sum(ms for n, ms in by_name.items() if any(x in n for x in ("dq_kernel", "dkdv_kernel", "dot_do_o")))
+    fwd_ms = sum(ms for n, ms in by_name.items() if "attn_kernel" in n)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    print(f"  profiled step: wall {t * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms (idle share {1 - busy / t:.3f}), "
+          f"{len(kern)} kernels; flash_attention_bwd {k1_ms:.2f} ms, flash_attention {fwd_ms:.2f} ms; top ms: "
+          + "; ".join(f"{n} {ms:.3f}" for n, ms in top))
+    del state, params, step
+    torch.cuda.empty_cache()
+
+    # 5c. one step's gradient of every leaf, kernels vs plain versions
+    params = model.init(TRAIN["seed"], dev)
+    small = {k: v[:GRAD_BATCH] for k, v in batch.items()}
+
+    def grads_of(kernels):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        it = iter(leaves)
+        live = tree_map(lambda _: next(it), params)
+        loss, _ = train_loss(model, live, small, kernels=kernels)
+        return loss.item(), torch.autograd.grad(loss, leaves)
+
+    ops.reset_launch_counts()
+    loss_k, grads_k = grads_of(None)
+    n_k = ops.launch_counts()
+    loss_p, grads_p = grads_of(plain)
+    n_p = ops.launch_counts()
+    if n_k != want_launches(1) or n_p != n_k:
+        fail(f"gradient comparison: launches {n_k} (want {want_launches(1)}), then {n_p} with the plain versions")
+    rel = []
+    for name, gk, gp in zip(leaf_names(params), grads_k, grads_p):
+        gk, gp = gk.float(), gp.float()
+        if not torch.isfinite(gk).all():
+            fail(f"gradient of {name}: non-finite")
+        rel.append(((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item())
+    worst = sorted(zip(rel, leaf_names(params)), reverse=True)[:4]
+    print(f"  one step's gradient at batch {GRAD_BATCH}, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f}; "
+          f"relative L2 error per leaf max {max(rel):.4e} (tol {GRAD_REL_TOL}), median {statistics.median(rel):.4e} "
+          f"over {len(rel)} leaves; worst " + "; ".join(f"{n} {r:.3e}" for r, n in worst))
+    if not max(rel) <= GRAD_REL_TOL:
+        fail(f"gradient comparison: relative L2 error {max(rel)} > {GRAD_REL_TOL}")
+    del params, grads_k, grads_p, batch, small, data
+    torch.cuda.empty_cache()
+
+    # 5d. the --fail-at-step drill (reduced, bf16): the restored checkpoint is
+    # the state saved at that step, bit for bit, and the run goes on
+    drill_dir = ROOT / "build" / "chip_smoke_drill"
+    shutil.rmtree(drill_dir, ignore_errors=True)
+    saved, restored = {}, []
+    restore = ckpt_mod.CheckpointManager.restore
+
+    def keeping_save_async(self, state, step, meta=None):
+        saved[step] = {k: v.detach().cpu().clone() for k, v in ckpt_mod._flatten_with_paths(state).items()}
+        return save_async(self, state, step, meta)
+
+    def keeping_restore(self, like, step=None):
+        st, manifest = restore(self, like, step)
+        # a copy: the run goes on updating the restored state in place
+        restored.append((manifest["step"], {k: v.clone() for k, v in ckpt_mod._flatten_with_paths(st).items()}))
+        return st, manifest
+
+    ckpt_mod.CheckpointManager.save_async, ckpt_mod.CheckpointManager.restore = keeping_save_async, keeping_restore
+    try:
+        state, out = run_main_captured(train.main, DRILL + ["--device", "cuda", "--ckpt-dir", str(drill_dir)])
+    finally:
+        ckpt_mod.CheckpointManager.save_async, ckpt_mod.CheckpointManager.restore = save_async, restore
+    steps_run = [s for s, _ in step_losses(out)]
+    if [s for s, _ in restored] != [2] or steps_run != [0, 1, 2, 2, 3, 4, 5] or int(state["step"]) != 6:
+        fail(f"drill: restored {[s for s, _ in restored]}, steps {steps_run}, final step {int(state['step'])}")
+    for line in ("[done] 6 steps; checkpoints: [2, 4, 6]", "[provenance] visitor log entries: 8"):
+        if line not in out:
+            fail(f"drill: no line {line!r}")
+    back, kept = restored[0][1], saved[2]
+    dtypes = sorted({str(t.dtype) for t in back.values()})
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    differ = [k for k in kept if not (back[k].dtype == kept[k].dtype and back[k].device.type == dev.type
+                                      and torch.equal(bits(back[k].cpu()), bits(kept[k])))]
+    print(f"  drill: restored step 2, {len(back)} leaves ({dtypes}) bit-equal to the saved state: "
+          f"{len(kept) - len(differ)} of {len(kept)}; steps run {steps_run}")
+    if "torch.bfloat16" not in dtypes or sorted(back) != sorted(kept) or differ:
+        fail(f"drill: restore not bit-equal for {differ[:5]} (dtypes {dtypes})")
+    del state, saved, restored, back, kept
+    shutil.rmtree(drill_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 5e. K1 and the forward (with lse) at the training shape, timed as phase 4
+    H, Dh, bf = cfg.n_heads, cfg.head_dim, torch.bfloat16
+    q, k, v, do = (rand(B, L, H, Dh, dtype=bf) for _ in range(4))
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    ro, rl = ref.reference_attention(q, k, v, return_lse=True)
+    fwd_err = max((o.float() - ro.float()).abs().max().item(), (lse - rl).abs().max().item())
+    got = flash_attention_bwd(q, k, v, o, do, lse)
+    want = ref.reference_attention_bwd(q, k, v, o, do, rl)
+    bwd_err = max(check_grad(f"flash_attention_bwd {n} at the training shape", g, w, bf)
+                  for n, g, w in zip(("dq", "dk", "dv"), got, want))
+    del ro, rl, got, want
+    torch.cuda.empty_cache()
+    pairs = L * (L + 1) // 2  # causal (q, k) pairs
+    es, n_el = 2, B * L * H * Dh
+    fwd_flops = 4 * B * H * Dh * pairs  # Q.K^T and P.V
+    bwd_flops = 10 * B * H * Dh * pairs  # Q.K^T again, dO.V^T, P^T.dO, dS.K, dS^T.Q
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    b_ms, b_by = bound(4 * n_el * es + B * H * L * 4, fwd_flops, "bfloat16")
+    rows.append(dict(
+        name="flash_attention", path=f"{cfg.name} training ({B} x {L}), with lse, route mma", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:116", launches=want_main["flash_attention"],
+        max_abs_err=fwd_err,
+        ms=time_ms(lambda: flash_attention(q, k, v, return_lse=True), reps=10),
+        plain_ms=time_ms(lambda: ref.reference_attention(q, k, v, return_lse=True), reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt.detach(), kt.detach(), vt.detach(),
+                                                                   is_causal=True), reps=10),
+        library="scaled_dot_product_attention(is_causal=True)",
+    ))
+    b_ms, b_by = bound(8 * n_el * es + B * H * L * 4, bwd_flops, "bfloat16")
+    rows.append(dict(
+        name="flash_attention_bwd", path=f"{cfg.name} training ({B} x {L}), bf16, FMA", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:48 (no Pallas kernel: jax autodiff of blocked_attention)",
+        launches=want_main["flash_attention_bwd"],
+        max_abs_err=bwd_err,
+        ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse), reps=10),
+        plain_ms=time_ms(lambda: ref.reference_attention_bwd(q, k, v, o, do, lse), reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True), reps=10),
+        library="scaled_dot_product_attention backward (torch.autograd.grad)",
+    ))
+    r = rows[-1]
+    print(f"  flash_attention_bwd at the training shape: {r['ms']:.4f} ms against its bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}; {r['ms'] / r['bound_ms']:.1f}x) and SDPA's backward {r['library_ms']:.4f} ms "
+          f"({r['ms'] / r['library_ms']:.1f}x); {cfg.n_layers} a step: {cfg.n_layers * r['ms']:.1f} ms of the "
+          f"{step_s * 1e3:.1f} ms step")
+    del q, k, v, do, o, lse, qt, kt, vt, lib_out, dot
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -347,7 +705,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core import hashing
     from repro_torch.kernels import build, ops, ref
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.flash_decode import flash_decode, split_for
     from repro_torch.kernels.hash_tree import CHUNK_BLOCKS, hash_tree_state, hash_tree_states, max_payloads
     from repro_torch.kernels.mamba_scan import mamba_scan
@@ -478,6 +836,44 @@ def main() -> int:
             check(name + " y", y, yr, torch.float32, SCAN_TOL)
             check(name + " h", h, hr, torch.float32, SCAN_TOL)
         torch.cuda.empty_cache()
+    # K1: the forward's log-sum-exp on both routes, then the backward against
+    # its plain version; the backward twice on one input is bit-equal
+    def check_grad(name, got, want, dtype):
+        rtol, atol = BWD_TOL[str(dtype).split(".")[-1]]
+        want = want.float()
+        err = (got.float() - want).abs()
+        if not torch.isfinite(got.float()).all():
+            fail(f"{name}: non-finite output")
+        bad = err > atol * want.abs().max() + rtol * want.abs()
+        print(f"  {name}: max_abs_err {err.max().item():.3e} of max |value| {want.abs().max().item():.3e} "
+              f"({'ok' if not bad.any() else 'FAIL'})")
+        if bad.any():
+            fail(f"{name}: {int(bad.sum())} elements beyond rtol {rtol} atol {atol} x max |value|")
+        return err.max().item()
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, L, H, KVH, Dh, window in BWD_CASES:
+            q, do = rand(B, L, H, Dh, dtype=dtype), rand(B, L, H, Dh, dtype=dtype)
+            k, v = rand(B, L, KVH, Dh, dtype=dtype), rand(B, L, KVH, Dh, dtype=dtype)
+            routes0 = dict(flash_attention.route_launches)
+            o, lse = flash_attention(q, k, v, window=window, return_lse=True)
+            route = [r for r in routes0 if flash_attention.route_launches[r] != routes0[r]]
+            ro, rl = ref.reference_attention(q, k, v, window=window, return_lse=True)
+            name = f"{dtype} B{B} L{L} H{H}/{KVH} Dh{Dh} window={window}"
+            check(f"flash_attention lse ({route[0]}) {name}", lse, rl, torch.float32)
+            check(f"flash_attention o ({route[0]}) {name}", o, ro, dtype)
+            got = flash_attention_bwd(q, k, v, o, do, lse, window=window)
+            want = ref.reference_attention_bwd(q, k, v, o, do, rl, window=window)
+            for n, g, w in zip(("dq", "dk", "dv"), got, want):
+                check_grad(f"flash_attention_bwd {n} {name}", g, w, dtype)
+            if (B, L, H, KVH) == (2, 512, 32, 8):
+                again = flash_attention_bwd(q, k, v, o, do, lse, window=window)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"flash_attention_bwd {name}: two runs on one input differ")
+                print(f"  flash_attention_bwd {name}: a second run is bit-equal")
+            del q, k, v, do, o, lse, ro, rl, got, want
+            torch.cuda.empty_cache()
+
     # rows with no live key anywhere must stay finite (finite NEG_INF masking);
     # a decode step with every written slot masked weighs them all alike, as
     # the plain version does when every slot is written
@@ -585,6 +981,7 @@ def main() -> int:
 
     plain = {
         "flash_attention": ref.reference_attention,
+        "flash_attention_bwd": ref.reference_attention_bwd,
         "flash_decode": ref.reference_decode,
         "moe_gmm": ref.reference_gmm,
         "mamba_scan": lambda xc, dt, Bm, Cm, a, h0=None, chunk_len=0: ref.reference_selective_scan(
@@ -616,7 +1013,8 @@ def main() -> int:
             spec = cfg.layout[i % len(cfg.layout)]
             n[spec.mixer] += 1
             n["moe"] += spec.ffn == "moe"
-        return {"flash_attention": n["attention"], "flash_decode": n["attention"] * (gen - 1),
+        return {"flash_attention": n["attention"], "flash_attention_bwd": 0,
+                "flash_decode": n["attention"] * (gen - 1),
                 "moe_gmm": n["moe"] * gen, "mamba_scan": n["mamba"], "hash_tree": 0}
 
     def expected_routes(cfg, spec, want):
@@ -1202,6 +1600,10 @@ def main() -> int:
     ))
     del wave_u8, got, want
     torch.cuda.empty_cache()
+
+    # -- 5. train stablelm-1.6b at full width ----------------------------------
+    training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, fail)
+
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']} [{r['path']}]: kernel_ms {r['ms']:.4f} library_ms {lib} "

@@ -1,0 +1,5 @@
+"""Checkpoints of the port (``repro.checkpoint``)."""
+
+from .checkpoint import CheckpointManager, restore_checkpoint, save_checkpoint
+
+__all__ = ["CheckpointManager", "save_checkpoint", "restore_checkpoint"]

@@ -7,8 +7,7 @@ Values) flow on links, every artifact carries its travel document, and both
 
 Port of ``repro.core``: payloads may be torch tensors on a card. Ghost runs
 (``GhostValue``, ``ghost_run``) and the evaluation loop (``EvalLoop``,
-``build_eval_circuit``) are not ported yet; they come with the training slice
-(ROADMAP queue 1 item 2).
+``build_eval_circuit``) are not ported yet (ROADMAP queue 1 item 2c).
 """
 
 from repro_torch.cache import ContentCache, MemoCache, snapshot_key

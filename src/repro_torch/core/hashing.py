@@ -305,7 +305,7 @@ def _classify_tensor(t: torch.Tensor, out: list, small: list, large: list, on_un
     if t.is_meta:
         raise TypeError(
             "a meta tensor has no bytes to hash; the port's ghost type comes "
-            "with wireframe (ROADMAP queue 1 item 2)"
+            "with wireframe (ROADMAP queue 1 item 2c)"
         )
     u8, shape, dtype = _tensor_bytes(t)
     if not u8.is_cuda:

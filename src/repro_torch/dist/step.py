@@ -1,17 +1,104 @@
-"""Serve step functions on one device.
+"""Train and serve step functions on one device.
 
-Port of ``repro.dist.step.make_serve_fns`` without sharding (that comes with
-the distribution slice). The returned functions run under
-``torch.inference_mode()``; instead of donating the state, as the jitted JAX
-steps do, they update the caches' K/V in place.
+Port of ``repro.dist.step`` without sharding (that comes with the
+distribution slice, ROADMAP queue 1 item 6). Instead of donating the state,
+as the jitted JAX steps do, the steps update it in place: the train step its
+params, moments and step count under ``torch.no_grad()``; the serve
+functions, under ``torch.inference_mode()``, the caches' K/V.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Optional
+
 import torch
 
 from repro_torch.models.common import resolve_device
-from repro_torch.models.registry import decode_step, prefill
+from repro_torch.models.registry import check_trainable, decode_step, prefill, train_loss
+from repro_torch.optim import adamw_update
+from repro_torch.optim.adamw import tree_leaves, tree_map
+
+
+def make_train_state_specs(model) -> dict:
+    """The train state {params, opt {m, v, count}, step} as meta tensors of
+    the right shapes and dtypes (no parameter is allocated): m and v f32
+    mirror the params, count and step are int32 scalars."""
+    params = model.init(0, "meta")
+    f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
+    scalar = lambda: torch.empty((), dtype=torch.int32, device="meta")
+    return {
+        "params": params,
+        "opt": {"m": tree_map(f32, params), "v": tree_map(f32, params), "count": scalar()},
+        "step": scalar(),
+    }
+
+
+def make_train_step(
+    model,
+    device,
+    schedule: Callable,
+    *,
+    global_batch: int,
+    microbatches: int = 1,
+    compress_pods: bool = False,
+    kernels: Optional[dict] = None,
+):
+    """Returns ``train_step(state, batch) -> (state, metrics)`` on ``device``.
+
+    ``state`` is {"params", "opt": adamw state, "step": int32 scalar}, all on
+    ``device``; the step updates it in place and returns it. ``batch`` holds
+    tokens and labels (B, L) int32. metrics: loss, lr, grad_norm and
+    clip_scale, f32 scalars on the device. ``microbatches > 1`` sums f32
+    gradients over equal splits of the batch and divides by their number,
+    as the reference does. ``kernels`` replaces the kernel dict the model
+    reads (e.g. the plain versions, to hold the kernels against them).
+    Raises if ``device`` is CUDA and no card is present."""
+    dev = resolve_device(device)
+    check_trainable(model.cfg)
+    if compress_pods:
+        raise NotImplementedError(
+            "compress_pods: int8 gradient compression across pods needs sharding "
+            "(ROADMAP.md queue 1, item 6)"
+        )
+    if microbatches < 1 or global_batch % microbatches:
+        raise ValueError(f"global_batch {global_batch} not divisible by microbatches {microbatches}")
+
+    def loss_and_grads(params, batch):
+        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+        it = iter(leaves)
+        live = tree_map(lambda _: next(it), params)
+        loss, _ = train_loss(model, live, batch, kernels=kernels)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    def train_step(state, batch):
+        tokens = batch["tokens"]
+        if tokens.device.type != dev.type or tokens.shape[0] != global_batch:
+            raise ValueError(f"tokens {tuple(tokens.shape)} on {tokens.device}: want batch "
+                             f"{global_batch} on {dev}")
+        params = state["params"]
+        lr = schedule(state["step"]).to(torch.float32)
+        if microbatches > 1:
+            n = global_batch // microbatches
+            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in tree_leaves(params)]
+            lsum = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            for i in range(microbatches):
+                loss, grads = loss_and_grads(params, {k: v[i * n : (i + 1) * n] for k, v in batch.items()})
+                for a, g in zip(gsum, grads):
+                    a.add_(g.float())
+                lsum = lsum + loss
+                del grads
+            grads = [a / microbatches for a in gsum]
+            loss = lsum / microbatches
+        else:
+            loss, grads = loss_and_grads(params, batch)
+        it = iter(grads)
+        grads = tree_map(lambda _: next(it), params)
+        with torch.no_grad():
+            om = adamw_update(params, grads, state["opt"], lr)
+            state["step"].add_(1)
+        return state, {"loss": loss, "lr": lr, "grad_norm": om["grad_norm"], "clip_scale": om["clip_scale"]}
+
+    return train_step
 
 
 def make_serve_fns(model, device="cuda", *, max_len: int, global_batch: int):

@@ -45,7 +45,9 @@
 // masked within one tile takes p = exp(0) there, and a later live tile cancels
 // it through corr = exp(m_prev - m_new) = 0; with -inf this would be NaN.
 // P is rounded to v's dtype before P.V, as the Pallas kernel does (a no-op in
-// f32).
+// f32). Given an lse pointer, both routes also write each row's natural
+// log-sum-exp of its scaled, masked scores, m + log(l) in f32 (B, H, Lq):
+// the backward (flash_attention_bwd.cu) recomputes P from it.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -67,7 +69,7 @@ constexpr int BK = 32;           // keys per KV tile
 template <int DH>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ o,
+                       const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                        int Lq, int Lk, int H, int KVH, int bq,
                        int causal, int window, float scale) {
   constexpr int NI = DH / 16;
@@ -174,11 +176,12 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int e = 0; e < 4; ++e)
         o[row_off + 16 * i + 4 * t + e] = acc[4 * i + e] / den;
+    if (lse != nullptr && t == 0) lse[((int64_t)b * H + h) * Lq + qpos] = m + logf(den);
   }
 }
 
 template <int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Lq,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Lq,
                    int Lk, int H, int KVH, int causal, int window, float scale,
                    cudaStream_t stream) {
   const int gq = H / KVH;
@@ -186,18 +189,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   dim3 grid(B * KVH, (Lq + bq - 1) / bq);
   flash_attention_kernel<DH><<<grid, THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), Lq, Lk, H, KVH, bq, causal, window, scale);
+      static_cast<float*>(o), lse, Lq, Lk, H, KVH, bq, causal, window, scale);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o, int B, int Lq,
+cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Lq,
                         int Lk, int H, int KVH, int Dh, int causal, int window, float scale,
                         cudaStream_t s) {
   switch (Dh) {
-    case 16: return launch<16>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    case 32: return launch<32>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    case 64: return launch<64>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    case 128: return launch<128>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 16: return launch<16>(q, k, v, o, lse, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 32: return launch<32>(q, k, v, o, lse, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 64: return launch<64>(q, k, v, o, lse, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 128: return launch<128>(q, k, v, o, lse, B, Lq, Lk, H, KVH, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -211,6 +214,7 @@ namespace mma {
 constexpr int WARPS = 4, THREADS = 32 * WARPS;  // 16 rows a warp: ROWS in all
 constexpr int BKV = 64;                          // keys per K/V tile
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // Element offset of 16-byte chunk c of row r in a [rows][DH] bf16 tile. The
 // chunk index is XORed with bits of the row so that the 8 rows one ldmatrix
@@ -228,8 +232,8 @@ __device__ __forceinline__ int tile_off(int r, int c) {
 template <int DH>
 __global__ void __launch_bounds__(THREADS)
 attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int Lq, int Lk, int H, int KVH,
-            int bq, int causal, int window, float scale_log2) {
+            const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int Lq,
+            int Lk, int H, int KVH, int bq, int causal, int window, float scale_log2) {
   constexpr int NCH = DH / 8;   // 16-byte chunks per row
   constexpr int KS = DH / 16;   // k16 steps of Q.K^T over the head dim
   constexpr int NT = BKV / 8;   // n8 tiles of S over the keys
@@ -399,12 +403,15 @@ attn_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict
     for (int d = 0; d < DT; ++d)
       *reinterpret_cast<uint32_t*>(orow + 8 * d + 2 * (lane & 3)) =
           pack_bf16(acc[d][2 * h] * inv, acc[d][2 * h + 1] * inv);
+    // natural log-sum-exp of the row's scaled scores: m_run is in base 2
+    if (lse != nullptr && (lane & 3) == 0)
+      lse[((int64_t)b * H + kvh * gq + g) * Lq + qpos] = m_run[h] * LN2 + logf(fmaxf(l, 1e-37f));
   }
 }
 
 template <int DH>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int Lq, int Lk, int H, int KVH,
-                   int causal, int window, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Lq, int Lk, int H,
+                   int KVH, int causal, int window, float scale, cudaStream_t stream) {
   const int gq = H / KVH;
   const int bq = ROWS / gq;  // q positions per block
   const int smem = (64 + 4 * BKV) * DH * 2;
@@ -413,18 +420,18 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   dim3 grid(B * KVH, (Lq + bq - 1) / bq);
   attn_kernel<DH><<<grid, THREADS, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Lq, Lk, H, KVH, bq, causal, window,
-      scale * LOG2E);
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse, Lq, Lk, H, KVH, bq, causal,
+      window, scale * LOG2E);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o, int B, int Lq, int Lk, int H,
-                        int KVH, int Dh, int causal, int window, float scale, cudaStream_t s) {
+cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Lq, int Lk,
+                        int H, int KVH, int Dh, int causal, int window, float scale, cudaStream_t s) {
   switch (Dh) {
-    case 16: return launch<16>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    case 32: return launch<32>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    case 64: return launch<64>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    case 128: return launch<128>(q, k, v, o, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 16: return launch<16>(q, k, v, o, lse, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 32: return launch<32>(q, k, v, o, lse, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 64: return launch<64>(q, k, v, o, lse, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 128: return launch<128>(q, k, v, o, lse, B, Lq, Lk, H, KVH, causal, window, scale, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -434,9 +441,11 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o, in
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. route: 0 fma (f32 only), 1 mma (bf16
-// only); the wrapper's _route picks it. Returns the launch's cudaError_t.
-extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, int dtype, int route,
-                                   int B, int Lq, int Lk, int H, int KVH, int Dh, int causal, int window,
+// only); the wrapper's _route picks it. lse: null, or (B, H, Lq) f32 that
+// receives each row's natural log-sum-exp of its scaled, masked scores (the
+// backward's input, flash_attention_bwd.cu). Returns the launch's cudaError_t.
+extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
+                                   int route, int B, int Lq, int Lk, int H, int KVH, int Dh, int causal, int window,
                                    float scale, void* stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0 || KVH <= 0 || H % KVH != 0 || H / KVH > ROWS)
     return (int)cudaErrorInvalidValue;
@@ -447,8 +456,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   if (route == 1) {
     const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o;
     if (dtype != 1 || (bases & 15)) return (int)cudaErrorInvalidValue;
-    return (int)mma::dispatch_dh(q, k, v, o, B, Lq, Lk, H, KVH, Dh, causal, window, scale, s);
+    return (int)mma::dispatch_dh(q, k, v, o, static_cast<float*>(lse), B, Lq, Lk, H, KVH, Dh, causal, window,
+                                 scale, s);
   }
   if (route != 0 || dtype != 0) return (int)cudaErrorInvalidValue;
-  return (int)dispatch_dh(q, k, v, o, B, Lq, Lk, H, KVH, Dh, causal, window, scale, s);
+  return (int)dispatch_dh(q, k, v, o, static_cast<float*>(lse), B, Lq, Lk, H, KVH, Dh, causal, window, scale, s);
 }

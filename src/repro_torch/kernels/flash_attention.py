@@ -15,10 +15,18 @@ shapes, ~128 FLOP per byte); ``"fma"`` for f32, the first port's FMA kernel,
 since the tensor cores would round f32 products to TF32 and break the
 reference's f32 parity. The C entry refuses any other pairing.
 
-For tensors on the CPU the wrapper computes the plain version
-(``ref.reference_attention``); for CUDA tensors it launches the chosen route
-or raises. ``flash_attention.launches`` counts kernel launches,
-``flash_attention.route_launches`` the same launches by route.
+With ``return_lse=True`` either route also writes each row's log-sum-exp
+(B, H, Lq) f32, which ``flash_attention_bwd`` takes: the backward (K1, no
+Pallas counterpart; ``csrc/flash_attention_bwd.cu``) recomputes P from it and
+returns dQ, dK and dV, with dK and dV summed over each KV head's ``gq`` query
+heads. It is FMA-only, for f32 and bf16 alike.
+
+For tensors on the CPU each wrapper computes the plain version
+(``ref.reference_attention``, ``ref.reference_attention_bwd``); for CUDA
+tensors it launches its kernel or raises. ``flash_attention.launches`` counts
+forward launches, ``flash_attention.route_launches`` the same launches by
+route; ``flash_attention_bwd.launches`` counts backward calls (each one call
+of the C entry, which launches three kernels).
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import ctypes
 import torch
 
 from . import build
-from .ref import reference_attention
+from .ref import reference_attention, reference_attention_bwd
 
 HEAD_DIMS = (16, 32, 64, 128)
 ROWS = 64  # query rows (gq heads x q positions) per thread block; as in the .cu
@@ -40,7 +48,16 @@ def _fn():
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fn():
+    lib = build.load("flash_attention_bwd")
+    fn = lib.flash_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -77,12 +94,21 @@ def flash_attention(
     *,
     causal: bool = True,
     window: int = 0,
-) -> torch.Tensor:
-    """Returns (B, Lq, H, Dh) in q's dtype. Positions are 0..Lq-1 and 0..Lk-1
-    (causal means k_pos <= q_pos, aligned at the top left)."""
+    return_lse: bool = False,
+):
+    """Returns (B, Lq, H, Dh) in q's dtype, and with ``return_lse`` also each
+    row's log-sum-exp (B, H, Lq) f32. Positions are 0..Lq-1 and 0..Lk-1
+    (causal means k_pos <= q_pos, aligned at the top left). Refuses inputs
+    that require a gradient (outside ``torch.no_grad``/``inference_mode``):
+    the kernel's output carries no graph, so a gradient goes through
+    ``repro_torch.models.attention.FlashAttention``, which pairs this call
+    with ``flash_attention_bwd``."""
     _check_inputs(q, k, v, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError("flash_attention drops the gradient: differentiate through "
+                           "repro_torch.models.attention.FlashAttention")
     if q.device.type == "cpu":
-        return reference_attention(q, k, v, causal=causal, window=window)
+        return reference_attention(q, k, v, causal=causal, window=window, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -91,10 +117,11 @@ def flash_attention(
     Lk, KVH = k.shape[1], k.shape[2]
     route = _route(q.dtype)
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _fn()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
             _DTYPES[q.dtype], ROUTES[route], B, Lq, Lk, H, KVH, Dh, int(causal), int(window),
             Dh**-0.5, stream,
         )
@@ -102,8 +129,57 @@ def flash_attention(
         raise RuntimeError(f"flash_attention kernel launch failed on route {route!r}: cudaError_t {rc}")
     flash_attention.launches += 1
     flash_attention.route_launches[route] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,  # (B, Lq, H, Dh)
+    k: torch.Tensor,  # (B, Lk, KVH, Dh)
+    v: torch.Tensor,  # (B, Lk, KVH, Dh)
+    o: torch.Tensor,  # (B, Lq, H, Dh) the forward's output
+    do: torch.Tensor,  # (B, Lq, H, Dh) its cotangent
+    lse: torch.Tensor,  # (B, H, Lq) f32 from flash_attention(..., return_lse=True)
+    *,
+    causal: bool = True,
+    window: int = 0,
+):
+    """Returns (dq, dk, dv) in the inputs' dtype: the gradient of
+    ``flash_attention(q, k, v, causal=causal, window=window)`` against ``do``.
+    Shapes with a row that sees no key (``window > 0`` and Lq >= Lk + window)
+    are refused: the forward leaves such a row's output undefined."""
+    _check_inputs(q, k, v, window)
+    B, Lq, H, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype}, do {tuple(do.shape)} {do.dtype}: want q's "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if lse.shape != (B, H, Lq) or lse.dtype != torch.float32:
+        raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want ({B}, {H}, {Lq}) float32")
+    if any(t.device != q.device for t in (o, do, lse)):
+        raise ValueError("flash_attention_bwd: inputs on different devices")
+    if window > 0 and Lq >= k.shape[1] + window:
+        raise ValueError(f"window {window} leaves rows of Lq {Lq} with none of Lk {k.shape[1]} keys")
+    if q.device.type == "cpu":
+        return reference_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
+    ins = [t if t.is_contiguous() else t.contiguous() for t in (q, k, v, o, do, lse)]
+    Lk, KVH, Dh = k.shape[1], k.shape[2], k.shape[3]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dvec = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _bwd_fn()(
+            *(t.data_ptr() for t in ins), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPES[q.dtype], B, Lq, Lk, H, KVH, Dh, int(causal), int(window), Dh**-0.5, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: cudaError_t {rc}")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0

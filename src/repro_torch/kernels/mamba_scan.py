@@ -89,8 +89,14 @@ def mamba_scan(
     h0: Optional[torch.Tensor] = None,  # (B, Di, N) f32 carry-in state
     chunk_len: int = 256,  # the reference's time blocking; the kernel does not chunk
 ):
-    """Returns (y (B, L, Di) f32, h_final (B, Di, N) f32)."""
+    """Returns (y (B, L, Di) f32, h_final (B, Di, N) f32). Refuses inputs that
+    require a gradient (outside ``torch.no_grad``/``inference_mode``): no
+    backward kernel exists yet (ROADMAP K7), and the kernel's output would
+    carry no graph."""
     _check_inputs(xc, dt, Bm, Cm, a, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (xc, dt, Bm, Cm, a, h0)):
+        raise NotImplementedError("mamba_scan has no backward kernel yet (ROADMAP K7): "
+                                  "call it under torch.no_grad() or torch.inference_mode()")
     B, L, Di = xc.shape
     seg = segment_len(Di)
     if xc.device.type == "cpu":

@@ -80,8 +80,13 @@ def moe_gmm(
     w_up: torch.Tensor,  # (E, D, F)
     w_down: torch.Tensor,  # (E, F, D)
 ) -> torch.Tensor:
-    """Returns (E, C, D) in x's dtype."""
+    """Returns (E, C, D) in x's dtype. Refuses inputs that require a gradient
+    (outside ``torch.no_grad``/``inference_mode``): no backward kernel exists
+    yet (ROADMAP K7), and the kernel's output would carry no graph."""
     _check_inputs(x, w_gate, w_up, w_down)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w_gate, w_up, w_down)):
+        raise NotImplementedError("moe_gmm has no backward kernel yet (ROADMAP K7): "
+                                  "call it under torch.no_grad() or torch.inference_mode()")
     if x.device.type == "cpu":
         return reference_gmm(x, w_gate, w_up, w_down)
     if x.device.type != "cuda":

@@ -7,12 +7,13 @@ tensors. A caller may hand the trunk another dict, e.g. the plain versions
 of ``ref`` on the card, to hold the kernels against them. ``KERNELS`` also
 holds ``hash_tree``, which the engine's content hashing launches
 (``repro_torch.core.hashing``), not the models; the launch counters cover
-all five.
+all six (``flash_attention_bwd``, the backward of ``flash_attention`` that
+training runs, has no Pallas counterpart).
 """
 
 from __future__ import annotations
 
-from .flash_attention import flash_attention
+from .flash_attention import flash_attention, flash_attention_bwd
 from .flash_decode import flash_decode
 from .hash_tree import hash_tree_states
 from .mamba_scan import mamba_scan
@@ -20,6 +21,7 @@ from .moe_gmm import moe_gmm
 
 KERNELS = {
     "flash_attention": flash_attention,
+    "flash_attention_bwd": flash_attention_bwd,
     "flash_decode": flash_decode,
     "moe_gmm": moe_gmm,
     "mamba_scan": mamba_scan,
@@ -28,8 +30,8 @@ KERNELS = {
 
 
 def kernel_set() -> dict:
-    """The dict the model trunk consumes (it reads flash_attention,
-    flash_decode, moe_gmm and mamba_scan)."""
+    """The dict the model trunk consumes (it reads flash_attention and, for
+    a gradient, flash_attention_bwd, flash_decode, moe_gmm and mamba_scan)."""
     return dict(KERNELS)
 
 

@@ -3,8 +3,8 @@
 Deliberately naive: full score matrices in f32, dense per-expert products,
 a direct sequential scan over time, the tree hash widened to int64. The kernel wrappers use them
 for tensors on the CPU (the tests); on a card they are what ``chip_smoke.py``
-holds each kernel against. Nothing on the serving path calls them when the
-tensors lie on a card.
+holds each kernel against. Nothing on the serving or training path calls
+them when the tensors lie on a card.
 """
 
 from __future__ import annotations
@@ -14,15 +14,36 @@ import torch
 from repro_torch.models.common import NEG_INF
 
 
+def _acc(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the oracles compute in: f32, or f64 for f64 inputs (gradcheck)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _gqa_scores(qg, k, ok):
+    """Scaled, masked scores (B, KVH, gq, Lq, Lk) of qg (B, Lq, KVH, gq, Dh)
+    against k (B, Lk, KVH, Dh); ok broadcastable to the scores."""
+    acc = _acc(qg.dtype)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(acc), k.to(acc)) * (qg.shape[-1] ** -0.5)
+    return torch.where(ok, s, torch.full((), NEG_INF, dtype=acc, device=s.device))
+
+
 def _gqa_softmax_v(qg, k, v, ok, out_shape, dtype):
     """qg (B, Lq, KVH, gq, Dh); k/v (B, Lk, KVH, Dh); ok broadcastable to
     (B, KVH, gq, Lq, Lk)."""
-    dh = qg.shape[-1]
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * (dh**-0.5)
-    s = torch.where(ok, s, torch.full((), NEG_INF, device=s.device))
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    p = torch.softmax(_gqa_scores(qg, k, ok), dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(p.dtype))
     return o.reshape(out_shape).to(dtype)
+
+
+def _attention_mask(Lq: int, Lk: int, causal: bool, window: int, device) -> torch.Tensor:
+    q_pos = torch.arange(Lq, device=device)[:, None]
+    k_pos = torch.arange(Lk, device=device)[None, :]
+    ok = torch.ones((Lq, Lk), dtype=torch.bool, device=device)
+    if causal:
+        ok &= k_pos <= q_pos
+    if window > 0:
+        ok &= k_pos > q_pos - window
+    return ok
 
 
 def reference_attention(
@@ -32,18 +53,54 @@ def reference_attention(
     *,
     causal: bool = True,
     window: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """softmax(q k^T / sqrt(Dh) + mask) v in q's dtype; with ``return_lse``
+    also each row's log-sum-exp of its scaled, masked scores (B, H, Lq), in
+    f32 (f64 for f64 inputs)."""
     B, Lq, H, Dh = q.shape
     Lk, KVH = k.shape[1], k.shape[2]
     qg = q.reshape(B, Lq, KVH, H // KVH, Dh)
-    q_pos = torch.arange(Lq, device=q.device)[:, None]
-    k_pos = torch.arange(Lk, device=q.device)[None, :]
-    ok = torch.ones((Lq, Lk), dtype=torch.bool, device=q.device)
-    if causal:
-        ok &= k_pos <= q_pos
-    if window > 0:
-        ok &= k_pos > q_pos - window
-    return _gqa_softmax_v(qg, k, v, ok, q.shape, q.dtype)
+    ok = _attention_mask(Lq, Lk, causal, window, q.device)
+    if not return_lse:
+        return _gqa_softmax_v(qg, k, v, ok, q.shape, q.dtype)
+    s = _gqa_scores(qg, k, ok)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1), v.to(s.dtype))
+    return o.reshape(q.shape).to(q.dtype), torch.logsumexp(s, dim=-1).reshape(B, H, Lq)
+
+
+def reference_attention_bwd(
+    q: torch.Tensor,  # (B, Lq, H, Dh)
+    k: torch.Tensor,  # (B, Lk, KVH, Dh)
+    v: torch.Tensor,  # (B, Lk, KVH, Dh)
+    o: torch.Tensor,  # (B, Lq, H, Dh) the forward's output
+    do: torch.Tensor,  # (B, Lq, H, Dh) its cotangent
+    lse: torch.Tensor,  # (B, H, Lq) the forward's log-sum-exp
+    *,
+    causal: bool = True,
+    window: int = 0,
+):
+    """Plain oracle for ``flash_attention_bwd``: (dq, dk, dv) in the inputs'
+    dtypes, computed in f32 (f64 for f64 inputs) from the full score matrix.
+    P = exp(S * scale - lse) is recomputed from lse; dV = P^T dO;
+    dS = P * (dO V^T - rowsum(dO * O)); dQ = dS K * scale and dK = dS^T Q *
+    scale. dK and dV sum over each KV head's gq query heads."""
+    B, Lq, H, Dh = q.shape
+    Lk, KVH = k.shape[1], k.shape[2]
+    gq = H // KVH
+    acc = _acc(q.dtype)
+    qg = q.reshape(B, Lq, KVH, gq, Dh)
+    dog = do.reshape(B, Lq, KVH, gq, Dh).to(acc)
+    s = _gqa_scores(qg, k, _attention_mask(Lq, Lk, causal, window, q.device))
+    p = torch.exp(s - lse.to(acc).reshape(B, KVH, gq, Lq)[..., None])  # masked: exp(NEG_INF - lse) = 0
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.to(acc))
+    dsum = (do.to(acc) * o.to(acc)).sum(-1).reshape(B, Lq, KVH, gq).permute(0, 2, 3, 1)  # (B, KVH, gq, Lq)
+    ds = p * (dp - dsum[..., None])
+    scale = Dh**-0.5
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.to(acc)) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg.to(acc)) * scale
+    return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def reference_decode(

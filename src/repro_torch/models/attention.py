@@ -5,7 +5,11 @@ JAX package computes attention in jnp (``blocked_attention`` for train and
 prefill, ``_cached_attention`` for decode), the port calls the kernels of the
 ``kernels`` dict it is handed (default ``repro_torch.kernels.ops.kernel_set()``):
 ``flash_attention`` for the no-cache and prefill branches, ``flash_decode``
-for decode. Not ported yet: SWA ring caches, cross-attention and MLA.
+for decode. Where a gradient is needed (training), the no-cache branch goes
+through ``FlashAttention``, a ``torch.autograd.Function`` that pairs the
+forward kernel (with its log-sum-exp) and ``flash_attention_bwd`` (K1); under
+``inference_mode`` it calls the forward alone. Not ported yet: SWA ring
+caches, cross-attention and MLA.
 """
 
 from __future__ import annotations
@@ -60,6 +64,39 @@ def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Ten
     return q, k, v
 
 
+class FlashAttention(torch.autograd.Function):
+    """o = attention(q, k, v) with its gradient: the forward saves q, k, v, o
+    and the row log-sum-exp, the backward calls ``bwd`` on them.
+
+    ``fwd(q, k, v, causal=, window=, return_lse=True) -> (o, lse)`` and
+    ``bwd(q, k, v, o, do, lse, causal=, window=) -> (dq, dk, dv)``: the
+    kernels' wrappers, or their plain versions (``kernels.ref``) to hold the
+    kernels against. Under activation checkpointing the forward runs again in
+    the backward pass, and launches its kernel again."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int, fwd, bwd):
+        o, lse = fwd(q, k, v, causal=causal, window=window, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window, ctx.bwd = causal, window, bwd
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = ctx.bwd(q, k, v, o, do.contiguous(), lse, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None, None, None
+
+
+def attention(q, k, v, *, causal: bool, window: int, kernels: dict) -> torch.Tensor:
+    """``kernels["flash_attention"]``, through ``FlashAttention`` with
+    ``kernels["flash_attention_bwd"]`` when a gradient is needed."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, kernels["flash_attention"],
+                                    kernels["flash_attention_bwd"])
+    return kernels["flash_attention"](q, k, v, causal=causal, window=window)
+
+
 def attention_block(
     p: dict,
     cfg: ArchConfig,
@@ -82,7 +119,7 @@ def attention_block(
     window = cfg.window if cfg.attention == "swa" else 0
 
     if cache is None:
-        out = kernels["flash_attention"](q, k, v, causal=True, window=window)
+        out = attention(q, k, v, causal=True, window=window, kernels=kernels)
         new_cache = None
     else:
         idx = cache["index"]

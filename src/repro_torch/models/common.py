@@ -183,11 +183,66 @@ class ParamBuilder:
 # ---------------------------------------------------------------------------
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm computed in f32 and cast back to x's dtype."""
-    xf = x.float()
+def _rms_norm_fwd(x: torch.Tensor, weight: torch.Tensor, eps: float):
+    acc = torch.promote_types(x.dtype, torch.float32)
+    xf = x.to(acc)
     rstd = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
-    return (xf * rstd * weight.float()).to(x.dtype)
+    return (xf * rstd * weight.to(acc)).to(x.dtype), rstd
+
+
+class RMSNorm(torch.autograd.Function):
+    """The reference's ``rms_norm`` custom_vjp (``repro.models.common``): the
+    forward in f32, cast back to x's dtype; residuals (x in its own dtype, w,
+    rstd), and a hand-written backward whose dx leaves in x's dtype and dw in
+    w's. In bf16 this rounds the gradients where the reference does, unlike
+    autograd through the f32 chain. Computes in f64 for f64 inputs."""
+
+    @staticmethod
+    def forward(ctx, x, weight, eps: float):
+        y, rstd = _rms_norm_fwd(x, weight, eps)
+        ctx.save_for_backward(x, weight, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, rstd = ctx.saved_tensors
+        acc = rstd.dtype
+        xhat = x.to(acc) * rstd
+        gf = g.to(acc)
+        dw = (gf * xhat).sum(dim=tuple(range(x.dim() - 1)))
+        dxhat = gf * weight.to(acc)
+        dx = rstd * (dxhat - xhat * (dxhat * xhat).mean(dim=-1, keepdim=True))
+        return dx.to(x.dtype), dw.to(weight.dtype), None
+
+
+class GradCast(torch.autograd.Function):
+    """Identity whose cotangent is cast to the primal's dtype: the reference's
+    ``grad_cast``, placed at every norm's output (``transformer._rms``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype)
+
+
+def _needs_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMSNorm computed in f32 and cast back to x's dtype; through
+    ``RMSNorm`` where a gradient is needed, directly otherwise (serving)."""
+    if _needs_grad(x, weight):
+        return RMSNorm.apply(x, weight, eps)
+    return _rms_norm_fwd(x, weight, eps)[0]
+
+
+def grad_cast(x: torch.Tensor) -> torch.Tensor:
+    return GradCast.apply(x) if _needs_grad(x) else x
 
 
 def rope_frequencies(dim: int, theta: float, device=None) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Layout-driven decoder assembly, for serving.
+"""Layout-driven decoder assembly, for serving and training.
 
 Port of ``repro.models.transformer``: ``embed -> layers -> norm -> head``,
 each layer a mixer (attention or Mamba) and an FFN (dense, MoE or none)
@@ -14,14 +14,21 @@ Mamba and MoE blocks. Serving only: no remat, no ``chunked_loss`` yet.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from . import attention as attn
 from . import mamba as mb
 from . import moe as moe_mod
-from .common import ArchConfig, LayerSpec, ParamBuilder, resolve_device, rms_norm
+from .common import ArchConfig, LayerSpec, ParamBuilder, grad_cast, resolve_device, rms_norm
+
+
+def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    # as the reference: the norm's cotangent is cast to the activation dtype
+    return grad_cast(rms_norm(x, w, eps))
 
 
 def _check_ported(cfg: ArchConfig, spec: LayerSpec) -> None:
@@ -57,14 +64,14 @@ def apply_layer(
 ):
     """Returns (x, new_cache, aux_loss); aux_loss is 0.0 without an MoE FFN."""
     aux = 0.0
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    h = _rms(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == "attention":
         y, new_cache = attn.attention_block(p["mixer"], cfg, h, positions, cache, kernels=kernels)
     else:
         y, new_cache = mb.mamba_block(p["mixer"], cfg, h, positions, cache, kernels=kernels)
     x = x + y
     if "ffn" in p:
-        h = rms_norm(x, p["ln2"], cfg.norm_eps)
+        h = _rms(x, p["ln2"], cfg.norm_eps)
         if spec.ffn == "moe":
             y, mo = moe_mod.moe_ffn(p["ffn"], cfg, h, kernels=kernels)
             aux = mo["aux_loss"]
@@ -82,11 +89,13 @@ class Model:
 
     def init(self, seed: int, device="cuda") -> dict:
         """Random params drawn from a ``torch.Generator`` seeded with ``seed``
-        on ``device``."""
+        on ``device``; on the ``meta`` device, their shapes and dtypes alone."""
         cfg = self.cfg
         dev = resolve_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        gen = None
+        if dev.type != "meta":
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
         pb = ParamBuilder(gen, cfg.compute_dtype(), dev)
         params: dict = {
             "embed": pb.dense((cfg.vocab, cfg.d_model), scale=1.0),
@@ -108,12 +117,22 @@ class Model:
         kernels: Optional[dict] = None,
     ):
         """Returns (x, aux_loss, new_caches): aux_loss is the f32 sum of the
-        MoE layers' load-balancing losses; new_caches is None without caches."""
+        MoE layers' load-balancing losses; new_caches is None without caches.
+        Without caches and with a gradient enabled, each layout period runs
+        under the config's remat (see the module docstring)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        period = len(cfg.layout)
+        layers = params["layers"]
+        if caches is None and torch.is_grad_enabled() and cfg.remat != "none":
+            ctx = {"full": None, "block": _save_matmuls}[cfg.remat]
+            for g in range(0, len(layers), period):
+                x, aux = checkpoint(self._period, layers[g : g + period], x, aux, positions, kernels,
+                                    use_reentrant=False, **({} if ctx is None else {"context_fn": ctx}))
+            return x, aux, None
         new_caches = []
-        for i, p in enumerate(params["layers"]):
-            spec = cfg.layout[i % len(cfg.layout)]
+        for i, p in enumerate(layers):
+            spec = cfg.layout[i % period]
             x, nc, a = apply_layer(
                 p, cfg, spec, x, positions, None if caches is None else caches[i], kernels
             )
@@ -121,14 +140,47 @@ class Model:
             new_caches.append(nc)
         return x, aux, (new_caches if caches is not None else None)
 
+    def _period(self, layers: list, x, aux, positions, kernels):
+        """One layout period without caches: the reference's scan body."""
+        for spec, p in zip(self.cfg.layout, layers):
+            x, _, a = apply_layer(p, self.cfg, spec, x, positions, None, kernels)
+            aux = aux + a
+        return x, aux
+
     def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         return params["embed"][tokens]  # (B, L, D)
 
     def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        x = _rms(x, params["final_norm"], cfg.norm_eps)
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
         return x @ w
+
+    def chunked_loss(
+        self,
+        params: dict,
+        x: torch.Tensor,  # (B, L, D) trunk output
+        labels: torch.Tensor,  # (B, L) next-token ids, -1 = ignore
+        chunk: int = 512,
+    ) -> torch.Tensor:
+        """Token-mean cross-entropy in f32 over L-chunks of ``chunk``, labels
+        of -1 ignored; one chunk's (B, chunk, V) logits at a time."""
+        cfg = self.cfg
+        x = _rms(x, params["final_norm"], cfg.norm_eps)
+        w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        L = x.shape[1]
+        chunk = min(chunk, L)
+        tot = torch.zeros((), dtype=torch.float32, device=x.device)
+        cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+        for s in range(0, L, chunk):
+            lc = labels[:, s : s + chunk]
+            logits = (x[:, s : s + chunk] @ w).float()
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = logits.gather(-1, lc.clamp(min=0)[..., None].long())[..., 0]
+            mask = (lc != -1).float()
+            tot = tot + ((lse - gold) * mask).sum()
+            cnt = cnt + mask.sum()
+        return tot / cnt.clamp(min=1.0)
 
     def init_cache(self, batch: int, max_len: int, device="cuda") -> list:
         """One cache per layer, of its own mixer: K/V for attention, the
@@ -145,3 +197,12 @@ class Model:
             else:
                 caches.append(attn.init_attention_cache(cfg, batch, max_len, dt, dev))
         return caches
+
+
+def _save_policy(ctx, op, *args, **kwargs):
+    """remat "block": keep the plain matrix products' outputs (no batch
+    dimensions; attention's batched products and everything else recompute)."""
+    return CheckpointPolicy.MUST_SAVE if op is torch.ops.aten.mm.default else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_save_matmuls = functools.partial(create_selective_checkpoint_contexts, _save_policy)

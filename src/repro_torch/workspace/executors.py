@@ -5,10 +5,10 @@ underlay-transparency seam from the paper: the breadboard (Workspace) and
 the trigger semantics (push/pull/sample) are fixed; *where* task code
 executes is a backend choice. ``InlineExecutor`` runs everything in-process
 (the paper's single-node breadboard); ``ConcurrentExecutor`` fans a wave of
-simultaneously-ready tasks across a thread pool. ``ZonedExecutor`` and
-``AdaptiveExecutor`` (ROADMAP queue 1 item 7) and ``MeshExecutor`` (item 2,
-the training slice) are not ported yet: constructing one raises
-``NotImplementedError``.
+simultaneously-ready tasks across a thread pool. ``MeshExecutor`` binds the
+circuit to one torch device and builds the model steps on it.
+``ZonedExecutor`` and ``AdaptiveExecutor`` (ROADMAP queue 1 item 7) are not
+ported yet: constructing one raises ``NotImplementedError``.
 
 The scheduling seam is ``run_wave(manager, tasks)``: the event scheduler
 (:mod:`repro_torch.core.scheduler`) computes *waves* of ready tasks and hands each
@@ -212,12 +212,93 @@ class AdaptiveExecutor(_NotPorted):
     roadmap = "queue 1 item 7: durable and extended engine"
 
 
-class MeshExecutor(_NotPorted):
-    """Binds the circuit to a device mesh and builds model steps on it
-    (``repro.workspace.executors``); the training slice's data circuit and
-    steps run through it."""
+class MeshExecutor(InlineExecutor):
+    """Execute the circuit against one torch device (``repro.workspace.executors``).
 
-    roadmap = "queue 1 item 2: the training slice"
+    The reference binds a JAX mesh and installs its axis rules around every
+    engine call; the port binds one device (``repro_torch.launch.mesh
+    .make_host_mesh``) and makes it the current CUDA device around every
+    engine call, so task code that allocates on "cuda" lands on it. Model-step
+    tasks get their implementations from the dist layer (``train_step`` /
+    ``serve_fns``). The circuit, its provenance and the trigger modes are
+    untouched. Wave execution is serial (inherited), or, with
+    ``inner=ConcurrentExecutor(...)``, fanned across threads; multi-task
+    waves then run on pool threads outside the device context. Logical-axis
+    rules and meshes of several devices wait for sharding (ROADMAP.md queue
+    1, item 6)."""
+
+    def __init__(
+        self,
+        mesh=None,
+        *,
+        rules: Optional[dict] = None,
+        cfg=None,
+        mode: str = "train",
+        global_batch: Optional[int] = None,
+        inner: Optional[InlineExecutor] = None,
+    ) -> None:
+        super().__init__()
+        from repro_torch.launch.mesh import make_host_mesh
+
+        if rules is not None:
+            raise NotImplementedError("logical-axis rules need sharding (ROADMAP queue 1 item 6: distribution)")
+        self.mesh = make_host_mesh() if mesh is None else make_host_mesh(device=mesh)
+        self.cfg = cfg
+        self.mode = mode
+        self.global_batch = global_batch
+        self.inner = inner
+
+    def _ctx(self):
+        import contextlib
+
+        import torch
+
+        return torch.cuda.device(self.mesh) if self.mesh.type == "cuda" else contextlib.nullcontext()
+
+    def push(self, manager, task: str, payloads: dict, region: str) -> dict:
+        with self._ctx():
+            return super().push(manager, task, payloads, region)
+
+    def pull(self, manager, target: str) -> dict:
+        with self._ctx():
+            return super().pull(manager, target)
+
+    def sample(self, manager, source: str) -> dict:
+        with self._ctx():
+            return super().sample(manager, source)
+
+    def run_wave(self, manager, tasks: list) -> list:
+        if self.inner is not None:
+            return self.inner.run_wave(manager, tasks)
+        return super().run_wave(manager, tasks)
+
+    # -- dist-layer step builders (model tasks) -----------------------------
+    def train_step(self, model, schedule, **kwargs):
+        """``train_step(state, batch) -> (state, metrics)`` on this
+        executor's device (``repro_torch.dist.step.make_train_step``)."""
+        from repro_torch.dist.step import make_train_step
+
+        kwargs.setdefault("global_batch", self.global_batch)
+        return make_train_step(model, self.mesh, schedule, **kwargs)
+
+    def serve_fns(self, model, **kwargs):
+        """(prefill_fn, decode_fn) on this executor's device."""
+        from repro_torch.dist.step import make_serve_fns
+
+        kwargs.setdefault("global_batch", self.global_batch)
+        return make_serve_fns(model, self.mesh, **kwargs)
+
+    def stats(self) -> dict:
+        out = super().stats()
+        out["mesh"] = {"device": str(self.mesh)}
+        out["mode"] = self.mode
+        if self.inner is not None:
+            out["inner"] = self.inner.stats()
+        return out
+
+    def __repr__(self) -> str:
+        inner = f", inner={self.inner!r}" if self.inner is not None else ""
+        return f"MeshExecutor(device={str(self.mesh)!r}, mode={self.mode!r}{inner})"
 
 
 EXECUTOR_CHOICES = ("inline", "concurrent")

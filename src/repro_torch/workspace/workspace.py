@@ -522,10 +522,10 @@ class Workspace:
 
     def ghost(self, injections: dict, pulls: Optional[list] = None) -> dict:
         """Wireframing the circuit with ghost batches needs the port's ghost
-        type, which comes with ``wireframe`` on the training slice."""
+        type, which comes with ``core/wireframe.py``."""
         raise NotImplementedError(
-            "ghost runs are not ported yet (ROADMAP queue 1 item 2: wireframe "
-            "comes with the training slice)"
+            "ghost runs are not ported yet (ROADMAP queue 1 item 2c: wireframe, "
+            "with an explicit ghost type)"
         )
 
     # ------------------------------------------------------------------

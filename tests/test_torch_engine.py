@@ -373,6 +373,7 @@ def test_object_tier_keeps_requires_grad(tmp_path):
 # ---------------------------------------------------------------------------
 
 ITEM_7 = "queue 1 item 7"
+ITEM_6 = "queue 1 item 6"
 ITEM_2 = "queue 1 item 2"
 
 
@@ -387,7 +388,7 @@ ITEM_2 = "queue 1 item 2"
         (lambda: torch_ws.Workspace().ghost({"t.x": None}), ITEM_2),
         (lambda: torch_ws.ZonedExecutor(), ITEM_7),
         (lambda: torch_ws.AdaptiveExecutor(), ITEM_7),
-        (lambda: torch_ws.MeshExecutor(), ITEM_2),
+        (lambda: torch_ws.MeshExecutor(rules={"batch": "data"}), ITEM_6),
         (lambda: ProvenanceRegistry().bind_journal(object()), ITEM_7),
         (lambda: PipelineManager(Pipeline("p"), topology=object()), ITEM_7),
         (lambda: PipelineManager(Pipeline("p"), journal=object()), ITEM_7),

@@ -21,7 +21,7 @@ from repro.kernels.moe_gmm import moe_gmm as pallas_gmm
 from repro.models.mamba import selective_scan as jax_chunked_scan
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
 import repro_torch.kernels.flash_decode as fd_module
 from repro_torch.kernels.flash_decode import flash_decode, pick_split
 from repro_torch.kernels.hash_tree import hash_tree_state
@@ -366,8 +366,10 @@ def test_cpu_path_launches_no_kernel():
     x = torch.randn(1, 5, 8)
     mamba_scan(x, x.abs(), torch.randn(1, 5, 4), torch.randn(1, 5, 4), -torch.rand(8, 4))
     hash_tree_state(torch.zeros(8192, dtype=torch.int32))
-    assert ops.launch_counts() == {"flash_attention": 0, "flash_decode": 0, "moe_gmm": 0, "mamba_scan": 0,
-                                   "hash_tree": 0}
+    o, lse = flash_attention(q, q, q, return_lse=True)
+    flash_attention_bwd(q, q, q, o, q, lse)
+    assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0, "flash_decode": 0,
+                                   "moe_gmm": 0, "mamba_scan": 0, "hash_tree": 0}
 
 
 @pytest.mark.parametrize(
@@ -475,3 +477,154 @@ def test_flash_attention_tile_edges_match_pallas(B, Lq, Lk, H, KVH, Dh, causal, 
 @pytest.mark.parametrize("E,C,D,F,bc,bf", EDGE_GMM_CASES)
 def test_moe_gmm_tile_edges_match_pallas(E, C, D, F, bc, bf):
     test_moe_gmm_matches_pallas(E, C, D, F, bc, bf)
+
+
+# ---------------------------------------------------------------------------
+# K1: the flash_attention backward's plain version (the CUDA kernel is held
+# against it on the card by chip_smoke.py phase 2)
+# ---------------------------------------------------------------------------
+
+import jax  # noqa: E402
+
+from repro.models import common as jax_common  # noqa: E402
+from repro.models.attention import blocked_attention  # noqa: E402
+from repro_torch.models import common as torch_common  # noqa: E402
+from repro_torch.models.attention import FlashAttention  # noqa: E402
+
+BWD_CASES = [  # (B, L, H, KVH, Dh, window): L not a multiple of 16
+    (2, 37, 4, 4, 16, 0),  # MHA
+    (1, 45, 4, 2, 64, 0),  # gq 2
+    (2, 29, 8, 2, 16, 9),  # gq 4, a window
+    (1, 50, 4, 1, 64, 20),  # gq 4, a window
+]
+# dq, dk, dv against jax.grad of the jnp blocked_attention. f32: full vs
+# blocked online softmax and XLA vs ATen sum orders. bf16: the reference
+# rounds q.k, p and each product's output to bf16 where the plain version
+# keeps f32 (one bf16 ulp, 2^-8, of the largest gradient, and a little more
+# for sums of a few dozen such terms).
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # max |diff| over the largest |grad|
+
+
+def _bwd_inputs(B, L, H, KVH, Dh, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    q, do = (rng.randn(B, L, H, Dh).astype(np.float32) for _ in range(2))
+    k, v = (rng.randn(B, L, KVH, Dh).astype(np.float32) for _ in range(2))
+    return [torch.from_numpy(a).to(dtype) for a in (q, k, v, do)]
+
+
+def _rel_err(got, want):
+    want = want.float()
+    return ((got.float() - want).abs().max() / want.abs().max()).item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L,H,KVH,Dh,window", BWD_CASES)
+def test_reference_attention_bwd_matches_jax_grad(B, L, H, KVH, Dh, window, dtype):
+    q, k, v, do = _bwd_inputs(B, L, H, KVH, Dh, dtype)
+    o, lse = ref.reference_attention(q, k, v, window=window, return_lse=True)
+    got = ref.reference_attention_bwd(q, k, v, o, do, lse, window=window)
+    assert [g.dtype for g in got] == [dtype] * 3 and lse.dtype == torch.float32
+
+    def j(t):
+        return jnp.asarray(t.float().numpy()).astype(JNP[dtype])
+
+    def f(q_, k_, v_):
+        return blocked_attention(q_, k_, v_, causal=True, window=window, block_q=16, block_kv=16)
+
+    _, vjp = jax.vjp(f, j(q), j(k), j(v))
+    want = vjp(j(do))
+    for name, g, w in zip("qkv", got, want):
+        assert _rel_err(g, torch.from_numpy(np.array(w, dtype=np.float32))) <= BWD_TOL[dtype], f"d{name}"
+
+    # autograd through the plain forward: the same function, differentiated by torch
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref.reference_attention(*leaves, window=window).backward(do)
+    for name, g, leaf in zip("qkv", got, leaves):
+        assert _rel_err(g, leaf.grad) <= BWD_TOL[dtype], f"d{name} vs autograd"
+
+
+@pytest.mark.parametrize("window", [0, 7])
+def test_reference_lse_is_the_rows_logsumexp(window):
+    q, k, v, _ = _bwd_inputs(2, 33, 4, 2, 16, torch.float32, seed=1)
+    o, lse = flash_attention(q, k, v, window=window, return_lse=True)  # the CPU path: the plain version
+    torch.testing.assert_close(o, ref.reference_attention(q, k, v, window=window), rtol=0, atol=0)
+    qg = q.reshape(2, 33, 2, 2, 16)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k) * 16**-0.5
+    ok = ref._attention_mask(33, 33, True, window, "cpu")
+    want = torch.logsumexp(s.masked_fill(~ok, float("-inf")), dim=-1).reshape(2, 4, 33)
+    torch.testing.assert_close(lse, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("window", [0, 5])
+def test_flash_attention_function_passes_gradcheck_in_f64(window):
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 11, 4, 16, dtype=torch.float64, generator=g, requires_grad=True)
+    k = torch.randn(1, 11, 2, 16, dtype=torch.float64, generator=g, requires_grad=True)
+    v = torch.randn(1, 11, 2, 16, dtype=torch.float64, generator=g, requires_grad=True)
+
+    def fn(q_, k_, v_):
+        return FlashAttention.apply(q_, k_, v_, True, window, ref.reference_attention, ref.reference_attention_bwd)
+
+    assert torch.autograd.gradcheck(fn, (q, k, v), eps=1e-6, atol=1e-7, rtol=1e-5)
+
+
+def test_flash_attention_bwd_refuses_rows_without_keys():
+    q, k, v, do = _bwd_inputs(1, 20, 2, 2, 16, torch.float32)
+    o, lse = flash_attention(q, k[:, :8], v[:, :8], causal=False, window=12, return_lse=True)
+    with pytest.raises(ValueError, match="window 12"):
+        flash_attention_bwd(q, k[:, :8], v[:, :8], o, do, lse, causal=False, window=12)
+
+
+def _jax_rms_grads(x, w, g):
+    def f(x_, w_):
+        return jax_common.grad_cast(jax_common.rms_norm(x_, w_, 1e-5))
+
+    y, vjp = jax.vjp(f, x, w)
+    return y, *vjp(g)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rms_norm_and_grad_cast_backward_match_the_custom_vjps(dtype):
+    """The same formula with the same casts in both packages: bit for bit in
+    bf16 (the f32 sums' last-place differences vanish in the rounding to bf16
+    on these inputs), within 2e-6 in f32."""
+    rng = np.random.RandomState(3)
+    x, g = (rng.randn(3, 7, 64).astype(np.float32) for _ in range(2))
+    w = (1 + 0.1 * rng.randn(64)).astype(np.float32)
+    xt, wt, gt = (torch.from_numpy(a).to(dtype) for a in (x, w, g))
+    xt.requires_grad_()
+    wt.requires_grad_()
+    y = torch_common.grad_cast(torch_common.rms_norm(xt, wt, 1e-5))
+    y.backward(gt)
+    j = lambda t: jnp.asarray(t.detach().float().numpy()).astype(JNP[dtype])
+    yj, dxj, dwj = _jax_rms_grads(j(xt), j(wt), j(gt))
+    assert xt.grad.dtype == wt.grad.dtype == y.dtype == dtype
+    for got, want in ((y, yj), (xt.grad, dxj), (wt.grad, dwj)):
+        want = torch.from_numpy(np.array(want.astype(jnp.float32))).to(dtype)
+        if dtype == torch.bfloat16:
+            assert torch.equal(got.detach(), want)
+        else:
+            torch.testing.assert_close(got.detach(), want, rtol=2e-6, atol=2e-6)
+
+
+def test_wrappers_refuse_a_gradient_they_would_drop():
+    """moe_gmm and mamba_scan have no backward kernel (ROADMAP K7) and the
+    forward flash_attention none outside FlashAttention: given inputs that
+    require a gradient, with grad mode on, they raise on every device rather
+    than return an output without a graph on a card."""
+    w = torch.randn(2, 8, 8, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K7"):
+        moe_gmm(torch.randn(2, 3, 8), w, w, w)
+    x = torch.randn(1, 5, 8, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="K7"):
+        mamba_scan(x, x.detach().abs(), torch.randn(1, 5, 4), torch.randn(1, 5, 4), -torch.rand(8, 4))
+    q = torch.randn(1, 16, 2, 16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="FlashAttention"):
+        flash_attention(q, q, q)
+    # serving is unaffected: no grad mode, or no input that requires one
+    with torch.inference_mode():
+        moe_gmm(torch.randn(2, 3, 8), w, w, w)
+        flash_attention(q, q, q)
+    with torch.no_grad():
+        mamba_scan(x, x.abs(), torch.randn(1, 5, 4), torch.randn(1, 5, 4), -torch.rand(8, 4))
+    moe_gmm(torch.randn(2, 3, 8), w.detach(), w.detach(), w.detach())

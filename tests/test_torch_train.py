@@ -1,0 +1,238 @@
+"""The port's training step against the JAX package, on the CPU.
+
+Reduced dense configs in f32, the JAX weights carried over with
+``params_from_jax`` (the G-stacked ``blocks`` leaves become one dict per
+layer), and the same numpy batches handed to both packages: ``train_loss``
+and every gradient leaf against ``jax.value_and_grad``, three steps of
+``make_train_step`` (with and without microbatches) against the JAX step on
+``make_host_mesh()``, AdamW and the cosine schedule alone, and the layouts
+that must refuse to train.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.dist.step import make_train_step as jax_make_train_step
+from repro.launch.mesh import make_host_mesh
+from repro.models import registry as jax_registry
+from repro.optim import adamw_init as jax_adamw_init
+from repro.optim import adamw_update as jax_adamw_update
+from repro.optim import cosine_warmup as jax_cosine_warmup
+from repro_torch.configs import get_config
+from repro_torch.dist.step import make_train_state_specs, make_train_step
+from repro_torch.models import registry
+from repro_torch.models.convert import params_from_jax
+from repro_torch.optim import adamw_init, adamw_update, cosine_warmup
+from repro_torch.optim.adamw import tree_leaves, tree_map
+
+ARCHS = ["stablelm-1.6b", "internlm2-20b", "qwen2.5-32b"]
+B, L = 4, 40
+# loss and gradients of one f32 forward/backward: XLA and ATen sum in other
+# orders (matmuls, the norm's means, logsumexp), ~1e-6 relative per op,
+# compounded through two layers and the head; measured <= 5e-5 of the leaf's
+# largest gradient
+LOSS_TOL = dict(rtol=1e-6, atol=1e-5)
+GRAD_REL = 2e-4  # max |diff| over the leaf's max |grad|
+# three AdamW steps: each step divides an element's moment by the root of its
+# own second moment, so an element's update carries its gradient's *relative*
+# error. An element whose gradient sits at the f32 noise floor of its leaf
+# (e.g. qwen's key bias, whose gradient nearly cancels over positions) may
+# step the other way in either package: it may differ by up to Adam's largest
+# move, 2 lr a step, where its first moment is below NOISE_REL of the leaf's
+# largest. Every other element agrees within PARAM_TOL. Metrics of steps 2-3
+# see parameters moved that way.
+METRIC_TOL = dict(rtol=2e-3, atol=1e-6)
+PARAM_TOL = dict(rtol=1e-4, atol=2e-5)
+NOISE_REL = 1e-4
+MOMENT_REL = 1e-3  # max |diff| over the leaf's max |moment|
+
+
+def _models(arch, seed=0):
+    cfg, jcfg = get_config(arch).reduced(), jax_get_config(arch).reduced()
+    jm = jax_registry.build_model(jcfg)
+    jparams, _ = jm.init(jax.random.key(seed))
+    params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
+    return registry.build_model(cfg), params, jm, jparams
+
+
+def _batch(vocab, seed=0, batch=B):
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(0, vocab, size=(batch, L)).astype(np.int32)
+    labels = rng.randint(0, vocab, size=(batch, L)).astype(np.int32)
+    labels[0, :5] = -1  # ignored positions
+    return tokens, labels
+
+
+def _port_tree(cfg, jtree):
+    """A JAX param-shaped tree (grads, moments) in the port's layout."""
+    return params_from_jax(cfg, jax.tree.map(np.asarray, jtree), device="cpu")
+
+
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree) for n in _leaf_names(tree[k], f"{prefix}/{k}")]
+    if isinstance(tree, list):
+        return [n for i, t in enumerate(tree) for n in _leaf_names(t, f"{prefix}/{i}")]
+    return [prefix]
+
+
+def _rel_close(name, got, want, rel):
+    scale = max(float(want.abs().max()), 1e-12)
+    diff = float((got - want).abs().max())
+    assert diff <= rel * scale, f"{name}: max |diff| {diff} > {rel} x {scale}"
+
+
+@pytest.mark.parametrize("remat", ["none", "block", "full"])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_loss_and_grads_match_jax(arch, remat):
+    m, params, jm, jparams = _models(arch)
+    m = registry.build_model(dataclasses.replace(m.cfg, remat=remat))
+    jm = jax_registry.build_model(dataclasses.replace(jm.cfg, remat=remat))
+    tokens, labels = _batch(m.cfg.vocab)
+    jb = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
+    (jloss, jaux), jgrads = jax.value_and_grad(
+        lambda p: jax_registry.train_loss(jm, p, jb), has_aux=True)(jparams)
+
+    leaves = [p.clone().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    live = tree_map(lambda _: next(it), params)
+    loss, aux = registry.train_loss(m, live, {"tokens": torch.from_numpy(tokens),
+                                              "labels": torch.from_numpy(labels)})
+    grads = torch.autograd.grad(loss, leaves)
+    np.testing.assert_allclose(loss.item(), float(jloss), **LOSS_TOL)
+    np.testing.assert_allclose(aux["ce"].item(), float(jaux["ce"]), **LOSS_TOL)
+    assert aux["aux"].item() == float(jaux["aux"]) == 0.0
+    want = _port_tree(m.cfg, jgrads)
+    names = _leaf_names(want)
+    assert len(names) == len(grads) == 3 + 9 * m.cfg.n_layers + 3 * m.cfg.qkv_bias * m.cfg.n_layers
+    for name, g, w in zip(names, grads, tree_leaves(want)):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        _rel_close(name, g, w, GRAD_REL)
+
+
+LR = 3e-4
+
+
+def _run_steps(arch, microbatches, n_steps=3, lr=LR):
+    m, params, jm, jparams = _models(arch)
+    batches = [_batch(m.cfg.vocab, seed=s) for s in range(n_steps)]
+    jstep, *_ = jax_make_train_step(jm, make_host_mesh(), jax_cosine_warmup(lr, 1, 4), global_batch=B,
+                                    microbatches=microbatches)
+    step = make_train_step(m, "cpu", cosine_warmup(lr, 1, 4), global_batch=B, microbatches=microbatches)
+    jstate = {"params": jparams, "opt": jax_adamw_init(jparams), "step": jnp.zeros((), jnp.int32)}
+    state = {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32)}
+    for tokens, labels in batches:
+        jstate, jmet = jstep(jstate, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
+        state, met = step(state, {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels)})
+        for k in ("loss", "lr", "grad_norm", "clip_scale"):
+            np.testing.assert_allclose(met[k].item(), float(jmet[k]), err_msg=k, **METRIC_TOL)
+    assert int(state["step"]) == int(jstate["step"]) == n_steps
+    assert int(state["opt"]["count"]) == int(jstate["opt"]["count"]) == n_steps
+    return m.cfg, state, jstate
+
+
+def _check_state(cfg, state, jstate, n_steps=3):
+    want_p, want_m = _port_tree(cfg, jstate["params"]), _port_tree(cfg, jstate["opt"]["m"])
+    for name, got, want, m in zip(_leaf_names(want_p), tree_leaves(state["params"]), tree_leaves(want_p),
+                                  tree_leaves(want_m)):
+        diff = (got - want).abs()
+        far = diff > PARAM_TOL["atol"] + PARAM_TOL["rtol"] * want.abs()
+        noise = m.abs() <= NOISE_REL * m.abs().max()
+        assert not (far & ~noise).any(), f"{name}: {int((far & ~noise).sum())} of {far.numel()} elements"
+        assert diff.max().item() <= 2 * n_steps * LR, name
+    for moment in ("m", "v"):
+        want_m = _port_tree(cfg, jstate["opt"][moment])
+        for name, got, want in zip(_leaf_names(want_m), tree_leaves(state["opt"][moment]), tree_leaves(want_m)):
+            assert got.dtype == torch.float32
+            _rel_close(f"{moment}{name}", got, want, MOMENT_REL)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_three_train_steps_match_jax(arch):
+    _check_state(*_run_steps(arch, microbatches=1))
+
+
+def test_microbatched_train_steps_match_jax():
+    _check_state(*_run_steps("stablelm-1.6b", microbatches=2))
+
+
+def _tree_np(tree):
+    return jax.tree.map(lambda a: np.asarray(a, dtype=np.float32), tree)
+
+
+@pytest.mark.parametrize("clip_norm", [1.0, 1e3])  # clipped, and not
+def test_adamw_update_matches_jax(clip_norm):
+    """One 1-D param (never decayed), one 2-D param, and one per-layer 1-D
+    param in a list, which the reference stacks to (G, D) and so decays."""
+    rng = np.random.RandomState(7)
+    p = {"norm": rng.randn(8), "w": rng.randn(8, 6), "layers": [{"ln": rng.randn(8)}, {"ln": rng.randn(8)}]}
+    g = {"norm": rng.randn(8) * 3, "w": rng.randn(8, 6) * 3,
+         "layers": [{"ln": rng.randn(8) * 3}, {"ln": rng.randn(8) * 3}]}
+    p, g = _tree_np(p), _tree_np(g)
+    stack = lambda t: {"norm": t["norm"], "w": t["w"], "ln": np.stack([t["layers"][0]["ln"], t["layers"][1]["ln"]])}
+    jp, jg = jax.tree.map(jnp.asarray, stack(p)), jax.tree.map(jnp.asarray, stack(g))
+    tp, tg = tree_map(torch.from_numpy, p), tree_map(torch.from_numpy, g)
+    jstate, state = jax_adamw_init(jp), adamw_init(tp)
+    for lr in (1e-2, 5e-3):
+        jp, jstate, jm = jax_adamw_update(jp, jg, jstate, jnp.float32(lr), clip_norm=clip_norm)
+        with torch.no_grad():
+            met = adamw_update(tp, tg, state, torch.tensor(lr, dtype=torch.float32), clip_norm=clip_norm)
+        np.testing.assert_allclose(met["grad_norm"].item(), float(jm["grad_norm"]), rtol=1e-6)
+        np.testing.assert_allclose(met["clip_scale"].item(), float(jm["clip_scale"]), rtol=1e-6)
+        got = stack(tree_map(lambda t: t.numpy(), tp))
+        for k in got:
+            np.testing.assert_allclose(got[k], np.asarray(jp[k]), rtol=1e-6, atol=1e-7, err_msg=k)
+    assert (met["clip_scale"].item() < 1.0) == (clip_norm == 1.0)
+    # the 1-D param took no decay: with weight_decay 0 it lands on the same value
+    p0 = _tree_np({"norm": np.ones(8)})
+    a, b = tree_map(torch.from_numpy, p0), tree_map(torch.from_numpy, _tree_np({"norm": np.ones(8)}))
+    gg = tree_map(torch.from_numpy, _tree_np({"norm": np.full(8, 0.5)}))
+    with torch.no_grad():
+        adamw_update(a, gg, adamw_init(a), torch.tensor(0.1))
+        adamw_update(b, gg, adamw_init(b), torch.tensor(0.1), weight_decay=0.0)
+    assert torch.equal(a["norm"], b["norm"])
+
+
+def test_cosine_warmup_matches_jax():
+    port, ref = cosine_warmup(3e-4, 2, 20), jax_cosine_warmup(3e-4, 2, 20)
+    for step in range(25):
+        want = float(ref(jnp.asarray(step, jnp.int32)))
+        np.testing.assert_allclose(port(torch.tensor(step, dtype=torch.int32)).item(), want, rtol=1e-6, atol=0)
+        np.testing.assert_allclose(port(step).item(), want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "falcon-mamba-7b", "phi3.5-moe-42b"])
+def test_moe_and_hybrid_layouts_refuse_to_train(arch):
+    cfg = get_config(arch).reduced()
+    model = registry.build_model(cfg)
+    with pytest.raises(NotImplementedError, match="K7"):
+        make_train_step(model, "cpu", cosine_warmup(1e-3, 1, 4), global_batch=2)
+    params = model.init(0, "cpu")
+    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="K7"):
+        registry.train_loss(model, params, {"tokens": tokens, "labels": tokens})
+
+
+def test_prefix_inputs_and_pod_compression_raise():
+    m, params, _, _ = _models("stablelm-1.6b")
+    tokens = torch.zeros((2, 8), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        registry.train_loss(m, params, {"tokens": tokens, "labels": tokens, "prefix": torch.zeros(2, 4, 64)})
+    with pytest.raises(NotImplementedError, match="item 6"):
+        make_train_step(m, "cpu", cosine_warmup(1e-3, 1, 4), global_batch=2, compress_pods=True)
+
+
+def test_train_state_specs_mirror_the_params():
+    m, params, _, _ = _models("internlm2-20b")
+    spec = make_train_state_specs(m)
+    for name, s, p in zip(_leaf_names(params), tree_leaves(spec["params"]), tree_leaves(params)):
+        assert s.device.type == "meta" and s.shape == p.shape and s.dtype == p.dtype, name
+    for s, p in zip(tree_leaves(spec["opt"]["m"]), tree_leaves(params)):
+        assert s.shape == p.shape and s.dtype == torch.float32
+    assert spec["step"].dtype == spec["opt"]["count"].dtype == torch.int32 and spec["step"].dim() == 0
