@@ -375,6 +375,23 @@ def forced_routing_gate(kernels, forced, probs_kernels, probs_forced, experts_ke
     return failures, dict(stats, dprob=dprob, rerouted=rerouted, tokens=n_tok)
 
 
+class routed:
+    """Within the block, a kernel module's ``_route`` returns ``route``: its
+    other design on the same inputs, to be checked or timed beside."""
+
+    def __init__(self, module, route: str):
+        self.module, self.route = module, route
+
+    def __enter__(self):
+        self.chosen = self.module._route
+        self.module._route = lambda *args: self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.module._route = self.chosen
+        return False
+
+
 class PlainSpy:
     """Counts the calls of the attention oracles (``reference_attention``,
     ``reference_attention_bwd``) made through ``repro_torch.kernels.ref`` or
@@ -500,15 +517,16 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
     finally:
         ckpt_mod.CheckpointManager.save_async, ckpt_mod.save_checkpoint = save_async, save_checkpoint
     launches = ops.launch_counts()
-    routes = dict(flash_attention.route_launches)
+    routes = {"flash_attention": dict(flash_attention.route_launches),
+              "flash_attention_bwd": dict(flash_attention_bwd.route_launches)}
     want_main = want_launches(TRAIN["steps"])
     losses = step_losses(out)
     ckpt_bytes = sum(f.stat().st_size for f in ckpt_dir.rglob("*.npz"))
-    print(f"  train.main: launches {launches} (want {want_main}); flash_attention by route {routes}; plain versions "
+    print(f"  train.main: launches {launches} (want {want_main}); by route {routes}; plain versions "
           f"called {spy.calls}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"  final checkpoint ({ckpt_bytes / 2**30:.2f} GiB): device-to-host copy {copy_s} s, npz write {write_s} s")
-    if launches != want_main or routes != {"fma": 0, "mma": want_main["flash_attention"]}:
-        fail(f"train.main: launch counts {launches}, routes {routes}: want {want_main}, every forward on mma")
+    if launches != want_main or routes != {n: {"fma": 0, "mma": want_main[n]} for n in routes}:
+        fail(f"train.main: launch counts {launches}, routes {routes}: want {want_main}, every launch on mma")
     if any(spy.calls.values()):
         fail(f"train.main: the plain versions ran on the card path: {spy.calls}")
     if [s for s, _ in losses] != list(range(TRAIN["steps"])) or not all(np.isfinite(l) for _, l in losses):
@@ -674,7 +692,7 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
     ))
     b_ms, b_by = bound(8 * n_el * es + B * H * L * 4, bwd_flops, "bfloat16")
     rows.append(dict(
-        name="flash_attention_bwd", path=f"{cfg.name} training ({B} x {L}), bf16, FMA", route="cuda",
+        name="flash_attention_bwd", path=f"{cfg.name} training ({B} x {L}), bf16, route mma", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/models/attention.py:48 (no Pallas kernel: jax autodiff of blocked_attention)",
         launches=want_main["flash_attention_bwd"],
@@ -685,7 +703,12 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
         library_ms=time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True), reps=10),
         library="scaled_dot_product_attention backward (torch.autograd.grad)",
     ))
+    import repro_torch.kernels.flash_attention as fa_module
+
+    with routed(fa_module, "fma"):
+        fma_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse), reps=5)
     r = rows[-1]
+    print(f"  flash_attention_bwd at the training shape: its FMA route on the same inputs {fma_ms:.4f} ms")
     print(f"  flash_attention_bwd at the training shape: {r['ms']:.4f} ms against its bound {r['bound_ms']:.4f} ms "
           f"({r['bound_by']}; {r['ms'] / r['bound_ms']:.1f}x) and SDPA's backward {r['library_ms']:.4f} ms "
           f"({r['ms'] / r['library_ms']:.1f}x); {cfg.n_layers} a step: {cfg.n_layers * r['ms']:.1f} ms of the "
@@ -706,6 +729,7 @@ def main() -> int:
     from repro_torch.core import hashing
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    import repro_torch.kernels.flash_attention as fa_module
     from repro_torch.kernels.flash_decode import flash_decode, split_for
     from repro_torch.kernels.hash_tree import CHUNK_BLOCKS, hash_tree_state, hash_tree_states, max_payloads
     from repro_torch.kernels.mamba_scan import mamba_scan
@@ -837,7 +861,9 @@ def main() -> int:
             check(name + " h", h, hr, torch.float32, SCAN_TOL)
         torch.cuda.empty_cache()
     # K1: the forward's log-sum-exp on both routes, then the backward against
-    # its plain version; the backward twice on one input is bit-equal
+    # its plain version, on each route that takes the dtype (bf16: its own
+    # route "mma" and the FMA route); the backward twice on one input is
+    # bit-equal
     def check_grad(name, got, want, dtype):
         rtol, atol = BWD_TOL[str(dtype).split(".")[-1]]
         want = want.float()
@@ -862,10 +888,15 @@ def main() -> int:
             name = f"{dtype} B{B} L{L} H{H}/{KVH} Dh{Dh} window={window}"
             check(f"flash_attention lse ({route[0]}) {name}", lse, rl, torch.float32)
             check(f"flash_attention o ({route[0]}) {name}", o, ro, dtype)
-            got = flash_attention_bwd(q, k, v, o, do, lse, window=window)
             want = ref.reference_attention_bwd(q, k, v, o, do, rl, window=window)
-            for n, g, w in zip(("dq", "dk", "dv"), got, want):
-                check_grad(f"flash_attention_bwd {n} {name}", g, w, dtype)
+            for bwd_route in ("fma", "mma") if dtype == torch.bfloat16 else ("fma",):
+                n0 = flash_attention_bwd.route_launches[bwd_route]
+                with routed(fa_module, bwd_route):
+                    got = flash_attention_bwd(q, k, v, o, do, lse, window=window)
+                if flash_attention_bwd.route_launches[bwd_route] != n0 + 1:
+                    fail(f"flash_attention_bwd {name}: route {bwd_route} not taken")
+                for n, g, w in zip(("dq", "dk", "dv"), got, want):
+                    check_grad(f"flash_attention_bwd ({bwd_route}) {n} {name}", g, w, dtype)
             if (B, L, H, KVH) == (2, 512, 32, 8):
                 again = flash_attention_bwd(q, k, v, o, do, lse, window=window)
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):

@@ -19,14 +19,15 @@ With ``return_lse=True`` either route also writes each row's log-sum-exp
 (B, H, Lq) f32, which ``flash_attention_bwd`` takes: the backward (K1, no
 Pallas counterpart; ``csrc/flash_attention_bwd.cu``) recomputes P from it and
 returns dQ, dK and dV, with dK and dV summed over each KV head's ``gq`` query
-heads. It is FMA-only, for f32 and bf16 alike.
+heads; ``_route`` picks its design as the forward's (``"mma"``, on
+``mma.sync``, for bf16; ``"fma"`` for f32).
 
 For tensors on the CPU each wrapper computes the plain version
 (``ref.reference_attention``, ``ref.reference_attention_bwd``); for CUDA
 tensors it launches its kernel or raises. ``flash_attention.launches`` counts
 forward launches, ``flash_attention.route_launches`` the same launches by
 route; ``flash_attention_bwd.launches`` counts backward calls (each one call
-of the C entry, which launches three kernels).
+of the C entry, which launches three kernels), ``route_launches`` by route.
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ def _bwd_fn():
     lib = build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -166,20 +167,25 @@ def flash_attention_bwd(
         return reference_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
-    ins = [t if t.is_contiguous() else t.contiguous() for t in (q, k, v, o, do, lse)]
+    # contiguous, and 16-byte aligned for the mma route's cp.async copies
+    ins = [t.contiguous() if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
+        memory_format=torch.contiguous_format) for t in (q, k, v, o, do, lse)]
     Lk, KVH, Dh = k.shape[1], k.shape[2], k.shape[3]
+    route = _route(q.dtype)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dvec = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _bwd_fn()(
             *(t.data_ptr() for t in ins), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPES[q.dtype], B, Lq, Lk, H, KVH, Dh, int(causal), int(window), Dh**-0.5, stream,
+            _DTYPES[q.dtype], ROUTES[route], B, Lq, Lk, H, KVH, Dh, int(causal), int(window), Dh**-0.5, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash_attention_bwd kernel launch failed: cudaError_t {rc}")
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed on route {route!r}: cudaError_t {rc}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.route_launches[route] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.route_launches = dict.fromkeys(ROUTES, 0)
