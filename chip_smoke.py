@@ -69,11 +69,12 @@ on, so that their numbers are still printed):
   5. train stablelm-1.6b at full width (24 layers, bf16, batch 8, seq 2048,
      remat "block") through ``repro_torch.launch.train.main``: exact launch
      counts a step (the forward twice a layer, once more under remat, and
-     the backward once), no plain version called (a spy on ``ref``), finite
-     loss, grad norm and clip scale, the final checkpoint's copy and write
-     times; then ``make_train_step`` on one repeated batch, whose loss must
-     fall (step time, tokens/s, MFU against 6 N tokens, peak memory, a
-     profiled step); one step's gradient, every leaf, against the same step
+     the backward once), every launch on its tensor-core route, no plain
+     version called (a spy on ``ref``), finite loss, grad norm and clip
+     scale, the final checkpoint's copy and write times; then
+     ``make_train_step`` on one repeated batch, whose loss must fall at every
+     step (step time, tokens/s, MFU against 6 N tokens, peak memory, a
+     profiled step, the optimizer alone); one step's gradient, every leaf, against the same step
      through the plain versions (batch 2, relative L2 error within
      ``GRAD_REL_TOL``); the ``--fail-at-step`` drill on a reduced bf16 model,
      whose restored checkpoint must equal the saved state bit for bit and
@@ -186,6 +187,11 @@ BWD_CASES = [  # (B, L, H, KVH, Dh, window): the backward's checks (causal self-
 BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 TRAIN = dict(arch="stablelm-1.6b", batch=8, seq=2048, steps=3, seed=0, lr=3e-4)
 TRAIN_REPEAT = 4  # make_train_step steps on one repeated batch
+# their constant lr: at the driver's 3e-4, Adam's first steps (each weight
+# moves by ~lr, 1.4% of a d^-1/2 = 0.022 weight) overshoot on this random
+# model (losses 11.82, 12.92, 18.89, 10.46, ...); at 3e-5 the loss falls at
+# every step (11.82, 8.68, 7.83, 7.37, ...; build-time probe, H100, seed 0)
+REPEAT_LR = 3e-5
 GRAD_BATCH = 2  # rows of the gradient comparison with the plain versions
 # one step's gradient of each leaf, kernels vs plain versions, as a relative
 # L2 error. Both runs are bf16 and round at different places (the forward
@@ -469,7 +475,7 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.launch import train
     from repro_torch.models.registry import build_model, train_loss
-    from repro_torch.optim import adamw_init, constant_lr
+    from repro_torch.optim import adamw_init, adamw_update, constant_lr
     from repro_torch.optim.adamw import tree_leaves, tree_map
 
     cfg = get_config(TRAIN["arch"])
@@ -480,6 +486,13 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
     if cfg.remat != "block":
         fail(f"{cfg.name}: remat {cfg.remat!r}, the launch counts below assume 'block'")
     per_step = {"flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers}
+
+    def wall_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
 
     def want_launches(n_steps):
         out = dict.fromkeys(ops.KERNELS, 0)
@@ -544,7 +557,7 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
     state = {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32, device=dev)}
     data = build_data_pipeline(cfg, B, L, seed=TRAIN["seed"])
     batch = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in next_batch(data, cfg).items()}
-    step = make_train_step(model, dev, constant_lr(TRAIN["lr"]), global_batch=B)
+    step = make_train_step(model, dev, constant_lr(REPEAT_LR), global_batch=B)
     mets, times = [], []
     ops.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
@@ -564,8 +577,9 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
         fail(f"make_train_step: launches {launches} (want {want_launches(TRAIN_REPEAT)}), plain calls {spy.calls}")
     if not all(np.isfinite(v) for m in mets for v in m.values()):
         fail(f"make_train_step: non-finite metrics {mets}")
-    if not mets[-1]["loss"] < mets[0]["loss"]:
-        fail(f"make_train_step: the loss on a repeated batch did not fall: {[m['loss'] for m in mets]}")
+    losses = [m["loss"] for m in mets]
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"make_train_step: the loss on a repeated batch did not fall at every step: {losses}")
     step_s = statistics.median(times[1:])
     flops = 6 * n_params * tokens_a_step
     print(f"  step time {step_s:.4f} s (median of steps 1-{TRAIN_REPEAT - 1}), {tokens_a_step / step_s:.1f} tokens/s, "
@@ -577,10 +591,19 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
         by_name[e.name[:48]] = by_name.get(e.name[:48], 0.0) + e.time_range.elapsed_us() / 1e3
     k1_ms = sum(ms for n, ms in by_name.items() if any(x in n for x in ("dq_kernel", "dkdv_kernel", "dot_do_o")))
     fwd_ms = sum(ms for n, ms in by_name.items() if "attn_kernel" in n)
+    gemm_ms = sum(ms for n, ms in by_name.items() if "nvjet" in n or "gemm" in n.lower())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"  profiled step: wall {t * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms (idle share {1 - busy / t:.3f}), "
-          f"{len(kern)} kernels; flash_attention_bwd {k1_ms:.2f} ms, flash_attention {fwd_ms:.2f} ms; top ms: "
-          + "; ".join(f"{n} {ms:.3f}" for n, ms in top))
+          f"{len(kern)} kernels; flash_attention_bwd {k1_ms:.2f} ms, flash_attention {fwd_ms:.2f} ms, cuBLAS "
+          f"matmuls {gemm_ms:.2f} ms; top ms: " + "; ".join(f"{n} {ms:.3f}" for n, ms in top))
+    # the optimizer alone (plain torch elementwise ops over every leaf; its
+    # time does not depend on the gradient's values)
+    zeros = tree_map(torch.zeros_like, state["params"])
+    with torch.no_grad():
+        opt_s = [wall_s(lambda: adamw_update(state["params"], zeros, state["opt"],
+                                             torch.tensor(REPEAT_LR, device=dev))) for _ in range(2)]
+    print(f"  adamw_update alone: {min(opt_s) * 1e3:.2f} ms of the step ({n_params} params, f32 moments)")
+    del zeros
     del state, params, step
     torch.cuda.empty_cache()
 
