@@ -190,7 +190,7 @@ TRAIN_REPEAT = 4  # make_train_step steps on one repeated batch
 # their constant lr: at the driver's 3e-4, Adam's first steps (each weight
 # moves by ~lr, 1.4% of a d^-1/2 = 0.022 weight) overshoot on this random
 # model (losses 11.82, 12.92, 18.89, 10.46, ...); at 3e-5 the loss falls at
-# every step (11.82, 8.68, 7.83, 7.37, ...; build-time probe, H100, seed 0)
+# every step (phase 5b at seed 0 on an H100, at each lr)
 REPEAT_LR = 3e-5
 GRAD_BATCH = 2  # rows of the gradient comparison with the plain versions
 # one step's gradient of each leaf, kernels vs plain versions, as a relative
@@ -379,23 +379,6 @@ def forced_routing_gate(kernels, forced, probs_kernels, probs_forced, experts_ke
     if not dprob <= prob_tol:
         failures.append(f"max |router prob diff| {dprob} > {prob_tol}")
     return failures, dict(stats, dprob=dprob, rerouted=rerouted, tokens=n_tok)
-
-
-class routed:
-    """Within the block, a kernel module's ``_route`` returns ``route``: its
-    other design on the same inputs, to be checked or timed beside."""
-
-    def __init__(self, module, route: str):
-        self.module, self.route = module, route
-
-    def __enter__(self):
-        self.chosen = self.module._route
-        self.module._route = lambda *args: self.route
-        return self
-
-    def __exit__(self, *exc):
-        self.module._route = self.chosen
-        return False
 
 
 class PlainSpy:
@@ -726,12 +709,7 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
         library_ms=time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True), reps=10),
         library="scaled_dot_product_attention backward (torch.autograd.grad)",
     ))
-    import repro_torch.kernels.flash_attention as fa_module
-
-    with routed(fa_module, "fma"):
-        fma_ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse), reps=5)
     r = rows[-1]
-    print(f"  flash_attention_bwd at the training shape: its FMA route on the same inputs {fma_ms:.4f} ms")
     print(f"  flash_attention_bwd at the training shape: {r['ms']:.4f} ms against its bound {r['bound_ms']:.4f} ms "
           f"({r['bound_by']}; {r['ms'] / r['bound_ms']:.1f}x) and SDPA's backward {r['library_ms']:.4f} ms "
           f"({r['ms'] / r['library_ms']:.1f}x); {cfg.n_layers} a step: {cfg.n_layers * r['ms']:.1f} ms of the "
@@ -752,7 +730,6 @@ def main() -> int:
     from repro_torch.core import hashing
     from repro_torch.kernels import build, ops, ref
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    import repro_torch.kernels.flash_attention as fa_module
     from repro_torch.kernels.flash_decode import flash_decode, split_for
     from repro_torch.kernels.hash_tree import CHUNK_BLOCKS, hash_tree_state, hash_tree_states, max_payloads
     from repro_torch.kernels.mamba_scan import mamba_scan
@@ -883,10 +860,9 @@ def main() -> int:
             check(name + " y", y, yr, torch.float32, SCAN_TOL)
             check(name + " h", h, hr, torch.float32, SCAN_TOL)
         torch.cuda.empty_cache()
-    # K1: the forward's log-sum-exp on both routes, then the backward against
-    # its plain version, on each route that takes the dtype (bf16: its own
-    # route "mma" and the FMA route); the backward twice on one input is
-    # bit-equal
+    # K1: the forward's log-sum-exp on both routes, then the backward (on the
+    # same route as the forward) against its plain version; the backward twice
+    # on one input is bit-equal
     def check_grad(name, got, want, dtype):
         rtol, atol = BWD_TOL[str(dtype).split(".")[-1]]
         want = want.float()
@@ -912,14 +888,9 @@ def main() -> int:
             check(f"flash_attention lse ({route[0]}) {name}", lse, rl, torch.float32)
             check(f"flash_attention o ({route[0]}) {name}", o, ro, dtype)
             want = ref.reference_attention_bwd(q, k, v, o, do, rl, window=window)
-            for bwd_route in ("fma", "mma") if dtype == torch.bfloat16 else ("fma",):
-                n0 = flash_attention_bwd.route_launches[bwd_route]
-                with routed(fa_module, bwd_route):
-                    got = flash_attention_bwd(q, k, v, o, do, lse, window=window)
-                if flash_attention_bwd.route_launches[bwd_route] != n0 + 1:
-                    fail(f"flash_attention_bwd {name}: route {bwd_route} not taken")
-                for n, g, w in zip(("dq", "dk", "dv"), got, want):
-                    check_grad(f"flash_attention_bwd ({bwd_route}) {n} {name}", g, w, dtype)
+            got = flash_attention_bwd(q, k, v, o, do, lse, window=window)
+            for n, g, w in zip(("dq", "dk", "dv"), got, want):
+                check_grad(f"flash_attention_bwd ({route[0]}) {n} {name}", g, w, dtype)
             if (B, L, H, KVH) == (2, 512, 32, 8):
                 again = flash_attention_bwd(q, k, v, o, do, lse, window=window)
                 if not all(torch.equal(a, b) for a, b in zip(got, again)):

@@ -9,7 +9,7 @@ functions, under ``torch.inference_mode()``, the caches' K/V.
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable
 
 import torch
 
@@ -41,7 +41,6 @@ def make_train_step(
     global_batch: int,
     microbatches: int = 1,
     compress_pods: bool = False,
-    kernels: Optional[dict] = None,
 ):
     """Returns ``train_step(state, batch) -> (state, metrics)`` on ``device``.
 
@@ -50,9 +49,8 @@ def make_train_step(
     tokens and labels (B, L) int32. metrics: loss, lr, grad_norm and
     clip_scale, f32 scalars on the device. ``microbatches > 1`` sums f32
     gradients over equal splits of the batch and divides by their number,
-    as the reference does. ``kernels`` replaces the kernel dict the model
-    reads (e.g. the plain versions, to hold the kernels against them).
-    Raises if ``device`` is CUDA and no card is present."""
+    as the reference does. Raises if ``device`` is CUDA and no card is
+    present."""
     dev = resolve_device(device)
     check_trainable(model.cfg)
     if compress_pods:
@@ -67,7 +65,7 @@ def make_train_step(
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         it = iter(leaves)
         live = tree_map(lambda _: next(it), params)
-        loss, _ = train_loss(model, live, batch, kernels=kernels)
+        loss, _ = train_loss(model, live, batch)
         return loss.detach(), torch.autograd.grad(loss, leaves)
 
     def train_step(state, batch):

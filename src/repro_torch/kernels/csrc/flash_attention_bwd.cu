@@ -25,8 +25,7 @@
 //      bit-equal.
 // Two routes share that mapping; the wrapper (_route) picks one by the dtype,
 // as for the forward:
-//   * route 0, "fma" (f32; it takes bf16 too, converted on load, to be timed
-//     beside route 1): all arithmetic f32 FMA, 4 threads a row (a query
+//   * route 0, "fma" (f32): all arithmetic f32 FMA, 4 threads a row (a query
 //     row in dq, a key in dkdv) each holding a quarter of the row's vectors
 //     in registers; tiles of 32 rows staged in shared memory as f32. The
 //     tensor cores would round f32 products to TF32 and break the
@@ -719,7 +718,7 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v, con
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv alike); lse
 // (B, H, Lq) f32 from flash_attention_fwd; dvec (B, H, Lq) f32 scratch.
-// route: 0 fma (f32 or bf16), 1 mma (bf16 only, 16-byte aligned bases); the
+// route: 0 fma (f32 only), 1 mma (bf16 only, 16-byte aligned bases); the
 // wrapper's _route picks it. Returns the first failing launch's cudaError_t,
 // or 0.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
@@ -742,12 +741,7 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
     return (int)mma::dispatch_dh(Dh, q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window,
                                  scale, s);
   }
-  if (route != 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0)
-    return (int)dispatch_dh<float>(Dh, q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal,
-                                   window, scale, s);
-  if (dtype == 1)
-    return (int)dispatch_dh<__nv_bfloat16>(Dh, q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH,
-                                           causal, window, scale, s);
-  return (int)cudaErrorInvalidValue;
+  if (route != 0 || dtype != 0) return (int)cudaErrorInvalidValue;
+  return (int)dispatch_dh<float>(Dh, q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window,
+                                 scale, s);
 }

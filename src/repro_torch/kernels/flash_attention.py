@@ -168,8 +168,8 @@ def flash_attention_bwd(
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     # contiguous, and 16-byte aligned for the mma route's cp.async copies
-    ins = [t.contiguous() if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(
-        memory_format=torch.contiguous_format) for t in (q, k, v, o, do, lse)]
+    ins = [t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+           for t in (q, k, v, o, do, lse)]
     Lk, KVH, Dh = k.shape[1], k.shape[2], k.shape[3]
     route = _route(q.dtype)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

@@ -8,7 +8,17 @@ layout position's params over the G groups and scans over them, the port
 keeps one params dict per layer in ``params["layers"]`` (in the order the
 trunk visits them) and loops over them in Python. The ``kernels`` dict
 (default ``repro_torch.kernels.ops.kernel_set()``) reaches the attention,
-Mamba and MoE blocks. Serving only: no remat, no ``chunked_loss`` yet.
+Mamba and MoE blocks.
+
+For training, ``trunk`` without caches applies the config's remat to each
+layout period (one layer for a dense layout), as the reference does to its
+scan body: ``full`` keeps only the period's input
+(``torch.utils.checkpoint``), ``block`` also keeps the outputs of the plain
+matrix products (``aten.mm``, the reference's
+``dots_with_no_batch_dims_saveable``), ``none`` keeps everything. Under
+either remat the attention forward runs again in the backward pass.
+``chunked_loss`` is the reference's token-mean cross-entropy over L-chunks
+of 512, which never forms the (B, L, V) logits.
 """
 
 from __future__ import annotations

@@ -242,8 +242,8 @@ class MeshExecutor(InlineExecutor):
 
         if rules is not None:
             raise NotImplementedError("logical-axis rules need sharding (ROADMAP queue 1 item 6: distribution)")
+        # cfg, as in the reference, would derive the sharding rules (item 6)
         self.mesh = make_host_mesh() if mesh is None else make_host_mesh(device=mesh)
-        self.cfg = cfg
         self.mode = mode
         self.global_batch = global_batch
         self.inner = inner

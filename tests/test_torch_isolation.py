@@ -1,5 +1,6 @@
-"""The port stands alone: no module of ``repro_torch`` loads jax or ``repro``,
-and its entry points never fall back to the CPU when CUDA is asked for."""
+"""The port stands alone: no module of ``repro_torch`` loads jax, ``repro`` or
+``ml_dtypes``, and its entry points never fall back to the CPU when CUDA is
+asked for."""
 
 import os
 import pkgutil
@@ -12,7 +13,8 @@ import torch
 
 import repro_torch
 from repro_torch.dist.step import make_serve_fns
-from repro_torch.launch import serve
+from repro_torch.workspace import MeshExecutor
+from repro_torch.launch import serve, train
 from repro_torch.models.registry import build_model
 from repro_torch.configs import get_config
 
@@ -24,10 +26,12 @@ def test_no_module_imports_jax_or_repro():
         m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
     ]
     assert "repro_torch.kernels.flash_decode" in names and "repro_torch.launch.serve" in names
+    assert {"repro_torch.launch.train", "repro_torch.checkpoint.checkpoint", "repro_torch.optim.adamw",
+            "repro_torch.data.pipeline", "repro_torch.dist.ft", "repro_torch.launch.mesh"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
     )
@@ -45,3 +49,7 @@ def test_cuda_entry_points_raise_without_cuda(monkeypatch):
         model.init(0, device="cuda")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         serve.main(["--reduced", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["--reduced", "--device", "cuda"])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MeshExecutor()
