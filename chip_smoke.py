@@ -187,7 +187,7 @@ BWD_CASES = [  # (B, L, H, KVH, Dh, window): the backward's checks (causal self-
 BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
 TRAIN = dict(arch="stablelm-1.6b", batch=8, seq=2048, steps=3, seed=0, lr=3e-4)
 TRAIN_REPEAT = 4  # make_train_step steps on one repeated batch
-# their constant lr: at the driver's 3e-4, Adam's first steps (each weight
+# their constant lr: at launch.train's default 3e-4, Adam's first steps (each weight
 # moves by ~lr, 1.4% of a d^-1/2 = 0.022 weight) overshoot on this random
 # model (losses 11.82, 12.92, 18.89, 10.46, ...); at 3e-5 the loss falls at
 # every step (phase 5b at seed 0 on an H100, at each lr)
@@ -423,7 +423,7 @@ def leaf_names(tree, prefix=""):
 
 
 def run_main_captured(main_fn, argv):
-    """Run a driver's main(argv), its standard output captured and echoed
+    """Run an entry point's main(argv), its standard output captured and echoed
     indented; returns (result, output)."""
     import contextlib
     import io
@@ -483,7 +483,7 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
         return out
 
     print(f"phase 5: train {cfg.name} at full width, bf16, batch {B}, seq {L}, remat {cfg.remat!r}")
-    # 5a. the driver, as a user runs it
+    # 5a. launch/train.py, as a user runs it
     ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     argv = ["--arch", cfg.name, "--batch", str(B), "--seq", str(L), "--steps", str(TRAIN["steps"]),

@@ -1,10 +1,10 @@
-"""End-to-end training driver, PyTorch port of ``repro.launch.train``.
+"""End-to-end training run, PyTorch port of ``repro.launch.train``.
 
 The training loop is Koalja circuitry end to end: batches arrive as
 AnnotatedValues from the data circuit (``repro_torch.data.pipeline``), each
 optimizer step is logged in the provenance registry, and checkpoints are AVs
 whose travel documents name the code version and step that produced them.
-Fault tolerance is make-mode: on a (simulated) failure the driver restores
+Fault tolerance is make-mode: on a (simulated) failure ``main`` restores
 the latest checkpoint and replays. As in the reference, the data circuit is
 built once and not rewound on restore: the steps after a resume take the
 next batches, not the ones they replace.

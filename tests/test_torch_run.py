@@ -4,7 +4,7 @@ The data circuit (the same numpy payloads, content hashes, software versions
 and visitor logs as the reference's), checkpoints of torch trees (bf16 bit for
 bit, the manifest's hash over canonical dtype names), the one-device
 ``MeshExecutor`` and ``make_host_mesh``, and ``launch.train.main`` with its
-make-mode recovery drill, whose per-step losses equal the reference driver's
+make-mode recovery drill, whose per-step losses equal the reference's
 from the same carried-over weights.
 """
 
@@ -40,7 +40,7 @@ from repro_torch.models.registry import build_model
 from repro_torch.optim import cosine_warmup
 from repro_torch.workspace import ConcurrentExecutor, MeshExecutor
 
-# losses printed to 4 decimals by both drivers over 6 f32 steps of a reduced
+# losses printed to 4 decimals by both entry points over 6 f32 steps of a reduced
 # model: the step's parity (tests/test_torch_train.py) is ~1e-6 relative, so
 # a printed value may differ by one unit in its last place
 LOSS_PRINT_TOL = 1.5e-4
@@ -205,7 +205,7 @@ def _losses(out: str) -> list:
     return [(int(s), float(l)) for s, l in re.findall(r"^step\s+(\d+) loss ([0-9.]+)", out, re.M)]
 
 
-def test_train_main_matches_jax_driver_through_a_failure(tmp_path, monkeypatch, capsys):
+def test_train_main_matches_jax_main_through_a_failure(tmp_path, monkeypatch, capsys):
     arch = "stablelm-1.6b"
     jcfg = jax_get_config(arch).reduced()
 
