@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-  python3 chip_smoke.py
+  python3 chip_smoke.py [--k1]
 
-Phases, in order; any failure exits non-zero (a disagreement between the
+Phases, in order (``--k1``: phase 1, K1's checks of phase 2 and phase 5e
+only); any failure exits non-zero (a disagreement between the
 kernels' and the plain versions' logits is recorded and the later phases run
 on, so that their numbers are still printed):
   1. name the card, build the six CUDA kernels from
      ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel), and count
-     the tensor-core instructions in the built ``moe_gmm`` and
-     ``flash_attention`` libraries (``cuobjdump -sass``: HGMMA, HMMA);
+     the tensor-core instructions in the built ``moe_gmm``,
+     ``flash_attention`` and ``flash_attention_bwd`` libraries
+     (``cuobjdump -sass``: HGMMA, HMMA);
   2. hold each kernel against its plain PyTorch version on the card, over the
      shape sweeps of the reference kernel tests, the ragged edges of the
      tensor-core tiles and the full-width serve shapes (attention f32 tol
@@ -23,7 +25,9 @@ on, so that their numbers are still printed):
      forward's log-sum-exp on both routes and the backward
      ``flash_attention_bwd`` (dQ, dK, dV) against ``reference_attention_bwd``
      at stablelm-1.6b's training shape, GQA (gq 4, Dh 128), a window and
-     ragged L, in f32 and bf16 (``BWD_TOL``), and bit-equal when run twice;
+     ragged L, in f32 and bf16 (``BWD_TOL``), bf16 at Dh 64 and 128 on both
+     its wgmma and mma routes, and bit-equal when run twice
+     (``BWD_BIT_EQUAL``);
   3. serve stablelm-1.6b at full width (24 layers, bf16, batch 4, prompt 512,
      32 generated tokens) through ``repro_torch.launch.serve.main``, count the
      kernel launches of that run (every bf16 launch on its tensor-core
@@ -69,7 +73,8 @@ on, so that their numbers are still printed):
   5. train stablelm-1.6b at full width (24 layers, bf16, batch 8, seq 2048,
      remat "block") through ``repro_torch.launch.train.main``: exact launch
      counts a step (the forward twice a layer, once more under remat, and
-     the backward once), every launch on its tensor-core route, no plain
+     the backward once), every launch on its tensor-core route (the
+     backward's on wgmma), no plain
      version called (a spy on ``ref``), finite loss, grad norm and clip
      scale, the final checkpoint's copy and write times; then
      ``make_train_step`` on one repeated batch, whose loss must fall at every
@@ -78,8 +83,10 @@ on, so that their numbers are still printed):
      through the plain versions (batch 2, relative L2 error within
      ``GRAD_REL_TOL``); the ``--fail-at-step`` drill on a reduced bf16 model,
      whose restored checkpoint must equal the saved state bit for bit and
-     whose run goes on to ``--steps``; and K1 and the forward timed at the
-     training shape beside their bounds, their plain versions and SDPA.
+     whose run goes on to ``--steps``; and the forward and K1 timed at the
+     training shape (K1 also at qwen2.5-32b's heads, Dh 128) beside their
+     bounds, their plain versions and SDPA, K1 on wgmma and on mma in turns,
+     with each launch's device time (dq, dkdv, dot_do_o) from the profiler.
 The last line is ``{"ok": true, "device": {...}}``. The compiler's reports
 (registers, spills) go to ``build/repro_torch_kernels/nvcc_report.txt``.
 """
@@ -100,7 +107,8 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 # the tensor-core instructions each library's routes must contain (phase 1)
-TENSOR_CORE_SASS = {"moe_gmm": ("HGMMA", "HMMA"), "flash_attention": ("HMMA",)}
+TENSOR_CORE_SASS = {"moe_gmm": ("HGMMA", "HMMA"), "flash_attention": ("HMMA",),
+                    "flash_attention_bwd": ("HGMMA", "HMMA")}
 # H100 SXM published peaks (dense): memory rate, and operations per type
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -185,6 +193,12 @@ BWD_CASES = [  # (B, L, H, KVH, Dh, window): the backward's checks (causal self-
 # another order (f32), and one rounding of each output to bf16 on top of
 # bf16 inputs (bf16). (rtol, atol as a share of the tensor's largest |value|)
 BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
+# the BWD_CASES (B, L, H, KVH) whose backward, on its own route, must be
+# bit-equal when run twice: the training shape and GQA
+BWD_BIT_EQUAL = {(8, 2048, 32, 32), (2, 512, 32, 8)}
+# phase 5e's Dh 128 row: qwen2.5-32b's heads (40 query, 8 KV) over one
+# causal sequence of 4096 (B, L, H, KVH, Dh)
+K1_QWEN = (1, 4096, 40, 8, 128)
 TRAIN = dict(arch="stablelm-1.6b", batch=8, seq=2048, steps=3, seed=0, lr=3e-4)
 TRAIN_REPEAT = 4  # make_train_step steps on one repeated batch
 # their constant lr: at launch.train's default 3e-4, Adam's first steps (each weight
@@ -414,6 +428,61 @@ class PlainSpy:
         return False
 
 
+def on_bwd_route(route: str, fn):
+    """fn() with flash_attention_bwd's route forced to ``route``: another
+    design on the same inputs, as phase 4's ``on_fma`` forces moe_gmm's."""
+    import repro_torch.kernels.flash_attention as fa_module
+
+    chosen = fa_module._bwd_route
+    fa_module._bwd_route = lambda *args: route
+    try:
+        return fn()
+    finally:
+        fa_module._bwd_route = chosen
+
+
+def k1_checks(rand, check, check_grad):
+    """Phase 2's K1 part: the forward's log-sum-exp on both routes, then the
+    backward against its plain version on the route it takes and, where that
+    is wgmma (bf16 at Dh 64 and 128), on mma too; on its own route, bit-equal
+    when run twice at the ``BWD_BIT_EQUAL`` shapes."""
+    import torch
+
+    import repro_torch.kernels.flash_attention as fa_module
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, L, H, KVH, Dh, window in BWD_CASES:
+            q, do = rand(B, L, H, Dh, dtype=dtype), rand(B, L, H, Dh, dtype=dtype)
+            k, v = rand(B, L, KVH, Dh, dtype=dtype), rand(B, L, KVH, Dh, dtype=dtype)
+            routes0 = dict(flash_attention.route_launches)
+            o, lse = flash_attention(q, k, v, window=window, return_lse=True)
+            fwd = [r for r in routes0 if flash_attention.route_launches[r] != routes0[r]][0]
+            ro, rl = ref.reference_attention(q, k, v, window=window, return_lse=True)
+            name = f"{dtype} B{B} L{L} H{H}/{KVH} Dh{Dh} window={window}"
+            check(f"flash_attention lse ({fwd}) {name}", lse, rl, torch.float32)
+            check(f"flash_attention o ({fwd}) {name}", o, ro, dtype)
+            want = ref.reference_attention_bwd(q, k, v, o, do, rl, window=window)
+            own = fa_module._bwd_route(dtype, Dh)
+            for route in (own, "mma") if own == "wgmma" else (own,):
+                n0 = flash_attention_bwd.route_launches[route]
+                got = on_bwd_route(route, lambda: flash_attention_bwd(q, k, v, o, do, lse, window=window))
+                if flash_attention_bwd.route_launches[route] != n0 + 1:
+                    fail(f"flash_attention_bwd {name}: no launch on route {route}")
+                for n, g, w in zip(("dq", "dk", "dv"), got, want):
+                    check_grad(f"flash_attention_bwd ({route}) {n} {name}", g, w, dtype)
+                if route == own and (B, L, H, KVH) in BWD_BIT_EQUAL:
+                    again = flash_attention_bwd(q, k, v, o, do, lse, window=window)
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        fail(f"flash_attention_bwd ({route}) {name}: two runs on one input differ")
+                    print(f"  flash_attention_bwd ({route}) {name}: a second run is bit-equal")
+                    del again
+                del got
+            del q, k, v, do, o, lse, ro, rl, want
+            torch.cuda.empty_cache()
+
+
 def leaf_names(tree, prefix=""):
     if isinstance(tree, dict):
         return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
@@ -521,8 +590,10 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
     print(f"  train.main: launches {launches} (want {want_main}); by route {routes}; plain versions "
           f"called {spy.calls}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"  final checkpoint ({ckpt_bytes / 2**30:.2f} GiB): device-to-host copy {copy_s} s, npz write {write_s} s")
-    if launches != want_main or routes != {n: {"fma": 0, "mma": want_main[n]} for n in routes}:
-        fail(f"train.main: launch counts {launches}, routes {routes}: want {want_main}, every launch on mma")
+    want_routes = {"flash_attention": {"fma": 0, "mma": want_main["flash_attention"]},
+                   "flash_attention_bwd": {"fma": 0, "mma": 0, "wgmma": want_main["flash_attention_bwd"]}}
+    if launches != want_main or routes != want_routes:
+        fail(f"train.main: launch counts {launches}, routes {routes}: want {want_main}, routes {want_routes}")
     if any(spy.calls.values()):
         fail(f"train.main: the plain versions ran on the card path: {spy.calls}")
     if [s for s, _ in losses] != list(range(TRAIN["steps"])) or not all(np.isfinite(l) for _, l in losses):
@@ -665,60 +736,117 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
     torch.cuda.empty_cache()
 
     # 5e. K1 and the forward (with lse) at the training shape, timed as phase 4
-    H, Dh, bf = cfg.n_heads, cfg.head_dim, torch.bfloat16
-    q, k, v, do = (rand(B, L, H, Dh, dtype=bf) for _ in range(4))
+    k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, want_main, step_s)
+
+
+def k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, launches, step_s=None):
+    """Phase 5e: the forward with lse at stablelm-1.6b's training shape, and
+    K1 there and at qwen2.5-32b's heads (``K1_QWEN``: Dh 128, gq 5), timed as
+    phase 4 (L2 flushed) beside their bounds, their plain versions and SDPA;
+    K1 on its wgmma route and on mma in turns (wgmma, mma, mma, wgmma), and
+    each of its launches' device time from torch.profiler (dq, dkdv, and
+    dot_do_o on mma). ``launches``: the main path's counts by kernel."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+
+    cfg = get_config(TRAIN["arch"])
+    B, L, H, Dh, bf, es = TRAIN["batch"], TRAIN["seq"], cfg.n_heads, cfg.head_dim, torch.bfloat16, 2
+    q, k, v = (rand(B, L, H, Dh, dtype=bf) for _ in range(3))
     o, lse = flash_attention(q, k, v, return_lse=True)
     ro, rl = ref.reference_attention(q, k, v, return_lse=True)
     fwd_err = max((o.float() - ro.float()).abs().max().item(), (lse - rl).abs().max().item())
-    got = flash_attention_bwd(q, k, v, o, do, lse)
-    want = ref.reference_attention_bwd(q, k, v, o, do, rl)
-    bwd_err = max(check_grad(f"flash_attention_bwd {n} at the training shape", g, w, bf)
-                  for n, g, w in zip(("dq", "dk", "dv"), got, want))
-    del ro, rl, got, want
-    torch.cuda.empty_cache()
+    del ro, rl
     pairs = L * (L + 1) // 2  # causal (q, k) pairs
-    es, n_el = 2, B * L * H * Dh
-    fwd_flops = 4 * B * H * Dh * pairs  # Q.K^T and P.V
-    bwd_flops = 10 * B * H * Dh * pairs  # Q.K^T again, dO.V^T, P^T.dO, dS.K, dS^T.Q
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    dot = do.transpose(1, 2)
-    b_ms, b_by = bound(4 * n_el * es + B * H * L * 4, fwd_flops, "bfloat16")
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    b_ms, b_by = bound(4 * B * L * H * Dh * es + B * H * L * 4, 4 * B * H * Dh * pairs, "bfloat16")
     rows.append(dict(
         name="flash_attention", path=f"{cfg.name} training ({B} x {L}), with lse, route mma", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:116", launches=want_main["flash_attention"],
+        replaces="src/repro/kernels/flash_attention.py:116", launches=launches["flash_attention"],
         max_abs_err=fwd_err,
         ms=time_ms(lambda: flash_attention(q, k, v, return_lse=True), reps=10),
         plain_ms=time_ms(lambda: ref.reference_attention(q, k, v, return_lse=True), reps=3),
         bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt.detach(), kt.detach(), vt.detach(),
-                                                                   is_causal=True), reps=10),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), reps=10),
         library="scaled_dot_product_attention(is_causal=True)",
     ))
-    b_ms, b_by = bound(8 * n_el * es + B * H * L * 4, bwd_flops, "bfloat16")
-    rows.append(dict(
-        name="flash_attention_bwd", path=f"{cfg.name} training ({B} x {L}), bf16, route mma", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-        replaces="src/repro/models/attention.py:48 (no Pallas kernel: jax autodiff of blocked_attention)",
-        launches=want_main["flash_attention_bwd"],
-        max_abs_err=bwd_err,
-        ms=time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse), reps=10),
-        plain_ms=time_ms(lambda: ref.reference_attention_bwd(q, k, v, o, do, lse), reps=3),
-        bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True), reps=10),
-        library="scaled_dot_product_attention backward (torch.autograd.grad)",
-    ))
-    r = rows[-1]
-    print(f"  flash_attention_bwd at the training shape: {r['ms']:.4f} ms against its bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}; {r['ms'] / r['bound_ms']:.1f}x) and SDPA's backward {r['library_ms']:.4f} ms "
-          f"({r['ms'] / r['library_ms']:.1f}x); {cfg.n_layers} a step: {cfg.n_layers * r['ms']:.1f} ms of the "
-          f"{step_s * 1e3:.1f} ms step")
-    del q, k, v, do, o, lse, qt, kt, vt, lib_out, dot
+    del q, k, v, o, lse, qt, kt, vt
     torch.cuda.empty_cache()
 
+    for label, (B, L, H, KVH, Dh) in ((f"{cfg.name} training", (B, L, H, cfg.n_kv_heads, Dh)),
+                                      ("qwen2.5-32b heads, not on the main path", K1_QWEN)):
+        q, do = rand(B, L, H, Dh, dtype=bf), rand(B, L, H, Dh, dtype=bf)
+        k, v = rand(B, L, KVH, Dh, dtype=bf), rand(B, L, KVH, Dh, dtype=bf)
+        o, lse = flash_attention(q, k, v, return_lse=True)
+        shape = f"({B}, {L}, {H}, {KVH}, {Dh})"
+        want = ref.reference_attention_bwd(q, k, v, o, do, lse)
+        err = max(check_grad(f"flash_attention_bwd {n} at {label} {shape}", g, w, bf)
+                  for n, g, w in zip(("dq", "dk", "dv"), flash_attention_bwd(q, k, v, o, do, lse), want))
+        del want
+        torch.cuda.empty_cache()
+        pairs = L * (L + 1) // 2
+        # q, o, dO and dq; k, v, dk and dv; lse: each read or written once
+        nbytes = 4 * B * L * H * Dh * es + 4 * B * L * KVH * Dh * es + B * H * L * 4
+        b_ms, b_by = bound(nbytes, 10 * B * H * Dh * pairs, "bfloat16")  # Q.K^T, dO.V^T, P^T.dO, dS.K, dS^T.Q
 
-def main() -> int:
+        def call():
+            return flash_attention_bwd(q, k, v, o, do, lse)
+
+        def on_mma():
+            return on_bwd_route("mma", call)
+
+        own = [time_ms(call, reps=10)]
+        mma = [time_ms(on_mma, reps=10), time_ms(on_mma, reps=10)]
+        own.append(time_ms(call, reps=10))
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=H != KVH)
+        dot = do.transpose(1, 2)
+        lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True), reps=10)
+        del lib_out
+        plain_ms = time_ms(lambda: ref.reference_attention_bwd(q, k, v, o, do, lse), reps=3)
+        torch.cuda.empty_cache()
+        # each launch's mean device time over 5 calls (a short window can
+        # lose a call's device records)
+        split = {}
+        for route, fn in (("wgmma", call), ("mma", on_mma)):
+            fn()
+            _, _, kern, _ = device_profile(lambda: [fn() for _ in range(5)])
+            split[route] = {}
+            for part in ("dot_do_o", "dq", "dkdv"):
+                us = [e.time_range.elapsed_us() for e in kern if f"{part}_kernel" in e.name]
+                split[route][part] = statistics.mean(us) / 1e3 if us else 0.0
+        ms = statistics.mean(own)
+        rows.append(dict(
+            name="flash_attention_bwd", path=f"{label} {shape}, bf16, route wgmma", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            replaces="src/repro/models/attention.py:48 (no Pallas kernel: jax autodiff of blocked_attention)",
+            launches=launches["flash_attention_bwd"],
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library="scaled_dot_product_attention backward (torch.autograd.grad)",
+            mma_ms=statistics.mean(mma), dq_ms=split["wgmma"]["dq"], dkdv_ms=split["wgmma"]["dkdv"],
+            mma_split_ms=split["mma"],
+        ))
+        print(f"  flash_attention_bwd at {label} {shape}: wgmma {own[0]:.4f}, {own[1]:.4f} ms; mma {mma[0]:.4f}, "
+              f"{mma[1]:.4f} ms (in turns; {statistics.mean(mma) / ms:.2f}x); bound {b_ms:.4f} ms ({b_by}; "
+              f"{ms / b_ms:.2f}x); SDPA's backward {lib_ms:.4f} ms ({ms / lib_ms:.2f}x); device time by launch "
+              f"(profiler, mean of 5 calls, L2 warm): wgmma {split['wgmma']}, mma {split['mma']}")
+        if step_s is not None and label.startswith(cfg.name):
+            print(f"  {cfg.n_layers} a step: {cfg.n_layers * ms:.1f} ms of the {step_s * 1e3:.1f} ms step")
+        del q, k, v, do, o, lse, qt, kt, vt, dot
+        torch.cuda.empty_cache()
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card (see the module's note).")
+    ap.add_argument("--k1", action="store_true",
+                    help="phase 1, K1's checks of phase 2 and phase 5e only (the flash_attention backward)")
+    k1_only = ap.parse_args(argv).k1
     import torch
 
     if not torch.cuda.is_available():
@@ -807,6 +935,67 @@ def main() -> int:
                 -rand(Di, N, dtype=torch.float32).abs() - 0.1,
                 rand(B, Di, N, dtype=torch.float32) if with_h0 else None)
 
+    def check_grad(name, got, want, dtype):
+        rtol, atol = BWD_TOL[str(dtype).split(".")[-1]]
+        want = want.float()
+        err = (got.float() - want).abs()
+        if not torch.isfinite(got.float()).all():
+            fail(f"{name}: non-finite output")
+        bad = err > atol * want.abs().max() + rtol * want.abs()
+        print(f"  {name}: max_abs_err {err.max().item():.3e} of max |value| {want.abs().max().item():.3e} "
+              f"({'ok' if not bad.any() else 'FAIL'})")
+        if bad.any():
+            fail(f"{name}: {int(bad.sum())} elements beyond rtol {rtol} atol {atol} x max |value|")
+        return err.max().item()
+
+    from torch.profiler import ProfilerActivity, profile
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def device_profile(fn):
+        """Run fn once under torch.profiler: (wall s, device-busy s, the CUDA
+        events, the profile)."""
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t = wall(fn)
+        kern = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
+        return t, sum(e.time_range.elapsed_us() for e in kern) / 1e6, kern, prof
+
+    # kernel times (phases 4 and 5e): L2 flushed before each launch by writing 256 MiB
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
+
+    def time_ms(fn, reps=30, warmup=3):
+        for _ in range(warmup):
+            fn()
+        evs = []
+        for _ in range(reps):
+            flush.zero_()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            evs.append((s, e))
+        torch.cuda.synchronize()
+        return statistics.median(s.elapsed_time(e) for s, e in evs)
+
+    def bound(nbytes, flops, dtype):
+        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+    rows = []
+    if k1_only:  # phase 1, K1's part of phase 2, and phase 5e
+        n_layers = get_config(TRAIN["arch"]).n_layers  # launches as phase 5a counts them
+        k1_checks(rand, check, check_grad)
+        k1_timing(rand, check_grad, time_ms, bound, device_profile, rows,
+                  {"flash_attention": 2 * n_layers * TRAIN["steps"], "flash_attention_bwd": n_layers * TRAIN["steps"]})
+        print(json.dumps({"kernels": rows}))
+        return 0
+
     # -- 2. each kernel against its plain version ------------------------------
     print("phase 2: kernels vs plain versions on the card")
     jamba = get_config(HYBRID["arch"])
@@ -860,44 +1049,9 @@ def main() -> int:
             check(name + " y", y, yr, torch.float32, SCAN_TOL)
             check(name + " h", h, hr, torch.float32, SCAN_TOL)
         torch.cuda.empty_cache()
-    # K1: the forward's log-sum-exp on both routes, then the backward (on the
-    # same route as the forward) against its plain version; the backward twice
-    # on one input is bit-equal
-    def check_grad(name, got, want, dtype):
-        rtol, atol = BWD_TOL[str(dtype).split(".")[-1]]
-        want = want.float()
-        err = (got.float() - want).abs()
-        if not torch.isfinite(got.float()).all():
-            fail(f"{name}: non-finite output")
-        bad = err > atol * want.abs().max() + rtol * want.abs()
-        print(f"  {name}: max_abs_err {err.max().item():.3e} of max |value| {want.abs().max().item():.3e} "
-              f"({'ok' if not bad.any() else 'FAIL'})")
-        if bad.any():
-            fail(f"{name}: {int(bad.sum())} elements beyond rtol {rtol} atol {atol} x max |value|")
-        return err.max().item()
-
-    for dtype in (torch.float32, torch.bfloat16):
-        for B, L, H, KVH, Dh, window in BWD_CASES:
-            q, do = rand(B, L, H, Dh, dtype=dtype), rand(B, L, H, Dh, dtype=dtype)
-            k, v = rand(B, L, KVH, Dh, dtype=dtype), rand(B, L, KVH, Dh, dtype=dtype)
-            routes0 = dict(flash_attention.route_launches)
-            o, lse = flash_attention(q, k, v, window=window, return_lse=True)
-            route = [r for r in routes0 if flash_attention.route_launches[r] != routes0[r]]
-            ro, rl = ref.reference_attention(q, k, v, window=window, return_lse=True)
-            name = f"{dtype} B{B} L{L} H{H}/{KVH} Dh{Dh} window={window}"
-            check(f"flash_attention lse ({route[0]}) {name}", lse, rl, torch.float32)
-            check(f"flash_attention o ({route[0]}) {name}", o, ro, dtype)
-            want = ref.reference_attention_bwd(q, k, v, o, do, rl, window=window)
-            got = flash_attention_bwd(q, k, v, o, do, lse, window=window)
-            for n, g, w in zip(("dq", "dk", "dv"), got, want):
-                check_grad(f"flash_attention_bwd ({route[0]}) {n} {name}", g, w, dtype)
-            if (B, L, H, KVH) == (2, 512, 32, 8):
-                again = flash_attention_bwd(q, k, v, o, do, lse, window=window)
-                if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    fail(f"flash_attention_bwd {name}: two runs on one input differ")
-                print(f"  flash_attention_bwd {name}: a second run is bit-equal")
-            del q, k, v, do, o, lse, ro, rl, got, want
-            torch.cuda.empty_cache()
+    # K1: the forward's log-sum-exp on both routes, then the backward on each
+    # of its bf16 routes against its plain version, and bit-equal when run twice
+    k1_checks(rand, check, check_grad)
 
     # rows with no live key anywhere must stay finite (finite NEG_INF masking);
     # a decode step with every written slot masked weighs them all alike, as
@@ -1194,23 +1348,6 @@ def main() -> int:
         if failures:
             disagree(f"{name} {dtype}: on the kernels' routing: {'; '.join(failures)}")
 
-    from torch.profiler import ProfilerActivity, profile
-
-    def wall(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t0
-
-    def device_profile(fn):
-        """Run fn once under torch.profiler: (wall s, device-busy s, the CUDA
-        events, the profile)."""
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t = wall(fn)
-        kern = [e for e in prof.events() if str(getattr(e, "device_type", "")).endswith("CUDA")]
-        return t, sum(e.time_range.elapsed_us() for e in kern) / 1e6, kern, prof
-
     def steady_and_profiled(cfg, spec, prompts, max_len):
         """Warm serve times and the device's busy share (not part of the counted
         run: the launch counts are final)."""
@@ -1397,30 +1534,8 @@ def main() -> int:
 
     # -- 4. time each kernel at the serving shapes -------------------------------
     print("phase 4: timing at the serving shapes (bf16, L2 flushed before each launch)")
-    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-
-    def time_ms(fn, reps=30, warmup=3):
-        for _ in range(warmup):
-            fn()
-        evs = []
-        for _ in range(reps):
-            flush.zero_()
-            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            evs.append((s, e))
-        torch.cuda.synchronize()
-        return statistics.median(s.elapsed_time(e) for s, e in evs)
-
-    def bound(nbytes, flops, dtype):
-        t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = flops / PEAK_FLOPS[dtype] * 1e3
-        return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-
     bf = torch.bfloat16
     es = 2
-    rows = []
 
     def on_fma(fn):
         """fn() with moe_gmm's route forced to "fma": its FMA kernel on the
@@ -1644,4 +1759,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

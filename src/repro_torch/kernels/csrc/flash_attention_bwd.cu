@@ -10,36 +10,63 @@
 // k_pos <= q_pos, aligned at the top left; a window keeps k_pos > q_pos - window).
 //
 // FlashAttention-2's backward, recomputing P from lse and never forming an
-// (Lq, Lk) matrix in device memory, in three launches on the caller's stream:
-//   1. dot_do_o: D = rowsum(dO * O) (B, H, Lq) f32, four threads a row.
-//   2. dq: one block per (batch x KV head, q-tile) with the forward's block
-//      mapping (64 rows: the gq query heads of the KV head times bq
-//      positions). A loop over the K/V tiles a row of the block sees
-//      recomputes s = q.k, p = exp(s*scale - lse), dp = dO.v,
-//      ds = p (dp - D) and accumulates dQ += ds k.
-//   3. dkdv: one block per (batch x KV head, 64-key tile). A loop over the gq
-//      heads and over the query tiles that can see a key of the tile
-//      accumulates dV += p dO and dK += ds q. The block owns its keys for
-//      every head of the group, so the GQA sum needs no atomics and the
-//      result does not depend on the order of blocks: two runs are
-//      bit-equal.
-// Two routes share that mapping; the wrapper (_route) picks one by the dtype,
-// as for the forward:
-//   * route 0, "fma" (f32): all arithmetic f32 FMA, 4 threads a row (a query
-//     row in dq, a key in dkdv) each holding a quarter of the row's vectors
-//     in registers; tiles of 32 rows staged in shared memory as f32. The
-//     tensor cores would round f32 products to TF32 and break the
-//     reference's f32 parity. 7 Dh-long products a (query, key) pair (s and
-//     dp twice, dQ, dK, dV) bound it by the f32 FMA rate.
-//   * route 1, "mma" (bf16): mma.sync m16n8k16 (bf16 in, f32 accumulate), 4
-//     warps of 16 rows, tiles staged in bf16 by 16-byte cp.async into
-//     double-buffered, swizzled shared memory, with the forward's fragment
-//     layouts (flash_attention.cu): S and dP stay in accumulator fragments;
-//     P and dS are rounded to bf16 and reused as the A operand of the next
-//     product, as FlashAttention-2 does. dq: S = Q K^T, dP = dO V^T,
-//     dQ += dS K over 64-key tiles. dkdv: S^T = K Q^T, dP^T = V dO^T,
-//     dV += P^T dO, dK += dS^T Q over query tiles of 64 (32 at Dh 128, for
-//     registers). Speed with wgmma and TMA is later work.
+// (Lq, Lk) matrix in device memory: D = rowsum(dO * O) (B, H, Lq) f32, then
+//   dq: one block per (batch x KV head, q-tile) whose rows are the gq query
+//      heads of the KV head times bq positions (the forward's mapping). A loop
+//      over the K/V tiles a row of the block sees recomputes s = q.k,
+//      p = exp(s*scale - lse), dp = dO.v, ds = p (dp - D) and accumulates
+//      dQ += ds k.
+//   dkdv: one block per (batch x KV head, key tile). A loop over the gq heads
+//      and over the query tiles that can see a key of the tile accumulates
+//      dV += p dO and dK += ds q. The block owns its keys for every head of
+//      the group, so the GQA sum needs no atomics and the result does not
+//      depend on the order of blocks: two runs are bit-equal.
+// What bounds it on this card: at stablelm-1.6b's training shape (8, 2048,
+// 32, 64), causal, bf16, operations: the five products a visible (query, key)
+// pair needs are 10 Dh FLOP, 3.4e11 a call (0.35 ms at 989 TFLOP/s) against
+// 0.27 GB of inputs and outputs (0.08 ms); two kernels recompute S and dP
+// (7 products a pair, a floor of 7/5 of the bound) and take two exp2 a pair.
+// Three routes share that mapping; the wrapper (_bwd_route) picks one by the
+// dtype and the head dim:
+//   * route 2, "wgmma" (bf16, Dh 64 and 128): dq then dkdv, each a block of
+//     two warpgroups of 64 rows on wgmma, fed by TMA (128-byte swizzle; 4-D
+//     maps (Dh, heads, L, B), so rows past L are zeros and never the next
+//     batch's; a Dh 128 row as two 64-column boxes) through a ring of 3 or
+//     4 stages with full and empty mbarriers. One thread of warpgroup 0 (in
+//     dkdv its first warp, which also copies the tile's lse and D rows by
+//     cp.async) refills a stage two tiles after the one that used it: a
+//     separate producer warp would cap every thread at 168 registers (see
+//     the note in namespace wg). S and dP (or S^T and dP^T) come from wgmma
+//     m64nNk16 with both operands K-major in shared memory, as two commit
+//     groups, so P's exponentials overlap dP's products; P and dS are
+//     rounded to bf16 in registers, where the accumulator's layout is the
+//     register A operand's, and multiply K, dO or Q read MN-major (the
+//     instruction's transpose of B): dQ += dS K, dV += P^T dO (issued before
+//     dS is formed, which it overlaps), dK += dS^T Q, by wgmma m64nDhk16.
+//     Every group is waited for within its tile: ptxas serialises wgmma
+//     whose group stays pending across the loop's back edge while other
+//     registers of the warpgroup are written (measured: C7513, C7515).
+//     dq: Q and dO resident (a (64, gq, bq) box a warpgroup: rows are
+//     position-major, the padding rows of gq 5 or 6 zeroed once and never
+//     stored), K/V tiles of 64 keys streamed, the q-tiles in reverse order so
+//     the longest causal rows start first; its prologue computes D from the
+//     resident dO and O and writes it for dkdv, which runs after it on the
+//     stream. dkdv: 128 keys resident (64 a warpgroup), (Q, dO) tiles of 96
+//     queries (32 at Dh 128, for registers) streamed head by head. Masking
+//     of diagonal tiles is a select on P, never a branch around the products
+//     (ptxas serialises wgmma on a divergent path).
+//   * route 1, "mma" (bf16, Dh 16 and 32; any Dh when forced): dot_do_o
+//     (four threads a row) writes D, then dq and dkdv on mma.sync m16n8k16
+//     (bf16 in, f32 accumulate), 4 warps of 16 rows, tiles staged in bf16 by
+//     16-byte cp.async into double-buffered, swizzled shared memory, with the
+//     forward's fragment layouts (flash_attention.cu); query tiles of 64 in
+//     dkdv (32 at Dh 128, for registers).
+//   * route 0, "fma" (f32): dot_do_o, then all arithmetic f32 FMA, 4 threads
+//     a row (a query row in dq, a key in dkdv) each holding a quarter of the
+//     row's vectors in registers; tiles of 32 rows staged in shared memory as
+//     f32. The tensor cores would round f32 products to TF32 and break the
+//     reference's f32 parity.
+// The tensor-core routes round P and dS to bf16 before their products.
 //
 // A row with no visible key (window > 0 and q_pos >= Lk - 1 + window) has a
 // forward output the kernel does not define; the wrapper refuses such shapes.
@@ -49,6 +76,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "tc.cuh"
 
 namespace {
@@ -714,13 +742,522 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v, con
 
 }  // namespace mma
 
+// ---------------------------------------------------------------------------
+// route 2: wgmma fed by TMA (bf16, Dh 64 and 128)
+// ---------------------------------------------------------------------------
+namespace wg {
+
+using bf16 = __nv_bfloat16;
+// Two warpgroups a block and no producer warp: 256 threads leave two warps
+// on each of an SM's four register files, so ptxas may give each thread 255
+// registers (dK and dV alone take 128 at Dh 128). A producer warp or
+// warpgroup puts a third warp on one of them and caps every thread at 168,
+// whatever setmaxnreg grants at run time (ptxas allocates no more in the
+// consumers' branch; measured: C7512, no register past R167). One thread of
+// warpgroup 0 (dkdv: its first warp) issues the TMA loads instead, refilling
+// each stage two tiles after the one that used it.
+constexpr int NWG = 2;
+constexpr int THREADS = 128 * NWG;
+constexpr int LAG = 2;  // a stage is refilled when the tile LAG before the current one has left it
+// the warpgroup's index, shuffled from lane 0 so that the compiler knows it
+// to be warp-uniform: the tile addresses and wgmma descriptors derived from
+// it then stay in uniform registers (threadIdx.x / 128 measured slower)
+__device__ __forceinline__ int warpgroup_index() { return __shfl_sync(0xffffffffu, threadIdx.x / 128, 0); }
+constexpr int TILE = 64;                  // rows a warpgroup owns; keys of dq's K/V tiles
+constexpr int CHUNK = TILE * 128;         // one 64-column chunk of a 64-row tile: 64 rows of 128 bytes
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float NO_ROW = 1e30f;           // lse * log2(e) of a query row past the range: exp2(s - NO_ROW) = 0
+
+template <int DH>
+struct Plan {
+  static constexpr int NCH = DH / 64;                   // 64-column chunks of a row (the swizzle's 128 bytes)
+  static constexpr int TILE_BYTES = NCH * CHUNK;        // 64 rows of q, k, v or dO
+  // dkdv streams query tiles of BQ, as long as its registers allow (S^T and
+  // dP^T take BQ f32 a thread beside dK's and dV's DH), so that each wait
+  // covers more products; dq streams K/V tiles of 64 keys (128 measured
+  // slower)
+  static constexpr int BQ = DH == 64 ? 96 : 32;
+  static constexpr int QCHUNK = BQ * 128, QTILE_BYTES = NCH * QCHUNK;
+  static constexpr int DQ_STAGES = DH == 64 ? 4 : 3;
+  static constexpr int KV_STAGES = 4;
+  // dq: Q and dO of both warpgroups resident, a ring of (K, V) tiles
+  static constexpr int DQ_SMEM = 2 * NWG * TILE_BYTES + DQ_STAGES * 2 * TILE_BYTES + 8 * (2 * DQ_STAGES + 1) + 1024;
+  // dkdv: K and V of both warpgroups resident, a ring of (Q, dO) tiles with their lse and D rows
+  static constexpr int KV_SMEM =
+      2 * NWG * TILE_BYTES + KV_STAGES * (2 * QTILE_BYTES + 2 * BQ * 4) + 8 * (2 * KV_STAGES + 1) + 1024;
+  static_assert(DQ_SMEM <= 232448 && KV_SMEM <= 232448, "over the 227 KB a block may use");
+};
+
+__device__ __forceinline__ uint8_t* align1024(uint8_t* p) {
+  return reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+// Descriptors of a tile read K-major (the reduction dim along its rows) and
+// MN-major (its rows are the reduction dim, its columns N); `chunk` is the
+// distance between its 64-column chunks. An offset of b bytes is b / 16 in
+// the address field.
+__device__ __forceinline__ uint64_t kmajor(const uint8_t* tile) { return sw128_desc(tile, 16, 1024); }
+__device__ __forceinline__ uint64_t mnmajor(const uint8_t* tile, int chunk) { return sw128_desc(tile, chunk, 1024); }
+__device__ __forceinline__ uint64_t plus_bytes(uint64_t d, int bytes) { return d + (bytes >> 4); }
+// k-step kk (16 columns) of a K-major tile; k-step t (16 rows) of an MN-major one
+__device__ __forceinline__ uint64_t kstep(uint64_t d, int kk, int chunk) {
+  return plus_bytes(d, (kk / 4) * chunk + (kk % 4) * 32);
+}
+__device__ __forceinline__ uint64_t mnstep(uint64_t d, int t) { return plus_bytes(d, t * 2048); }
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// s = A . B^T (64 x N, f32), A (64 x DH) and B (N x DH) K-major, as one
+// commit group with its own wgmma.fence (a pipeline stage: S's registers can
+// be rewritten once its group is waited for while dP's products still run)
+template <int DH, int N>
+__device__ __forceinline__ void product_t(float (&s)[N / 2], uint64_t a, uint64_t b) {
+  fence_acc(s);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint64_t ak = kstep(a, kk, CHUNK), bk = kstep(b, kk, N * 128);
+    if constexpr (N == 96) wgmma_m64n96k16_ss<0>(s, ak, bk, kk > 0);
+    else if constexpr (N == 64) wgmma_m64n64k16_ss<0>(s, ak, bk, kk > 0);
+    else wgmma_m64n32k16_ss<0>(s, ak, bk, kk > 0);
+  }
+  wgmma_commit();
+  fence_acc(s);
+}
+// acc (64 x DH, f32) += A (64 x 16 K, from registers) . B (16 K x DH, MN-major), one commit group
+template <int DH, int K>
+__device__ __forceinline__ void product_rs(float (&acc)[DH / 2], uint32_t (&a)[K / 16][4], uint64_t b) {
+  fence_acc(acc);
+  fence_frags(a);
+  wgmma_fence();
+#pragma unroll
+  for (int t = 0; t < K / 16; ++t) {
+    if constexpr (DH == 64) wgmma_m64n64k16_rs<1>(acc, a[t], mnstep(b, t), 1);
+    else wgmma_m64n128k16_rs<1>(acc, a[t], mnstep(b, t), 1);
+  }
+  wgmma_commit();
+  fence_acc(acc);
+  fence_frags(a);
+}
+// the A fragment of k-step t (columns 16t .. 16t + 15) of a 64 x N accumulator, rounded to bf16
+template <int R>
+__device__ __forceinline__ void acc_frag(uint32_t (&a)[4], const float (&x)[R], int t) {
+  a[0] = pack_bf16(x[8 * t + 0], x[8 * t + 1]);
+  a[1] = pack_bf16(x[8 * t + 2], x[8 * t + 3]);
+  a[2] = pack_bf16(x[8 * t + 4], x[8 * t + 5]);
+  a[3] = pack_bf16(x[8 * t + 6], x[8 * t + 7]);
+}
+
+// dQ and D. One block per (batch x KV head, 2 x bq positions), the q-tiles in
+// reverse order (the longest causal rows first). Warpgroup w owns
+// 64 rows: positions p_lo = q_lo + w bq .. + bq - 1 of the gq query heads of
+// the KV head, row r = (position - p_lo) gq + head (TMA loads a (64, gq, bq)
+// box); rows r >= gq bq are padding, zero and never stored.
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+dq_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtensorMap mdO,
+          __grid_constant__ const CUtensorMap mK, __grid_constant__ const CUtensorMap mV,
+          const bf16* __restrict__ o, const float* __restrict__ lse, float* __restrict__ dvec,
+          bf16* __restrict__ dq, int Lq, int Lk, int H, int KVH, int bq, int causal, int window, float scale_log2,
+          float scale) {
+  using P = Plan<DH>;
+  constexpr int STAGES = P::DQ_STAGES, STAGE = 2 * P::TILE_BYTES;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Qs = align1024(smem_raw);                   // [NWG] tiles
+  uint8_t* Os = Qs + NWG * P::TILE_BYTES;               // dO, [NWG] tiles
+  uint8_t* ring = Os + NWG * P::TILE_BYTES;             // [STAGES] x (K tile, V tile)
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
+  uint64_t* empty = full + STAGES;
+  uint64_t* qbar = empty + STAGES;
+
+  const int b = blockIdx.x / KVH, kvh = blockIdx.x % KVH;
+  const int gq = H / KVH, rows = gq * bq;
+  const int q_lo = (gridDim.y - 1 - blockIdx.y) * NWG * bq;
+  const int q_last = min(q_lo + NWG * bq, Lq) - 1;
+  const int nkt = (Lk + TILE - 1) / TILE;
+  const int kt_end = causal ? min(nkt, q_last / TILE + 1) : nkt;
+  const int kt_begin = (window > 0 && q_lo - window + 1 > 0) ? (q_lo - window + 1) / TILE : 0;
+  const int n = kt_end - kt_begin;
+  const int wgi = warpgroup_index();
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], THREADS);  // every thread releases the stage
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (rows < TILE) {  // the padding rows of the Q and dO tiles, which no TMA box covers
+    const int cnt = 2 * NWG * P::NCH * (TILE - rows) * 8;
+    for (int idx = threadIdx.x; idx < cnt; idx += THREADS) {
+      const int u = idx % 8, r = rows + idx / 8 % (TILE - rows), c = idx / (8 * (TILE - rows));
+      *reinterpret_cast<uint4*>(Qs + c * CHUNK + r * 128 + u * 16) = make_uint4(0, 0, 0, 0);
+    }
+    fence_proxy_async();
+  }
+  __syncthreads();
+
+  // K/V tile i (keys (kt_begin + i) 64 ..) into stage i % STAGES; thread 0
+  auto load_kv = [&](int i) {
+    const int s = i % STAGES, kt = kt_begin + i;
+    uint8_t* st = ring + s * STAGE;
+    mbar_expect_tx(&full[s], STAGE);
+    for (int c = 0; c < P::NCH; ++c) {
+      tma_load_4d(st + c * CHUNK, &mK, &full[s], 64 * c, kvh, kt * TILE, b);
+      tma_load_4d(st + P::TILE_BYTES + c * CHUNK, &mV, &full[s], 64 * c, kvh, kt * TILE, b);
+    }
+  };
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(qbar, 2 * NWG * P::NCH * rows * 128);
+    for (int w = 0; w < NWG; ++w)
+      for (int c = 0; c < P::NCH; ++c) {
+        tma_load_4d(Qs + w * P::TILE_BYTES + c * CHUNK, &mQ, qbar, 64 * c, kvh * gq, q_lo + w * bq, b);
+        tma_load_4d(Os + w * P::TILE_BYTES + c * CHUNK, &mdO, qbar, 64 * c, kvh * gq, q_lo + w * bq, b);
+      }
+    for (int i = 0; i < min(n, STAGES); ++i) load_kv(i);
+  }
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const uint8_t* q_t = Qs + wgi * P::TILE_BYTES;
+  const uint8_t* do_t = Os + wgi * P::TILE_BYTES;
+  const int p_lo = q_lo + wgi * bq;
+  // this thread's rows r0 (accumulator values 4j, 4j + 1) and r0 + 8 (4j + 2, 4j + 3)
+  const int r0 = 16 * warp + lane / 4;
+  int qpos[2];
+  bool ok[2];
+  int64_t row_off[2], stat[2];
+  float lse2[2], dd[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    const int h = kvh * gq + r % gq;
+    qpos[i] = p_lo + r / gq;
+    ok[i] = r < rows && qpos[i] < Lq;
+    row_off[i] = ok[i] ? (((int64_t)b * Lq + qpos[i]) * H + h) * DH : 0;
+    stat[i] = ok[i] ? ((int64_t)b * H + h) * Lq + qpos[i] : 0;
+    lse2[i] = ok[i] ? lse[stat[i]] * LOG2E : NO_ROW;
+  }
+  // D = rowsum(dO * O) of the two rows: dO from the tile, O from device
+  // memory (loaded before the tile's wait); the four lanes of a row take
+  // its 16-byte chunks c = lane % 4 + 4 u in turn
+  uint4 ov[2][DH / 32];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int u = 0; u < DH / 32; ++u)
+      ov[i][u] = ok[i] ? __ldg(reinterpret_cast<const uint4*>(o + row_off[i] + 8 * (lane % 4 + 4 * u)))
+                       : make_uint4(0, 0, 0, 0);
+  mbar_wait(qbar, 0);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    float part = 0.f;
+#pragma unroll
+    for (int u = 0; u < DH / 32; ++u) {
+      const int c = lane % 4 + 4 * u;
+      const uint4 gv =
+          *reinterpret_cast<const uint4*>(do_t + (c / 8) * CHUNK + r * 128 + (((c % 8) ^ (r % 8)) << 4));
+      const __nv_bfloat162* a = reinterpret_cast<const __nv_bfloat162*>(&ov[i][u]);
+      const __nv_bfloat162* g = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float2 af = __bfloat1622float2(a[e]), gf = __bfloat1622float2(g[e]);
+        part = fmaf(af.x, gf.x, part);
+        part = fmaf(af.y, gf.y, part);
+      }
+    }
+    part += __shfl_xor_sync(0xffffffffu, part, 1);
+    part += __shfl_xor_sync(0xffffffffu, part, 2);
+    dd[i] = part;
+    if (ok[i] && lane % 4 == 0) dvec[stat[i]] = part;
+  }
+
+  // S and dP are two commit groups, so P's exponentials overlap dP's
+  // products; every group is waited for within its tile (ptxas serialises
+  // wgmma whose group stays pending across the loop's back edge while
+  // other accumulators are written).
+  float acc[DH / 2], sv[32], dp[32];
+  uint32_t da[4][4];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  const uint64_t qd = kmajor(q_t), dod = kmajor(do_t), ring_k = kmajor(ring), ring_mn = mnmajor(ring, CHUNK);
+  for (int i = 0; i < n; ++i) {
+    const int s = i % STAGES;
+    // refill the stage of tile i - LAG (no product is in flight here)
+    if (threadIdx.x == 0 && i >= LAG && i - LAG + STAGES < n) {
+      mbar_wait(&empty[(i - LAG) % STAGES], ((i - LAG) / STAGES) & 1);
+      load_kv(i - LAG + STAGES);
+    }
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    const uint64_t kd = plus_bytes(ring_k, s * STAGE);
+    product_t<DH, 64>(sv, qd, kd);
+    product_t<DH, 64>(dp, dod, plus_bytes(kd, P::TILE_BYTES));
+    wgmma_wait<1>();  // S is done
+    fence_acc(sv);
+    // P = exp2(S scale log2(e) - lse log2(e)), 0 where masked (per element
+    // only on tiles that hold a masked pair); dS = P (dP - D). Keys past Lk
+    // are TMA's zeros: their dS multiplies a zero row of K.
+    const int k0 = (kt_begin + i) * TILE;
+    const bool edge = (causal && k0 + TILE - 1 > p_lo) || (window > 0 && k0 <= p_lo + bq - 1 - window);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = exp2_approx(sv[4 * j + e] * scale_log2 - lse2[r]);
+        if (edge && !visible(k0 + 8 * j + 2 * (lane % 4) + (e & 1), qpos[r], causal, window)) p = 0.f;
+        sv[4 * j + e] = p;
+      }
+    wgmma_wait<0>();
+    fence_acc(dp);
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sv[j] *= dp[j] - dd[(j >> 1) & 1];
+    // dQ += dS K: dS rounded to bf16 as the register A operand, K MN-major as B
+#pragma unroll
+    for (int t4 = 0; t4 < 4; ++t4) acc_frag(da[t4], sv, t4);
+    product_rs<DH, 64>(acc, da, plus_bytes(ring_mn, s * STAGE));
+    wgmma_wait<0>();
+    fence_acc(acc);
+    fence_frags(da);
+    mbar_arrive(&empty[s]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (!ok[i]) continue;
+    bf16* row = dq + row_off[i];
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * (lane % 4)) =
+          pack_bf16(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
+  }
+}
+
+// dK and dV. One block per (batch x KV head, 2 x 64 keys); warpgroup w owns
+// keys k_lo + 64 w .. + 63 for every query head of the group. The (Q, dO)
+// tiles of BQ queries that see a key of the block stream through the ring
+// head by head, with their lse and D rows.
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
+dkdv_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtensorMap mdO,
+            __grid_constant__ const CUtensorMap mK, __grid_constant__ const CUtensorMap mV,
+            const float* __restrict__ lse, const float* __restrict__ dvec, bf16* __restrict__ dk,
+            bf16* __restrict__ dv, int Lq, int Lk, int H, int KVH, int causal, int window, float scale_log2,
+            float scale) {
+  using P = Plan<DH>;
+  constexpr int STAGES = P::KV_STAGES, STAGE = 2 * P::QTILE_BYTES, BQ = P::BQ;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* Ks = align1024(smem_raw);                    // [NWG] tiles
+  uint8_t* Vs = Ks + NWG * P::TILE_BYTES;               // [NWG] tiles
+  uint8_t* ring = Vs + NWG * P::TILE_BYTES;             // [STAGES] x (Q tile, dO tile) of BQ rows
+  float* Ls = reinterpret_cast<float*>(ring + STAGES * STAGE);  // [STAGES][BQ] lse
+  float* Ds = Ls + STAGES * BQ;                                 // [STAGES][BQ] D
+  uint64_t* full = reinterpret_cast<uint64_t*>(Ds + STAGES * BQ);
+  uint64_t* empty = full + STAGES;
+  uint64_t* kvbar = empty + STAGES;
+
+  const int b = blockIdx.x / KVH, kvh = blockIdx.x % KVH;
+  const int gq = H / KVH;
+  const int k_lo = blockIdx.y * NWG * TILE;
+  const int k_hi = min(k_lo + NWG * TILE, Lk) - 1;
+  // the queries that see some key of the block: [q_begin, q_end), in tiles, for each head
+  const int q_begin = causal ? k_lo : 0;
+  const int q_end = window > 0 ? (int)min((int64_t)Lq, (int64_t)k_hi + window) : Lq;
+  const int nqt = q_end > q_begin ? (q_end - q_begin + BQ - 1) / BQ : 0;
+  const int n_tiles = gq * nqt;
+  const int wgi = warpgroup_index();
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 32);          // warp 0: lse and D rows, then the TMA bytes
+      mbar_init(&empty[s], THREADS);
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // query tile i (head kvh gq + i / nqt, queries q_begin + (i % nqt) BQ ..)
+  // into stage i % STAGES, with its lse and D rows (cp.async, which the full
+  // barrier waits for; zeros past Lq, where Q and dO are TMA's zeros too, so
+  // those queries add exact zeros to dV and dK); warp 0
+  auto load_q = [&](int i) {
+    const int s = i % STAGES, lane = threadIdx.x % 32;
+    const int h = kvh * gq + i / nqt, q0 = q_begin + (i % nqt) * BQ;
+    const int64_t stat0 = ((int64_t)b * H + h) * Lq;
+    for (int j = lane; j < BQ; j += 32) {
+      const uint32_t bytes = q0 + j < Lq ? 4 : 0;
+      const int64_t at = stat0 + (bytes ? q0 + j : 0);
+      cp_async4(Ls + s * BQ + j, lse + at, bytes);
+      cp_async4(Ds + s * BQ + j, dvec + at, bytes);
+    }
+    mbar_track_cp_async(&full[s]);
+    if (lane == 0) {
+      mbar_expect_tx(&full[s], STAGE);
+      uint8_t* st = ring + s * STAGE;
+      for (int c = 0; c < P::NCH; ++c) {
+        tma_load_4d(st + c * P::QCHUNK, &mQ, &full[s], 64 * c, h, q0, b);
+        tma_load_4d(st + P::QTILE_BYTES + c * P::QCHUNK, &mdO, &full[s], 64 * c, h, q0, b);
+      }
+    } else {
+      mbar_arrive(&full[s]);
+    }
+  };
+  if (threadIdx.x < 32) {
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(kvbar, 2 * NWG * P::TILE_BYTES);
+      for (int w = 0; w < NWG; ++w)
+        for (int c = 0; c < P::NCH; ++c) {
+          tma_load_4d(Ks + w * P::TILE_BYTES + c * CHUNK, &mK, kvbar, 64 * c, kvh, k_lo + w * TILE, b);
+          tma_load_4d(Vs + w * P::TILE_BYTES + c * CHUNK, &mV, kvbar, 64 * c, kvh, k_lo + w * TILE, b);
+        }
+    }
+    for (int i = 0; i < min(n_tiles, STAGES); ++i) load_q(i);
+  }
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  const uint8_t* k_t = Ks + wgi * P::TILE_BYTES;
+  const uint8_t* v_t = Vs + wgi * P::TILE_BYTES;
+  const int kw = k_lo + wgi * TILE;
+  // this thread's keys kw + r0 (accumulator values 4j, 4j + 1) and kw + r0 + 8 (4j + 2, 4j + 3)
+  const int r0 = 16 * warp + lane / 4;
+  // S^T and dP^T are two commit groups, so P^T's exponentials overlap
+  // dP^T's products, and dV's product overlaps dS^T; every group is waited
+  // for within its tile.
+  float dka[DH / 2], dva[DH / 2], sv[BQ / 2], dp[BQ / 2];
+  uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
+  const uint64_t kd = kmajor(k_t), vd = kmajor(v_t), ring_k = kmajor(ring), ring_mn = mnmajor(ring, P::QCHUNK);
+  mbar_wait(kvbar, 0);
+  for (int i = 0; i < n_tiles; ++i) {
+    const int s = i % STAGES;
+    const int q0 = q_begin + (i % nqt) * BQ;
+    // refill the stage of tile i - LAG (no product is in flight here)
+    if (threadIdx.x < 32 && i >= LAG && i - LAG + STAGES < n_tiles) {
+      mbar_wait(&empty[(i - LAG) % STAGES], ((i - LAG) / STAGES) & 1);
+      load_q(i - LAG + STAGES);
+    }
+    mbar_wait(&full[s], (i / STAGES) & 1);
+    const uint64_t qk = plus_bytes(ring_k, s * STAGE);
+    product_t<DH, BQ>(sv, kd, qk);
+    product_t<DH, BQ>(dp, vd, plus_bytes(qk, P::QTILE_BYTES));
+    wgmma_wait<1>();  // S^T is done
+    fence_acc(sv);
+    // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked; dS^T =
+    // P^T (dP^T - D). Keys past Lk give rows that are never stored.
+    const float* ls = Ls + s * BQ;
+    const float* dl = Ds + s * BQ;
+    const bool edge = (causal && kw + TILE - 1 > q0) || (window > 0 && kw <= q0 + BQ - 1 - window);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = e & 1;
+        float p = exp2_approx(sv[4 * j + e] * scale_log2 - (c ? l2.y : l2.x) * LOG2E);
+        if (edge && !visible(kw + r0 + 8 * (e >> 1), q0 + col + c, causal, window)) p = 0.f;
+        sv[4 * j + e] = p;
+      }
+    }
+    // dV += P^T dO: P^T rounded to bf16 as the register A operand, dO MN-major
+    const uint64_t qd = plus_bytes(ring_mn, s * STAGE);
+#pragma unroll
+    for (int t4 = 0; t4 < BQ / 16; ++t4) acc_frag(pa[t4], sv, t4);
+    product_rs<DH, BQ>(dva, pa, plus_bytes(qd, P::QTILE_BYTES));
+    wgmma_wait<1>();  // dP^T is done
+    fence_acc(dp);
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * (lane % 4));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[4 * j + e] = sv[4 * j + e] * (dp[4 * j + e] - ((e & 1) ? d2.y : d2.x));
+    }
+    // dK += dS^T Q: dS^T rounded to bf16 as the register A operand, Q MN-major
+#pragma unroll
+    for (int t4 = 0; t4 < BQ / 16; ++t4) acc_frag(da[t4], dp, t4);
+    product_rs<DH, BQ>(dka, da, qd);
+    wgmma_wait<0>();
+    fence_acc(dva);
+    fence_acc(dka);
+    fence_frags(pa);
+    fence_frags(da);
+    mbar_arrive(&empty[s]);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int kpos = kw + r0 + 8 * i;
+    if (kpos >= Lk) continue;
+    const int64_t off = (((int64_t)b * Lk + kpos) * KVH + kvh) * DH;
+#pragma unroll
+    for (int j = 0; j < DH / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * (lane % 4)) =
+          pack_bf16(dka[4 * j + 2 * i] * scale, dka[4 * j + 2 * i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * (lane % 4)) =
+          pack_bf16(dva[4 * j + 2 * i], dva[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+template <int DH>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
+                   const void* lse, void* dvec, void* dq, void* dk, void* dv, int B, int Lq, int Lk, int H,
+                   int KVH, int causal, int window, float scale, cudaStream_t s) {
+  using P = Plan<DH>;
+  const int gq = H / KVH, bq = TILE / gq;
+  // (B, L, heads, DH) tensors as 4-D maps (DH, heads, L, B): TMA zero-fills
+  // the rows past L and never reads into the next batch
+  const cuuint64_t qdims[4] = {DH, (cuuint64_t)H, (cuuint64_t)Lq, (cuuint64_t)B};
+  const cuuint64_t qstr[3] = {DH * 2, (cuuint64_t)H * DH * 2, (cuuint64_t)Lq * H * DH * 2};
+  const cuuint64_t kdims[4] = {DH, (cuuint64_t)KVH, (cuuint64_t)Lk, (cuuint64_t)B};
+  const cuuint64_t kstr[3] = {DH * 2, (cuuint64_t)KVH * DH * 2, (cuuint64_t)Lk * KVH * DH * 2};
+  const cuuint32_t group_box[4] = {64, (cuuint32_t)gq, (cuuint32_t)bq, 1};  // dq: gq heads x bq positions
+  const cuuint32_t q_box[4] = {64, 1, P::BQ, 1};                          // dkdv: one head's BQ queries
+  const cuuint32_t kv_box[4] = {64, 1, TILE, 1};                          // one KV head's 64 keys
+  CUtensorMap mQg, mdOg, mQ, mdO, mK, mV;
+  if (!tma_map_bf16(&mQg, q, 4, qdims, qstr, group_box) || !tma_map_bf16(&mdOg, dout, 4, qdims, qstr, group_box) ||
+      !tma_map_bf16(&mQ, q, 4, qdims, qstr, q_box) || !tma_map_bf16(&mdO, dout, 4, qdims, qstr, q_box) ||
+      !tma_map_bf16(&mK, k, 4, kdims, kstr, kv_box) || !tma_map_bf16(&mV, v, 4, kdims, kstr, kv_box))
+    return cudaErrorInvalidValue;
+  const float* lse_ = static_cast<const float*>(lse);
+  float* dvec_ = static_cast<float*>(dvec);
+  // dq first: it writes D, which dkdv reads
+  cudaError_t err = cudaFuncSetAttribute(dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::DQ_SMEM);
+  if (err != cudaSuccess) return err;
+  dq_kernel<DH><<<dim3(B * KVH, (Lq + NWG * bq - 1) / (NWG * bq)), THREADS, P::DQ_SMEM, s>>>(
+      mQg, mdOg, mK, mV, static_cast<const bf16*>(o), lse_, dvec_, static_cast<bf16*>(dq), Lq, Lk, H, KVH, bq,
+      causal, window, scale * LOG2E, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(dkdv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::KV_SMEM);
+  if (err != cudaSuccess) return err;
+  dkdv_kernel<DH><<<dim3(B * KVH, (Lk + NWG * TILE - 1) / (NWG * TILE)), THREADS, P::KV_SMEM, s>>>(
+      mQ, mdO, mK, mV, lse_, dvec_, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Lq, Lk, H, KVH, causal, window,
+      scale * LOG2E, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v, const void* o, const void* dout,
+                        const void* lse, void* dvec, void* dq, void* dk, void* dv, int B, int Lq, int Lk, int H,
+                        int KVH, int causal, int window, float scale, cudaStream_t s) {
+  switch (Dh) {
+    case 64: return launch<64>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    case 128: return launch<128>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window, scale, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace wg
+
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv alike); lse
-// (B, H, Lq) f32 from flash_attention_fwd; dvec (B, H, Lq) f32 scratch.
-// route: 0 fma (f32 only), 1 mma (bf16 only, 16-byte aligned bases); the
-// wrapper's _route picks it. Returns the first failing launch's cudaError_t,
-// or 0.
+// (B, H, Lq) f32 from flash_attention_fwd; dvec (B, H, Lq) f32 scratch (D).
+// route: 0 fma (f32 only), 1 mma (bf16 only, 16-byte aligned bases), 2 wgmma
+// (bf16, Dh 64 or 128, 16-byte aligned bases); the wrapper's _bwd_route picks
+// it. Returns the first failing launch's cudaError_t, or 0.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                    const void* lse, void* dvec, void* dq, void* dk, void* dv, int dtype, int route,
                                    int B, int Lq, int Lk, int H, int KVH, int Dh, int causal, int window,
@@ -734,9 +1271,14 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
       ((int64_t)B * Lq * H + ROWS - 1) / ROWS > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout |
+                          (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv;
+  if (route == 2) {
+    if (dtype != 1 || (bases & 15) || (Dh != 64 && Dh != 128)) return (int)cudaErrorInvalidValue;
+    return (int)wg::dispatch_dh(Dh, q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window,
+                                scale, s);
+  }
   if (route == 1) {
-    const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)dout | (uintptr_t)dq |
-                            (uintptr_t)dk | (uintptr_t)dv;
     if (dtype != 1 || (bases & 15)) return (int)cudaErrorInvalidValue;
     return (int)mma::dispatch_dh(Dh, q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window,
                                  scale, s);

@@ -19,15 +19,18 @@ With ``return_lse=True`` either route also writes each row's log-sum-exp
 (B, H, Lq) f32, which ``flash_attention_bwd`` takes: the backward (K1, no
 Pallas counterpart; ``csrc/flash_attention_bwd.cu``) recomputes P from it and
 returns dQ, dK and dV, with dK and dV summed over each KV head's ``gq`` query
-heads; ``_route`` picks its design as the forward's (``"mma"``, on
-``mma.sync``, for bf16; ``"fma"`` for f32).
+heads. ``_bwd_route`` picks its design from the dtype and the head dim:
+``"wgmma"`` for bf16 at Dh 64 and 128 (``wgmma`` fed by a TMA ring, D folded
+into dQ's launch, its longest causal q-tiles first), ``"mma"`` (``mma.sync``)
+for bf16 at Dh 16 and 32, ``"fma"`` for f32.
 
 For tensors on the CPU each wrapper computes the plain version
 (``ref.reference_attention``, ``ref.reference_attention_bwd``); for CUDA
 tensors it launches its kernel or raises. ``flash_attention.launches`` counts
 forward launches, ``flash_attention.route_launches`` the same launches by
 route; ``flash_attention_bwd.launches`` counts backward calls (each one call
-of the C entry, which launches three kernels), ``route_launches`` by route.
+of the C entry, which launches two kernels on ``"wgmma"`` and three on the
+others), ``route_launches`` by route.
 """
 
 from __future__ import annotations
@@ -43,6 +46,7 @@ HEAD_DIMS = (16, 32, 64, 128)
 ROWS = 64  # query rows (gq heads x q positions) per thread block; as in the .cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"fma": 0, "mma": 1}  # as the .cu's route argument
+BWD_ROUTES = {"fma": 0, "mma": 1, "wgmma": 2}  # as flash_attention_bwd.cu's route argument
 
 
 def _fn():
@@ -67,6 +71,13 @@ def _route(dtype: torch.dtype) -> str:
     """The kernel design a CUDA call in this dtype takes (every head dim of
     HEAD_DIMS and every gq up to ROWS has both)."""
     return "mma" if dtype == torch.bfloat16 else "fma"
+
+
+def _bwd_route(dtype: torch.dtype, Dh: int) -> str:
+    """The backward's design for a CUDA call in this dtype at head dim Dh."""
+    if dtype != torch.bfloat16:
+        return "fma"
+    return "wgmma" if Dh in (64, 128) else "mma"
 
 
 def _check_inputs(q, k, v, window: int):
@@ -167,18 +178,19 @@ def flash_attention_bwd(
         return reference_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
-    # contiguous, and 16-byte aligned for the mma route's cp.async copies
+    # contiguous, and 16-byte aligned for the tensor-core routes' copies (cp.async, TMA)
     ins = [t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
            for t in (q, k, v, o, do, lse)]
     Lk, KVH, Dh = k.shape[1], k.shape[2], k.shape[3]
-    route = _route(q.dtype)
+    route = _bwd_route(q.dtype, Dh)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dvec = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _bwd_fn()(
             *(t.data_ptr() for t in ins), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPES[q.dtype], ROUTES[route], B, Lq, Lk, H, KVH, Dh, int(causal), int(window), Dh**-0.5, stream,
+            _DTYPES[q.dtype], BWD_ROUTES[route], B, Lq, Lk, H, KVH, Dh, int(causal), int(window), Dh**-0.5,
+            stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed on route {route!r}: cudaError_t {rc}")
@@ -188,4 +200,4 @@ def flash_attention_bwd(
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.route_launches = dict.fromkeys(ROUTES, 0)
+flash_attention_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)

@@ -21,7 +21,7 @@ from repro.kernels.moe_gmm import moe_gmm as pallas_gmm
 from repro.models.mamba import selective_scan as jax_chunked_scan
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+from repro_torch.kernels.flash_attention import BWD_ROUTES, _bwd_route, flash_attention, flash_attention_bwd
 import repro_torch.kernels.flash_decode as fd_module
 from repro_torch.kernels.flash_decode import flash_decode, pick_split
 from repro_torch.kernels.hash_tree import hash_tree_state
@@ -449,10 +449,47 @@ def test_moe_gmm_route(E, C, D, F, bf16_route, dtype):
 def test_route_counts_reset_with_the_launch_counts():
     moe_gmm.route_launches["wgmma"] = 3
     flash_attention.route_launches["mma"] = 2
+    flash_attention_bwd.route_launches.update(fma=1, mma=2, wgmma=4)
     ops.reset_launch_counts()
     assert set(moe_gmm.route_launches) == {"fma", "wgmma", "swap_ab"}
     assert set(flash_attention.route_launches) == {"fma", "mma"}
-    assert not any(moe_gmm.route_launches.values()) and not any(flash_attention.route_launches.values())
+    assert set(flash_attention_bwd.route_launches) == {"fma", "mma", "wgmma"}
+    for fn in (moe_gmm, flash_attention, flash_attention_bwd):
+        assert not any(fn.route_launches.values()), fn.__name__
+
+
+# K1's route by dtype and head dim: wgmma for bf16 at Dh 64 and 128, mma for
+# bf16 at Dh 16 and 32, fma for f32. The (Dh, gq) pairs include every dense
+# config that trains: stablelm-1.6b (64, 1), qwen2.5-32b (128, 5) and
+# internlm2-20b (128, 6).
+_DENSE_TRAINING = ("stablelm-1.6b", "qwen2.5-32b", "internlm2-20b")
+BWD_ROUTE_CASES = [  # (Dh, gq, bf16 route)
+    (16, 8, "mma"),
+    (32, 4, "mma"),
+    (64, 1, "wgmma"),
+    (64, 4, "wgmma"),
+    (128, 5, "wgmma"),
+    (128, 6, "wgmma"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dh,gq,bf16_route", BWD_ROUTE_CASES)
+def test_flash_attention_bwd_route(Dh, gq, bf16_route, dtype):
+    route = _bwd_route(dtype, Dh)
+    assert route == (bf16_route if dtype == torch.bfloat16 else "fma")
+    assert route in BWD_ROUTES and route in flash_attention_bwd.route_launches
+    # the dq kernels fold gq heads x (64 // gq) positions into 64 rows, and
+    # leave fewer than gq of them as padding
+    assert 64 - gq < gq * (64 // gq) <= 64
+
+
+def test_dense_training_configs_are_in_the_route_cases():
+    cases = {(Dh, gq) for Dh, gq, _ in BWD_ROUTE_CASES}
+    for arch in _DENSE_TRAINING:
+        cfg = get_config(arch)
+        assert (cfg.head_dim, cfg.n_heads_eff // cfg.n_kv_heads) in cases, arch
+        assert _bwd_route(torch.bfloat16, cfg.head_dim) == "wgmma", arch
 
 
 # The ragged edges of the new tiles, as chip_smoke.py phase 2 holds the CUDA
