@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
 
-  python3 chip_smoke.py [--k1]
+  python3 chip_smoke.py
 
-Phases, in order (``--k1``: phase 1, K1's checks of phase 2 and phase 5e
-only); any failure exits non-zero (a disagreement between the
+Phases, in order; any failure exits non-zero (a disagreement between the
 kernels' and the plain versions' logits is recorded and the later phases run
 on, so that their numbers are still printed):
   1. name the card, build the six CUDA kernels from
@@ -86,7 +85,8 @@ on, so that their numbers are still printed):
      whose run goes on to ``--steps``; and the forward and K1 timed at the
      training shape (K1 also at qwen2.5-32b's heads, Dh 128) beside their
      bounds, their plain versions and SDPA, K1 on wgmma and on mma in turns,
-     with each launch's device time (dq, dkdv, dot_do_o) from the profiler.
+     with each launch's device time from the profiler (dq and dkdv; on mma
+     also dot_do_o), null where the profiler kept no record of a launch.
 The last line is ``{"ok": true, "device": {...}}``. The compiler's reports
 (registers, spills) go to ``build/repro_torch_kernels/nvcc_report.txt``.
 """
@@ -95,6 +95,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -428,6 +429,25 @@ class PlainSpy:
         return False
 
 
+def spilling_entries(report: str) -> list:
+    """(demangled entry, its spill line) for each entry of a ptxas report
+    that spills."""
+    from repro_torch.kernels import build
+
+    found, entry = [], None
+    for line in report.splitlines():
+        if "Function properties for " in line:
+            entry = line.split("Function properties for ")[1].strip()
+        elif "spill" in line and " 0 bytes spill" not in line:
+            found.append((entry, line.strip()))
+    if not found:
+        return []
+    names = subprocess.run([build.cuda_tool("cu++filt")], input="\n".join(e for e, _ in found),
+                           capture_output=True, text=True, check=True).stdout.splitlines()
+    kernel = re.compile(r"(?:\w+::)*\w+_kernel(?:<[^<>]*>)?")
+    return [(m[0] if (m := kernel.search(name)) else name, l) for name, (_, l) in zip(names, found)]
+
+
 def on_bwd_route(route: str, fn):
     """fn() with flash_attention_bwd's route forced to ``route``: another
     design on the same inputs, as phase 4's ``on_fma`` forces moe_gmm's."""
@@ -507,8 +527,6 @@ def run_main_captured(main_fn, argv):
 
 
 def step_losses(out: str) -> list:
-    import re
-
     return [(int(s), float(l)) for s, l in re.findall(r"^step\s+(\d+) loss (\S+)", out, re.M)]
 
 
@@ -581,7 +599,7 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
         torch.cuda.synchronize()
     finally:
         ckpt_mod.CheckpointManager.save_async, ckpt_mod.save_checkpoint = save_async, save_checkpoint
-    launches = ops.launch_counts()
+    launches = main_launches = ops.launch_counts()
     routes = {"flash_attention": dict(flash_attention.route_launches),
               "flash_attention_bwd": dict(flash_attention_bwd.route_launches)}
     want_main = want_launches(TRAIN["steps"])
@@ -736,16 +754,17 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
     torch.cuda.empty_cache()
 
     # 5e. K1 and the forward (with lse) at the training shape, timed as phase 4
-    k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, want_main, step_s)
+    k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, main_launches, step_s)
 
 
-def k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, launches, step_s=None):
+def k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, launches, step_s):
     """Phase 5e: the forward with lse at stablelm-1.6b's training shape, and
     K1 there and at qwen2.5-32b's heads (``K1_QWEN``: Dh 128, gq 5), timed as
     phase 4 (L2 flushed) beside their bounds, their plain versions and SDPA;
     K1 on its wgmma route and on mma in turns (wgmma, mma, mma, wgmma), and
     each of its launches' device time from torch.profiler (dq, dkdv, and
-    dot_do_o on mma). ``launches``: the main path's counts by kernel."""
+    dot_do_o on mma). ``launches``: the main path's counts by kernel; the
+    qwen2.5 row, a shape the main path does not run, has 0."""
     import torch
     import torch.nn.functional as F
 
@@ -777,8 +796,9 @@ def k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, launches, 
     del q, k, v, o, lse, qt, kt, vt
     torch.cuda.empty_cache()
 
-    for label, (B, L, H, KVH, Dh) in ((f"{cfg.name} training", (B, L, H, cfg.n_kv_heads, Dh)),
-                                      ("qwen2.5-32b heads, not on the main path", K1_QWEN)):
+    for label, (B, L, H, KVH, Dh), n_main in (
+            (f"{cfg.name} training", (B, L, H, cfg.n_kv_heads, Dh), launches["flash_attention_bwd"]),
+            ("qwen2.5-32b heads, not on the main path", K1_QWEN, 0)):
         q, do = rand(B, L, H, Dh, dtype=bf), rand(B, L, H, Dh, dtype=bf)
         k, v = rand(B, L, KVH, Dh, dtype=bf), rand(B, L, KVH, Dh, dtype=bf)
         o, lse = flash_attention(q, k, v, return_lse=True)
@@ -809,22 +829,27 @@ def k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, launches, 
         del lib_out
         plain_ms = time_ms(lambda: ref.reference_attention_bwd(q, k, v, o, do, lse), reps=3)
         torch.cuda.empty_cache()
-        # each launch's mean device time over 5 calls (a short window can
-        # lose a call's device records)
+        # each launch's mean device time over the calls of a 5-call window
+        # whose records the profiler kept (a short window can lose a call's
+        # device records): up to 3 windows, then null
         split = {}
-        for route, fn in (("wgmma", call), ("mma", on_mma)):
+        for route, fn, parts in (("wgmma", call, ("dq", "dkdv")), ("mma", on_mma, ("dot_do_o", "dq", "dkdv"))):
             fn()
-            _, _, kern, _ = device_profile(lambda: [fn() for _ in range(5)])
-            split[route] = {}
-            for part in ("dot_do_o", "dq", "dkdv"):
-                us = [e.time_range.elapsed_us() for e in kern if f"{part}_kernel" in e.name]
-                split[route][part] = statistics.mean(us) / 1e3 if us else 0.0
+            split[route] = dict.fromkeys(parts)
+            for _ in range(3):
+                _, _, kern, _ = device_profile(lambda: [fn() for _ in range(5)])
+                for part in parts:
+                    us = [e.time_range.elapsed_us() for e in kern if f"{part}_kernel" in e.name]
+                    if us and split[route][part] is None:
+                        split[route][part] = statistics.mean(us) / 1e3
+                if all(v is not None for v in split[route].values()):
+                    break
         ms = statistics.mean(own)
         rows.append(dict(
             name="flash_attention_bwd", path=f"{label} {shape}, bf16, route wgmma", route="cuda",
             source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
             replaces="src/repro/models/attention.py:48 (no Pallas kernel: jax autodiff of blocked_attention)",
-            launches=launches["flash_attention_bwd"],
+            launches=n_main,
             max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
             library="scaled_dot_product_attention backward (torch.autograd.grad)",
             mma_ms=statistics.mean(mma), dq_ms=split["wgmma"]["dq"], dkdv_ms=split["wgmma"]["dkdv"],
@@ -833,20 +858,14 @@ def k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, launches, 
         print(f"  flash_attention_bwd at {label} {shape}: wgmma {own[0]:.4f}, {own[1]:.4f} ms; mma {mma[0]:.4f}, "
               f"{mma[1]:.4f} ms (in turns; {statistics.mean(mma) / ms:.2f}x); bound {b_ms:.4f} ms ({b_by}; "
               f"{ms / b_ms:.2f}x); SDPA's backward {lib_ms:.4f} ms ({ms / lib_ms:.2f}x); device time by launch "
-              f"(profiler, mean of 5 calls, L2 warm): wgmma {split['wgmma']}, mma {split['mma']}")
-        if step_s is not None and label.startswith(cfg.name):
+              f"(profiler, mean of the recorded calls of 5, L2 warm): wgmma {split['wgmma']}, mma {split['mma']}")
+        if label.startswith(cfg.name):
             print(f"  {cfg.n_layers} a step: {cfg.n_layers * ms:.1f} ms of the {step_s * 1e3:.1f} ms step")
         del q, k, v, do, o, lse, qt, kt, vt, dot
         torch.cuda.empty_cache()
 
 
-def main(argv=None) -> int:
-    import argparse
-
-    ap = argparse.ArgumentParser(description="Drive the PyTorch port on one CUDA card (see the module's note).")
-    ap.add_argument("--k1", action="store_true",
-                    help="phase 1, K1's checks of phase 2 and phase 5e only (the flash_attention backward)")
-    k1_only = ap.parse_args(argv).k1
+def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -893,9 +912,11 @@ def main(argv=None) -> int:
         (build.BUILD_DIR / "nvcc_report.txt").write_text(
             "\n".join(f"== {n}\n{r}" for n, r in reports.items()))
     for n, r in reports.items():
-        spills = [l.strip() for l in r.splitlines() if "spill" in l and " 0 bytes spill" not in l]
+        spills = spilling_entries(r)
         regs = sorted({l.split("Used ")[1].split(" registers")[0] for l in r.splitlines() if "Used " in l})
         print(f"  {n}: registers per thread {regs}; spilling entries: {spills or 'none'}")
+        if any(name.startswith("wg::") for name, _ in spills):  # the wgmma routes hold their tiles in registers
+            fail(f"{n}: a wgmma entry spills: {spills}")
         for l in r.splitlines():  # e.g. ptxas C7520: wgmma serialised
             if "Potential Performance Loss" in l:
                 print(f"  {n}: {l.strip()}")
@@ -988,14 +1009,6 @@ def main(argv=None) -> int:
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
     rows = []
-    if k1_only:  # phase 1, K1's part of phase 2, and phase 5e
-        n_layers = get_config(TRAIN["arch"]).n_layers  # launches as phase 5a counts them
-        k1_checks(rand, check, check_grad)
-        k1_timing(rand, check_grad, time_ms, bound, device_profile, rows,
-                  {"flash_attention": 2 * n_layers * TRAIN["steps"], "flash_attention_bwd": n_layers * TRAIN["steps"]})
-        print(json.dumps({"kernels": rows}))
-        return 0
-
     # -- 2. each kernel against its plain version ------------------------------
     print("phase 2: kernels vs plain versions on the card")
     jamba = get_config(HYBRID["arch"])
@@ -1759,4 +1772,4 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())
