@@ -15,7 +15,10 @@ on, so that their numbers are still printed):
      shape sweeps of the reference kernel tests, the ragged edges of the
      tensor-core tiles and the full-width serve shapes (attention f32 tol
      2e-5, bf16 2e-2; moe_gmm the same; mamba_scan 1e-4), including empty
-     capacity bins; ``hash_tree`` bit-equal to its
+     capacity bins; ``flash_attention`` at each (Dk, Dv) pair (MLA's (96,
+     64) too) and at phase 3d's prefills (non-causal 4096 x 4096, gq 7,
+     window 4096); ``flash_decode`` over a wrapped ring of 4096 slots and
+     over an encoder memory; ``moe_gmm`` at mixtral's bins; ``hash_tree`` bit-equal to its
      plain version and to the host (numpy) state and digest of the same bytes,
      over random words, ragged payloads (tails of 1-3 bytes, partial last
      blocks, payloads shorter than a block, an empty one, odd-offset slices;
@@ -54,6 +57,16 @@ on, so that their numbers are still printed):
      profiled, it copies at most 64 x 12 B to the host in one copy; where a
      first pass spends its host time, by layer (a ``torch.profiler`` CPU
      trace);
+  3d. serve mixtral-8x7b (8 of its 32 layers: all 32 hold ~93 GB of bf16
+     weights; prompt 4080, so that its cache is a ring of 4096 slots that
+     decode wraps), minicpm3-4b (MLA), internvl2-1b (a vision prefix of
+     1024 stub embeddings) and seamless-m4t-medium (an encoder over 4096
+     stub frames) at full width, bf16, batch 4, prompt 512 (but mixtral's),
+     32 tokens, through ``repro_torch.launch.serve``: exact launch counts,
+     every bf16 launch on its tensor-core route, no plain version called, the
+     calls of each kernel by input shape; kernels vs plain versions in bf16
+     and f32 as phase 3b (mixtral gated on the kernels' routing; the f32
+     comparison of mixtral peaks at ~63 GiB); steady and profiled serve times;
   4. time each kernel at the shapes of its main path (CUDA events, L2
      flushed before each launch by writing 256 MiB) beside its plain
      version, one PyTorch library call that computes the same function (three
@@ -68,7 +81,11 @@ on, so that their numbers are still printed):
      one launch. moe_gmm's bins are filled as phase
      3b's served run filled them (the slots past each bin's tokens are
      zeros, which slows the wgmma route); its time on fully random bins is
-     printed beside.
+     printed beside. Then each kernel at phase 3d's shapes, its launches
+     the calls of that shape in phase 3d's served run, beside its bound
+     (operations 2 B H pairs (Dk + Dv) for attention), its plain version and
+     SDPA (``enable_gqa``; a boolean mask where a window bites) or three
+     ``torch.bmm``;
   5. train stablelm-1.6b at full width (24 layers, bf16, batch 8, seq 2048,
      remat "block") through ``repro_torch.launch.train.main``: exact launch
      counts a step (the forward twice a layer, once more under remat, and
@@ -124,40 +141,55 @@ TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}  # (rtol, atol)
 # exp and FMA rounding over L steps, as the reference kernel tests
 SCAN_TOL = (1e-4, 1e-4)
 
-ATTN_CASES = [  # (B, Lq, Lk, H, KVH, Dh, causal, window): tests/test_kernels.py sweep
-    (2, 128, 128, 4, 2, 64, True, 0),
-    (1, 256, 256, 8, 8, 32, True, 0),
-    (2, 200, 200, 4, 1, 64, True, 0),  # ragged lengths
-    (1, 256, 256, 4, 2, 64, True, 96),  # sliding window
-    (1, 64, 256, 4, 2, 64, False, 0),  # cross attention
-    (1, 128, 128, 6, 2, 16, True, 0),  # small head dim
-    (2, 96, 112, 40, 8, 128, True, 0),  # qwen2.5 / internlm2 head dim, gq 5
-    (4, 512, 552, 32, 32, 64, True, 0),  # stablelm prefill over the serve cache
-    (4, 512, 552, 32, 8, 128, True, 0),  # jamba prefill over the serve cache
+ATTN_CASES = [  # (B, Lq, Lk, H, KVH, Dk, Dv, causal, window): tests/test_kernels.py sweep
+    (2, 128, 128, 4, 2, 64, 64, True, 0),
+    (1, 256, 256, 8, 8, 32, 32, True, 0),
+    (2, 200, 200, 4, 1, 64, 64, True, 0),  # ragged lengths
+    (1, 256, 256, 4, 2, 64, 64, True, 96),  # sliding window
+    (1, 64, 256, 4, 2, 64, 64, False, 0),  # cross attention
+    (1, 128, 128, 6, 2, 16, 16, True, 0),  # small head dim
+    (2, 96, 112, 40, 8, 128, 128, True, 0),  # qwen2.5 / internlm2 head dim, gq 5
+    (4, 512, 552, 32, 32, 64, 64, True, 0),  # stablelm prefill over the serve cache
+    (4, 512, 552, 32, 8, 128, 128, True, 0),  # jamba prefill over the serve cache
     # the ragged edges of the 64-key tiles of the mma route
-    (2, 200, 231, 40, 8, 128, True, 64),  # Lq, Lk not multiples of 64, gq 5, window
-    (2, 96, 112, 16, 2, 16, True, 0),  # head dim 16, gq 8
-    (1, 256, 256, 4, 2, 64, True, 16),  # window < tile: rows fully masked inside a live tile
+    (2, 200, 231, 40, 8, 128, 128, True, 64),  # Lq, Lk not multiples of 64, gq 5, window
+    (2, 96, 112, 16, 2, 16, 16, True, 0),  # head dim 16, gq 8
+    (1, 256, 256, 4, 2, 64, 64, True, 16),  # window < tile: rows fully masked inside a live tile
+    # phase 3d's prefills, and MLA's head dims (Dk 96 in padded rows, Dv 64)
+    (4, 512, 552, 40, 40, 96, 64, True, 0),  # minicpm3 prefill over its latent cache
+    (2, 200, 231, 8, 8, 96, 64, True, 0),  # (96, 64), Lq and Lk not multiples of 64
+    (2, 77, 150, 8, 4, 96, 64, False, 0),  # (96, 64), non-causal, gq 2, ragged
+    (4, 1536, 1576, 14, 2, 64, 64, True, 0),  # internvl2 prefill: prefix 1024 + prompt 512, gq 7
+    (4, 4096, 4096, 16, 16, 64, 64, False, 0),  # seamless encoder
+    (4, 512, 4096, 16, 16, 64, 64, False, 0),  # seamless cross-attention
+    (4, 4080, 4080, 32, 8, 128, 128, True, 4096),  # mixtral prefill, window 4096
 ]
-DECODE_CASES = [  # (B, S, H, KVH, Dh, window, n_valid, q_pos, ring): tests/test_flash_decode.py
-    (2, 256, 8, 2, 64, 0, 200, 199, False),
-    (1, 300, 4, 4, 32, 0, 300, 299, False),  # ragged S, MHA
-    (2, 128, 4, 1, 64, 48, 100, 99, False),  # SWA window
-    (1, 64, 8, 2, 64, 0, 10, 9, False),  # mostly-empty cache
-    (1, 64, 4, 2, 32, 64, 64, 100, True),  # SWA ring: positions rotated by 13
-    (2, 200, 48, 8, 128, 0, 150, 149, False),  # internlm2 head dim, gq 6
-    (2, 64, 16, 2, 16, 0, 40, 39, False),  # reduced-config head dim, gq 8
-    (4, 552, 32, 32, 64, 0, 528, 527, False),  # stablelm decode at the serve cache
-    (4, 552, 32, 8, 128, 0, 528, 527, False),  # jamba decode at the serve cache
+DECODE_CASES = [  # (B, S, H, KVH, Dh, window, n_valid, q_pos, slots): tests/test_flash_decode.py
+    # slots: "cache" (slot i holds position i), "ring:r" (absolute time q_pos:
+    # slot i holds position q_pos - S + 1 + i, rotated by r), "memory"
+    # (every slot at position 0: cross-attention over an encoder memory)
+    (2, 256, 8, 2, 64, 0, 200, 199, "cache"),
+    (1, 300, 4, 4, 32, 0, 300, 299, "cache"),  # ragged S, MHA
+    (2, 128, 4, 1, 64, 48, 100, 99, "cache"),  # SWA window
+    (1, 64, 8, 2, 64, 0, 10, 9, "cache"),  # mostly-empty cache
+    (1, 64, 4, 2, 32, 64, 64, 100, "ring:13"),  # SWA ring: positions rotated by 13
+    (2, 200, 48, 8, 128, 0, 150, 149, "cache"),  # internlm2 head dim, gq 6
+    (2, 64, 16, 2, 16, 0, 40, 39, "cache"),  # reduced-config head dim, gq 8
+    (4, 552, 32, 32, 64, 0, 528, 527, "cache"),  # stablelm decode at the serve cache
+    (4, 552, 32, 8, 128, 0, 528, 527, "cache"),  # jamba decode at the serve cache
     # the edges of the cluster split (n_split 8 at B * KVH 32, 4 at 128)
-    (2, 256, 8, 2, 64, 0, 1, 0, False),  # one written slot
-    (4, 552, 32, 8, 128, 0, 5, 4, False),  # n_valid < n_split: empty chunks
-    (4, 552, 32, 32, 64, 0, 40, 39, False),  # n_valid < one chunk of the cache
-    (4, 551, 32, 8, 128, 0, 551, 550, False),  # S not a multiple of n_split
-    (8, 300, 40, 40, 64, 0, 290, 289, False),  # B * KVH 320 >= 2 x 132 SMs: n_split 1
-    (4, 552, 48, 8, 128, 64, 528, 527, False),  # gq 6 at Dh 128, a window masking whole chunks
+    (2, 256, 8, 2, 64, 0, 1, 0, "cache"),  # one written slot
+    (4, 552, 32, 8, 128, 0, 5, 4, "cache"),  # n_valid < n_split: empty chunks
+    (4, 552, 32, 32, 64, 0, 40, 39, "cache"),  # n_valid < one chunk of the cache
+    (4, 551, 32, 8, 128, 0, 551, 550, "cache"),  # S not a multiple of n_split
+    (8, 300, 40, 40, 64, 0, 290, 289, "cache"),  # B * KVH 320 >= 2 x 132 SMs: n_split 1
+    (4, 552, 48, 8, 128, 64, 528, 527, "cache"),  # gq 6 at Dh 128, a window masking whole chunks
+    # phase 3d's decodes
+    (4, 4096, 32, 8, 128, 4096, 4096, 4100, "ring:5"),  # mixtral's ring, wrapped: position 4100 in slot 4
+    (4, 4096, 16, 16, 64, 0, 4096, 0, "memory"),  # seamless cross-attention decode
+    (4, 1576, 14, 2, 64, 0, 1560, 1559, "cache"),  # internvl2 decode, gq 7
 ]
-GMM_CASES = [  # (E, C, D, F): tests/test_kernels.py::test_moe_gmm_sweep (then jamba's, below)
+GMM_CASES = [  # (E, C, D, F): tests/test_kernels.py::test_moe_gmm_sweep (then jamba's and mixtral's, below)
     (4, 32, 64, 96),
     (2, 100, 48, 80),  # ragged capacity
     (8, 16, 32, 32),
@@ -220,6 +252,33 @@ DRILL = ["--arch", "stablelm-1.6b", "--reduced", "--dtype", "bfloat16", "--steps
 WAVE = dict(n=64, nbytes=(1 << 22) + (1 << 19), big_nbytes=1 << 30, seed=7)
 SERVE = dict(arch="stablelm-1.6b", batch=4, prompt_len=512, gen=32, seed=0)
 HYBRID = dict(arch="jamba-v0.1-52b", n_layers=8, batch=4, prompt_len=512, gen=32, seed=0)
+# phase 3d: the four architectures of the last serving slice, at full width;
+# mixtral cut to 8 of 32 layers (all 32 hold ~93 GB of bf16 weights). Its
+# prompt of 4080 makes its cache a ring of 4096 slots (max_len 4120 >= the
+# window) that decode wraps at its 16th step.
+FOUR = [
+    dict(arch="mixtral-8x7b", n_layers=8, batch=4, prompt_len=4080, gen=32, seed=0),
+    dict(arch="minicpm3-4b", batch=4, prompt_len=512, gen=32, seed=0),
+    dict(arch="internvl2-1b", batch=4, prompt_len=512, gen=32, seed=0),
+    dict(arch="seamless-m4t-medium", batch=4, prompt_len=512, gen=32, seed=0),
+]
+# phase 4's rows at phase 3d's shapes: (arch, label, B, Lq, Lk, H, KVH, Dk, Dv,
+# causal, window) of flash_attention, (arch, label, B, S, H, KVH, Dh, window,
+# n_valid, q_pos, slots) of flash_decode (a mid-generation step)
+FOUR_ATTN_ROWS = [
+    ("mixtral-8x7b", "prefill into the ring", 4, 4080, 4080, 32, 8, 128, 128, True, 4096),
+    ("minicpm3-4b", "prefill over the latent cache", 4, 512, 552, 40, 40, 96, 64, True, 0),
+    ("internvl2-1b", "prefill, prefix + prompt", 4, 1536, 1576, 14, 2, 64, 64, True, 0),
+    ("seamless-m4t-medium", "encoder", 4, 4096, 4096, 16, 16, 64, 64, False, 0),
+    ("seamless-m4t-medium", "cross-attention prefill", 4, 512, 4096, 16, 16, 64, 64, False, 0),
+    ("seamless-m4t-medium", "decoder self-attention prefill", 4, 512, 552, 16, 16, 64, 64, True, 0),
+]
+FOUR_DECODE_ROWS = [
+    ("mixtral-8x7b", "decode over the wrapped ring", 4, 4096, 32, 8, 128, 4096, 4096, 4100, "ring:5"),
+    ("internvl2-1b", "decode", 4, 1576, 14, 2, 64, 0, 1552, 1551, "cache"),
+    ("seamless-m4t-medium", "cross-attention decode", 4, 4096, 16, 16, 64, 0, 4096, 0, "memory"),
+    ("seamless-m4t-medium", "decoder self-attention decode", 4, 552, 16, 16, 64, 0, 528, 527, "cache"),
+]
 N_CHECK = 8  # decode steps compared with the plain versions
 N_STEADY = 16  # decode steps timed after warm-up
 # kernel vs plain logits after the trunk. bf16: each layer's kernel output
@@ -397,23 +456,26 @@ def forced_routing_gate(kernels, forced, probs_kernels, probs_forced, experts_ke
 
 
 class PlainSpy:
-    """Counts the calls of the attention oracles (``reference_attention``,
-    ``reference_attention_bwd``) made through ``repro_torch.kernels.ref`` or
-    the names the kernels' wrapper module holds: on card tensors the main
+    """Counts the calls of the plain versions (``reference_attention``,
+    ``reference_attention_bwd``, ``reference_decode``, ``reference_gmm``,
+    ``reference_selective_scan``) made through ``repro_torch.kernels.ref`` or
+    the names the kernels' wrapper modules hold: on card tensors the main
     path must make none. (The ``plain`` dict of the comparisons keeps the
     unwrapped functions.)"""
 
-    NAMES = ("reference_attention", "reference_attention_bwd")
+    NAMES = ("reference_attention", "reference_attention_bwd", "reference_decode", "reference_gmm",
+             "reference_selective_scan")
 
     def __enter__(self):
-        from repro_torch.kernels import ref
-        import repro_torch.kernels.flash_attention as fa_module
+        from repro_torch.kernels import flash_attention, flash_decode, mamba_scan, moe_gmm, ref
 
         self.calls = dict.fromkeys(self.NAMES, 0)
         self.saved = []
-        for mod in (ref, fa_module):
+        for mod in (ref, flash_attention, flash_decode, moe_gmm, mamba_scan):
             for name in self.NAMES:
-                orig = getattr(mod, name)
+                orig = getattr(mod, name, None)
+                if orig is None:
+                    continue
                 self.saved.append((mod, name, orig))
 
                 def spy(*args, _orig=orig, _name=name, **kwargs):
@@ -942,6 +1004,16 @@ def main() -> int:
             fail(f"{name}: {int(bad.sum())} elements beyond rtol {rtol} atol {atol}")
         return err.max().item()
 
+    def decode_positions(B, S, nv, qp, slots):
+        """(k_pos (B, S), q_pos (B,), n_valid (B,)) int32 for a DECODE_CASES layout."""
+        i32 = dict(dtype=torch.int32, device=dev)
+        kpos = torch.arange(S, **i32)
+        if slots.startswith("ring:"):
+            kpos = torch.roll(kpos + (qp - S + 1), int(slots[5:]))
+        elif slots == "memory":
+            kpos = torch.zeros(S, **i32)
+        return kpos.expand(B, S).contiguous(), torch.full((B,), qp, **i32), torch.full((B,), nv, **i32)
+
     def gmm_inputs(E, C, D, Fd, scale, dtype):
         if scale == "sweep":  # the reference test's scales
             s = (0.5, 0.1, 0.1, 0.1)
@@ -1015,27 +1087,29 @@ def main() -> int:
     E, D, Fd = jamba.n_experts, jamba.d_model, jamba.d_ff
     c_prefill = moe_mod.expert_capacity(HYBRID["batch"] * HYBRID["prompt_len"], jamba)  # 320: drops
     c_decode = moe_mod.expert_capacity(HYBRID["batch"], jamba)  # 4: drop-free
+    mixtral = get_config(FOUR[0]["arch"])
+    mix_shape = (mixtral.n_experts, mixtral.d_model, mixtral.d_ff)
+    mix_c = {"prefill": moe_mod.expert_capacity(FOUR[0]["batch"] * FOUR[0]["prompt_len"], mixtral),  # 5104
+             "decode": moe_mod.expert_capacity(FOUR[0]["batch"], mixtral)}  # 4
     gmm_cases = [c + ("sweep",) for c in GMM_CASES] + [
-        (E, c_decode, D, Fd, "fan_in"), (E, c_prefill, D, Fd, "fan_in")]
+        (E, c_decode, D, Fd, "fan_in"), (E, c_prefill, D, Fd, "fan_in")] + [
+        (mix_shape[0], mix_c[p], *mix_shape[1:], "fan_in") for p in ("decode", "prefill")]
     scan_cases = SCAN_CASES + [(HYBRID["batch"], HYBRID["prompt_len"], jamba.d_inner, jamba.ssm_state, True)]
     for dtype in (torch.float32, torch.bfloat16):
-        for B, Lq, Lk, H, KVH, Dh, causal, window in ATTN_CASES:
-            q, k, v = rand(B, Lq, H, Dh, dtype=dtype), rand(B, Lk, KVH, Dh, dtype=dtype), rand(B, Lk, KVH, Dh, dtype=dtype)
+        for B, Lq, Lk, H, KVH, Dk, Dv, causal, window in ATTN_CASES:
+            q, k, v = rand(B, Lq, H, Dk, dtype=dtype), rand(B, Lk, KVH, Dk, dtype=dtype), rand(B, Lk, KVH, Dv, dtype=dtype)
             got = flash_attention(q, k, v, causal=causal, window=window)
             want = ref.reference_attention(q, k, v, causal=causal, window=window)
-            name = f"flash_attention {dtype} B{B} Lq{Lq} Lk{Lk} H{H}/{KVH} Dh{Dh} causal={causal} window={window}"
+            name = f"flash_attention {dtype} B{B} Lq{Lq} Lk{Lk} H{H}/{KVH} Dk{Dk} Dv{Dv} causal={causal} window={window}"
             check(name, got, want, dtype)
-        for B, S, H, KVH, Dh, window, nv, qp, ring in DECODE_CASES:
+            del q, k, v, got, want
+        torch.cuda.empty_cache()
+        for B, S, H, KVH, Dh, window, nv, qp, slots in DECODE_CASES:
             q, k, v = rand(B, 1, H, Dh, dtype=dtype), rand(B, S, KVH, Dh, dtype=dtype), rand(B, S, KVH, Dh, dtype=dtype)
-            kpos = torch.arange(S, dtype=torch.int32, device=dev)
-            if ring:  # absolute time qp: slot i holds position qp - S + 1 + i, rotated by 13
-                kpos = torch.roll(kpos + (qp - S + 1), 13)
-            kpos = kpos.expand(B, S).contiguous()
-            qpos = torch.full((B,), qp, dtype=torch.int32, device=dev)
-            nval = torch.full((B,), nv, dtype=torch.int32, device=dev)
+            kpos, qpos, nval = decode_positions(B, S, nv, qp, slots)
             got = flash_decode(q, k, v, kpos, qpos, nval, window=window)
             want = ref.reference_decode(q, k, v, kpos, qpos, nval, window=window)
-            name = f"flash_decode {dtype} B{B} S{S} H{H}/{KVH} Dh{Dh} window={window} n_valid={nv} ring={ring}"
+            name = f"flash_decode {dtype} B{B} S{S} H{H}/{KVH} Dh{Dh} window={window} n_valid={nv} slots={slots}"
             check(name, got, want, dtype)
         for e, c, d, f, scale in gmm_cases:
             ins = gmm_inputs(e, c, d, f, scale, dtype)
@@ -1185,7 +1259,7 @@ def main() -> int:
     routes: list = []
     drops: list = []
     # live slots per expert bin of the served run's first prefill and first
-    # decode MoE call: phase 4 times moe_gmm on bins filled the same way
+    # decode MoE call, by (arch, phase): phase 4 times moe_gmm on bins filled the same way
     served_fill: dict = {}
     route, moe_ffn = moe_mod.route, moe_mod.moe_ffn
 
@@ -1200,20 +1274,30 @@ def main() -> int:
         return y, aux
 
     def expected_launches(cfg, gen):
+        """Each attention layer launches flash_attention once at prefill (and
+        its cross-attention once more, as each encoder layer does) and
+        flash_decode once a decode step (MLA decodes with plain matmuls; the
+        cross-attention decodes too); Mamba and MoE layers one launch a step."""
         n = {"attention": 0, "mamba": 0, "moe": 0}
         for i in range(cfg.n_layers):
             spec = cfg.layout[i % len(cfg.layout)]
             n[spec.mixer] += 1
             n["moe"] += spec.ffn == "moe"
-        return {"flash_attention": n["attention"], "flash_attention_bwd": 0,
-                "flash_decode": n["attention"] * (gen - 1),
+        cross = n["attention"] if cfg.cross_attention else 0
+        self_decode = 0 if cfg.attention == "mla" else n["attention"]
+        return {"flash_attention": n["attention"] + cross + cfg.encoder_layers, "flash_attention_bwd": 0,
+                "flash_decode": (self_decode + cross) * (gen - 1),
                 "moe_gmm": n["moe"] * gen, "mamba_scan": n["mamba"], "hash_tree": 0}
+
+    def prefill_tokens(cfg, spec):
+        """Token positions of one prefill: the vision prefix and the prompt."""
+        return (cfg.frontend_len if cfg.frontend == "vision" else 0) + spec["prompt_len"]
 
     def expected_routes(cfg, spec, want):
         """The served model is bf16: every launch of flash_attention and
         moe_gmm takes its tensor-core route (moe_gmm by its bins' rows)."""
         n_moe_calls = want["moe_gmm"] // spec["gen"]  # per prefill or decode step
-        steps = ((spec["batch"] * spec["prompt_len"], 1), (spec["batch"], spec["gen"] - 1))
+        steps = ((spec["batch"] * prefill_tokens(cfg, spec), 1), (spec["batch"], spec["gen"] - 1))
         gmm = dict.fromkeys(moe_gmm.route_launches, 0)
         for n_tokens, n_steps in steps:
             if n_moe_calls:
@@ -1221,38 +1305,68 @@ def main() -> int:
                 gmm[gmm_route(torch.bfloat16, cfg.n_experts, c, cfg.d_model, cfg.d_ff)] += n_moe_calls * n_steps
         return {"flash_attention": {"fma": 0, "mma": want["flash_attention"]}, "moe_gmm": gmm}
 
-    def serve_checked(label, cfg, run_serve, spec):
-        """Drive the serve entry once with every count at 0; returns (tokens, launches)."""
+    def serve_checked(label, cfg, run_serve, spec, shapes=None):
+        """Drive the serve entry once with every count at 0; returns (tokens,
+        launches). Fails if a plain version ran (``PlainSpy``). With a dict
+        ``shapes``, also counts each kernel's calls by its inputs' shapes
+        there, {name: {shapes: calls}} (each call is one launch: the totals
+        must equal the launch counts)."""
+        calls_by_shape: dict = {}
         ops.reset_launch_counts()
-        tokens = run_serve()
-        torch.cuda.synchronize()
+        saved = dict(ops.KERNELS)
+        if shapes is not None:
+            for name in ("flash_attention", "flash_decode", "moe_gmm"):
+                def counted(*args, _fn=saved[name], _name=name, **kwargs):
+                    key = tuple(tuple(a.shape) for a in args[:3])
+                    per = calls_by_shape.setdefault(_name, {})
+                    per[key] = per.get(key, 0) + 1
+                    return _fn(*args, **kwargs)
+
+                ops.KERNELS[name] = counted
+        try:
+            with PlainSpy() as spy:
+                tokens = run_serve()
+                torch.cuda.synchronize()
+        finally:
+            ops.KERNELS.update(saved)
         launches = ops.launch_counts()
         routes_run = {"flash_attention": dict(flash_attention.route_launches),
                       "moe_gmm": dict(moe_gmm.route_launches)}
         want = expected_launches(cfg, spec["gen"])
         want_routes = expected_routes(cfg, spec, want)
-        print(f"  {label}: launches {launches} (want {want}); by route {routes_run} (want {want_routes})")
+        print(f"  {label}: launches {launches} (want {want}); by route {routes_run} (want {want_routes}); "
+              f"plain versions called {spy.calls}")
         if launches != want:
             fail(f"{label}: launch counts {launches} != {want}")
         if cfg.dtype != "bfloat16" or routes_run != want_routes or want_routes["moe_gmm"]["fma"]:
             fail(f"{label}: route counts {routes_run} != {want_routes}: a bf16 launch missed its tensor-core route")
+        if any(spy.calls.values()):
+            fail(f"{label}: the plain versions ran on the card path: {spy.calls}")
         if tokens.shape != (spec["batch"], spec["gen"]) or not bool(((tokens >= 0) & (tokens < cfg.vocab)).all()):
             fail(f"{label}: bad generations {tuple(tokens.shape)}")
+        if shapes is not None:
+            for name, per in calls_by_shape.items():
+                if sum(per.values()) != launches[name]:
+                    fail(f"{label}: {name} called {sum(per.values())} times, launched {launches[name]}")
+                print(f"    {name} calls by input shapes: {per}")
+            shapes.update(calls_by_shape)
         return tokens, launches
 
-    def compare_with_plain(cfg, spec, prompts, served, max_len):
+    def compare_with_plain(cfg, spec, prompts, served, max_len, frontend=(None, None)):
         """Prefill + N_CHECK teacher-forced decode steps through the kernels and
         through the plain versions, in bf16 (the served model) and then in f32
-        (the same seed's weights; one dtype's weights at a time). In each
-        dtype, an MoE model runs the plain versions a second time with
-        ``moe_mod.route`` returning the kernels run's routing of the same call,
-        so both runs dispatch the same slots and the logits differ by
-        arithmetic alone; that run also records its own router's
-        probabilities, for the gate."""
+        (the same seed's weights; one dtype's weights at a time). In each dtype, an MoE
+        model runs the plain versions a second time with ``moe_mod.route``
+        returning the kernels run's routing of the same call, so both runs
+        dispatch the same slots and the logits differ by arithmetic alone;
+        that run also records its own router's probabilities, for the gate.
+        ``frontend``: the (frames, prefix) the served run took."""
         moe_mod.route, moe_mod.moe_ffn = recording_route, recording_moe_ffn
         n_moe = sum(s.ffn == "moe" for s in cfg.layout) * cfg.n_groups
         try:
             for dtype in ("bfloat16", "float32"):
+                frames, prefix = frontend
+                torch.cuda.reset_peak_memory_stats()
                 model = build_model(dataclasses.replace(cfg, dtype=dtype))
                 params = model.init(spec["seed"], dev)
                 runs, rec = {}, {}
@@ -1272,7 +1386,8 @@ def main() -> int:
                         moe_mod.route = replay_route
                     with torch.inference_mode():
                         state = init_serve_state(model, spec["batch"], max_len, dev)
-                        lg, state = prefill(model, params, prompts, state, kernels=kernels)
+                        lg, state = prefill(model, params, prompts, state, kernels=kernels, frames=frames,
+                                            prefix=prefix)
                         steps = [lg.float()]
                         for t in range(N_CHECK):  # teacher-forced with the served tokens
                             lg, state = decode_step(model, params, served[:, t : t + 1], state, kernels=kernels)
@@ -1283,11 +1398,15 @@ def main() -> int:
                     runs[label] = torch.stack(steps, dim=1)  # (B, 1 + N_CHECK, V)
                     rec[label] = (list(routes), [d.item() for d in drops])
                     del state
+                    torch.cuda.empty_cache()
                 if dtype == cfg.dtype and n_moe:
                     for phase, (_, _, gate_e) in (("prefill", rec["kernels"][0][0]),
                                                   ("decode", rec["kernels"][0][n_moe])):
                         C = moe_mod.expert_capacity(gate_e.shape[0], cfg)  # the dispatch keeps the first C
-                        served_fill[phase] = torch.bincount(gate_e.reshape(-1), minlength=cfg.n_experts).clamp(max=C)
+                        served_fill[cfg.name, phase] = torch.bincount(
+                            gate_e.reshape(-1), minlength=cfg.n_experts).clamp(max=C)
+                print(f"  {cfg.name} {dtype}: peak memory of the three runs "
+                      f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
                 report_logits(cfg, dtype, runs, rec, spec["batch"], served)
                 del params, runs, rec
                 torch.cuda.empty_cache()
@@ -1361,16 +1480,18 @@ def main() -> int:
         if failures:
             disagree(f"{name} {dtype}: on the kernels' routing: {'; '.join(failures)}")
 
-    def steady_and_profiled(cfg, spec, prompts, max_len):
+    def steady_and_profiled(cfg, spec, prompts, max_len, frontend=(None, None)):
         """Warm serve times and the device's busy share (not part of the counted
-        run: the launch counts are final)."""
+        run: the launch counts are final). Returns {"prefill_s", "decode_tok_s",
+        "prefill_idle", "decode_idle"}."""
         model = build_model(cfg)
         params = model.init(spec["seed"], dev)
-        box = {}
+        frames, prefix = frontend
+        box, out = {}, {}
 
         def run_prefill():
             box["state"] = init_serve_state(model, spec["batch"], max_len, dev)
-            lg, box["state"] = prefill(model, params, prompts, box["state"])
+            lg, box["state"] = prefill(model, params, prompts, box["state"], frames=frames, prefix=prefix)
             box["tok"] = lg.argmax(-1)[:, None]
 
         def run_decode():
@@ -1382,8 +1503,9 @@ def main() -> int:
             for _ in range(2):  # the second pass is warm
                 prefill_s, decode_s = wall(run_prefill), wall(run_decode)
             step_ms = decode_s / N_STEADY * 1e3
-            print(f"  {cfg.name} steady: prefill {spec['batch']}x{spec['prompt_len']} {prefill_s * 1e3:.2f} ms; "
-                  f"decode {step_ms:.2f} ms/step ({spec['batch'] * N_STEADY / decode_s:.1f} tok/s)")
+            out.update(prefill_s=prefill_s, decode_tok_s=spec["batch"] * N_STEADY / decode_s)
+            print(f"  {cfg.name} steady: prefill {spec['batch']}x{prefill_tokens(cfg, spec)} {prefill_s * 1e3:.2f} ms; "
+                  f"decode {step_ms:.2f} ms/step ({out['decode_tok_s']:.1f} tok/s)")
             for name, fn in (("prefill", run_prefill), ("decode", run_decode)):
                 if name == "decode":
                     run_prefill()
@@ -1392,11 +1514,13 @@ def main() -> int:
                 for e in kern:
                     by_name[e.name[:48]] = by_name.get(e.name[:48], 0.0) + e.time_range.elapsed_us() / 1e3
                 top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+                out[f"{name}_idle"] = 1 - busy / t
                 print(f"  {cfg.name} profiled {name}: wall {t * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms "
                       f"(idle share {1 - busy / t:.3f}), {len(kern)} kernels; top ms: "
                       + "; ".join(f"{n} {ms:.3f}" for n, ms in top))
         del params, box
         torch.cuda.empty_cache()
+        return out
 
     # -- 3. serve stablelm-1.6b at full width ----------------------------------
     print("phase 3: serve", SERVE["arch"])
@@ -1545,6 +1669,30 @@ def main() -> int:
     del ws, ws2, ws3, wave, big_x, prof
     torch.cuda.empty_cache()
 
+    # -- 3d. serve the last four architectures at full width ---------------------
+    four_shapes: dict = {}  # arch -> {kernel: {input shapes: calls}} of its served run
+    for spec in FOUR:
+        full = get_config(spec["arch"])
+        cfg4 = dataclasses.replace(full, n_layers=spec.get("n_layers", full.n_layers))
+        print(f"phase 3d: serve {spec['arch']} at full width, {cfg4.n_layers} of {full.n_layers} layers, bf16, "
+              f"batch {spec['batch']}, prompt {spec['prompt_len']}, {spec['gen']} tokens"
+              + (f", frontend {cfg4.frontend} of {cfg4.frontend_len}" if cfg4.frontend != "none" else ""))
+        if cfg4.n_layers != full.n_layers:
+            run_serve = lambda: serve.run(cfg4, spec["batch"], spec["prompt_len"], spec["gen"], spec["seed"], "cuda")
+        else:
+            argv4 = ["--arch", spec["arch"], "--batch", str(spec["batch"]), "--prompt-len", str(spec["prompt_len"]),
+                     "--gen", str(spec["gen"]), "--seed", str(spec["seed"]), "--device", "cuda"]
+            run_serve = lambda: serve.main(argv4)
+        four_shapes[spec["arch"]] = {}
+        tokens4, _ = serve_checked(spec["arch"], cfg4, run_serve, spec, four_shapes[spec["arch"]])
+        max_len4 = serve.serve_max_len(cfg4, spec["prompt_len"], spec["gen"])
+        prompts4 = serve.make_prompts(cfg4.vocab, spec["batch"], spec["prompt_len"], spec["seed"] + 1, dev)
+        frontend = serve.make_frontend(cfg4, spec["batch"], spec["seed"], dev)
+        compare_with_plain(cfg4, spec, prompts4, tokens4, max_len4, frontend)
+        steady_and_profiled(cfg4, spec, prompts4, max_len4, frontend)
+        del tokens4, prompts4, frontend
+        torch.cuda.empty_cache()
+
     # -- 4. time each kernel at the serving shapes -------------------------------
     print("phase 4: timing at the serving shapes (bf16, L2 flushed before each launch)")
     bf = torch.bfloat16
@@ -1631,42 +1779,138 @@ def main() -> int:
     attention_rows(cfg, SERVE, launches["flash_attention"], launches["flash_decode"])
     attention_rows(hcfg, HYBRID, hlaunches["flash_attention"], hlaunches["flash_decode"])
 
+    def gmm_rows(gcfg, spec, launches, reps, plain_reps, with_fma=True):
+        """moe_gmm at a served model's prefill and decode bins, filled as its
+        served run filled them; ``launches``, ``reps``, ``plain_reps``: by
+        phase. ``with_fma``: also time its FMA route on the same inputs."""
+        E, D, Fd = gcfg.n_experts, gcfg.d_model, gcfg.d_ff
+        for phase in ("prefill", "decode"):
+            C = moe_mod.expert_capacity(spec["batch"] * (prefill_tokens(gcfg, spec) if phase == "prefill" else 1), gcfg)
+            x_full, wg, wu, wd = gmm_inputs(E, C, D, Fd, "fan_in", bf)
+            # the served run's bin fill: each bin's slots past its tokens are zeros
+            fill = served_fill[gcfg.name, phase]
+            x = x_full.masked_fill((torch.arange(C, device=dev) >= fill[:, None])[..., None], 0)
+            nbytes = 2 * E * C * D * es + 3 * E * D * Fd * es  # x and out once; every expert's weights once
+            b_ms, b_by = bound(nbytes, 6 * E * C * D * Fd, "bfloat16")
+            err = check(f"moe_gmm at {spec['arch']} {phase} shape (E{E} C{C})", moe_gmm(x, wg, wu, wd),
+                        ref.reference_gmm(x, wg, wu, wd), bf)
+
+            def library_gmm(x):  # three torch.bmm calls and F.silu compute the same function
+                return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
+
+            lib_err = (library_gmm(x).float() - ref.reference_gmm(x, wg, wu, wd).float()).abs().max().item()
+            rows.append(dict(
+                name="moe_gmm", path=f"{spec['arch']} {phase} (C {C}), route {gmm_route(bf, E, C, D, Fd)}",
+                route="cuda",
+                source="src/repro_torch/kernels/csrc/moe_gmm.cu",
+                replaces="src/repro/kernels/moe_gmm.py:59", launches=launches[phase],
+                max_abs_err=err,
+                ms=time_ms(lambda: moe_gmm(x, wg, wu, wd), reps=reps[phase]),
+                plain_ms=time_ms(lambda: ref.reference_gmm(x, wg, wu, wd), reps=plain_reps[phase]),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=time_ms(lambda: library_gmm(x), reps=reps[phase]),
+                library="3 calls: torch.bmm x3 + F.silu",
+            ))
+            print(f"  library (3x torch.bmm + F.silu) vs plain at {spec['arch']} {phase}: max_abs_err {lib_err:.3e}")
+            print(f"  moe_gmm at {spec['arch']} {phase}: {int(fill.sum())} of {E * C} slots live as in the served "
+                  f"run; on fully random bins {time_ms(lambda: moe_gmm(x_full, wg, wu, wd), reps=reps[phase]):.4f} ms, "
+                  f"library {time_ms(lambda: library_gmm(x_full), reps=reps[phase]):.4f} ms")
+            if with_fma:
+                before_after(f"moe_gmm at {spec['arch']} {phase}", lambda: moe_gmm(x, wg, wu, wd),
+                             ref.reference_gmm(x, wg, wu, wd))
+            del x, x_full, wg, wu, wd
+            torch.cuda.empty_cache()
+
     n_moe = sum(s.ffn == "moe" for s in hcfg.layout) * hcfg.n_groups
-    for phase, C, n_launch, reps in (
-        ("prefill", c_prefill, n_moe, 10),
-        ("decode", c_decode, n_moe * (HYBRID["gen"] - 1), 30),
-    ):
-        x_full, wg, wu, wd = gmm_inputs(E, C, D, Fd, "fan_in", bf)
-        # the served run's bin fill: each bin's slots past its tokens are zeros
-        x = x_full.masked_fill((torch.arange(C, device=dev) >= served_fill[phase][:, None])[..., None], 0)
-        nbytes = 2 * E * C * D * es + 3 * E * D * Fd * es  # x and out once; every expert's weights once
-        b_ms, b_by = bound(nbytes, 6 * E * C * D * Fd, "bfloat16")
-        err = check(f"moe_gmm at {HYBRID['arch']} {phase} shape (E{E} C{C})", moe_gmm(x, wg, wu, wd),
-                    ref.reference_gmm(x, wg, wu, wd), bf)
+    gmm_rows(hcfg, HYBRID, {"prefill": n_moe, "decode": n_moe * (HYBRID["gen"] - 1)},
+             {"prefill": 10, "decode": 30}, {"prefill": 10, "decode": 30})
 
-        def library_gmm(x):  # three torch.bmm calls and F.silu compute the same function
-            return torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)
+    # phase 3d's shapes: launches are the calls of that shape in its served run
+    def served_calls(arch, name, *shapes):
+        n = four_shapes[arch].get(name, {}).get(tuple(shapes), 0)
+        if not n:
+            fail(f"phase 4: {name} at {shapes} is not on {arch}'s main path")
+        return n
 
-        lib_err = (library_gmm(x).float() - ref.reference_gmm(x, wg, wu, wd).float()).abs().max().item()
+    def attn_row(arch, label, B, Lq, Lk, H, KVH, Dk, Dv, causal, window):
+        q, k, v = rand(B, Lq, H, Dk, dtype=bf), rand(B, Lk, KVH, Dk, dtype=bf), rand(B, Lk, KVH, Dv, dtype=bf)
+        n = served_calls(arch, "flash_attention", q.shape, k.shape, v.shape)
+        mask = ref._attention_mask(Lq, Lk, causal, window, dev)
+        pairs, live = int(mask.sum()), int(mask.any(0).sum())  # (q, k) pairs; keys some query sees
+        nbytes = B * Lq * H * (Dk + Dv) * es + B * live * KVH * (Dk + Dv) * es  # q, o; the live k, v
+        b_ms, b_by = bound(nbytes, 2 * B * H * pairs * (Dk + Dv), "bfloat16")
+        if causal and torch.equal(mask, ref._attention_mask(Lq, Lk, True, 0, dev)):
+            sdpa_kw, lib = dict(is_causal=True), "scaled_dot_product_attention(is_causal=True)"
+        elif not causal and window == 0:
+            sdpa_kw, lib = {}, "scaled_dot_product_attention"
+        else:
+            sdpa_kw, lib = dict(attn_mask=mask), "scaled_dot_product_attention(boolean mask)"
+        if H != KVH:
+            sdpa_kw["enable_gqa"] = True
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        call = lambda: flash_attention(q, k, v, causal=causal, window=window)
+        plain_call = lambda: ref.reference_attention(q, k, v, causal=causal, window=window)
+        want = plain_call()
+        err = check(f"flash_attention at {arch} {label}", call(), want, bf)
+        lib_err = (F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw).transpose(1, 2).float()
+                   - want.float()).abs().max().item()
+        print(f"  library ({lib}) vs plain at {arch} {label}: max_abs_err {lib_err:.3e}; flash_attention "
+              f"outputs equal to the plain version's {equal_share(call(), want):.5f}")
+        del want
         rows.append(dict(
-            name="moe_gmm", path=f"{HYBRID['arch']} {phase} (C {C}), route {gmm_route(bf, E, C, D, Fd)}",
-            route="cuda",
-            source="src/repro_torch/kernels/csrc/moe_gmm.cu",
-            replaces="src/repro/kernels/moe_gmm.py:59", launches=n_launch,
-            max_abs_err=err,
-            ms=time_ms(lambda: moe_gmm(x, wg, wu, wd), reps=reps),
-            plain_ms=time_ms(lambda: ref.reference_gmm(x, wg, wu, wd), reps=reps),
+            name="flash_attention", path=f"{arch} {label}, (Dk {Dk}, Dv {Dv}), route mma", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:116", launches=n,
+            max_abs_err=err, ms=time_ms(call), plain_ms=time_ms(plain_call, reps=3),
             bound_ms=b_ms, bound_by=b_by,
-            library_ms=time_ms(lambda: library_gmm(x), reps=reps),
-            library="3 calls: torch.bmm x3 + F.silu",
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, **sdpa_kw)), library=lib,
         ))
-        print(f"  library (3x torch.bmm + F.silu) vs plain at {phase}: max_abs_err {lib_err:.3e}")
-        print(f"  moe_gmm at {phase}: {int(served_fill[phase].sum())} of {E * C} slots live as in the served run; "
-              f"on fully random bins {time_ms(lambda: moe_gmm(x_full, wg, wu, wd), reps=reps):.4f} ms, "
-              f"library {time_ms(lambda: library_gmm(x_full), reps=reps):.4f} ms")
-        before_after(f"moe_gmm at {phase}", lambda: moe_gmm(x, wg, wu, wd), ref.reference_gmm(x, wg, wu, wd))
-        del x, x_full, wg, wu, wd
+        del q, k, v, qt, kt, vt
         torch.cuda.empty_cache()
+
+    def decode_row(arch, label, B, S, H, KVH, Dh, window, nv, qp, slots):
+        q1, k, v = rand(B, 1, H, Dh, dtype=bf), rand(B, S, KVH, Dh, dtype=bf), rand(B, S, KVH, Dh, dtype=bf)
+        n = served_calls(arch, "flash_decode", q1.shape, k.shape, v.shape)
+        kpos, qpos, nval = decode_positions(B, S, nv, qp, slots)
+        nbytes = 2 * B * nv * KVH * Dh * es + 2 * B * H * Dh * es + B * nv * 4 + 2 * B * 4
+        b_ms, b_by = bound(nbytes, 4 * B * H * Dh * nv, "bfloat16")
+        ok = (torch.arange(S, device=dev)[None] < nval[:, None]) & (kpos <= qpos[:, None])
+        if window > 0:
+            ok &= kpos > qpos[:, None] - window
+        q1t, kt, vt = (x.transpose(1, 2) for x in (q1, k, v))
+        gqa = dict(enable_gqa=True) if H != KVH else {}
+        call = lambda: flash_decode(q1, k, v, kpos, qpos, nval, window=window)
+        plain_call = lambda: ref.reference_decode(q1, k, v, kpos, qpos, nval, window=window)
+        err = check(f"flash_decode at {arch} {label}", call(), plain_call(), bf)
+        rows.append(dict(
+            name="flash_decode", path=f"{arch} {label}", route="cuda",
+            source="src/repro_torch/kernels/csrc/flash_decode.cu",
+            replaces="src/repro/kernels/flash_decode.py:89", launches=n,
+            max_abs_err=err, ms=time_ms(call), plain_ms=time_ms(plain_call),
+            bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q1t, kt, vt, attn_mask=ok[:, None, None],
+                                                                      **gqa)),
+            library="scaled_dot_product_attention(boolean mask)", n_split=split_for(q1, k),
+        ))
+        print(f"  flash_decode at {arch} {label}: n_split {rows[-1]['n_split']}; outputs equal to the plain "
+              f"version's {equal_share(call(), plain_call()):.5f}")
+        del q1, k, v, q1t, kt, vt
+        torch.cuda.empty_cache()
+
+    for args in FOUR_ATTN_ROWS:
+        attn_row(*args)
+    for args in FOUR_DECODE_ROWS:
+        decode_row(*args)
+    mix = dataclasses.replace(get_config(FOUR[0]["arch"]), n_layers=FOUR[0]["n_layers"])
+    mix_calls = four_shapes[mix.name]["moe_gmm"]
+    mix_launches = {}
+    for phase in ("prefill", "decode"):
+        C = moe_mod.expert_capacity(FOUR[0]["batch"] * (FOUR[0]["prompt_len"] if phase == "prefill" else 1), mix)
+        E_, D_, F_ = mix.n_experts, mix.d_model, mix.d_ff
+        mix_launches[phase] = served_calls(mix.name, "moe_gmm", (E_, C, D_), (E_, D_, F_), (E_, D_, F_))
+    print(f"  mixtral moe_gmm calls by shape in its served run: {mix_calls}")
+    # its FMA route is not timed here: at 14.4 TFLOP a prefill call it would take seconds a launch
+    gmm_rows(mix, FOUR[0], mix_launches, {"prefill": 5, "decode": 30}, {"prefill": 2, "decode": 10}, with_fma=False)
 
     B, L, Di, N = HYBRID["batch"], HYBRID["prompt_len"], hcfg.d_inner, hcfg.ssm_state
     xc, dt, Bm, Cm, a, h0 = scan_inputs(B, L, Di, N, True, bf)

@@ -13,6 +13,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch.models import attention as attn
 from repro_torch.models.common import resolve_device
 from repro_torch.models.registry import check_trainable, decode_step, prefill, train_loss
 from repro_torch.optim import adamw_update
@@ -101,36 +102,62 @@ def make_train_step(
 
 def make_serve_fns(model, device="cuda", *, max_len: int, global_batch: int):
     """Returns (prefill_fn, decode_fn):
-      prefill_fn(params, tokens, state) -> (logits (B, V), state)
+      prefill_fn(params, tokens, state, frames=None, prefix=None) -> (logits (B, V), state)
       decode_fn(params, tokens, state) -> (logits (B, V), state)
     for states made by ``init_serve_state(model, global_batch, max_len, device)``.
-    Raises if ``device`` is CUDA and no card is present."""
+    Each checks the tokens and every layer's cache (and an encoder's memory)
+    against those sizes first. Raises if ``device`` is CUDA and no card is
+    present."""
     dev = resolve_device(device)
+    cfg = model.cfg
 
-    def _check(tokens: torch.Tensor, state: dict) -> None:
-        if tokens.device.type != dev.type or tokens.shape[0] != global_batch:
-            raise ValueError(
-                f"tokens {tuple(tokens.shape)} on {tokens.device}: want batch {global_batch} on {dev}"
-            )
+    def _want(name: str, a: torch.Tensor, shape: tuple) -> None:
+        if tuple(a.shape) != shape or a.device.type != dev.type:
+            raise ValueError(f"{name} {tuple(a.shape)} on {a.device}: want {shape} on {dev}")
+
+    def _check(tokens: torch.Tensor, state: dict, frames=None, prefix=None) -> None:
+        B = global_batch
+        if tokens.device.type != dev.type or tokens.shape[0] != B:
+            raise ValueError(f"tokens {tuple(tokens.shape)} on {tokens.device}: want batch {B} on {dev}")
         caches = state["caches"]
-        if len(caches) != model.cfg.n_layers:
-            raise ValueError(f"{len(caches)} caches for {model.cfg.n_layers} layers")
+        if len(caches) != cfg.n_layers:
+            raise ValueError(f"{len(caches)} caches for {cfg.n_layers} layers")
+        S = attn.cache_slots(cfg, max_len)
         for i, c in enumerate(caches):
-            # attention: K/V (B, max_len, KVH, Dh); Mamba: h (B, Di, N), conv (B, K-1, Di)
-            arrays = (c["k"], c["v"]) if "k" in c else (c["h"], c["conv"])
-            lead = (global_batch, max_len) if "k" in c else (global_batch,)
-            for a in arrays:
-                if a.shape[: len(lead)] != lead or a.device.type != dev.type:
-                    raise ValueError(f"layer {i} cache {tuple(a.shape)} on {a.device}: "
-                                     f"want {lead + ('...',)} on {dev}")
+            spec = cfg.layout[i % len(cfg.layout)]
+            if spec.mixer == "mamba":
+                _want(f"layer {i} cache h", c["h"], (B, cfg.d_inner, cfg.ssm_state))
+                _want(f"layer {i} cache conv", c["conv"], (B, cfg.ssm_conv - 1, cfg.d_inner))
+            elif cfg.attention == "mla":
+                _want(f"layer {i} cache c_kv", c["c_kv"], (B, max_len, cfg.kv_lora_rank))
+                _want(f"layer {i} cache k_rope", c["k_rope"], (B, max_len, cfg.qk_rope_dim))
+            else:
+                for n in ("k", "v"):
+                    _want(f"layer {i} cache {n}", c[n], (B, S, cfg.n_kv_heads, cfg.head_dim))
+                if cfg.attention == "swa" and cfg.window and S == cfg.window:  # a ring
+                    _want(f"layer {i} cache pos", c["pos"], (B, S))
+        T, d = cfg.frontend_len, cfg.d_model
+        if frames is not None:
+            _want("frames", frames, (B, T, d))
+        if prefix is not None:
+            _want("prefix", prefix, (B, T, d))
+        if "memory" in state:
+            _want("memory", state["memory"], (B, T, d))
+            if len(state["memory_kv"]) != cfg.n_layers:
+                raise ValueError(f"{len(state['memory_kv'])} memory K/V pairs for {cfg.n_layers} layers")
+            for i, kv in enumerate(state["memory_kv"]):
+                for n, a in zip("kv", kv):
+                    _want(f"layer {i} memory {n}", a, (B, T, cfg.n_kv_heads, cfg.head_dim))
 
     @torch.inference_mode()
-    def prefill_fn(params, tokens, state):
-        _check(tokens, state)
-        return prefill(model, params, tokens, state)
+    def prefill_fn(params, tokens, state, frames=None, prefix=None):
+        _check(tokens, state, frames, prefix)
+        return prefill(model, params, tokens, state, frames=frames, prefix=prefix)
 
     @torch.inference_mode()
     def decode_fn(params, tokens, state):
+        if cfg.encoder_layers and "memory" not in state:
+            raise ValueError(f"{cfg.name}: decode needs the encoder memory that prefill keeps")
         _check(tokens, state)
         return decode_step(model, params, tokens, state)
 

@@ -1,6 +1,9 @@
 """Flash attention (causal / sliding-window / GQA) for Hopper.
 
-Port of ``repro.kernels.flash_attention`` (Pallas). The kernel is hand-written
+Port of ``repro.kernels.flash_attention`` (Pallas), which takes one head dim;
+the port's kernel also takes MLA's q/k head dim 96 with v's 64 (``HEAD_DIM_PAIRS``),
+the function ``repro.models.attention.blocked_attention`` computes for
+minicpm3 in the JAX package. The kernel is hand-written
 CUDA C++ in ``csrc/flash_attention.cu``: one thread block per (batch x KV
 head, q-tile), whose rows are the ``gq`` query heads of that KV head, so each
 K/V tile is read once per KV head; a loop inside the block over KV tiles
@@ -42,7 +45,9 @@ import torch
 from . import build
 from .ref import reference_attention, reference_attention_bwd
 
-HEAD_DIMS = (16, 32, 64, 128)
+# the (Dk, Dv) pairs the forward kernel is built for (as the .cu's FA_DISPATCH):
+# Dk = Dv, and MLA's (96, 64); the backward takes Dk = Dv of the first four only
+HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (96, 64))
 ROWS = 64  # query rows (gq heads x q positions) per thread block; as in the .cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"fma": 0, "mma": 1}  # as the .cu's route argument
@@ -53,7 +58,7 @@ def _fn():
     lib = build.load("flash_attention")
     fn = lib.flash_attention_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -68,8 +73,8 @@ def _bwd_fn():
 
 
 def _route(dtype: torch.dtype) -> str:
-    """The kernel design a CUDA call in this dtype takes (every head dim of
-    HEAD_DIMS and every gq up to ROWS has both)."""
+    """The kernel design a CUDA call in this dtype takes (every pair of
+    HEAD_DIM_PAIRS and every gq up to ROWS has both)."""
     return "mma" if dtype == torch.bfloat16 else "fma"
 
 
@@ -80,12 +85,12 @@ def _bwd_route(dtype: torch.dtype, Dh: int) -> str:
     return "wgmma" if Dh in (64, 128) else "mma"
 
 
-def _check_inputs(q, k, v, window: int):
+def _check_inputs(q, k, v, window: int, return_lse: bool = False):
     """Raise on anything the kernel does not take."""
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"want q (B,Lq,H,Dh), k=v (B,Lk,KVH,Dh); got {q.shape} {k.shape} {v.shape}")
-    B, Lq, H, Dh = q.shape
-    if k.shape[0] != B or k.shape[3] != Dh or H % k.shape[2] or k.shape[1] == 0 or Lq == 0:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"want q (B,Lq,H,Dk), k (B,Lk,KVH,Dk), v (B,Lk,KVH,Dv); got {q.shape} {k.shape} {v.shape}")
+    B, Lq, H, Dk = q.shape
+    if k.shape[0] != B or k.shape[3] != Dk or H % k.shape[2] or k.shape[1] == 0 or Lq == 0:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)} k {tuple(k.shape)}")
     if H // k.shape[2] > ROWS:
         raise ValueError(f"gq = {H // k.shape[2]} query heads per KV head > {ROWS}")
@@ -93,29 +98,34 @@ def _check_inputs(q, k, v, window: int):
         raise ValueError("q, k, v on different devices")
     if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _DTYPES:
         raise TypeError(f"dtypes {q.dtype} {k.dtype} {v.dtype}: want one of float32, bfloat16")
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {Dh} not in {HEAD_DIMS}")
+    pair = (Dk, v.shape[3])
+    if pair not in HEAD_DIM_PAIRS:
+        raise ValueError(f"head dims (Dk, Dv) = {pair} not in {HEAD_DIM_PAIRS}")
+    if return_lse and pair[0] != pair[1]:
+        raise ValueError(f"return_lse at (Dk, Dv) = {pair}: the backward takes Dk = Dv only "
+                         "(ROADMAP.md queue 1, item 5b)")
     if window < 0:
         raise ValueError(f"window {window} < 0")
 
 
 def flash_attention(
-    q: torch.Tensor,  # (B, Lq, H, Dh)
-    k: torch.Tensor,  # (B, Lk, KVH, Dh)
-    v: torch.Tensor,  # (B, Lk, KVH, Dh)
+    q: torch.Tensor,  # (B, Lq, H, Dk)
+    k: torch.Tensor,  # (B, Lk, KVH, Dk)
+    v: torch.Tensor,  # (B, Lk, KVH, Dv)
     *,
     causal: bool = True,
     window: int = 0,
     return_lse: bool = False,
 ):
-    """Returns (B, Lq, H, Dh) in q's dtype, and with ``return_lse`` also each
-    row's log-sum-exp (B, H, Lq) f32. Positions are 0..Lq-1 and 0..Lk-1
+    """Returns (B, Lq, H, Dv) in q's dtype, scaled by Dk**-0.5, and with
+    ``return_lse`` (Dk = Dv only) also each row's log-sum-exp (B, H, Lq) f32.
+    Positions are 0..Lq-1 and 0..Lk-1
     (causal means k_pos <= q_pos, aligned at the top left). Refuses inputs
     that require a gradient (outside ``torch.no_grad``/``inference_mode``):
     the kernel's output carries no graph, so a gradient goes through
     ``repro_torch.models.attention.FlashAttention``, which pairs this call
     with ``flash_attention_bwd``."""
-    _check_inputs(q, k, v, window)
+    _check_inputs(q, k, v, window, return_lse)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention drops the gradient: differentiate through "
                            "repro_torch.models.attention.FlashAttention")
@@ -125,17 +135,17 @@ def flash_attention(
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: q, k, v must be contiguous")
-    B, Lq, H, Dh = q.shape
-    Lk, KVH = k.shape[1], k.shape[2]
+    B, Lq, H, Dk = q.shape
+    Lk, KVH, Dv = k.shape[1], k.shape[2], v.shape[3]
     route = _route(q.dtype)
-    out = torch.empty_like(q)
+    out = torch.empty((B, Lq, H, Dv), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), 0 if lse is None else lse.data_ptr(),
-            _DTYPES[q.dtype], ROUTES[route], B, Lq, Lk, H, KVH, Dh, int(causal), int(window),
-            Dh**-0.5, stream,
+            _DTYPES[q.dtype], ROUTES[route], B, Lq, Lk, H, KVH, Dk, Dv, int(causal), int(window),
+            Dk**-0.5, stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention kernel launch failed on route {route!r}: cudaError_t {rc}")
@@ -165,6 +175,9 @@ def flash_attention_bwd(
     are refused: the forward leaves such a row's output undefined."""
     _check_inputs(q, k, v, window)
     B, Lq, H, _ = q.shape
+    if v.shape != k.shape:
+        raise ValueError(f"flash_attention_bwd takes Dk = Dv only, not {q.shape[3]}, {v.shape[3]} "
+                         "(ROADMAP.md queue 1, item 5b)")
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
         raise ValueError(f"o {tuple(o.shape)} {o.dtype}, do {tuple(do.shape)} {do.dtype}: want q's "
                          f"{tuple(q.shape)} {q.dtype}")

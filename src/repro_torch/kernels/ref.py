@@ -28,8 +28,8 @@ def _gqa_scores(qg, k, ok):
 
 
 def _gqa_softmax_v(qg, k, v, ok, out_shape, dtype):
-    """qg (B, Lq, KVH, gq, Dh); k/v (B, Lk, KVH, Dh); ok broadcastable to
-    (B, KVH, gq, Lq, Lk)."""
+    """qg (B, Lq, KVH, gq, Dk); k (B, Lk, KVH, Dk), v (B, Lk, KVH, Dv); ok
+    broadcastable to (B, KVH, gq, Lq, Lk)."""
     p = torch.softmax(_gqa_scores(qg, k, ok), dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(p.dtype))
     return o.reshape(out_shape).to(dtype)
@@ -47,26 +47,27 @@ def _attention_mask(Lq: int, Lk: int, causal: bool, window: int, device) -> torc
 
 
 def reference_attention(
-    q: torch.Tensor,  # (B, Lq, H, Dh)
-    k: torch.Tensor,  # (B, Lk, KVH, Dh)
-    v: torch.Tensor,  # (B, Lk, KVH, Dh)
+    q: torch.Tensor,  # (B, Lq, H, Dk)
+    k: torch.Tensor,  # (B, Lk, KVH, Dk)
+    v: torch.Tensor,  # (B, Lk, KVH, Dv)
     *,
     causal: bool = True,
     window: int = 0,
     return_lse: bool = False,
 ):
-    """softmax(q k^T / sqrt(Dh) + mask) v in q's dtype; with ``return_lse``
-    also each row's log-sum-exp of its scaled, masked scores (B, H, Lq), in
-    f32 (f64 for f64 inputs)."""
-    B, Lq, H, Dh = q.shape
+    """softmax(q k^T / sqrt(Dk) + mask) v, (B, Lq, H, Dv) in q's dtype; with
+    ``return_lse`` also each row's log-sum-exp of its scaled, masked scores
+    (B, H, Lq), in f32 (f64 for f64 inputs)."""
+    B, Lq, H, Dk = q.shape
     Lk, KVH = k.shape[1], k.shape[2]
-    qg = q.reshape(B, Lq, KVH, H // KVH, Dh)
+    qg = q.reshape(B, Lq, KVH, H // KVH, Dk)
     ok = _attention_mask(Lq, Lk, causal, window, q.device)
+    out_shape = (B, Lq, H, v.shape[-1])
     if not return_lse:
-        return _gqa_softmax_v(qg, k, v, ok, q.shape, q.dtype)
+        return _gqa_softmax_v(qg, k, v, ok, out_shape, q.dtype)
     s = _gqa_scores(qg, k, ok)
     o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1), v.to(s.dtype))
-    return o.reshape(q.shape).to(q.dtype), torch.logsumexp(s, dim=-1).reshape(B, H, Lq)
+    return o.reshape(out_shape).to(q.dtype), torch.logsumexp(s, dim=-1).reshape(B, H, Lq)
 
 
 def reference_attention_bwd(

@@ -4,8 +4,14 @@
       --batch 4 --prompt-len 512 --gen 32 --device cuda
   PYTHONPATH=src python -m repro_torch.launch.serve --arch jamba-v0.1-52b \
       --reduced --batch 2 --prompt-len 8 --gen 4 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch seamless-m4t-medium \
+      --reduced --batch 2 --prompt-len 8 --gen 4 --device cpu
 
-Weights are random, drawn from ``--seed``; prompts from ``--seed + 1``.
+Weights are random, drawn from ``--seed``; prompts from ``--seed + 1``; an
+encoder-decoder's stub frames (B, frontend_len, d) from ``--seed + 2`` and a
+vision model's stub prefix (B, frontend_len, d) from ``--seed + 3``, each
+from a ``torch.Generator`` (the reference draws them from keys 2 and 3). The
+caches hold the prefix, the prompt and the generated tokens.
 """
 
 from __future__ import annotations
@@ -28,6 +34,25 @@ def make_prompts(vocab: int, batch: int, prompt_len: int, seed: int, device) -> 
     return torch.randint(0, vocab, (batch, prompt_len), generator=gen, device=device)
 
 
+def make_frontend(cfg: ArchConfig, batch: int, seed: int, device):
+    """(frames, prefix): the stub frontend inputs ``cfg`` takes, each (batch,
+    frontend_len, d_model) f32 normals, or None."""
+    def normal(s):
+        gen = torch.Generator(device=device)
+        gen.manual_seed(s)
+        return torch.randn((batch, cfg.frontend_len, cfg.d_model), generator=gen, device=device)
+
+    frames = normal(seed + 2) if cfg.encoder_layers else None
+    prefix = normal(seed + 3) if cfg.frontend == "vision" else None
+    return frames, prefix
+
+
+def serve_max_len(cfg: ArchConfig, prompt_len: int, gen: int) -> int:
+    """Cache slots ``run`` asks for: the vision prefix, the prompt, the
+    generated tokens and 8 spare."""
+    return (cfg.frontend_len if cfg.frontend == "vision" else 0) + prompt_len + gen + 8
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -39,16 +64,17 @@ def run(cfg: ArchConfig, batch: int, prompt_len: int, gen: int, seed: int, devic
     Prints the prefill time and decode tok/s; returns (batch, gen) tokens."""
     dev = resolve_device(device)
     model = build_model(cfg)
-    max_len = prompt_len + gen + 8
+    max_len = serve_max_len(cfg, prompt_len, gen)
 
     prefill_fn, decode_fn = make_serve_fns(model, dev, max_len=max_len, global_batch=batch)
     params = model.init(seed, dev)
     state = init_serve_state(model, batch, max_len, dev)
     prompts = make_prompts(cfg.vocab, batch, prompt_len, seed + 1, dev)
+    frames, prefix = make_frontend(cfg, batch, seed, dev)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, state = prefill_fn(params, prompts, state)
+    logits, state = prefill_fn(params, prompts, state, frames, prefix)
     tok = logits.argmax(dim=-1)[:, None]
     _sync(dev)
     prefill_s = time.perf_counter() - t0

@@ -1,15 +1,23 @@
-"""Attention mixer: full / sliding-window GQA with QKV bias and a KV cache.
+"""Attention mixers: full / sliding-window GQA with QKV bias and a KV cache
+(a ring of ``window`` slots for SWA), cross-attention, and MLA.
 
-Port of the standard attention block of ``repro.models.attention``. Where the
-JAX package computes attention in jnp (``blocked_attention`` for train and
-prefill, ``_cached_attention`` for decode), the port calls the kernels of the
-``kernels`` dict it is handed (default ``repro_torch.kernels.ops.kernel_set()``):
-``flash_attention`` for the no-cache and prefill branches, ``flash_decode``
-for decode. Where a gradient is needed (training), the no-cache branch goes
-through ``FlashAttention``, a ``torch.autograd.Function`` that pairs the
-forward kernel (with its log-sum-exp) and ``flash_attention_bwd`` (K1); under
-``inference_mode`` it calls the forward alone. Not ported yet: SWA ring
-caches, cross-attention and MLA.
+Port of ``repro.models.attention``. Where the JAX package computes attention
+in jnp (``blocked_attention`` for train and prefill, ``_cached_attention``
+for decode), the port calls the kernels of the ``kernels`` dict it is handed
+(default ``repro_torch.kernels.ops.kernel_set()``): ``flash_attention`` for
+the no-cache and prefill branches and for cross-attention over the encoder
+memory, ``flash_decode`` for decode, over a ring by its slots' positions and
+over the memory with every slot visible. Where a gradient is needed
+(training), the no-cache branch goes through ``FlashAttention``, a
+``torch.autograd.Function`` that pairs the forward kernel (with its
+log-sum-exp) and ``flash_attention_bwd`` (K1); under ``inference_mode`` it
+calls the forward alone.
+
+MLA (minicpm3) keeps the reference's three branches: without a cache and in
+prefill it rebuilds per-head K (nope ‖ shared rope, Dk 96) and V (Dv 64)
+and calls ``flash_attention`` at that pair; its decode is the reference's
+absorbed attention over the latent cache, plain matmuls (the JAX package has
+no kernel there either).
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ import torch
 
 from repro_torch.kernels.ops import kernel_set
 
-from .common import ArchConfig, ParamBuilder, apply_rope
+from .common import NEG_INF, ArchConfig, ParamBuilder, apply_rope, rms_norm
 
 
 def init_attention(pb: ParamBuilder, cfg: ArchConfig) -> dict:
@@ -103,24 +111,64 @@ def attention_block(
     x: torch.Tensor,  # (B, L, D)
     positions: torch.Tensor,  # (B, L) absolute positions
     cache: Optional[dict] = None,  # see init_attention_cache
-    cross_kv: Optional[tuple] = None,
+    cross_kv: Optional[tuple] = None,  # (k, v) (B, T, KVH, Dh): the encoder memory's
     kernels: Optional[dict] = None,
 ):
-    """Self-attention with optional KV cache — returns (y, new_cache).
+    """Self-attention with optional KV cache, or cross-attention over
+    ``cross_kv`` — returns (y, new_cache).
 
-    The cache's K/V are written in place (the JAX step donates its buffers
-    instead); ``new_cache`` holds the same tensors and the advanced index,
-    a host ``int``, so decode never waits on the device for it."""
-    if cross_kv is not None:
-        raise NotImplementedError("cross-attention is not ported yet (see ROADMAP.md queue 1)")
+    The cache's K/V (and a ring's positions) are written in place (the JAX
+    step donates its buffers instead); ``new_cache`` holds the same tensors
+    and the advanced index, a host ``int``, so decode never waits on the
+    device for it. Cross-attention (reference ``:221-230``) projects q with
+    no bias and no RoPE and attends to every memory slot; ``cache`` passes
+    through."""
     kernels = kernels or kernel_set()
     B, L, _ = x.shape
+    if cross_kv is not None:
+        q = _proj(x, p["wq"])
+        mk, mv = cross_kv
+        if L > 1:
+            out = attention(q, mk, mv, causal=False, window=0, kernels=kernels)
+        else:  # one query: every memory slot is visible (k_pos = q_pos = 0)
+            T, i32 = mk.shape[1], dict(dtype=torch.int32, device=x.device)
+            out = kernels["flash_decode"](q, mk, mv, torch.zeros((B, T), **i32), torch.zeros((B,), **i32),
+                                          torch.full((B,), T, **i32))
+        return _out_proj(p, out), cache
+
     q, k, v = _project_qkv(p, cfg, x, positions)
     window = cfg.window if cfg.attention == "swa" else 0
 
     if cache is None:
         out = attention(q, k, v, causal=True, window=window, kernels=kernels)
         new_cache = None
+    elif "pos" in cache:  # SWA ring of S = window slots (reference :248-259)
+        idx, ck, cv, kpos = cache["index"], cache["k"], cache["v"], cache["pos"]
+        S = ck.shape[1]
+        if L > 1:
+            # Prefill starts at index 0 with L <= S: slots 0..L-1 then hold
+            # positions 0..L-1, so attention over the prompt's own K/V under
+            # the window is what the reference's ring attention computes. With
+            # L > S the reference scatters to repeated slots in one update
+            # (writes in no defined order, early keys lost before they are
+            # read) and has no answer to match.
+            if idx != 0:
+                raise ValueError(f"prefill must start from an empty cache, not index {idx}")
+            if L > S:
+                raise ValueError(f"prefill of {L} tokens into a ring of {S} slots")
+            ck[:, :L] = k
+            cv[:, :L] = v
+            kpos[:, :L] = positions
+            out = kernels["flash_attention"](q, k, v, causal=True, window=window)
+        else:
+            slot = idx % S
+            ck[:, slot] = k[:, 0]
+            cv[:, slot] = v[:, 0]
+            kpos[:, slot] = positions[:, 0]
+            n_valid = torch.full((B,), min(idx + 1, S), dtype=torch.int32, device=x.device)
+            out = kernels["flash_decode"](q, ck, cv, kpos, positions[:, 0].to(torch.int32), n_valid,
+                                          window=window)
+        new_cache = {"k": ck, "v": cv, "pos": kpos, "index": idx + L}
     else:
         idx = cache["index"]
         ck, cv = cache["k"], cache["v"]
@@ -143,20 +191,139 @@ def attention_block(
             n_valid = torch.full((B,), total, dtype=torch.int32, device=dev)
             out = kernels["flash_decode"](q, ck, cv, k_pos, q_pos, n_valid, window=window)
         new_cache = {"k": ck, "v": cv, "index": total}
+    return _out_proj(p, out), new_cache
 
-    H, Dh = out.shape[2], out.shape[3]
-    y = out.reshape(B, L, H * Dh) @ p["wo"].reshape(H * Dh, -1)
-    return y, new_cache
+
+def _out_proj(p: dict, out: torch.Tensor) -> torch.Tensor:
+    """einsum('blhk,hkd->bld', out, wo) as one matmul."""
+    B, L, H, Dv = out.shape
+    return out.reshape(B, L, H * Dv) @ p["wo"].reshape(H * Dv, -1)
+
+
+def memory_kv(p: dict, memory: torch.Tensor) -> tuple:
+    """The encoder memory's cross-attention K and V (B, T, KVH, Dh): no bias,
+    no RoPE (reference ``transformer.py:102-103``)."""
+    return _proj(memory, p["wk"]), _proj(memory, p["wv"])
+
+
+def cache_slots(cfg: ArchConfig, max_len: int) -> int:
+    """Slots of an attention layer's cache: a SWA config's window at most."""
+    return min(max_len, cfg.window) if (cfg.attention == "swa" and cfg.window) else max_len
 
 
 def init_attention_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> dict:
-    if cfg.attention == "swa" and cfg.window and max_len >= cfg.window:
-        raise NotImplementedError(
-            "SWA ring-buffer caches are not ported yet (see ROADMAP.md queue 1)"
-        )
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {
+    """K/V (B, S, KVH, Dh) zeros and index 0; a SWA config whose S reaches
+    its window is a ring, with each slot's position (B, S) int32, -1 until
+    written (reference ``:307-316``)."""
+    S = cache_slots(cfg, max_len)
+    shape = (batch, S, cfg.n_kv_heads, cfg.head_dim)
+    cache = {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
+        "index": 0,
+    }
+    if cfg.attention == "swa" and cfg.window and S == cfg.window:
+        cache["pos"] = torch.full((batch, S), -1, dtype=torch.int32, device=device)
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(pb: ParamBuilder, cfg: ArchConfig) -> dict:
+    d, H = cfg.d_model, cfg.n_heads_eff
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    # the 3-D weights scaled by their true fan-in, as in init_attention
+    p = {
+        "wq_a": pb.dense((d, qr)),
+        "q_norm": pb.ones((qr,)),
+        "wq_b": pb.dense((qr, H, dn + dr), scale=qr**-0.5),
+        "wkv_a": pb.dense((d, kvr + dr)),
+        "kv_norm": pb.ones((kvr,)),
+        "wk_b": pb.dense((kvr, H, dn), scale=kvr**-0.5),
+        "wv_b": pb.dense((kvr, H, dv), scale=kvr**-0.5),
+        "wo": pb.dense((H, dv, d), scale=(H * dv) ** -0.5),
+    }
+    if cfg.pad_heads:
+        p["wo"][cfg.n_heads:] = 0
+    return p
+
+
+def _mla_kv(p: dict, cfg: ArchConfig, c_kv: torch.Tensor, k_rope: torch.Tensor):
+    """Per-head K (B, S, H, nope + rope) and V (B, S, H, v) from the latents
+    c_kv (B, S, kvr) and the shared rotary key k_rope (B, S, rope)."""
+    B, S, _ = c_kv.shape
+    H = cfg.n_heads_eff
+    k_nope = _proj(c_kv, p["wk_b"])
+    k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, cfg.qk_rope_dim)], dim=-1)
+    return k, _proj(c_kv, p["wv_b"])
+
+
+def mla_block(
+    p: dict,
+    cfg: ArchConfig,
+    x: torch.Tensor,  # (B, L, D)
+    positions: torch.Tensor,  # (B, L)
+    cache: Optional[dict] = None,  # see init_mla_cache
+    kernels: Optional[dict] = None,
+):
+    """MLA (reference ``:350-432``) — returns (y, new_cache). The latent
+    cache is written in place; its index is a host ``int``."""
+    kernels = kernels or kernel_set()
+    B, L, _ = x.shape
+    dn, kvr = cfg.qk_nope_dim, cfg.kv_lora_rank
+    cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
+    q = _proj(cq, p["wq_b"])  # (B, L, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = apply_rope(q_rope, positions[:, :, None], cfg.rope_theta)
+    ckv_full = x @ p["wkv_a"]  # (B, L, kvr + dr)
+    c_kv = rms_norm(ckv_full[..., :kvr], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(ckv_full[..., kvr:], positions, cfg.rope_theta)  # (B, L, dr), shared by the heads
+
+    if cache is None:
+        k, v = _mla_kv(p, cfg, c_kv, k_rope)
+        out = attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True, window=0, kernels=kernels)
+        return _out_proj(p, out), None
+
+    idx = cache["index"]
+    S = cache["c_kv"].shape[1]
+    if idx + L > S:
+        raise ValueError(f"latent cache full: {idx} + {L} tokens > {S} slots")
+    cache["c_kv"][:, idx : idx + L] = c_kv
+    cache["k_rope"][:, idx : idx + L] = k_rope
+    total = idx + L
+    new_cache = {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"], "index": total}
+
+    if L > 1:
+        # prefill: per-head K/V rebuilt from every latent slot, causal over
+        # them (slots >= L are causally dead for a fresh cache)
+        if idx != 0:
+            raise ValueError(f"prefill must start from an empty cache, not index {idx}")
+        k, v = _mla_kv(p, cfg, cache["c_kv"], cache["k_rope"])
+        out = kernels["flash_attention"](torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True, window=0)
+        return _out_proj(p, out), new_cache
+
+    # decode: absorbed attention over the latent cache, in f32 as the
+    # reference's preferred_element_type: q_nope^T (W_kb c) = (q_nope W_kb)^T c
+    c_all, r_all = cache["c_kv"], cache["k_rope"]
+    q_lat = torch.einsum("blhk,rhk->blhr", q_nope, p["wk_b"])  # (B, L, H, kvr)
+    s = (torch.einsum("blhr,bsr->bhls", q_lat.float(), c_all.float())
+         + torch.einsum("blhk,bsk->bhls", q_rope.float(), r_all.float())) * (dn + cfg.qk_rope_dim) ** -0.5
+    slot = torch.arange(S, device=x.device)
+    ok = (slot[None, None, :] <= positions[:, :, None]) & (slot < total)[None, None, :]  # (B, L, S)
+    s = torch.where(ok[:, None], s, torch.full((), NEG_INF, device=x.device))
+    pw = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhls,bsr->blhr", pw, c_all.float()).to(x.dtype)
+    o = torch.einsum("blhr,rhk->blhk", o_lat, p["wv_b"])  # (B, L, H, dv)
+    return _out_proj(p, o), new_cache
+
+
+def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> dict:
+    return {
+        "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype, device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype, device=device),
         "index": 0,
     }

@@ -4,7 +4,9 @@
 .Model.init`` with its leaves as numpy arrays (bfloat16 arrays included) and
 returns the port's params: the leading G group axis of every ``blocks``
 leaf is unstacked into one dict per layer, in the order the trunk visits
-them; every other layout (``wq (d, H, Dh)``, ``wo (H, Dh, d)``, the experts'
+them (with the cross-attention's ``cross`` and ``ln_cross`` and MLA's
+leaves, whatever a layer holds), and so is the encoder's layer axis
+(``encoder.blocks`` -> ``encoder.layers``); every other layout (``wq (d, H, Dh)``, ``wo (H, Dh, d)``, the experts'
 ``(E, d, f)``, ...) is kept, and so is every leaf's dtype (a bf16 model's
 Mamba ``a_log`` and ``dt_bias`` stay f32).
 With it, both packages compute the same function from the same weights.
@@ -33,7 +35,7 @@ def _map(tree, fn):
 
 def params_from_jax(cfg: ArchConfig, params: dict, device="cuda") -> dict:
     dev = resolve_device(device)
-    extra = set(params) - {"embed", "final_norm", "lm_head", "blocks"}
+    extra = set(params) - {"embed", "final_norm", "lm_head", "blocks"} - ({"encoder"} if cfg.encoder_layers else set())
     if extra:
         raise NotImplementedError(f"{cfg.name}: params {sorted(extra)} are not ported yet")
     out = {
@@ -49,4 +51,11 @@ def params_from_jax(cfg: ArchConfig, params: dict, device="cuda") -> dict:
         for g in range(cfg.n_groups)
         for pos in range(len(cfg.layout))
     ]
+    if cfg.encoder_layers:
+        enc = params["encoder"]
+        out["encoder"] = {
+            "layers": [_map(enc["blocks"], lambda a: _tensor(np.asarray(a)[i], dev))
+                       for i in range(cfg.encoder_layers)],
+            "norm": _tensor(enc["norm"], dev),
+        }
     return out

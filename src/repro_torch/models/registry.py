@@ -4,10 +4,18 @@ Port of ``repro.models.registry``: ``train_loss``, ``prefill`` and
 ``decode_step`` are functions of (params, batch or tokens, state).
 ``train_loss`` trains the dense layouts: a layout with an MoE FFN or a Mamba
 mixer raises, since their kernels have no backward yet (ROADMAP K7), and so
-do frames and prefix inputs (ROADMAP queue 1, item 5). The state holds
-one cache per layer, of that layer's mixer: an attention layer's K/V are
-updated in place, a Mamba layer's (h, conv window) state is replaced. The
-state's ``t`` and each attention cache's ``index`` are host ``int``s.
+do MLA, an encoder and a frontend (ROADMAP queue 1, item 5b). The state holds
+one cache per layer, of that layer's mixer: an attention layer's K/V (or MLA
+latents) are updated in place, a Mamba layer's (h, conv window) state is
+replaced. The state's ``t`` and each cache's ``index`` are host ``int``s.
+
+Serving an encoder-decoder, ``prefill`` encodes the frames into
+``state["memory"]``, as the reference does, and also keeps each decoder
+layer's cross-attention K and V of that memory in ``state["memory_kv"]``:
+the reference computes them again at every decode step
+(``repro/models/transformer.py:102-103``); they depend on the memory alone,
+so the values are the same. A vision prefix goes before the prompt's
+tokens, and positions run over both.
 """
 
 from __future__ import annotations
@@ -27,6 +35,11 @@ def build_model(cfg: ArchConfig) -> Model:
 def check_trainable(cfg: ArchConfig) -> None:
     """Raise for a layout whose gradient the port cannot take on the card."""
     kinds = {s.mixer for s in cfg.layout} | {s.ffn for s in cfg.layout}
+    if cfg.attention == "mla" or cfg.encoder_layers or cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: training MLA, an encoder-decoder or a frontend needs K1 at (Dk 96, Dv 64), "
+            "K1 non-causal with Lq != Lk, and frames and prefix in train_loss (ROADMAP.md queue 1, item 5b)"
+        )
     if kinds & {"moe", "mamba"}:
         raise NotImplementedError(
             f"{cfg.name}: training an {'/'.join(sorted(kinds & {'moe', 'mamba'}))} layout needs the "
@@ -45,9 +58,9 @@ def train_loss(
     (loss, metrics): loss = ce + aux_weight * aux, both f32 scalars."""
     cfg = model.cfg
     check_trainable(cfg)
-    if cfg.encoder_layers or cfg.frontend != "none" or "frames" in batch or "prefix" in batch:
+    if "frames" in batch or "prefix" in batch:
         raise NotImplementedError(
-            f"{cfg.name}: frames and prefix inputs are not ported yet (ROADMAP.md queue 1, item 5)"
+            f"{cfg.name}: frames and prefix inputs in train_loss (ROADMAP.md queue 1, item 5b)"
         )
     tokens, labels = batch["tokens"], batch["labels"]
     x = model.embed(params, tokens)
@@ -69,15 +82,28 @@ def prefill(
     tokens: torch.Tensor,  # (B, Lp)
     state: dict,
     kernels: Optional[dict] = None,
+    frames: Optional[torch.Tensor] = None,  # (B, T, D): an encoder-decoder's
+    prefix: Optional[torch.Tensor] = None,  # (B, Lf, D): stub embeddings before the tokens
 ):
-    """Run the prompt through the trunk filling the caches; returns
-    (last_logits (B, V), state)."""
+    """Run the prompt (after ``prefix``) through the trunk filling the
+    caches; returns (last_logits (B, V), state)."""
+    cfg = model.cfg
+    if cfg.encoder_layers and frames is None:
+        raise ValueError(f"{cfg.name}: an encoder-decoder prefills with frames")
     x = model.embed(params, tokens)
+    if prefix is not None:
+        x = torch.cat([prefix.to(x.dtype), x], dim=1)
     B, L, _ = x.shape
     positions = state["t"] + torch.arange(L, device=tokens.device).expand(B, L)
-    x, _, caches = model.trunk(params, x, positions, caches=state["caches"], kernels=kernels)
+    new_state = {"t": state["t"] + L}
+    cross_kvs = None
+    if cfg.encoder_layers:
+        new_state["memory"] = model.encode(params, frames, kernels=kernels)
+        new_state["memory_kv"] = cross_kvs = model.memory_kv(params, new_state["memory"])
+    x, _, caches = model.trunk(params, x, positions, caches=state["caches"], kernels=kernels,
+                               cross_kvs=cross_kvs)
     logits = model.logits(params, x[:, -1:])[:, 0]
-    return logits, {"caches": caches, "t": state["t"] + L}
+    return logits, {"caches": caches, **new_state}
 
 
 def decode_step(
@@ -87,11 +113,13 @@ def decode_step(
     state: dict,
     kernels: Optional[dict] = None,
 ):
-    """One autoregressive step against the KV / SSM caches."""
+    """One autoregressive step against the KV / SSM caches (and the encoder
+    memory's K/V that prefill kept)."""
     x = model.embed(params, tokens)
     B = tokens.shape[0]
     positions = torch.full((B, 1), state["t"], dtype=torch.int64, device=tokens.device)
-    x, _, caches = model.trunk(params, x, positions, caches=state["caches"], kernels=kernels)
+    x, _, caches = model.trunk(params, x, positions, caches=state["caches"], kernels=kernels,
+                               cross_kvs=state.get("memory_kv"))
     logits = model.logits(params, x)[:, 0]  # (B, V)
     return logits, {**state, "caches": caches, "t": state["t"] + 1}
 
@@ -103,10 +131,12 @@ def greedy_generate(
     prompt: torch.Tensor,  # (B, Lp)
     n_steps: int,
     max_len: int,
+    frames: Optional[torch.Tensor] = None,
+    prefix: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Reference greedy sampler used by tests; returns (B, n_steps) tokens."""
     state = init_serve_state(model, prompt.shape[0], max_len, prompt.device)
-    logits, state = prefill(model, params, prompt, state)
+    logits, state = prefill(model, params, prompt, state, frames=frames, prefix=prefix)
     tok = logits.argmax(dim=-1).to(prompt.dtype)[:, None]
     toks = [tok]
     for _ in range(n_steps - 1):

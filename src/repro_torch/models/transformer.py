@@ -1,12 +1,16 @@
 """Layout-driven decoder assembly, for serving and training.
 
 Port of ``repro.models.transformer``: ``embed -> layers -> norm -> head``,
-each layer a mixer (attention or Mamba) and an FFN (dense, MoE or none)
-chosen by its ``LayerSpec``, so dense GQA, MoE, hybrid Mamba+attention and
-attention-free SSM layouts are one assembly. Where the JAX model stacks each
+each layer a mixer (attention, MLA or Mamba), cross-attention over an
+encoder memory where the config has one, and an FFN (dense, MoE or none)
+chosen by its ``LayerSpec``, so dense GQA, MoE, hybrid Mamba+attention,
+attention-free SSM, MLA and encoder-decoder layouts are one assembly.
+``Model.encode`` runs the encoder (non-causal, RoPE on q and k) over stub
+frontend frames. Where the JAX model stacks each
 layout position's params over the G groups and scans over them, the port
 keeps one params dict per layer in ``params["layers"]`` (in the order the
-trunk visits them) and loops over them in Python. The ``kernels`` dict
+trunk visits them; the encoder's in ``params["encoder"]["layers"]``) and
+loops over them in Python. The ``kernels`` dict
 (default ``repro_torch.kernels.ops.kernel_set()``) reaches the attention,
 Mamba and MoE blocks.
 
@@ -30,10 +34,12 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
+from repro_torch.kernels.ops import kernel_set
+
 from . import attention as attn
 from . import mamba as mb
 from . import moe as moe_mod
-from .common import ArchConfig, LayerSpec, ParamBuilder, grad_cast, resolve_device, rms_norm
+from .common import ArchConfig, LayerSpec, ParamBuilder, apply_rope, grad_cast, resolve_device, rms_norm
 
 
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -41,22 +47,17 @@ def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return grad_cast(rms_norm(x, w, eps))
 
 
-def _check_ported(cfg: ArchConfig, spec: LayerSpec) -> None:
+def init_layer(pb: ParamBuilder, cfg: ArchConfig, spec: LayerSpec, cross: bool = False) -> dict:
     if spec.mixer not in ("attention", "mamba") or spec.ffn not in ("dense", "moe", "none"):
         raise ValueError(f"{cfg.name}: unknown layer spec {spec}")
-    if spec.mixer == "attention" and cfg.attention == "mla":
-        raise NotImplementedError(f"{cfg.name}: MLA is not ported yet (see ROADMAP.md queue 1)")
-    if cfg.encoder_layers or cfg.cross_attention or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder, cross-attention and modality frontends are not "
-            "ported yet (see ROADMAP.md queue 1)"
-        )
-
-
-def init_layer(pb: ParamBuilder, cfg: ArchConfig, spec: LayerSpec) -> dict:
-    _check_ported(cfg, spec)
     p: dict = {"ln1": pb.ones((cfg.d_model,))}
-    p["mixer"] = attn.init_attention(pb, cfg) if spec.mixer == "attention" else mb.init_mamba(pb, cfg)
+    if spec.mixer == "mamba":
+        p["mixer"] = mb.init_mamba(pb, cfg)
+    else:
+        p["mixer"] = attn.init_mla(pb, cfg) if cfg.attention == "mla" else attn.init_attention(pb, cfg)
+    if cross:
+        p["ln_cross"] = pb.ones((cfg.d_model,))
+        p["cross"] = attn.init_attention(pb, cfg)
     if spec.ffn != "none":
         p["ln2"] = pb.ones((cfg.d_model,))
         p["ffn"] = moe_mod.init_moe(pb, cfg) if spec.ffn == "moe" else moe_mod.init_dense_ffn(pb, cfg)
@@ -71,15 +72,24 @@ def apply_layer(
     positions: torch.Tensor,
     cache: Optional[dict],
     kernels: Optional[dict] = None,
+    cross_kv: Optional[tuple] = None,
 ):
-    """Returns (x, new_cache, aux_loss); aux_loss is 0.0 without an MoE FFN."""
+    """Returns (x, new_cache, aux_loss); aux_loss is 0.0 without an MoE FFN.
+    ``cross_kv``: this layer's (k, v) of the encoder memory
+    (``attention.memory_kv``), for a layer with cross-attention."""
     aux = 0.0
     h = _rms(x, p["ln1"], cfg.norm_eps)
-    if spec.mixer == "attention":
-        y, new_cache = attn.attention_block(p["mixer"], cfg, h, positions, cache, kernels=kernels)
-    else:
+    if spec.mixer == "mamba":
         y, new_cache = mb.mamba_block(p["mixer"], cfg, h, positions, cache, kernels=kernels)
+    elif cfg.attention == "mla":
+        y, new_cache = attn.mla_block(p["mixer"], cfg, h, positions, cache, kernels=kernels)
+    else:
+        y, new_cache = attn.attention_block(p["mixer"], cfg, h, positions, cache, kernels=kernels)
     x = x + y
+    if "cross" in p and cross_kv is not None:
+        h = _rms(x, p["ln_cross"], cfg.norm_eps)
+        y, _ = attn.attention_block(p["cross"], cfg, h, positions, cross_kv=cross_kv, kernels=kernels)
+        x = x + y
     if "ffn" in p:
         h = _rms(x, p["ln2"], cfg.norm_eps)
         if spec.ffn == "moe":
@@ -114,9 +124,42 @@ class Model:
         if not cfg.tie_embeddings:
             params["lm_head"] = pb.dense((cfg.d_model, cfg.vocab))
         params["layers"] = [
-            init_layer(pb, cfg, cfg.layout[i % len(cfg.layout)]) for i in range(cfg.n_layers)
+            init_layer(pb, cfg, cfg.layout[i % len(cfg.layout)], cfg.cross_attention)
+            for i in range(cfg.n_layers)
         ]
+        if cfg.encoder_layers:
+            # the reference's encoder layers: full attention, dense FFN
+            enc_spec = LayerSpec(mixer="attention", ffn="dense")
+            enc_cfg = dataclasses.replace(cfg, attention="full", cross_attention=False)
+            params["encoder"] = {
+                "layers": [init_layer(pb, enc_cfg, enc_spec) for _ in range(cfg.encoder_layers)],
+                "norm": pb.ones((cfg.d_model,)),
+            }
         return params
+
+    def encode(self, params: dict, frames: torch.Tensor, kernels: Optional[dict] = None) -> torch.Tensor:
+        """frames (B, T, D) stub frontend embeddings -> (B, T, D) memory:
+        each encoder layer is non-causal self-attention with RoPE on q and k
+        and no bias, then the dense FFN; ``encoder.norm`` at the end
+        (reference ``:164-188``)."""
+        cfg = self.cfg
+        kernels = kernels or kernel_set()
+        x = frames.to(cfg.compute_dtype())
+        B, T, _ = x.shape
+        positions = torch.arange(T, device=x.device).expand(B, T)
+        for p in params["encoder"]["layers"]:
+            h = _rms(x, p["ln1"], cfg.norm_eps)
+            m = p["mixer"]
+            q = apply_rope(attn._proj(h, m["wq"]), positions[:, :, None], cfg.rope_theta)
+            k = apply_rope(attn._proj(h, m["wk"]), positions[:, :, None], cfg.rope_theta)
+            o = attn.attention(q, k, attn._proj(h, m["wv"]), causal=False, window=0, kernels=kernels)
+            x = x + attn._out_proj(m, o)
+            x = x + moe_mod.dense_ffn(p["ffn"], _rms(x, p["ln2"], cfg.norm_eps))
+        return _rms(x, params["encoder"]["norm"], cfg.norm_eps)
+
+    def memory_kv(self, params: dict, memory: torch.Tensor) -> list:
+        """Each decoder layer's cross-attention (k, v) of the encoder memory."""
+        return [attn.memory_kv(p["cross"], memory) for p in params["layers"]]
 
     def trunk(
         self,
@@ -125,6 +168,7 @@ class Model:
         positions: torch.Tensor,  # (B, L)
         caches: Optional[list] = None,  # one per layer
         kernels: Optional[dict] = None,
+        cross_kvs: Optional[list] = None,  # one (k, v) per layer: Model.memory_kv
     ):
         """Returns (x, aux_loss, new_caches): aux_loss is the f32 sum of the
         MoE layers' load-balancing losses; new_caches is None without caches.
@@ -134,7 +178,7 @@ class Model:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         period = len(cfg.layout)
         layers = params["layers"]
-        if caches is None and torch.is_grad_enabled() and cfg.remat != "none":
+        if caches is None and cross_kvs is None and torch.is_grad_enabled() and cfg.remat != "none":
             ctx = {"full": None, "block": _save_matmuls}[cfg.remat]
             for g in range(0, len(layers), period):
                 x, aux = checkpoint(self._period, layers[g : g + period], x, aux, positions, kernels,
@@ -144,7 +188,8 @@ class Model:
         for i, p in enumerate(layers):
             spec = cfg.layout[i % period]
             x, nc, a = apply_layer(
-                p, cfg, spec, x, positions, None if caches is None else caches[i], kernels
+                p, cfg, spec, x, positions, None if caches is None else caches[i], kernels,
+                None if cross_kvs is None else cross_kvs[i],
             )
             aux = aux + a
             new_caches.append(nc)
@@ -193,17 +238,19 @@ class Model:
         return tot / cnt.clamp(min=1.0)
 
     def init_cache(self, batch: int, max_len: int, device="cuda") -> list:
-        """One cache per layer, of its own mixer: K/V for attention, the
-        (h, conv window) state for Mamba."""
+        """One cache per layer, of its own mixer: K/V for attention (a ring
+        of ``window`` slots for SWA), the latents for MLA, the (h, conv
+        window) state for Mamba."""
         cfg = self.cfg
         dev = resolve_device(device)
         dt = cfg.compute_dtype()
         caches = []
         for i in range(cfg.n_layers):
             spec = cfg.layout[i % len(cfg.layout)]
-            _check_ported(cfg, spec)
             if spec.mixer == "mamba":
                 caches.append(mb.init_mamba_cache(cfg, batch, dt, dev))
+            elif cfg.attention == "mla":
+                caches.append(attn.init_mla_cache(cfg, batch, max_len, dt, dev))
             else:
                 caches.append(attn.init_attention_cache(cfg, batch, max_len, dt, dev))
         return caches

@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.models import attention as jax_attn
 from repro.models import common as jax_common
@@ -26,8 +27,6 @@ from repro_torch.models import attention, common, moe, registry
 from repro_torch.models.convert import params_from_jax
 
 ARCHS = ["stablelm-1.6b", "internlm2-20b", "qwen2.5-32b"]
-# the hybrid slice's configs (their parity tests: tests/test_torch_hybrid.py)
-HYBRID_ARCHS = ["jamba-v0.1-52b", "falcon-mamba-7b", "phi3.5-moe-42b"]
 # one module on f32 inputs: only the order of f32 sums and the last ulp of
 # exp/rsqrt/cos/sin differ between XLA and ATen
 MODULE_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -44,8 +43,10 @@ def _close(port: torch.Tensor, ref, tol=MODULE_TOL):
     np.testing.assert_allclose(port.detach().numpy(), np.asarray(ref), **tol)
 
 
-@pytest.mark.parametrize("arch", ARCHS + HYBRID_ARCHS)
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_config_matches_reference(arch):
+    """All ten of the reference's architectures, field for field."""
+    assert ARCH_IDS == JAX_ARCH_IDS
     for full in (False, True):
         port = get_config(arch) if full else get_config(arch).reduced()
         ref = jax_get_config(arch) if full else jax_get_config(arch).reduced()
@@ -53,14 +54,6 @@ def test_config_matches_reference(arch):
         assert (port.head_dim, port.d_inner, port.dt_rank, port.n_groups) == (
             ref.head_dim, ref.d_inner, ref.dt_rank, ref.n_groups)
     assert port.compute_dtype() == torch.bfloat16
-
-
-def test_unported_archs_raise():
-    unported = set(ARCH_IDS) - set(ARCHS) - set(HYBRID_ARCHS)
-    assert unported == {"mixtral-8x7b", "minicpm3-4b", "internvl2-1b", "seamless-m4t-medium"}
-    for arch in unported:
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1, item [35] "):
-            get_config(arch)
 
 
 def test_rms_norm_parity():
