@@ -1,7 +1,9 @@
 """Phase 3b's gate of ``chip_smoke.py`` (``forced_routing_gate``), on CPU
 tensors: the logits, greedy tokens and router probabilities of a kernels run
 against the plain versions run on the kernels' routing, in bf16 and in f32;
-and phase 4's bound for ``mamba_scan`` (``scan_bound``)."""
+phase 4's bound for ``mamba_scan`` (``scan_bound``); and phase 3c's count of
+device-to-host copies (``device_to_host_copies``), which on the CPU can only
+show that work that never leaves its device counts no copy."""
 
 import importlib.util
 from pathlib import Path
@@ -179,3 +181,18 @@ def test_scan_bound_operations(n_sms, clock):
         assert ms == pytest.approx(fma_ms)
     else:
         assert fma_ms < ms < sfu_ms
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_device_to_host_copies_none_within_a_device(device):
+    """Work that stays on one device, host reads of host tensors included,
+    counts no copy from a device to the host."""
+    x = torch.ones(8, device=device)
+
+    def work():
+        y = (x * 2 + 1).sum()
+        torch.empty(8, device=device).copy_(x)
+        if device == "cpu":
+            y.item(), x.cpu(), x.numpy()
+
+    assert chip_smoke.device_to_host_copies(work) == []
