@@ -57,6 +57,21 @@ on, so that their numbers are still printed):
      profiled, it copies at most 64 x 12 B to the host in one copy; where a
      first pass spends its host time, by layer (a ``torch.profiler`` CPU
      trace);
+  3e. the durable, zoned circuit on card payloads: B10's IoT fan-in (3 zones
+     x 8 sensors x 3 rounds) with readings of 4.5 MiB on the card, under
+     ``pin``, ``data_gravity`` and ``data_gravity`` on
+     ``ZonedExecutor(inner=ConcurrentExecutor(4))``, each journaled: equal
+     merge order and provenance events, an equal ledger for zoned and inline,
+     ``bytes_moved_crosszone`` equal to the bytes the placement implies, and
+     ``hash_tree`` launches equal to the tree-tier digests; phase 3c's wave
+     and its replay journaled (pushes/s beside 3c's), ``Workspace.from_journal``
+     equal to the live workspace (lineage, visitor logs, design map, ledger),
+     again after ``compact_journal`` and after the last line is cut in half;
+     a ghost run of the wave's shape (routes as the real run's, 0 puts, 0
+     launches, no new device memory); a ``ProcessExecutor`` after CUDA is
+     live (host plans in workers, bit-equal; card plans in the parent) and a
+     ``ZonedProcessExecutor`` whose merged journal segments replay to the
+     inline run;
   3d. serve mixtral-8x7b (8 of its 32 layers: all 32 hold ~93 GB of bf16
      weights; prompt 4080, so that its cache is a ring of 4096 slots that
      decode wraps), minicpm3-4b (MLA), internvl2-1b (a vision prefix of
@@ -99,7 +114,12 @@ on, so that their numbers are still printed):
      through the plain versions (batch 2, relative L2 error within
      ``GRAD_REL_TOL``); the ``--fail-at-step`` drill on a reduced bf16 model,
      whose restored checkpoint must equal the saved state bit for bit and
-     whose run goes on to ``--steps``; and the forward and K1 timed at the
+     whose run goes on to ``--steps``; 5f, the evaluation loop on 5b's
+     trained state (a frozen 4 x 2048 batch, the forward loss under
+     ``no_grad``): publish and report is one eval of exactly 24
+     ``flash_attention`` launches, an unchanged republish a memo hit with no
+     launch, one more train step a recompute (the checkpoint's pickle-tier
+     digest, the eval's and the hit's seconds); and the forward and K1 timed at the
      training shape (K1 also at qwen2.5-32b's heads, Dh 128) beside their
      bounds, their plain versions and SDPA, K1 on wgmma and on mma in turns,
      with each launch's device time from the profiler (dq and dkdv; on mma
@@ -628,6 +648,342 @@ def step_losses(out: str) -> list:
     return [(int(s), float(l)) for s, l in re.findall(r"^step\s+(\d+) loss (\S+)", out, re.M)]
 
 
+# phase 3e: B10's IoT fan-in (benchmarks/bench_koalja.py: 437-480) with its
+# readings on the card at B14's payload size: 3 zones x 8 sensors x 3 rounds
+FANIN = dict(zones=3, sensors=8, rounds=3, seed=11)
+# phase 3e's process runtime: a fan-out of squarers over host and card tensors
+# of the wave's size, and zone runners over host readings of B10's own 1 KiB
+POOL = dict(width=4, rounds=2, workers=4, host_reading_el=256)
+
+
+def fanin_workspace(Workspace, Topology, placement, executor, journal_path):
+    """B10's fan-in: per-zone sensors (sources, pinned) -> per-zone aggregator
+    (floating) -> a merge reducer pinned to the cloud."""
+    topo = Topology("iot")
+    topo.zone("cloud", tier="cloud")
+    zones = [f"edge-{i}" for i in range(FANIN["zones"])]
+    for z in zones:
+        topo.zone(z, tier="edge")
+        topo.link("cloud", z, bandwidth_mbps=50, latency_ms=20, energy_j_per_mb=0.05)
+    ws = Workspace("edge-fanin", topology=topo, placement=placement, executor=executor, cache=False,
+                   journal_path=journal_path)
+    for z in zones:
+        for i in range(FANIN["sensors"]):
+            ws.source(lambda: {"reading": None}, name=f"s_{z}_{i}", outputs=["reading"]).place(z)
+        agg = ws.task(lambda **kw: {"agg": sum(kw.values())}, name=f"agg_{z}",
+                      inputs=[f"r{i}" for i in range(FANIN["sensors"])], outputs=["agg"])
+        for i in range(FANIN["sensors"]):
+            ws[f"s_{z}_{i}"]["reading"] >> agg[f"r{i}"]
+    red = ws.task(lambda merged: {"total": [float(m.double().sum()) for m in merged]}, name="reduce",
+                  inputs=[f"a_{z}" for z in zones], outputs=["total"], mode="merge").place("cloud")
+    for z in zones:
+        ws[f"agg_{z}"]["agg"] >> red[f"a_{z}"]
+    return ws, zones
+
+
+def crosszone_bytes_implied(ws) -> int:
+    """The bytes the placement implies must cross zones, worked out from the
+    circuit and its payloads, not from the ledger: each AV a task emitted,
+    once per (content, consuming zone), where its producer's zone is not the
+    consumer's; its size is the tensor's numel x element size."""
+    zone_of = {t: z for z, v in ws.stats()["topology"]["zones"].items() for t in v["tasks"]}
+    consumers = {}
+    for link in ws.pipeline.links:
+        consumers.setdefault(link.src_task, set()).add(link.dst_task)
+    resident, total = set(), 0
+    for uid in ws.registry.all_avs():
+        av = ws.registry.get_av(uid)
+        src_zone = zone_of.get(av.source_task)
+        if src_zone is None:
+            continue
+        resident.add((av.chash, src_zone))
+    for uid in ws.registry.all_avs():
+        av = ws.registry.get_av(uid)
+        for dst in sorted(consumers.get(av.source_task, ())):
+            dz = zone_of[dst]
+            if (av.chash, dz) in resident:
+                continue
+            resident.add((av.chash, dz))
+            payload = ws.value_of(av)
+            total += payload.numel() * payload.element_size()
+    return total
+
+
+def rehydration_view(ws) -> dict:
+    """What a rehydrated workspace must answer as the live one does: every
+    AV's lineage, every task's visitor log, the design map, the ledger."""
+    reg = ws.registry
+    topo = ws.stats()["topology"]
+    return {
+        "lineage": [reg.lineage(u) for u in reg.all_avs()],
+        "visitor_logs": {t: ws.visitor_log(t) for t in ws.design_map()["tasks"]},
+        "design_map": ws.design_map(),
+        "ledger": None if topo is None else topo["ledger"],
+    }
+
+
+def durable_phase(dev, wall, time_ms, rows, flat_s):
+    """Phase 3e: the durable, zoned circuit on card payloads (B10's fan-in at
+    4.5 MiB under three placements and executors, journaled), phase 3c's wave
+    with the journal on and its rehydration (after compaction and a torn
+    tail too), a ghost run, and the process runtime after CUDA is live."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import ShapeDtypeStruct, hashing
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.hash_tree import hash_tree_state
+    from repro_torch.runtime import ProcessExecutor, ZonedProcessExecutor
+    from repro_torch.topology import Topology
+    from repro_torch.workspace import ConcurrentExecutor, InlineExecutor, Workspace, ZonedExecutor
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-journals-"))
+    n_el = WAVE["nbytes"] // 4
+    Z, S, R = FANIN["zones"], FANIN["sensors"], FANIN["rounds"]
+    print(f"phase 3e: the durable, zoned circuit on the card: B10's fan-in ({Z} zones x {S} sensors x {R} "
+          f"rounds) with readings of {WAVE['nbytes']} B f32 on the card, journaled")
+    g = torch.Generator(device=dev)
+    g.manual_seed(FANIN["seed"])
+    readings = [torch.randn(n_el, generator=g, device=dev) for _ in range(Z * S * R)]
+    runs, launches3e = {}, 0
+    for label, placement, executor in (
+            ("all_to_cloud", "pin", InlineExecutor()),
+            ("data_gravity", "data_gravity", InlineExecutor()),
+            ("data_gravity_zoned", "data_gravity", ZonedExecutor(inner=ConcurrentExecutor(max_workers=4)))):
+        ws, zones = fanin_workspace(Workspace, Topology, placement, executor, str(tmp / f"{label}.jsonl"))
+        it = iter(readings)
+        ops.reset_launch_counts()
+        trees0 = hashing.hashing_stats()["tree_hashes"]
+
+        def drive():
+            for _ in range(R):
+                for z in zones:
+                    for i in range(S):
+                        ws.push(f"s_{z}_{i}", reading=next(it))
+
+        t = wall(drive)
+        launches = ops.launch_counts()
+        trees = hashing.hashing_stats()["tree_hashes"] - trees0
+        launches3e += launches["hash_tree"]
+        stats = ws.stats()
+        led = stats["topology"]["ledger"]
+        implied = crosszone_bytes_implied(ws)
+        want_trees = Z * S * R + Z * R  # every reading, and each aggregate
+        runs[label] = dict(
+            ws=ws, ledger=led, merge_order=ws.value_of(ws.pipeline.tasks["reduce"].last_outputs["total"]),
+            events=sorted((t_, e["event"]) for t_ in ws.tasks() for e in ws.visitor_log(t_)))
+        print(f"  {label}: {len(readings) / t:.1f} pushes/s ({t * 1e3:.1f} ms); bytes_moved_crosszone "
+              f"{led['bytes_moved_crosszone']} (implied by the placement {implied}); transfer "
+              f"{led['transfer_energy_j']:.6f} J, compute {led['compute_energy_j']:.6f} J; hash_tree launches "
+              f"{launches['hash_tree']}, tree-tier digests {trees} (want {want_trees}); journal "
+              f"{stats['journal']['records_written']} records")
+        if led["bytes_moved_crosszone"] != implied:
+            fail(f"fan-in {label}: bytes_moved_crosszone {led['bytes_moved_crosszone']} != {implied} implied")
+        if not launches["hash_tree"] == trees == want_trees or any(v for k, v in launches.items() if k != "hash_tree"):
+            fail(f"fan-in {label}: launches {launches}, tree-tier digests {trees}, want {want_trees}")
+        shut = getattr(executor, "inner", None)
+        if shut is not None:
+            shut.shutdown()
+    pin, grav, zoned = runs["all_to_cloud"], runs["data_gravity"], runs["data_gravity_zoned"]
+    red = pin["ledger"]["bytes_moved_crosszone"] / max(grav["ledger"]["bytes_moved_crosszone"], 1)
+    print(f"  bytes reduction all_to_cloud / data_gravity {red:.2f}x; merge order equal "
+          f"{pin['merge_order'] == grav['merge_order'] == zoned['merge_order']}, provenance events equal "
+          f"{pin['events'] == grav['events'] == zoned['events']}, zoned ledger == inline {zoned['ledger'] == grav['ledger']}")
+    if not (pin["merge_order"] == grav["merge_order"] == zoned["merge_order"]
+            and pin["events"] == grav["events"] == zoned["events"] and zoned["ledger"] == grav["ledger"]):
+        fail("fan-in: merge order, provenance events or the zoned ledger differ between runs")
+    if not all(np.isfinite(pin["merge_order"])):
+        fail(f"fan-in: non-finite totals {pin['merge_order']}")
+    del readings
+
+    # -- the journal: phase 3c's wave and its replay, journaled -----------------
+    wgen = torch.Generator(device=dev)
+    wgen.manual_seed(WAVE["seed"])
+    wave = [torch.randn(n_el, generator=wgen, device=dev) for _ in range(WAVE["n"])]
+
+    def normalize(x):
+        return {"y": (x - x.mean()) / x.std()}
+
+    jws = Workspace("normalize-on-card", executor=InlineExecutor(), topology=False,
+                    journal_path=str(tmp / "wave.jsonl"))
+    task = jws.task(normalize, name="normalize", inputs=["x"], outputs=["y"])
+    ops.reset_launch_counts()
+    first_s = wall(lambda: [jws.push(task, x=x) for x in wave])
+    replay_s = wall(lambda: [jws.push(task, x=x) for x in wave])
+    jl = ops.launch_counts()["hash_tree"]
+    launches3e += jl
+    jws.journal.flush()
+    js = jws.stats()["journal"]
+    n = WAVE["n"]
+    print(f"  journaled wave: pass 1 {n / first_s:.1f} pushes/s, replay {n / replay_s:.1f} pushes/s (flat, phase "
+          f"3c: {n / flat_s[0]:.1f} and {n / flat_s[1]:.1f}); {js['records_written']} records, "
+          f"{js['bytes_on_disk']} B on disk, {js['flushes']} flushes (every {js['flush_every_n']}); hash_tree "
+          f"launches {jl} (want {3 * n})")
+    if jl != 3 * n or jws.stats()["tasks"]["normalize"] != {"executions": n, "cache_hits": n}:
+        fail(f"journaled wave: {jl} hash_tree launches, tasks {jws.stats()['tasks']}")
+    for label, live_ws, path in (("wave", jws, jws.journal.path), ("fan-in", grav["ws"], grav["ws"].journal.path)):
+        live_ws.journal.flush()
+        live = rehydration_view(live_ws)
+        before = live_ws.journal.stats()["bytes_on_disk"]
+        t_re = wall(lambda: Workspace.from_journal(path))
+        same = rehydration_view(Workspace.from_journal(path)) == live
+        t_co = wall(lambda: live_ws.compact_journal())
+        after = live_ws.journal.stats()["bytes_on_disk"]
+        same_co = rehydration_view(Workspace.from_journal(path)) == live
+        live_ws.journal.close()
+        with open(path, "rb") as f:
+            lines = f.read().splitlines(keepends=True)
+        with open(path, "wb") as f:  # the last line, cut in half: a torn tail
+            f.write(b"".join(lines[:-1]) + lines[-1][: len(lines[-1]) // 2])
+        torn = Workspace.from_journal(path)
+        same_torn = rehydration_view(torn) == live
+        cut = torn.stats()["journal"]["truncated_lines"]
+        print(f"  {label} journal: from_journal {t_re:.3f} s, equal to the live workspace {same}; compaction "
+              f"{t_co:.3f} s, {before} -> {after} B on disk, equal after it {same_co}; torn tail ({cut} line "
+              f"dropped) equal {same_torn}")
+        if not (same and same_co and same_torn and cut == 1):
+            fail(f"{label} journal: rehydration equal {same}, after compaction {same_co}, torn {same_torn} ({cut})")
+
+    # -- a ghost run of the wave's shape through the same circuit, one stage on --
+    def circuit2(W):
+        ws2 = W("ghost-twin", executor=InlineExecutor(), topology=False)
+        a = ws2.task(normalize, name="normalize", inputs=["x"], outputs=["y"])
+        b = ws2.task(lambda y: {"z": y * 2.0}, name="scale", inputs=["y"], outputs=["z"])
+        a["y"] >> b["y"]
+        return ws2, a
+
+    real, a = circuit2(Workspace)
+    for x in wave:
+        real.push(a, x=x)
+    real_routes = {link.name: link.avs_carried for link in real.pipeline.links}
+    gws, ga = circuit2(Workspace)
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    box = {}
+    t_g = wall(lambda: box.update(report=gws.ghost({ga["x"]: [ShapeDtypeStruct((n_el,), "float32")] * n})))
+    ghost_launches = ops.launch_counts()
+    mem1 = torch.cuda.memory_allocated()
+    routes = {k: v["carried"] for k, v in box["report"]["routes"].items()}
+    puts = gws.store.stats()["puts"]
+    spec = gws.pipeline.tasks["scale"].last_outputs["z"].meta["ghost_spec"]
+    print(f"  ghost run of {n} specs ({n_el},) f32: {t_g * 1e3:.1f} ms; routes carried {routes} (real run "
+          f"{real_routes}); store puts {puts}; launches {sum(ghost_launches.values())}; memory_allocated "
+          f"{mem0} -> {mem1} B; last spec {spec!r}")
+    if not routes or routes != real_routes or puts != 0 or any(ghost_launches.values()) or mem1 != mem0:
+        fail(f"ghost run: routes {routes} vs {real_routes}, puts {puts}, launches {ghost_launches}, "
+             f"memory {mem0} -> {mem1}")
+    if spec != ShapeDtypeStruct((n_el,), "float32"):
+        fail(f"ghost run: the wire's spec is {spec!r}")
+    del real, gws
+
+    # -- the process runtime, after CUDA is live -------------------------------
+    def fan(executor, xs):
+        ws3 = Workspace("fan", executor=executor, cache=False, topology=False)
+        src = ws3.task(lambda x: {"out": x}, name="src", inputs=["x"], outputs=["out"])
+        for i in range(POOL["width"]):
+            sq = ws3.task(lambda y, i=i: {"sq": y * y + i}, name=f"sq{i}", inputs=["y"], outputs=["sq"])
+            src["out"] >> sq["y"]
+        for x in xs:
+            ws3.push(src, x=x)
+        return ws3, [ws3.value_of(ws3.pipeline.tasks[f"sq{i}"].last_outputs["sq"]) for i in range(POOL["width"])]
+
+    n_tasks = POOL["width"] * POOL["rounds"]
+    xs = {"host": [x.cpu() for x in wave[: POOL["rounds"]]], "card": wave[: POOL["rounds"]]}
+    pool = {}
+    for kind in ("host", "card"):
+        want = fan(InlineExecutor(), xs[kind])[1]
+        ex = ProcessExecutor(max_workers=POOL["workers"])
+        try:
+            box = {}
+            t_ = wall(lambda: box.update(out=fan(ex, xs[kind])[1]))
+            st = dict(ex.stats())
+        finally:
+            ex.shutdown()
+        equal = all(torch.equal(g_, w_) and g_.device == w_.device for g_, w_ in zip(box["out"], want))
+        pool[kind] = (st["tasks_remote"], st["tasks_inline"], equal, box["out"][0].device.type)
+        print(f"  ProcessExecutor({POOL['workers']}), {kind} wave of {n_tasks} plans: remote {st['tasks_remote']}, "
+              f"inline {st['tasks_inline']}, outputs on {box['out'][0].device.type} and bit-equal to the inline "
+              f"run's {equal}; {t_ * 1e3:.1f} ms; workers forked {st['worker_restarts'] + st['workers_alive']}")
+    if pool["host"] != (n_tasks, 0, True, "cpu") or pool["card"] != (0, n_tasks, True, "cuda"):
+        fail(f"process runtime: (remote, inline, equal, device) host {pool['host']} (want ({n_tasks}, 0, "
+             f"True, 'cpu')), card {pool['card']} (want (0, {n_tasks}, True, 'cuda'))")
+    hg = np.random.RandomState(FANIN["seed"])
+    host_readings = [torch.from_numpy(hg.randn(POOL["host_reading_el"]).astype(np.float32)) for _ in range(R)]
+
+    def host_fanin(executor, journal_path):
+        """B10's topology with the fan-in turned round: a cloud source feeds one
+        task pinned to each edge zone, whose results a cloud reducer merges, so
+        that each push makes a wave of one task a zone (B10's sensors make
+        waves of one task, which stay in the parent)."""
+        topo = Topology("iot")
+        topo.zone("cloud", tier="cloud")
+        zones = [f"edge-{i}" for i in range(Z)]
+        for z in zones:
+            topo.zone(z, tier="edge")
+            topo.link("cloud", z, bandwidth_mbps=50, latency_ms=20, energy_j_per_mb=0.05)
+        ws4 = Workspace("zone-runners", topology=topo, placement="pin", executor=executor, cache=False,
+                        journal_path=journal_path)
+        src = ws4.task(lambda x: {"out": x}, name="src", inputs=["x"], outputs=["out"]).place("cloud")
+        red = ws4.task(lambda merged: {"total": [float(m.double().sum()) for m in merged]}, name="reduce",
+                       inputs=[f"a_{z}" for z in zones], outputs=["total"], mode="merge").place("cloud")
+        for k, z in enumerate(zones):
+            t_ = ws4.task(lambda x, k=k: {"out": x * 2.0 + k}, name=f"prod_{z}", inputs=["x"],
+                          outputs=["out"]).place(z)
+            src["out"] >> t_["x"]
+            t_["out"] >> red[f"a_{z}"]
+        for x in host_readings:
+            ws4.push(src, x=x)
+        return ws4
+
+    inline = host_fanin(InlineExecutor(), None)
+    zex = ZonedProcessExecutor(max_workers=POOL["workers"])
+    zpath = str(tmp / "zoned-process.jsonl")
+    try:
+        zws = host_fanin(zex, zpath)
+        zst = zex.stats()
+        zws.journal.flush()
+        merged = Workspace.from_journal([zpath, *zex.segment_paths()])
+        n_segments = len(zex.segment_paths())
+    finally:
+        zex.shutdown()
+
+    def fingerprint(w):
+        return {"events": {t_: [e["event"] for e in w.visitor_log(t_)] for t_ in w.design_map()["tasks"]},
+                "lineage": [(w.registry.get_av(u).source_task, w.registry.get_av(u).chash,
+                             [p["source_task"] for p in w.registry.lineage(u, depth=1)["parents"]])
+                            for u in w.registry.all_avs()],
+                "ledger": w.stats()["topology"]["ledger"]}
+
+    same_fp = fingerprint(merged) == fingerprint(inline)
+    print(f"  ZonedProcessExecutor over the edge zones (host readings of {POOL['host_reading_el'] * 4} B): remote "
+          f"{zst['tasks_remote']}, inline {zst['tasks_inline']}, runners {sorted(zst['runners'])}; {n_segments} "
+          f"segments merged with the main journal replay to the inline run's fingerprint: {same_fp}")
+    if not same_fp or zst["tasks_remote"] != Z * R or n_segments != Z:
+        fail(f"zoned process runtime: merged replay equal {same_fp}, remote {zst['tasks_remote']} (want {Z * R}), "
+             f"{n_segments} segments (want {Z})")
+    del wave, jws
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # hash_tree at phase 3e's payloads, as phase 4 times it
+    w = torch.randint(-2**31, 2**31, (n_el,), dtype=torch.int32, device=dev)
+    got, want_state = hash_tree_state(w), ref.reference_hash_tree(w)
+    if not torch.equal(got, want_state):
+        fail(f"hash_tree at phase 3e's payloads: kernel {got.tolist()} != plain {want_state.tolist()}")
+    rows.append(dict(
+        name="hash_tree", path="phase 3e: the journaled fan-in's and wave's digests, 4.5 MiB, one launch",
+        route="cuda", source="src/repro_torch/kernels/csrc/hash_tree.cu",
+        replaces="src/repro/kernels/hash_tree.py:74", launches=launches3e, max_abs_err=0.0,
+        ms=time_ms(lambda: hash_tree_state(w)), plain_ms=time_ms(lambda: ref.reference_hash_tree(w), reps=5),
+        bound_ms=(WAVE["nbytes"] + 12) / PEAK_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None, library="none",
+    ))
+    del w
+
+
 def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, fail):
     """Phase 5: the training run of stablelm-1.6b at full width, and K1 timed."""
     import shutil
@@ -774,6 +1130,9 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
                                              torch.tensor(REPEAT_LR, device=dev))) for _ in range(2)]
     print(f"  adamw_update alone: {min(opt_s) * 1e3:.2f} ms of the step ({n_params} params, f32 moments)")
     del zeros
+
+    # 5f. the evaluation loop on the trained state
+    eval_phase(model, state, step, batch, dev, rows, time_ms, bound, rand)
     del state, params, step
     torch.cuda.empty_cache()
 
@@ -853,6 +1212,110 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
 
     # 5e. K1 and the forward (with lse) at the training shape, timed as phase 4
     k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, main_launches, step_s)
+
+
+# phase 5f: the eval circuit's frozen batch (rows x seq), made from this seed
+EVAL = dict(batch=4, seq=2048, seed=5)
+
+
+def eval_phase(model, state, step, batch, dev, rows, time_ms, bound, rand):
+    """Phase 5f: ``EvalLoop`` over the trained state at full width. The eval
+    function is the forward loss under ``no_grad`` on a frozen batch, through
+    ``flash_attention``; the checkpoint ``{"params", "step"}`` digests in the
+    pickle tier. Publish and report: one eval; republish unchanged: a memo
+    hit with no launch; one more train step, publish and report: a
+    recompute."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.core import EvalLoop, build_eval_circuit, content_hash
+    from repro_torch.data.pipeline import build_data_pipeline, next_batch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.registry import train_loss
+    from repro_torch.optim.adamw import tree_leaves
+
+    cfg = model.cfg
+    B, L = EVAL["batch"], EVAL["seq"]
+    data = build_data_pipeline(cfg, B, L, seed=EVAL["seed"])
+    eval_batch = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in next_batch(data, cfg).items()}
+
+    def eval_fn(params, b):
+        with torch.no_grad():
+            loss, _ = train_loss(model, params, b)
+        return {"loss": float(loss)}
+
+    def wall_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    loop = EvalLoop(build_eval_circuit(eval_fn, eval_batch))
+    n_bytes = sum(p.numel() * p.element_size() for p in tree_leaves(state["params"]))
+    print(f"phase 5f: the evaluation loop on {cfg.name}'s trained state ({n_bytes / 2**30:.2f} GiB of params), "
+          f"a frozen {B} x {L} batch")
+    ckpt = {"params": state["params"], "step": int(state["step"])}
+    digest, hash_s = wall_s(lambda: content_hash(ckpt))
+    want = {**dict.fromkeys(ops.KERNELS, 0), "flash_attention": cfg.n_layers}
+    none = dict.fromkeys(ops.KERNELS, 0)
+    seen = []
+    for label, train_first, want_launches, want_counts in (
+            ("publish, report", False, want, (1, 0)),
+            ("republish unchanged, report", False, none, (1, 1)),
+            ("one more train step, publish, report", True, want, (2, 1))):
+        if train_first:
+            step(state, batch)
+            torch.cuda.synchronize()
+        s_step = int(state["step"])
+        ops.reset_launch_counts()
+        with PlainSpy() as spy:
+            _, pub_s = wall_s(lambda: loop.publish(state["params"], step=s_step))
+            report, rep_s = wall_s(loop.report)
+        launches = ops.launch_counts()
+        counts = (loop.evals_run, loop.cache_hits)
+        seen.append(report)
+        print(f"  {label}: publish {pub_s:.3f} s, report {rep_s:.3f} s; evals_run {counts[0]}, cache_hits "
+              f"{counts[1]}; launches {launches}; report {report}")
+        if launches != want_launches or counts != want_counts or any(spy.calls.values()):
+            fail(f"eval loop, {label}: launches {launches} (want {want_launches}), (evals_run, cache_hits) "
+                 f"{counts} (want {want_counts}), plain calls {spy.calls}")
+        if not np.isfinite(report["loss"]) or report["step"] != s_step:
+            fail(f"eval loop, {label}: report {report}")
+    chash = loop.manager.registry.get_av(loop.manager.registry.all_avs()[0]).chash
+    print(f"  checkpoint digest (pickle tier) {hash_s:.3f} s, {n_bytes / hash_s / 1e9:.2f} GB/s of params; equal to "
+          f"the first publish's {digest == chash}; hit report equal to the eval's {seen[1] == seen[0]}; after a "
+          f"step loss {seen[0]['loss']:.6f} -> {seen[2]['loss']:.6f}")
+    if digest != chash or seen[1] != seen[0] or seen[2]["loss"] == seen[0]["loss"]:
+        fail(f"eval loop: digest twice {digest} / {chash}, hit report {seen[1]} vs {seen[0]}, after a step {seen[2]}")
+    del ckpt, data, eval_batch
+
+    # flash_attention at the eval forward's shape
+    H, Dh, bf, es = cfg.n_heads, cfg.head_dim, torch.bfloat16, 2
+    q, k, v = (rand(B, L, H, Dh, dtype=bf) for _ in range(3))
+    o, want_o = flash_attention(q, k, v), ref.reference_attention(q, k, v)
+    err = (o.float() - want_o.float()).abs()
+    rtol, atol = TOL["bfloat16"]
+    if not torch.isfinite(o.float()).all() or (err > atol + rtol * want_o.float().abs()).any():
+        fail(f"flash_attention at the eval shape: max_abs_err {err.max().item()}")
+    print(f"  flash_attention at the eval shape ({B}, {L}, {H}, {Dh}): max_abs_err {err.max().item():.3e} (ok)")
+    pairs = L * (L + 1) // 2
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    b_ms, b_by = bound(4 * B * L * H * Dh * es, 4 * B * H * Dh * pairs, "bfloat16")
+    rows.append(dict(
+        name="flash_attention", path=f"{cfg.name} eval forward ({B} x {L}), route mma", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:116", launches=2 * cfg.n_layers,
+        max_abs_err=err.max().item(),
+        ms=time_ms(lambda: flash_attention(q, k, v), reps=10),
+        plain_ms=time_ms(lambda: ref.reference_attention(q, k, v), reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), reps=10),
+        library="scaled_dot_product_attention(is_causal=True)",
+    ))
+    del q, k, v, o, want_o, err, qt, kt, vt
+    torch.cuda.empty_cache()
 
 
 def k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, launches, step_s):
@@ -1710,6 +2173,9 @@ def main() -> int:
         print(f"    {layer}: its torch operations' own ms: " + "; ".join(f"{n} {ms:.3f}" for n, ms in top))
     del ws, ws2, ws3, wave, big_x, prof
     torch.cuda.empty_cache()
+
+    # -- 3e. the durable, zoned circuit on card payloads --------------------------
+    durable_phase(dev, wall, time_ms, rows, (first_s, replay_s))
 
     # -- 3d. serve the last four architectures at full width ---------------------
     four_shapes: dict = {}  # arch -> {kernel: {input shapes: calls}} of its served run

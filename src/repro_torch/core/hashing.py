@@ -153,7 +153,7 @@ def is_ghost(payload: Any) -> bool:
 
     The check is deliberately narrow: a payload must opt in. A meta tensor
     reports a real ``nbytes``, so it is not a ghost here (the port's ghost
-    type comes with ``wireframe``)."""
+    type is ``repro_torch.core.wireframe.ShapeDtypeStruct``)."""
     if type(payload).__name__ == "ShapeDtypeStruct":
         return True
     return (
@@ -304,8 +304,8 @@ def _classify_tensor(t: torch.Tensor, out: list, small: list, large: list, on_un
         return
     if t.is_meta:
         raise TypeError(
-            "a meta tensor has no bytes to hash; the port's ghost type comes "
-            "with wireframe (ROADMAP queue 1 item 2c)"
+            "a meta tensor has no bytes to hash; pass a ghost as "
+            "repro_torch.core.wireframe.ShapeDtypeStruct(shape, dtype)"
         )
     u8, shape, dtype = _tensor_bytes(t)
     if not u8.is_cuda:

@@ -17,10 +17,6 @@ ready tasks execute through the pluggable ``run_wave`` seam (serial inline,
 or concurrent via :class:`~repro_torch.workspace.executors.ConcurrentExecutor`).
 There is no full-graph polling anywhere on the hot path.
 
-Port of ``repro.core.pipeline``, on flat circuits: the extended-cloud
-topology (zones, placement, the transfer ledger) waits for ROADMAP queue 1
-item 7, so a non-None ``topology`` raises ``NotImplementedError``.
-
 Cycles are allowed (DCG, not DAG): each task gets a per-drain *fire budget*
 (the ``max_rounds`` knob) rather than a topology restriction.
 """
@@ -145,23 +141,21 @@ class PipelineManager:
         placement: Any = None,
         journal: Any = None,
     ) -> None:
-        # Extended-cloud placement (a Topology binding every task to a zone,
-        # with a transfer ledger and a placement policy) is not ported yet.
-        if topology is not None:
-            raise NotImplementedError(
-                "topologies are not ported yet (ROADMAP queue 1 item 7: "
-                "durable and extended engine); run the circuit flat"
-            )
         self.pipeline = pipeline
         self.store = store or ArtifactStore()
         self.registry = registry or ProvenanceRegistry()
         # cache=None -> default MemoCache; cache=False -> caching disabled
         self.cache = MemoCache() if cache is None else (cache or None)
-        # Durable provenance (an append-only journal the registry and memo
-        # cache write through) is not ported yet: bind_journal raises.
+        # Durable provenance (repro_torch.provenance.Journal): registry, memo
+        # cache, and transfer ledger write through one append-only event
+        # log, so the forensic stories survive restarts (Workspace.
+        # from_journal replays them). Bound before _register_design so the
+        # design-map records land in the journal too.
         self.journal = journal
         if journal is not None:
             self.registry.bind_journal(journal)
+            if self.cache is not None:
+                self.cache.bind_journal(journal)
         # unstable-hash anomalies (unpicklable payloads whose digests are
         # process-local) surface in the visitor trail rather than vanishing
         self.store.bind_provenance(self.registry)
@@ -178,9 +172,25 @@ class PipelineManager:
         # anything exposing run_wave(manager, tasks) -> [(name, out_avs)];
         # Workspace passes its executor backend here.
         self.executor = executor if executor is not None else SerialWaveRunner()
-        self.topology = None
-        self.ledger = None
-        self.placement = None  # flat circuits ignore it, as the reference does
+        # Extended-cloud placement (repro_torch.topology): a Topology binds every
+        # task to a zone, installs the transfer ledger, and gives the
+        # scheduler a placement policy to run at wave formation.
+        self.topology = topology
+        if topology is not None:
+            from repro_torch.topology import TransferLedger, make_placement
+
+            self.ledger = TransferLedger(topology)
+            self.placement = make_placement(placement, topology)
+            for t in pipeline.tasks.values():
+                t.bind_topology(topology, self.ledger)
+            if journal is not None:
+                # the zone/tier/link-cost spec rides the journal so a replay
+                # can rebuild the ledger — energy prices and all
+                journal.append("topology", topology.describe())
+                self.ledger.bind_journal(journal)
+        else:
+            self.ledger = None
+            self.placement = None
         self.scheduler = Scheduler(self, fire_budget=max_rounds)
         self._register_design()
 
@@ -204,19 +214,29 @@ class PipelineManager:
         """Edge-node sampling: wrap an external payload as an AV and deliver it
         to a task input ('data are intentionally sampled by the edge nodes').
         Ghost payloads (shape specs) ride the AV itself and never hit the
-        store — a wireframe run moves zero bytes end to end (§III.K)."""
+        store — a wireframe run moves zero bytes end to end (§III.K).
+        Under a topology the sample is born in the receiving task's zone —
+        edge sampling happens where the edge node lives."""
         t = self.pipeline.tasks[task]
+        zone = t.zone if self.topology is not None else None
         if is_ghost(payload):
             chash = content_hash(payload)
             meta = {"ghost": True, "ghost_spec": payload}
+            if zone is not None:
+                meta["zone"] = zone
             av = AnnotatedValue.produce(
                 chash, f"ghost://{chash}", f"edge:{input_name}", "edge",
                 region=region, meta=meta,
             )
         else:
             uri, chash = self.store.put(payload)
+            meta = None
+            if zone is not None:
+                meta = {"zone": zone, "nbytes": self.store.nbytes_of(chash)}
+                self.ledger.register_resident(chash, zone)
+                self.store.note_zone_resident(chash, zone)
             av = AnnotatedValue.produce(
-                chash, uri, f"edge:{input_name}", "edge", region=region
+                chash, uri, f"edge:{input_name}", "edge", region=region, meta=meta
             )
         self.registry.register_av(av)
         av.stamp(t.name, "consumed", t.version, region=t.region)
@@ -240,6 +260,13 @@ class PipelineManager:
             )
         uri, chash = self.store.put(payload)
         meta = {"external": True}
+        if self.topology is not None and t.zone is not None:
+            # the sensor saw it where the sensor lives: the payload is
+            # resident in the source task's zone at zero transport cost
+            meta["zone"] = t.zone
+            meta["nbytes"] = self.store.nbytes_of(chash)
+            self.ledger.register_resident(chash, t.zone)
+            self.store.note_zone_resident(chash, t.zone)
         av = AnnotatedValue.produce(
             chash, uri, t.name, t.version, region=region, meta=meta
         )
@@ -345,7 +372,32 @@ class PipelineManager:
             # trigger-work scorecard: enqueued (event-driven) vs the
             # polling-scan equivalent the original engine would have burned
             "scheduler": self.scheduler.stats(),
-            # extended-cloud scorecard: None on flat circuits, the only
-            # kind the port runs yet
-            "topology": None,
+            # extended-cloud scorecard (repro_torch.topology): where work ran and
+            # what transport the zone boundaries cost — None on flat circuits
+            "topology": self._topology_stats(),
+        }
+
+    def _topology_stats(self) -> Optional[dict]:
+        if self.topology is None:
+            return None
+        tasks = self.pipeline.tasks.values()
+        zones = {}
+        for zname in self.topology.zone_names():
+            residents = sorted(
+                t.name for t in tasks if (t.zone or self.topology.default_zone) == zname
+            )
+            zones[zname] = {
+                "tier": self.topology.tier_of(zname),
+                "tasks": residents,
+                "executions": sum(
+                    t.zone_executions.get(zname, 0) for t in tasks
+                ),
+            }
+        return {
+            "name": self.topology.name,
+            "default_zone": self.topology.default_zone,
+            "placement": self.placement.stats(),
+            "ledger": self.ledger.stats(),
+            "zones": zones,
+            "crosszone_refs": sum(l.crosszone_refs for l in self.pipeline.links),
         }

@@ -11,10 +11,11 @@
 
 Strict record format; queries are structured (no regex scraping, per §III.L).
 
-Port of ``repro.core.provenance``. Durability (``bind_journal``, a
-write-through append-only journal replayed by ``Workspace.from_journal``)
-waits for ``provenance/journal.py`` (ROADMAP queue 1 item 7); the replay
-hooks (``restore_*``, ``snapshot_state``) are carried. Every visitor entry also
+Port of ``repro.core.provenance``. Durability: the registry can write
+through to an append-only
+:class:`~repro_torch.provenance.Journal` (``bind_journal``) — one typed JSONL
+record per registration/visit/edge/anomaly — so the stories survive process
+restarts and replay via ``Workspace.from_journal``. Every visitor entry also
 carries a registry-assigned monotonic ``seq`` (assigned under the lock, so
 it is a total order over this registry's events), which is the cross-task
 ordering key: wall clocks tie on coarse granularities, sequence numbers
@@ -73,18 +74,25 @@ class ProvenanceRegistry:
         self._lock = threading.RLock()
         # monotonic event counter (visitor-log seq); survives rehydration
         self._next_seq = 0
-        # optional durable write-through (repro.provenance.Journal)
+        # optional durable write-through (repro_torch.provenance.Journal)
         self._journal = None
 
     # -- durability ----------------------------------------------------------
     def bind_journal(self, journal) -> None:
-        """Durable write-through to a provenance journal is not ported yet:
-        ``provenance/journal.py`` comes with the durable engine (ROADMAP queue
-        1 item 7)."""
-        raise NotImplementedError(
-            "provenance journals are not ported yet (ROADMAP queue 1 item 7: "
-            "durable and extended engine)"
-        )
+        """Attach an append-only journal; every subsequent registration,
+        visit, edge, and anomaly writes through. Replayed registries stay
+        unbound — rehydration never re-journals history.
+
+        Binding a *resumed* journal (one with records already on disk)
+        advances the event counter past the highest journaled visit seq, so
+        post-restart entries keep the total order ``visits_of`` sorts by."""
+        with self._lock:
+            self._journal = journal
+            if journal is not None:
+                self._next_seq = max(
+                    self._next_seq,
+                    getattr(journal, "resumed_visit_seq", -1) + 1,
+                )
 
     @property
     def journal(self):
@@ -176,7 +184,7 @@ class ProvenanceRegistry:
         with self._lock:
             return self._task_promises.get(task, {}).get("version", "?")
 
-    # -- replay (journal rehydration; see repro.provenance.journal) ----------
+    # -- replay (journal rehydration; see repro_torch.provenance.journal) ----------
     def restore_av(self, data: dict) -> None:
         """Rebuild one AV (and its lineage) from a journaled ``av`` record.
         The travel document is restored as of registration time — stamps
@@ -247,7 +255,7 @@ class ProvenanceRegistry:
         checkpoint simply no longer contains them).
 
         This is the deliberate forgetting that makes
-        :meth:`~repro.provenance.Journal.compact` *bound* state rather than
+        :meth:`~repro_torch.provenance.Journal.compact` *bound* state rather than
         merely re-encode it: dropped travellers, store-evicted payloads, and
         aged-out ``[N/k]`` window members stop costing memory and checkpoint
         bytes. Lineage pointers from surviving AVs to retired parents go

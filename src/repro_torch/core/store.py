@@ -57,6 +57,17 @@ class _Timer:
         return self.total / self.count if self.count else 0.0
 
 
+def _holds_card_tensor(payload: Any) -> bool:
+    """True for a tensor off the host, or a dict/list/tuple holding one."""
+    if isinstance(payload, torch.Tensor):
+        return payload.device.type != "cpu"
+    if isinstance(payload, dict):
+        return any(_holds_card_tensor(v) for v in payload.values())
+    if isinstance(payload, (list, tuple)):
+        return any(_holds_card_tensor(v) for v in payload)
+    return False
+
+
 class ArtifactStore:
     """Content-addressed, tiered payload store. URIs: ``local://h``, ``object://h``.
 
@@ -108,6 +119,9 @@ class ArtifactStore:
         # replica (never forcing a cross-zone transfer) when one exists.
         self._zone_residents: dict = {}  # zone -> set of content hashes
         self.zone_local_serves = 0  # zone_resident() checks that said yes
+        # content hashes whose payload holds a tensor on a card: the process
+        # runtime keeps plans reading them in the parent (on_card)
+        self._card: set = set()
         self._provenance = None
         if object_dir:
             os.makedirs(object_dir, exist_ok=True)
@@ -261,6 +275,8 @@ class ArtifactStore:
     def _put_locked(self, payload: Any, h: str, nbytes: int, prefer: Optional[str]) -> str:
         self.puts += 1
         self._sizes.setdefault(h, nbytes)
+        if _holds_card_tensor(payload):
+            self._card.add(h)
         if h in self._local:
             self._local.move_to_end(h)
             self.bytes_not_moved += nbytes
@@ -454,6 +470,11 @@ class ArtifactStore:
             if existed:
                 self.bytes_not_moved += nbytes
             return f"object://{chash}"
+
+    def on_card(self, chash: str) -> bool:
+        """Does the payload of ``chash`` hold a tensor on a card?"""
+        with self._lock:
+            return chash in self._card
 
     def nbytes_of(self, chash: str) -> Optional[int]:
         """Known size of a content hash (any hash ever put/seen), or None.

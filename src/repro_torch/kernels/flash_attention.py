@@ -27,7 +27,8 @@ heads. ``_bwd_route`` picks its design from the dtype and the head dim:
 into dQ's launch, its longest causal q-tiles first), ``"mma"`` (``mma.sync``)
 for bf16 at Dh 16 and 32, ``"fma"`` for f32.
 
-For tensors on the CPU each wrapper computes the plain version
+For tensors on the CPU or the meta device (``ref.PLAIN_DEVICES``) each
+wrapper computes the plain version
 (``ref.reference_attention``, ``ref.reference_attention_bwd``); for CUDA
 tensors it launches its kernel or raises. ``flash_attention.launches`` counts
 forward launches, ``flash_attention.route_launches`` the same launches by
@@ -43,7 +44,7 @@ import ctypes
 import torch
 
 from . import build
-from .ref import reference_attention, reference_attention_bwd
+from .ref import PLAIN_DEVICES, reference_attention, reference_attention_bwd
 
 # the (Dk, Dv) pairs the forward kernel is built for (as the .cu's FA_DISPATCH):
 # Dk = Dv, and MLA's (96, 64); the backward takes Dk = Dv of the first four only
@@ -129,7 +130,7 @@ def flash_attention(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention drops the gradient: differentiate through "
                            "repro_torch.models.attention.FlashAttention")
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return reference_attention(q, k, v, causal=causal, window=window, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -187,7 +188,7 @@ def flash_attention_bwd(
         raise ValueError("flash_attention_bwd: inputs on different devices")
     if window > 0 and Lq >= k.shape[1] + window:
         raise ValueError(f"window {window} leaves rows of Lq {Lq} with none of Lk {k.shape[1]} keys")
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return reference_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")

@@ -13,7 +13,7 @@ as in ``repro.models.attention._cached_attention``: slot ``s`` of batch row
 with a window, ``k_pos[b, s] > q_pos[b] - window``. The kernel reads no
 slot at or past ``n_valid``.
 
-For tensors on the CPU the wrapper computes the plain version
+For tensors on the CPU or the meta device the wrapper computes the plain version
 (``ref.reference_decode``); for CUDA tensors it launches the kernel or raises.
 ``flash_decode.launches`` counts kernel launches.
 """
@@ -26,7 +26,7 @@ import functools
 import torch
 
 from . import build
-from .ref import reference_decode
+from .ref import PLAIN_DEVICES, reference_decode
 
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GQ = 8  # query heads per KV head held in registers
@@ -111,7 +111,7 @@ def flash_decode(
     """Returns (B, 1, H, Dh) in q's dtype. The blocks per batch row and KV
     head are ``split_for``'s choice for the card."""
     _check_inputs(q, k, v, k_pos, q_pos, n_valid, window)
-    if q.device.type == "cpu":
+    if q.device.type in PLAIN_DEVICES:
         return reference_decode(q, k, v, k_pos, q_pos, n_valid, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")

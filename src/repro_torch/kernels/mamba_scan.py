@@ -19,7 +19,7 @@ tensors through batch strides (no copy). Segmenting applies on every device:
 on the CPU each segment goes through the plain version. A scan under the
 limit is one launch, as before.
 
-For tensors on the CPU the wrapper computes the plain version
+For tensors on the CPU or the meta device the wrapper computes the plain version
 (``ref.reference_selective_scan``); for CUDA tensors it launches the kernel
 or raises. ``mamba_scan.launches`` counts kernel launches.
 """
@@ -32,7 +32,7 @@ from typing import Optional
 import torch
 
 from . import build
-from .ref import reference_selective_scan
+from .ref import PLAIN_DEVICES, reference_selective_scan
 
 STATE_SIZES = (4, 8, 16, 32)  # N states per thread, in registers
 MAX_AHEAD = 16  # the kernel computes step offsets t * Di up to t = L + 16
@@ -99,7 +99,7 @@ def mamba_scan(
                                   "call it under torch.no_grad() or torch.inference_mode()")
     B, L, Di = xc.shape
     seg = segment_len(Di)
-    if xc.device.type == "cpu":
+    if xc.device.type in PLAIN_DEVICES:
         if L <= seg:
             return reference_selective_scan(xc, dt, Bm, Cm, a, h0)
         ys, h = [], h0

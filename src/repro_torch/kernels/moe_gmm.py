@@ -22,7 +22,7 @@ launch order). ``h`` is scratch allocated here.
   for bf16 shapes whose D or F is not a multiple of 8 (TMA and the 16-byte
   copies need 16-byte rows).
 
-For tensors on the CPU the wrapper computes the plain version
+For tensors on the CPU or the meta device the wrapper computes the plain version
 (``ref.reference_gmm``); for CUDA tensors it launches the chosen route or
 raises, never another route. ``moe_gmm.launches`` counts calls that launched
 the kernel (one per call), ``moe_gmm.route_launches`` the same calls by route.
@@ -35,7 +35,7 @@ import ctypes
 import torch
 
 from . import build
-from .ref import reference_gmm
+from .ref import PLAIN_DEVICES, reference_gmm
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"fma": 0, "wgmma": 1, "swap_ab": 2}  # as the .cu's Route enum
@@ -87,7 +87,7 @@ def moe_gmm(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w_gate, w_up, w_down)):
         raise NotImplementedError("moe_gmm has no backward kernel yet (ROADMAP K7): "
                                   "call it under torch.no_grad() or torch.inference_mode()")
-    if x.device.type == "cpu":
+    if x.device.type in PLAIN_DEVICES:
         return reference_gmm(x, w_gate, w_up, w_down)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm: unsupported device {x.device}")

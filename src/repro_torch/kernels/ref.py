@@ -2,7 +2,7 @@
 
 Deliberately naive: full score matrices in f32, dense per-expert products,
 a direct sequential scan over time, the tree hash widened to int64. The kernel wrappers use them
-for tensors on the CPU (the tests); on a card they are what ``chip_smoke.py``
+for tensors on the CPU (the tests) and on the meta device (ghost runs); on a card they are what ``chip_smoke.py``
 holds each kernel against. Nothing on the serving or training path calls
 them when the tensors lie on a card.
 """
@@ -12,6 +12,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.models.common import NEG_INF
+
+
+# Devices whose tensors the kernel wrappers hand to these plain versions: the
+# host, and the meta device of ghost runs (shapes only, no bytes, no launch).
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def _acc(dtype: torch.dtype) -> torch.dtype:

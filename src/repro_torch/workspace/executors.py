@@ -7,8 +7,11 @@ executes is a backend choice. ``InlineExecutor`` runs everything in-process
 (the paper's single-node breadboard); ``ConcurrentExecutor`` fans a wave of
 simultaneously-ready tasks across a thread pool. ``MeshExecutor`` binds the
 circuit to one torch device and builds the model steps on it.
-``ZonedExecutor`` and ``AdaptiveExecutor`` (ROADMAP queue 1 item 7) are not
-ported yet: constructing one raises ``NotImplementedError``.
+``ZonedExecutor`` partitions each wave by extended-cloud zone (placement
+decided by the scheduler's ``PlacementPolicy``) and runs each partition
+through its ``inner=`` backend; ``AdaptiveExecutor`` resizes a pool-bearing
+backend between waves. The process backends live in
+:mod:`repro_torch.runtime`.
 
 The scheduling seam is ``run_wave(manager, tasks)``: the event scheduler
 (:mod:`repro_torch.core.scheduler`) computes *waves* of ready tasks and hands each
@@ -188,28 +191,211 @@ class ConcurrentExecutor(InlineExecutor):
         return f"ConcurrentExecutor(max_workers={self.max_workers})"
 
 
-class _NotPorted:
-    """A backend of the JAX package that the port has not reached yet:
-    constructing it raises ``NotImplementedError`` naming its ROADMAP item."""
+class ZonedExecutor(InlineExecutor):
+    """Partition each wave by extended-cloud zone (paper §IV).
 
-    roadmap = ""
+    The scheduler's placement policy has already assigned every task of the
+    wave a zone (on the scheduler thread, before ``run_wave``); this backend
+    groups the wave by zone and runs one zone's partition at a time, in
+    topology declaration order — the in-process stand-in for dispatching
+    each partition to that zone's physical site. Within a partition the
+    ``inner=`` backend decides serial vs thread-pool execution
+    (``ZonedExecutor(inner=ConcurrentExecutor(8))`` composes, exactly like
+    ``MeshExecutor``'s ``inner=``).
 
-    def __init__(self, *args: Any, **kwargs: Any) -> None:
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported yet (ROADMAP {self.roadmap})"
+    Results are re-ordered back to wave order before returning, and emission
+    stays with the scheduler — so arrival seqs, merge-FCFS snapshots, and
+    the provenance stories are bit-identical to Inline/Concurrent backends.
+    Per-zone wave/task counts surface in ``Workspace.stats()["topology"]
+    ["executor_zones"]``.
+    """
+
+    def __init__(self, topology=None, *, inner: Optional[InlineExecutor] = None) -> None:
+        super().__init__()
+        self.topology = topology
+        self.inner = inner
+        self.zone_waves: dict = {}  # zone -> {"waves": n, "tasks": n}
+
+    def _inner_run(self, manager, tasks: list) -> list:
+        if self.inner is not None:
+            return self.inner.run_wave(manager, tasks)
+        return [
+            (t.name, t.execute(manager.store, manager.registry, manager.cache, emit=False))
+            for t in tasks
+        ]
+
+    def run_wave(self, manager, tasks: list) -> list:
+        # one scheduler wave = one waves_run tick, however many zone
+        # partitions it splits into (those are counted in zone_waves)
+        self.waves_run += 1
+        topo = self.topology or getattr(manager, "topology", None)
+        if topo is None:
+            return self._inner_run(manager, tasks)
+        groups: dict = {}
+        for t in tasks:
+            groups.setdefault(t.zone or topo.default_zone, []).append(t)
+        order = {z: i for i, z in enumerate(topo.zone_names())}
+        results: dict = {}
+        for zone in sorted(groups, key=lambda z: (order.get(z, len(order)), z)):
+            part = groups[zone]
+            zw = self.zone_waves.setdefault(zone, {"waves": 0, "tasks": 0})
+            zw["waves"] += 1
+            zw["tasks"] += len(part)
+            for name, out_avs in self._inner_run(manager, part):
+                results[name] = out_avs
+        # back to wave order: the scheduler zips results against the wave
+        # and emits serially, so partition order must not leak downstream
+        return [(t.name, results[t.name]) for t in tasks]
+
+    def stats(self) -> dict:
+        out = super().stats()
+        out["zones"] = {z: dict(v) for z, v in sorted(self.zone_waves.items())}
+        if self.inner is not None:
+            out["inner"] = self.inner.stats()
+        return out
+
+    def __repr__(self) -> str:
+        inner = f"inner={self.inner!r}" if self.inner is not None else "inner=serial"
+        return f"ZonedExecutor({inner})"
+
+
+class AdaptiveExecutor(InlineExecutor):
+    """Feedback-driven autoscaler around a pool-bearing backend.
+
+    Between waves — never inside one — the wrapper reads the scheduler's
+    :class:`~repro_torch.core.scheduler.LoadSignals` and resizes the ``inner``
+    pool (thread or process) toward the p95 wave width, clamped to
+    ``[min_workers, max_workers]``:
+
+      - **scale up** immediately when the signals want a bigger pool (a
+        burst is presenting work right now);
+      - **scale down** only after ``scale_down_patience`` consecutive waves
+        wanted a smaller one (hysteresis: troughs must prove themselves
+        before workers are released).
+
+    Pool size never affects merge order or provenance — the scheduler
+    serializes emission in wave order regardless — so the decision sequence
+    is free to act on live signals. Wave widths are a pure function of the
+    push schedule, hence so are the decisions: the same run produces the
+    same resize sequence under every backend. Every resize is journaled as
+    a typed ``scale`` record, and ``Workspace.from_journal`` replays the
+    decision history (``ReplayedJournal.scales``).
+    """
+
+    def __init__(
+        self,
+        inner: Optional[InlineExecutor] = None,
+        *,
+        min_workers: int = 1,
+        max_workers: int = 8,
+        scale_down_patience: int = 3,
+    ) -> None:
+        super().__init__()
+        if min_workers < 1:
+            raise ValueError(f"min_workers must be >= 1, got {min_workers}")
+        if max_workers < min_workers:
+            raise ValueError(
+                f"max_workers ({max_workers}) must be >= min_workers ({min_workers})"
+            )
+        if scale_down_patience < 1:
+            raise ValueError(
+                f"scale_down_patience must be >= 1, got {scale_down_patience}"
+            )
+        if inner is None:
+            inner = ConcurrentExecutor(max_workers=min_workers)
+        if not callable(getattr(inner, "resize", None)):
+            raise TypeError(
+                f"AdaptiveExecutor needs a pool-bearing inner executor with a "
+                f"resize(n) method (ConcurrentExecutor or ProcessExecutor), "
+                f"got {inner!r}"
+            )
+        self.inner = inner
+        self.min_workers = min_workers
+        self.max_workers = max_workers
+        self.scale_down_patience = scale_down_patience
+        self._calm = 0  # consecutive waves that wanted a smaller pool
+        self.resizes = 0
+        self.scale_ups = 0
+        self.scale_downs = 0
+        self.scale_history: list = []  # journaled scale events, in order
+        start = min(max(inner.max_workers, min_workers), max_workers)
+        if start != inner.max_workers:
+            inner.resize(start)
+
+    @property
+    def current_workers(self) -> int:
+        return self.inner.max_workers
+
+    def run_wave(self, manager, tasks: list) -> list:
+        self._maybe_resize(manager, len(tasks))
+        self.waves_run += 1
+        return self.inner.run_wave(manager, tasks)
+
+    def _maybe_resize(self, manager, wave_width: int) -> None:
+        sched = getattr(manager, "scheduler", None)
+        load = getattr(sched, "load", None)
+        if load is None:
+            return
+        current = self.inner.max_workers
+        # signals include the wave about to run (observe_wave precedes
+        # run_wave); take the larger of p95 and this wave's width so a
+        # burst wider than recent history is served, not queued
+        target = max(int(load.recommended_workers), int(wave_width))
+        target = max(self.min_workers, min(self.max_workers, target))
+        if target > current:
+            self._calm = 0
+            self._apply(manager, load, current, target, "up")
+        elif target < current:
+            self._calm += 1
+            if self._calm >= self.scale_down_patience:
+                self._calm = 0
+                self._apply(manager, load, current, target, "down")
+        else:
+            self._calm = 0
+
+    def _apply(self, manager, load, current: int, target: int, direction: str) -> None:
+        self.inner.resize(target)
+        self.resizes += 1
+        if direction == "up":
+            self.scale_ups += 1
+        else:
+            self.scale_downs += 1
+        event = {
+            "executor": type(self.inner).__name__,
+            "wave": self.waves_run,
+            "from": current,
+            "to": target,
+            "direction": direction,
+            "width_p95": int(load.wave_width_p95),
+            "queue_high_water": int(load.queue_depth_high_water),
+        }
+        self.scale_history.append(event)
+        journal = getattr(manager, "journal", None)
+        if journal is not None and not getattr(journal, "closed", False):
+            journal.append("scale", event)
+
+    def shutdown(self) -> None:
+        shut = getattr(self.inner, "shutdown", None)
+        if shut is not None:
+            shut()
+
+    def stats(self) -> dict:
+        out = super().stats()
+        out["current_workers"] = self.inner.max_workers
+        out["min_workers"] = self.min_workers
+        out["max_workers"] = self.max_workers
+        out["resizes"] = self.resizes
+        out["scale_ups"] = self.scale_ups
+        out["scale_downs"] = self.scale_downs
+        out["last_scale"] = self.scale_history[-1] if self.scale_history else None
+        out["inner"] = self.inner.stats()
+        return out
+
+    def __repr__(self) -> str:
+        return (
+            f"AdaptiveExecutor(inner={self.inner!r}, "
+            f"band=[{self.min_workers},{self.max_workers}])"
         )
-
-
-class ZonedExecutor(_NotPorted):
-    """Partitions each wave by extended-cloud zone (``repro.workspace.executors``)."""
-
-    roadmap = "queue 1 item 7: durable and extended engine"
-
-
-class AdaptiveExecutor(_NotPorted):
-    """Feedback-driven pool autoscaler (``repro.workspace.executors``)."""
-
-    roadmap = "queue 1 item 7: durable and extended engine"
 
 
 class MeshExecutor(InlineExecutor):
@@ -301,12 +487,15 @@ class MeshExecutor(InlineExecutor):
         return f"MeshExecutor(device={str(self.mesh)!r}, mode={self.mode!r}{inner})"
 
 
-EXECUTOR_CHOICES = ("inline", "concurrent")
-# the JAX package's other KOALJA_EXECUTOR names and their aliases
-_NOT_PORTED_CHOICES = (
-    "zoned", "zoned-concurrent", "zoned_concurrent", "process", "process-pool",
-    "process_pool", "zoned-process", "zoned_process", "adaptive", "zoned-adaptive",
-    "zoned_adaptive",
+EXECUTOR_CHOICES = (
+    "inline",
+    "concurrent",
+    "zoned",
+    "zoned-concurrent",
+    "process",
+    "zoned-process",
+    "adaptive",
+    "zoned-adaptive",
 )
 
 
@@ -324,22 +513,33 @@ def _env_max_workers() -> int:
 
 
 def default_executor() -> InlineExecutor:
-    """Backend selected by the ``KOALJA_EXECUTOR`` env var: ``inline``
-    (default) or ``concurrent``, whose thread pool ``KOALJA_MAX_WORKERS``
-    sizes. The JAX package's other backends (``zoned*``, ``process``,
-    ``zoned-process``, ``adaptive``, ``zoned-adaptive``) raise
-    ``NotImplementedError`` naming their ROADMAP item; an unknown name raises
-    ``ValueError``."""
+    """Backend selected by the ``KOALJA_EXECUTOR`` env var (one of
+    ``inline | concurrent | zoned | zoned-concurrent | process |
+    zoned-process | adaptive | zoned-adaptive``); ``KOALJA_MAX_WORKERS``
+    sizes thread and process pools (for adaptive backends it is the upper
+    bound of the autoscaling band). Lets CI smoke every execution substrate
+    across the whole suite without code changes."""
     name = os.environ.get("KOALJA_EXECUTOR", "inline").strip().lower()
     if name in ("concurrent", "threads", "threadpool"):
         return ConcurrentExecutor(max_workers=_env_max_workers())
+    if name in ("zoned",):
+        return ZonedExecutor()
+    if name in ("zoned-concurrent", "zoned_concurrent"):
+        return ZonedExecutor(inner=ConcurrentExecutor(max_workers=_env_max_workers()))
+    if name in ("process", "process-pool", "process_pool"):
+        from repro_torch.runtime import ProcessExecutor
+
+        return ProcessExecutor(max_workers=_env_max_workers())
+    if name in ("zoned-process", "zoned_process"):
+        from repro_torch.runtime import ZonedProcessExecutor
+
+        return ZonedProcessExecutor(max_workers=_env_max_workers())
+    if name in ("adaptive",):
+        return AdaptiveExecutor(max_workers=_env_max_workers())
+    if name in ("zoned-adaptive", "zoned_adaptive"):
+        return ZonedExecutor(inner=AdaptiveExecutor(max_workers=_env_max_workers()))
     if name in ("", "inline"):
         return InlineExecutor()
-    if name in _NOT_PORTED_CHOICES:
-        raise NotImplementedError(
-            f"KOALJA_EXECUTOR={name!r} is not ported yet (ROADMAP queue 1 "
-            f"item 7: durable and extended engine); use inline or concurrent"
-        )
     raise ValueError(
         f"KOALJA_EXECUTOR={name!r} is not a known backend "
         f"(choose from {' | '.join(EXECUTOR_CHOICES)})"

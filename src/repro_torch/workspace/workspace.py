@@ -19,15 +19,15 @@ facade subsumes them:
 Both trigger modes run on the *same* engine (PipelineManager) — the facade
 adds types, declarativity, and a pluggable executor backend
 (:class:`InlineExecutor` in-process, :class:`ConcurrentExecutor` on a
-thread pool), not new semantics. Provenance (travel documents, visitor logs,
-design map) is captured on every run and queryable from the same object.
+thread pool, zone and process backends, :class:`MeshExecutor` on one torch
+device), not new semantics. Provenance (travel
+documents, visitor logs, design map) is captured on every run and queryable
+from the same object.
 
 Port of ``repro.workspace.workspace``. Payloads may be torch tensors on a
 card; the store keeps them there and content hashing digests the large ones
-with the ``hash_tree`` kernel. Flat circuits only, for now: a topology other
-than None/False or a flat ``KOALJA_TOPOLOGY``, placement, journals
-(``journal_path``/``KOALJA_JOURNAL``, ``from_journal``, ``compact_journal``)
-and ghost runs raise ``NotImplementedError`` naming their ROADMAP item.
+with the ``hash_tree`` kernel. Ghost runs take
+:class:`repro_torch.core.wireframe.ShapeDtypeStruct` specs.
 """
 
 from __future__ import annotations
@@ -42,40 +42,12 @@ from repro_torch.core.policy import InputSpec
 from repro_torch.core.provenance import ProvenanceRegistry
 from repro_torch.core.store import ArtifactStore
 from repro_torch.core.task import ServiceCall, SmartTask
+from repro_torch.topology import Topology, default_topology
 
 from .executors import Executor, InlineExecutor, default_executor
 from .handles import Port, TaskDecl, TaskHandle, Wire, WireDecl, WiringError
 
 TaskRef = Union[str, TaskHandle, Port]
-
-
-_ITEM_7 = "ROADMAP queue 1 item 7: durable and extended engine"
-_PLACEMENTS = ("data_gravity", "energy", "pin")  # the JAX package's policy names
-
-
-def _flat_topology(topology) -> None:
-    """Check that a circuit is flat: ``topology`` None (then
-    ``KOALJA_TOPOLOGY`` must be unset or flat) or False."""
-    if topology is False:
-        return
-    if topology is not None:
-        raise NotImplementedError(f"topologies are not ported yet ({_ITEM_7})")
-    name = os.environ.get("KOALJA_TOPOLOGY", "flat").strip().lower()
-    if name in ("", "flat", "none"):
-        return
-    if name in ("3zone", "three_zone", "three-zone"):
-        raise NotImplementedError(f"KOALJA_TOPOLOGY={name!r} is not ported yet ({_ITEM_7})")
-    raise ValueError(f"KOALJA_TOPOLOGY={name!r} is not a known topology (flat | 3zone)")
-
-
-def _check_no_journal(journal_path) -> None:
-    """Journals are not ported: ``journal_path`` must be None (then
-    ``KOALJA_JOURNAL`` must be off) or False."""
-    if journal_path is False:
-        return
-    env = os.environ.get("KOALJA_JOURNAL", "").strip()
-    if journal_path is not None or env.lower() not in ("", "0", "false", "no", "off"):
-        raise NotImplementedError(f"provenance journals are not ported yet ({_ITEM_7})")
 
 
 class WorkspaceFrozenError(RuntimeError):
@@ -183,7 +155,7 @@ class Workspace:
         registry: Optional[ProvenanceRegistry] = None,
         cache=None,
         max_rounds: int = 100,
-        topology: Any = None,
+        topology: Union[Topology, bool, None] = None,
         placement=None,
         journal_path: Union[str, bool, None] = None,
         journal_flush_every_n: Optional[int] = None,
@@ -194,27 +166,48 @@ class Workspace:
         # executor=None defers to KOALJA_EXECUTOR (inline | concurrent) so
         # whole suites can smoke the threaded scheduler path via env.
         self.executor = executor or default_executor()
-        # topology=None defers to KOALJA_TOPOLOGY, which must be flat;
-        # topology=False forces flat. placement only matters under a
-        # topology, but its name is validated here, as the reference does.
-        _flat_topology(topology)
-        self._topology = None
-        env_placement = os.environ.get("KOALJA_PLACEMENT", "").strip().lower() or None
-        self._placement = placement if placement is not None else env_placement
-        if isinstance(self._placement, str) and self._placement not in _PLACEMENTS:
-            source = "placement=" if placement is not None else "KOALJA_PLACEMENT="
-            raise ValueError(
-                f"{source}{self._placement!r} is not a known placement "
-                f"policy (choose from {' | '.join(_PLACEMENTS)})"
-            )
+        # topology=None defers to KOALJA_TOPOLOGY (flat | 3zone);
+        # topology=False forces flat regardless of env. placement is
+        # "pin" | "data_gravity" | a PlacementPolicy; None defers to
+        # KOALJA_PLACEMENT, then to the data_gravity default.
+        if topology is False:
+            self._topology = None
+        else:
+            self._topology = topology if topology is not None else default_topology()
+        self._placement = (
+            placement
+            if placement is not None
+            else (os.environ.get("KOALJA_PLACEMENT", "").strip().lower() or None)
+        )
+        # Validate the policy *name* now, at construction — not lazily at
+        # first build (and never at all on flat circuits, where a typo'd
+        # KOALJA_PLACEMENT used to be silently ignored).
+        if isinstance(self._placement, str):
+            from repro_torch.topology.placement import _POLICIES
+
+            if self._placement not in _POLICIES:
+                source = (
+                    "placement=" if placement is not None else "KOALJA_PLACEMENT="
+                )
+                raise ValueError(
+                    f"{source}{self._placement!r} is not a known placement "
+                    f"policy (choose from {' | '.join(sorted(_POLICIES))})"
+                )
         self._store = store or ArtifactStore()
         self._registry = registry or ProvenanceRegistry()
         # cache=None -> default MemoCache; cache=False -> caching disabled
         self._cache = MemoCache() if cache is None else cache
-        # journal_path=None defers to KOALJA_JOURNAL, which must be off;
-        # journal_path=False forces the journal off
-        _check_no_journal(journal_path)
-        self._journal = None
+        # journal_path=None defers to KOALJA_JOURNAL ("1" -> a per-workspace
+        # file under the system tempdir; any other non-empty value -> a
+        # directory to create per-workspace journals in); journal_path=False
+        # forces the journal off regardless of env.
+        self._journal = self._make_journal(
+            journal_path,
+            journal_flush_every_n,
+            journal_rotate_bytes,
+            journal_rotate_records,
+        )
+        self._replay = None  # set by from_journal (rehydrated workspaces)
         self._max_rounds = max_rounds
         self._decls: dict = {}
         self._wires: list = []
@@ -223,11 +216,81 @@ class Workspace:
         self._manager: Optional[PipelineManager] = None
         self._watchers: list = []
 
+    def _make_journal(
+        self, journal_path, flush_every_n, rotate_bytes=None, rotate_records=None
+    ):
+        if journal_path is False:
+            return None
+        if hasattr(journal_path, "append_batch"):
+            # a pre-built Journal instance (multi-tenant hubs hand each
+            # workspace a per-tenant journal drawing seqs from the hub)
+            return journal_path
+        if journal_path is None:
+            env = os.environ.get("KOALJA_JOURNAL", "").strip()
+            if env.lower() in ("", "0", "false", "no", "off"):
+                return None
+            import tempfile
+
+            if env.lower() in ("1", "true", "yes", "on"):
+                root = os.path.join(tempfile.gettempdir(), "koalja-journals")
+            else:
+                root = env  # a directory to keep per-workspace journals in
+            os.makedirs(root, exist_ok=True)
+            import uuid
+
+            journal_path = os.path.join(
+                root, f"{self.name}-{os.getpid()}-{uuid.uuid4().hex[:8]}.jsonl"
+            )
+        from repro_torch.provenance import Journal
+
+        return Journal(
+            journal_path,
+            flush_every_n=flush_every_n,
+            workspace=self.name,
+            rotate_bytes=rotate_bytes,
+            rotate_records=rotate_records,
+        )
+
     @classmethod
     def from_journal(cls, path, **ws_kwargs: Any) -> "Workspace":
-        """Rehydrating the forensic stories from a provenance journal is not
-        ported yet."""
-        raise NotImplementedError(f"Workspace.from_journal is not ported yet ({_ITEM_7})")
+        """Rehydrate the forensic stories from a provenance journal written
+        by a previous (possibly crashed) process.
+
+        ``path`` is a journal *base* path — the whole segment chain is
+        discovered from it: rotated segments (``<path>.000N``), the best
+        checkpoint snapshot (``<path>.ckpt-*``, if the journal was
+        compacted), and the live tail replay as one seq-ordered stream, so
+        restart cost after compaction is checkpoint + tail rather than full
+        history. For a multi-process run under
+        :class:`~repro_torch.runtime.ZonedProcessExecutor`, pass a list/tuple of
+        ``[main_journal, *runner_segments]``: the segments merge back into
+        one seq-ordered stream before replay
+        (:func:`repro_torch.provenance.replay_segments`).
+
+        The returned workspace holds a replayed registry — ``lineage()``,
+        ``visitor_log()``, ``design_map()``, ``visits_of`` and, when the run
+        had a topology, ``stats()["topology"]["ledger"]`` answer exactly as
+        the writing process would have (a torn final line from a mid-write
+        crash is detected and dropped, per file). It is a forensic view,
+        not a runnable circuit: the journal records events, not user code,
+        so declare tasks on a fresh Workspace to compute again."""
+        from repro_torch.provenance import replay_journal, replay_segments
+
+        if isinstance(path, (list, tuple)):
+            main, *segments = path
+            replayed = replay_segments(main, segments)
+        else:
+            replayed = replay_journal(path)
+        ws = cls(
+            name=replayed.workspace or "rehydrated",
+            registry=replayed.registry,
+            topology=False,  # the replayed ledger is the topology story
+            cache=False,
+            journal_path=False,  # rehydration must never re-journal history
+            **ws_kwargs,
+        )
+        ws._replay = replayed
+        return ws
 
     # ------------------------------------------------------------------
     # breadboard: declaring tasks and wires
@@ -521,12 +584,22 @@ class Workspace:
                 w._notify(TaskResult(self, w.task, out_avs))
 
     def ghost(self, injections: dict, pulls: Optional[list] = None) -> dict:
-        """Wireframing the circuit with ghost batches needs the port's ghost
-        type, which comes with ``core/wireframe.py``."""
-        raise NotImplementedError(
-            "ghost runs are not ported yet (ROADMAP queue 1 item 2c: wireframe, "
-            "with an explicit ghost type)"
-        )
+        """Wireframe the circuit with ghost batches (ShapeDtypeStructs):
+        expose routing and shape contracts without moving a byte (§III.K).
+        injection keys: Port, (task, input), or "task.input"."""
+        from repro_torch.core.wireframe import ghost_run
+
+        mgr = self._build()
+        normalized = {}
+        for key, spec in injections.items():
+            if isinstance(key, Port):
+                normalized[(key.task.name, key.name)] = spec
+            elif isinstance(key, tuple):
+                normalized[(self._name_of(key[0]), key[1])] = spec
+            else:
+                task, _, iname = str(key).partition(".")
+                normalized[(task, iname)] = spec
+        return ghost_run(mgr, normalized, pulls=[self._name_of(p) for p in pulls or []])
 
     # ------------------------------------------------------------------
     # introspection & provenance (the three stories, one surface)
@@ -550,12 +623,15 @@ class Workspace:
         return self._store
 
     @property
-    def topology(self):
+    def topology(self) -> Optional[Topology]:
         return self._topology
 
     @property
     def ledger(self):
-        """The extended-cloud transfer ledger: None on flat circuits."""
+        """The extended-cloud transfer ledger (None on flat circuits; the
+        replayed ledger on a journal-rehydrated workspace)."""
+        if self._replay is not None:
+            return self._replay.ledger
         return self._build().ledger
 
     @property
@@ -563,9 +639,56 @@ class Workspace:
         """The durable provenance journal (None when journaling is off)."""
         return self._journal
 
-    def compact_journal(self, **kwargs: Any) -> dict:
-        """Journal compaction is not ported yet."""
-        raise NotImplementedError(f"journal compaction is not ported yet ({_ITEM_7})")
+    def compact_journal(
+        self,
+        *,
+        retire_evicted: bool = False,
+        archive_dir: Optional[str] = None,
+    ) -> dict:
+        """Fold the journal's rotated history into a checkpoint snapshot
+        (:meth:`repro_torch.provenance.Journal.compact`), so the next
+        ``from_journal`` replays checkpoint + tail instead of full history.
+
+        ``retire_evicted=True`` first trims the forensic horizon: AVs whose
+        payloads the store can no longer resolve (evicted local-only
+        artifacts) and AVs stamped ``dropped`` (streaming-window members the
+        merge policy aged out) are retired from the registry — journaled as
+        a ``retired`` record, so replays agree — before the fold. That is
+        what keeps checkpoint size proportional to *live* state on an
+        unbounded stream; the default keeps the drop-forensics story intact
+        (dropped travellers stay queryable forever).
+
+        Per-zone runner segment files (multi-process runs) are folded in
+        automatically; call between drains, not mid-flight. ``archive_dir``
+        moves folded segments aside instead of deleting them — the
+        cold-tier hook, and the uncompacted oracle for audits
+        (:func:`repro_torch.provenance.replay_files`). Returns the compaction
+        report."""
+        if self._journal is None:
+            raise ValueError(
+                f"workspace {self.name!r} has no journal to compact "
+                "(enable with journal_path= or KOALJA_JOURNAL=1)"
+            )
+        if retire_evicted:
+            doomed = []
+            for uid in self._registry.all_avs():
+                av = self._registry.get_av(uid)
+                if any(s.event == "dropped" for s in av.travel_document):
+                    doomed.append(uid)
+                elif not av.uri.startswith("ghost://") and not self._store.resolvable(
+                    av.uri
+                ):
+                    doomed.append(uid)
+            if doomed:
+                self._registry.retire_avs(
+                    doomed, note="compaction horizon: evicted/dropped payloads"
+                )
+        self._journal.flush()
+        seg_fn = getattr(self.executor, "segment_paths", None)
+        segments = seg_fn() if seg_fn is not None else ()
+        return self._journal.compact(
+            segment_paths=segments, archive_dir=archive_dir
+        )
 
     def value_of(self, av: AnnotatedValue) -> Any:
         return self._store.get(av.uri)
@@ -594,12 +717,47 @@ class Workspace:
         ``scheduler`` block is the trigger-work scorecard: waves, queue
         depth high-water, and tasks-enqueued vs the polling-scan equivalent
         a round-robin polling engine would have burned. The ``topology``
-        and ``journal`` blocks are None: the port runs flat circuits without
-        a journal."""
+        block (None on flat circuits) is the extended-cloud scorecard:
+        per-zone residents/executions, placement decisions, and the
+        transfer ledger's cross-zone bytes and energy."""
         out = self._build().stats()
         stats_fn = getattr(self.executor, "stats", None)
         out["executor"] = stats_fn() if stats_fn is not None else None
-        out["journal"] = None
+        # a ZonedExecutor partitions waves by zone; surface its per-zone
+        # wave counters inside the topology block where readers look first
+        zone_waves = getattr(self.executor, "zone_waves", None)
+        if out.get("topology") is not None and zone_waves is not None:
+            out["topology"]["executor_zones"] = {
+                z: dict(v) for z, v in sorted(zone_waves.items())
+            }
+        # durable-journal scorecard: what the forensic stories cost on disk
+        out["journal"] = self._journal.stats() if self._journal is not None else None
+        if self._replay is not None:
+            out["journal"] = {
+                "path": None,
+                "rehydrated": True,
+                "replayed_records": self._replay.records,
+                "truncated_lines": self._replay.truncated,
+                "replayed_counts": dict(self._replay.counts),
+                # segment-chain shape of the replayed journal: how many
+                # files held the history and how much of it compaction had
+                # already folded into checkpoints before this replay
+                "segments": self._replay.segments,
+                "checkpoints": self._replay.checkpoints,
+                "records_compacted": self._replay.records_compacted,
+                # AdaptiveExecutor resize decisions, in journal order — the
+                # autoscaling history survives restarts like everything else
+                "scale_events": list(self._replay.scales),
+            }
+            if self._replay.ledger is not None:
+                # the replayed transfer ledger answers where the engine's
+                # would have — same stats shape readers already know
+                out["topology"] = {
+                    "name": self._replay.topology.name,
+                    "default_zone": self._replay.topology.default_zone,
+                    "rehydrated": True,
+                    "ledger": self._replay.ledger.stats(),
+                }
         return out
 
     def tasks(self) -> list:

@@ -276,8 +276,24 @@ def test_tensor_trailer_uses_numpy_dtype_names():
 def test_meta_tensor_is_not_a_ghost_and_raises():
     meta = torch.empty(4, 4, device="meta")
     assert not hashing.is_ghost(meta)
-    with pytest.raises(TypeError, match="wireframe"):
+    with pytest.raises(TypeError, match=r"no bytes to hash; pass a ghost as .*ShapeDtypeStruct"):
         hashing.content_hash(meta)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(4, 4), (2, 3, 5)])
+def test_ghost_spec_digest_equals_the_reference(shape, dtype):
+    """The port's ghost spec digests as the JAX package's ShapeDtypeStruct
+    of the same shape and dtype, whether its dtype is given by name or as a
+    torch dtype."""
+    import jax
+
+    from repro_torch.core.wireframe import ShapeDtypeStruct
+
+    want = jax_hashing.content_hash(jax.ShapeDtypeStruct(shape, jnp.dtype(dtype)))
+    for spec in (ShapeDtypeStruct(shape, dtype), ShapeDtypeStruct(list(shape), getattr(torch, dtype))):
+        assert hashing.is_ghost(spec)
+        assert hashing.content_hash(spec) == want
 
 
 def test_typo_hash_backend_raises(monkeypatch):
