@@ -13,9 +13,9 @@ for 'software updates trigger recomputation'.
 
 Port of ``repro.core.evalloop``. The checkpoint payload ``{"params": ...,
 "step": ...}`` is a dict of tensors, which digests in the pickle tier, as the
-JAX package's dict of arrays does. A tensor's pickle names its storage, so
-the same tensors republished digest the same (a memo hit) and tensors
-updated in place digest anew, while an equal copy in other storage misses.
+JAX package's dict of arrays does. Tensors pickle there by value, so equal
+tensors republished, copied or reloaded digest the same (a memo hit) and
+tensors updated in place digest anew.
 """
 
 from __future__ import annotations

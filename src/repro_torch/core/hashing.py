@@ -24,6 +24,13 @@ scalar (str/int/...)   ``sha256(repr(payload))``
 arbitrary object       ``sha256("pickle:" + pickle.dumps)``
 =====================  ==========================================
 
+In the pickle tier (:func:`content_pickle`) a tensor pickles as the numpy
+array of its values, so a dict or list of tensors digests as the JAX
+package's container of numpy arrays of the same values, shape and dtype,
+wherever the tensors live. A dtype numpy lacks (``bfloat16``, the float8
+types) pickles as its name, shape and unsigned-integer bits: stable, but not
+the reference's pickle of a JAX array.
+
 Torch tensors are arrays here: a tensor hashes exactly like the numpy (or
 JAX) array of the same bytes, shape and dtype. Its bytes are those of
 ``t.contiguous().reshape(-1).view(torch.uint8)`` (a non-contiguous view hashes
@@ -65,6 +72,7 @@ digest is ``sha256(state || nbytes || shape || dtype || "tree")[:16]``.
 from __future__ import annotations
 
 import hashlib
+import io
 import json
 import os
 import pickle
@@ -77,6 +85,7 @@ import torch
 __all__ = [
     "content_hash",
     "content_hash_batch",
+    "content_pickle",
     "tree_state_np",
     "tree_digest",
     "hashing_stats",
@@ -257,17 +266,61 @@ def _json_canonical(payload) -> Optional[bytes]:
         return None
 
 
+# numpy dtypes of the same width, for the bits of a dtype numpy lacks
+_BITS = {1: (torch.uint8, np.uint8), 2: (torch.int16, np.uint16),
+         4: (torch.int32, np.uint32), 8: (torch.int64, np.uint64)}
+
+
+def _from_bits(dtype: str, shape: tuple, bits: np.ndarray) -> torch.Tensor:
+    """Rebuild a tensor that :func:`_tensor_reduction` pickled by its bits."""
+    return torch.from_numpy(bits.copy()).view(getattr(torch, dtype)).reshape(shape)
+
+
+def _tensor_reduction(t: torch.Tensor):
+    """A tensor's pickle reduction by value: that of its numpy array (no
+    contiguity forced, so an F-ordered view pickles with numpy's order flag);
+    for a dtype numpy lacks, its name, shape and the numpy array of its
+    unsigned-integer bits, made contiguous."""
+    t = t.detach().resolve_conj().resolve_neg().cpu()
+    try:
+        return t.numpy().__reduce__()
+    except TypeError:
+        signed, unsigned = _BITS[t.element_size()]
+        bits = t.contiguous().view(signed).numpy().view(unsigned)
+        return _from_bits, (_dtype_name(t.dtype), tuple(t.shape), bits)
+
+
+class _ContentPickler(pickle.Pickler):
+    """Pickles a strided tensor by value (:func:`_tensor_reduction`), never
+    by torch's storage record, which names the storage's key and device."""
+
+    def reducer_override(self, obj):
+        if isinstance(obj, torch.Tensor) and obj.layout is torch.strided and not obj.is_meta:
+            return _tensor_reduction(obj)
+        return NotImplemented
+
+
+def content_pickle(payload: Any) -> bytes:
+    """Protocol-4 pickle of a payload with tensors reduced by value: the bytes
+    the pickle tier digests and the store charges for a payload without
+    ``nbytes``. Equal to ``pickle.dumps(.., protocol=4)`` of the same
+    container holding numpy arrays, for every dtype numpy has."""
+    buf = io.BytesIO()
+    _ContentPickler(buf, protocol=4).dump(payload)
+    return buf.getvalue()
+
+
 def _pickle_digest(payload, on_unstable: Optional[Callable[[str], None]]) -> str:
     try:
         if isinstance(payload, (set, frozenset)):
             # Set iteration order is hash-salted per process; canonicalize
             # by sorting when the elements allow it.
             try:
-                blob = pickle.dumps(("sorted-set", sorted(payload)), protocol=4)
+                blob = content_pickle(("sorted-set", sorted(payload)))
             except TypeError:
-                blob = pickle.dumps(payload, protocol=4)
+                blob = content_pickle(payload)
         else:
-            blob = pickle.dumps(payload, protocol=4)
+            blob = content_pickle(payload)
         _STATS["pickle_hashes"] += 1
         return _stable_hash_bytes(b"pickle:" + blob)
     except Exception:

@@ -40,7 +40,7 @@ from typing import Any, Iterable, Optional, Union
 import numpy as np
 import torch
 
-from .hashing import content_hash_batch
+from .hashing import content_hash_batch, content_pickle
 
 
 class _Timer:
@@ -181,10 +181,12 @@ class ArtifactStore:
 
     @staticmethod
     def _nbytes(payload: Any) -> int:
+        # a container of tensors is charged the length of its pickle with the
+        # tensors by value, as the pickle tier digests it
         if hasattr(payload, "nbytes") and payload.nbytes is not None:
             return int(payload.nbytes)
         try:
-            return len(pickle.dumps(payload, protocol=4))
+            return len(content_pickle(payload))
         except Exception:
             return 1 << 12
 

@@ -16,9 +16,19 @@ mod 2**32, and a digest either matches or does not.
   plus bf16, bool, 0-d, empty, non-contiguous and > 4 MiB ragged arrays, each
   array given to the port both as numpy and as a CPU tensor of the same
   bytes: every digest equals the JAX package's.
+- The pickle tier (fault F2): a container of tensors digests by value, as
+  the reference's container of numpy arrays, in other storage, in a child
+  process, as an F-ordered view and with ``requires_grad``; in place updates
+  digest anew; bf16 digests by its bits; the store charges such a container
+  the reference's length.
 """
 
 import dataclasses
+import os
+import pickle
+import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -311,3 +321,105 @@ def test_hash_backend_chooses_nothing(backend, monkeypatch):
     before = hashing.hashing_stats()["backend_fallbacks"]
     assert hashing.content_hash(torch.from_numpy(a)) == want
     assert hashing.hashing_stats()["backend_fallbacks"] == before
+
+
+# ---------------------------------------------------------------------------
+# the pickle tier (F2): containers of tensors digest by value
+# ---------------------------------------------------------------------------
+
+F2_DTYPES = ["float32", "float64", "int32", "int64", "uint8", "bool"]
+
+
+def _f2_values(dtype: str) -> np.ndarray:
+    a = np.random.RandomState(11).randn(4, 6) * 50
+    return a > 0 if dtype == "bool" else a.astype(dtype)
+
+
+@pytest.fixture(scope="module")
+def child_digests():
+    """The port's digests of ``{"w": t, "step": 3}`` for each of F2_DTYPES,
+    computed in a child process from the same seed."""
+    src = Path(hashing.__file__).resolve().parents[2]
+    code = (
+        "import json, numpy as np, torch\n"
+        "from repro_torch.core.hashing import content_hash\n"
+        f"out = {{}}\n"
+        f"for d in {F2_DTYPES!r}:\n"
+        "    a = np.random.RandomState(11).randn(4, 6) * 50\n"
+        "    a = a > 0 if d == 'bool' else a.astype(d)\n"
+        "    out[d] = content_hash({'w': torch.from_numpy(a), 'step': 3})\n"
+        "print(json.dumps(out))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=str(src)))
+    assert r.returncode == 0, r.stderr
+    import json
+
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("dtype", F2_DTYPES)
+def test_container_of_tensors_digests_as_the_reference(dtype, child_digests):
+    """``{"w": t}``, ``{"w": t.clone()}`` and ``{"w": t}`` in a child process
+    give one digest, the reference's for ``{"w": t.numpy()}``; the pickle is
+    the reference's byte for byte."""
+    a = _f2_values(dtype)
+    t = torch.from_numpy(a.copy())
+    want = jax_hashing.content_hash({"w": a, "step": 3})
+    assert hashing.content_hash({"w": t, "step": 3}) == want
+    assert hashing.content_hash({"w": t.clone(), "step": 3}) == want
+    assert child_digests[dtype] == want
+    assert hashing.content_pickle({"w": t, "step": 3}) == pickle.dumps({"w": a, "step": 3}, protocol=4)
+
+
+def test_f_ordered_view_digests_as_the_reference_f_ordered_array():
+    a = _f2_values("float32")
+    t = torch.from_numpy(a).T
+    assert a.T.flags["F_CONTIGUOUS"] and not a.T.flags["C_CONTIGUOUS"]
+    want = jax_hashing.content_hash([a.T, 1])
+    assert hashing.content_hash([t, 1]) == want
+    # numpy pickles the order flag, so the C-ordered copy digests otherwise
+    assert hashing.content_hash([t.contiguous(), 1]) != want
+    assert hashing.content_hash([t.contiguous(), 1]) == jax_hashing.content_hash([np.ascontiguousarray(a.T), 1])
+
+
+def test_tensor_updated_in_place_digests_anew():
+    t = torch.arange(12.0).reshape(3, 4)
+    payload = {"params": [{"w": t}], "step": 3}
+    first = hashing.content_hash(payload)
+    assert hashing.content_hash(payload) == first
+    t[1, 2] += 1.0
+    assert hashing.content_hash(payload) != first
+    assert hashing.content_hash(payload) == jax_hashing.content_hash({"params": [{"w": t.numpy()}], "step": 3})
+
+
+def test_requires_grad_tensor_digests_as_its_detached_value():
+    w = torch.nn.Parameter(torch.linspace(-1.0, 1.0, 10))
+    x = torch.linspace(0.0, 2.0, 10, requires_grad=True) * 2.0  # a non-leaf with a grad_fn
+    payload = {"w": w, "x": x}
+    want = hashing.content_hash({"w": w.detach().clone(), "x": x.detach().clone()})
+    assert hashing.content_hash(payload) == want
+    assert want == jax_hashing.content_hash({"w": w.detach().numpy(), "x": x.detach().numpy()})
+
+
+def test_bf16_tensor_digests_by_its_bits():
+    b = torch.from_numpy(np.random.RandomState(3).randn(5, 7).astype(np.float32)).to(torch.bfloat16)
+    digest = hashing.content_hash({"b": b})
+    assert hashing.content_hash({"b": b.clone()}) == digest
+    assert hashing.content_hash({"b": b.T.contiguous().T}) == digest  # layout-free
+    assert hashing.content_hash({"b": b.float()}) != digest
+    b2 = b.clone()
+    b2[0, 0] = b2[0, 0] * 2
+    assert hashing.content_hash({"b": b2}) != digest
+    back = pickle.loads(hashing.content_pickle({"b": b}))["b"]
+    assert back.dtype == torch.bfloat16 and torch.equal(back, b)
+
+
+@pytest.mark.parametrize("dtype", F2_DTYPES)
+def test_store_charges_a_dict_of_tensors_as_the_reference(dtype):
+    from repro.core.store import ArtifactStore as JaxStore
+    from repro_torch.core.store import ArtifactStore as TorchStore
+
+    a = _f2_values(dtype)
+    want = JaxStore._nbytes({"w": a, "step": 3, "tags": ["x"]})
+    assert TorchStore._nbytes({"w": torch.from_numpy(a), "step": 3, "tags": ["x"]}) == want
