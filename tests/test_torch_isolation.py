@@ -27,7 +27,8 @@ def test_no_module_imports_jax_or_repro():
     ]
     assert "repro_torch.kernels.flash_decode" in names and "repro_torch.launch.serve" in names
     assert {"repro_torch.launch.train", "repro_torch.checkpoint.checkpoint", "repro_torch.optim.adamw",
-            "repro_torch.data.pipeline", "repro_torch.dist.ft", "repro_torch.launch.mesh"} <= set(names)
+            "repro_torch.data.pipeline", "repro_torch.dist.ft", "repro_torch.launch.mesh",
+            "repro_torch.tenancy.hub", "repro_torch.tenancy.memo"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
