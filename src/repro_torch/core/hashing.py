@@ -72,7 +72,6 @@ digest is ``sha256(state || nbytes || shape || dtype || "tree")[:16]``.
 from __future__ import annotations
 
 import hashlib
-import io
 import json
 import os
 import pickle
@@ -86,6 +85,7 @@ __all__ = [
     "content_hash",
     "content_hash_batch",
     "content_pickle",
+    "pickled_nbytes",
     "tree_state_np",
     "tree_digest",
     "hashing_stats",
@@ -300,14 +300,35 @@ class _ContentPickler(pickle.Pickler):
         return NotImplemented
 
 
-def content_pickle(payload: Any) -> bytes:
-    """Protocol-4 pickle of a payload with tensors reduced by value: the bytes
-    the pickle tier digests and the store charges for a payload without
-    ``nbytes``. Equal to ``pickle.dumps(.., protocol=4)`` of the same
-    container holding numpy arrays, for every dtype numpy has."""
-    buf = io.BytesIO()
-    _ContentPickler(buf, protocol=4).dump(payload)
-    return buf.getvalue()
+def content_pickle(payload: Any, file) -> None:
+    """Write the protocol-4 pickle of a payload, tensors reduced by value, to
+    ``file``: the bytes the pickle tier digests and the store charges for a
+    payload without ``nbytes``. They equal ``pickle.dumps(.., protocol=4)``
+    of the same container holding numpy arrays, for every dtype numpy has."""
+    _ContentPickler(file, protocol=4).dump(payload)
+
+
+class _Sink:
+    """A write-only file that counts what is written and feeds it to a hash,
+    so that a pickle is never held whole."""
+
+    def __init__(self, digest=None):
+        self.nbytes = 0
+        self._digest = digest
+
+    def write(self, data) -> int:
+        n = len(data)
+        self.nbytes += n
+        if self._digest is not None:
+            self._digest.update(data)
+        return n
+
+
+def pickled_nbytes(payload: Any) -> int:
+    """Length of :func:`content_pickle`'s bytes."""
+    sink = _Sink()
+    content_pickle(payload, sink)
+    return sink.nbytes
 
 
 def _pickle_digest(payload, on_unstable: Optional[Callable[[str], None]]) -> str:
@@ -316,13 +337,13 @@ def _pickle_digest(payload, on_unstable: Optional[Callable[[str], None]]) -> str
             # Set iteration order is hash-salted per process; canonicalize
             # by sorting when the elements allow it.
             try:
-                blob = content_pickle(("sorted-set", sorted(payload)))
+                payload = ("sorted-set", sorted(payload))
             except TypeError:
-                blob = content_pickle(payload)
-        else:
-            blob = content_pickle(payload)
+                pass
+        h = hashlib.sha256(b"pickle:")
+        content_pickle(payload, _Sink(h))
         _STATS["pickle_hashes"] += 1
-        return _stable_hash_bytes(b"pickle:" + blob)
+        return h.hexdigest()[:16]
     except Exception:
         _STATS["unstable_hashes"] += 1
         if on_unstable is not None:

@@ -40,7 +40,7 @@ from typing import Any, Iterable, Optional, Union
 import numpy as np
 import torch
 
-from .hashing import content_hash_batch, content_pickle
+from .hashing import content_hash_batch, pickled_nbytes
 
 
 class _Timer:
@@ -186,7 +186,7 @@ class ArtifactStore:
         if hasattr(payload, "nbytes") and payload.nbytes is not None:
             return int(payload.nbytes)
         try:
-            return len(content_pickle(payload))
+            return pickled_nbytes(payload)
         except Exception:
             return 1 << 12
 

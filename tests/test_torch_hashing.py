@@ -24,6 +24,7 @@ mod 2**32, and a digest either matches or does not.
 """
 
 import dataclasses
+import io
 import os
 import pickle
 import subprocess
@@ -369,7 +370,10 @@ def test_container_of_tensors_digests_as_the_reference(dtype, child_digests):
     assert hashing.content_hash({"w": t, "step": 3}) == want
     assert hashing.content_hash({"w": t.clone(), "step": 3}) == want
     assert child_digests[dtype] == want
-    assert hashing.content_pickle({"w": t, "step": 3}) == pickle.dumps({"w": a, "step": 3}, protocol=4)
+    buf = io.BytesIO()
+    hashing.content_pickle({"w": t, "step": 3}, buf)
+    assert buf.getvalue() == pickle.dumps({"w": a, "step": 3}, protocol=4)
+    assert hashing.pickled_nbytes({"w": t, "step": 3}) == len(buf.getvalue())
 
 
 def test_f_ordered_view_digests_as_the_reference_f_ordered_array():
@@ -411,7 +415,9 @@ def test_bf16_tensor_digests_by_its_bits():
     b2 = b.clone()
     b2[0, 0] = b2[0, 0] * 2
     assert hashing.content_hash({"b": b2}) != digest
-    back = pickle.loads(hashing.content_pickle({"b": b}))["b"]
+    buf = io.BytesIO()
+    hashing.content_pickle({"b": b}, buf)
+    back = pickle.loads(buf.getvalue())["b"]
     assert back.dtype == torch.bfloat16 and torch.equal(back, b)
 
 
