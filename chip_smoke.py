@@ -72,6 +72,19 @@ on, so that their numbers are still printed):
      live (host plans in workers, bit-equal; card plans in the parent) and a
      ``ZonedProcessExecutor`` whose merged journal segments replay to the
      inline run;
+  3f. the multi-tenant hub (``repro_torch.tenancy``) on card payloads: B15
+     uncut (64 tenants push a working set of 8, rotated, through src ->
+     (left, right) -> join; payloads of 4.5 MiB on the card, drawn from a
+     seed; journaled, inline, no topology): 2016 of 2048 firings avoided
+     (64.0x), ``hash_tree`` launches equal to the tree-tier digests (4 a
+     push), pushes/s, push p50/p99, journal records/s; a replaying tenant's
+     device-to-host copies are digest states of <= 12 B, and another's idle
+     share; four tenants fingerprint as private runs of their scripts and as
+     the hub's rehydration; a joule quota on a zoned tenant admits exactly
+     ``JOULE_PUSHES`` pushes, the refused one leaves the ledger as it was, and
+     the warning and the refusal are journaled once each; a tenant under
+     zone runners keeps its card plans in the parent and replays, with its
+     runners' segments, to the inline run;
   3d. serve mixtral-8x7b (8 of its 32 layers: all 32 hold ~93 GB of bf16
      weights; prompt 4080, so that its cache is a ring of 4096 slots that
      decode wraps), minicpm3-4b (MLA), internvl2-1b (a vision prefix of
@@ -119,7 +132,8 @@ on, so that their numbers are still printed):
      ``no_grad``): publish and report is one eval of exactly 24
      ``flash_attention`` launches, an unchanged republish a memo hit with no
      launch, one more train step a recompute (the checkpoint's pickle-tier
-     digest, the eval's and the hit's seconds); and the forward and K1 timed at the
+     digest, equal for the dict copied to the host and cloned on the card;
+     the eval's and the hit's seconds); and the forward and K1 timed at the
      training shape (K1 also at qwen2.5-32b's heads, Dh 128) beside their
      bounds, their plain versions and SDPA, K1 on wgmma and on mma in turns,
      with each launch's device time from the profiler (dq and dkdv; on mma
@@ -984,6 +998,294 @@ def durable_phase(dev, wall, time_ms, rows, flat_s):
     del w
 
 
+# phase 3f: B15 (benchmarks/bench_koalja.py: 848-917), uncut: 64 tenants each
+# push the working set of 8 (rotated) through src -> (left, right) -> join,
+# with each payload grown from 256 floats to B14's 4.5 MiB on the card. B15's
+# payload p is full(p); at 4.5 MiB that goes to the tree tier, whose block sums
+# (128 equal words: 128 x word mod 2**32) drop a float's top 7 bits, so
+# full(0.0), full(2.0) and full(8.0) digest alike in both packages; each payload
+# is drawn from the seed instead. Four tenants spread over the 64 are held
+# against a private run of their script; the joule drill admits JOULE_PUSHES
+# pushes of a zoned tenant
+B15 = dict(tenants=64, working_set=8, checked=(0, 21, 42, 63), host_el=256, seed=15)
+JOULE_PUSHES = 3
+
+
+def _mt_src(x):
+    return {"out": x * 2.0}
+
+
+def _mt_left(v):
+    return {"y": v + 1.0}
+
+
+def _mt_right(v):
+    return {"y": v - 1.0}
+
+
+def _mt_join(a, b):
+    return {"out": float(a.sum() + b.sum())}
+
+
+def wire_b15(api, zoned=False):
+    """B15's circuit on a session or a workspace; ``zoned``: the placement of
+    ``tests/test_tenancy.py``'s ``_wire(zoned=True)`` on its two zones."""
+    src = api.task(_mt_src, name="src", inputs=["x"], outputs=["out"])
+    left = api.task(_mt_left, name="left", inputs=["v"], outputs=["y"])
+    right = api.task(_mt_right, name="right", inputs=["v"], outputs=["y"])
+    join = api.task(_mt_join, name="join", inputs=["a", "b"], outputs=["out"])
+    if zoned:
+        src.place("edge")
+        left.place("edge")
+        right.place("cloud")
+        join.place("cloud")
+    api.wire(src["out"], left["v"])
+    api.wire(src["out"], right["v"])
+    api.wire(left["y"], join["a"])
+    api.wire(right["y"], join["b"])
+
+
+def duo_topology(Topology):
+    """``tests/test_tenancy.py``'s ``duo``: an edge zone and a cloud zone,
+    0.05 J/MB on the link between them."""
+    t = Topology("duo")
+    t.zone("cloud", tier="cloud")
+    t.zone("edge", tier="edge")
+    t.link("cloud", "edge", bandwidth_mbps=50, latency_ms=10, energy_j_per_mb=0.05)
+    return t
+
+
+def hub_phase(dev, card, wall, time_ms, rows, device_profile):
+    """Phase 3f: the multi-tenant hub on card payloads. B15 uncut and
+    journaled (dedup counts, ``hash_tree`` launches == tree digests, pushes/s,
+    latency, records/s); a replaying tenant's device-to-host copies (digest
+    states only) and its idle share; four tenants against private runs of
+    their scripts and against the hub's rehydration; a joule quota on a zoned
+    tenant; a tenant under zone runners whose card plans stay in the parent
+    and whose merged segments replay to the inline run."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core import hashing
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.hash_tree import hash_tree_state
+    from repro_torch.provenance import read_chain
+    from repro_torch.runtime import ZonedProcessExecutor
+    from repro_torch.tenancy import QuotaExceededError, TenantQuota, WorkspaceHub, tenant_fingerprint
+    from repro_torch.topology import Topology
+    from repro_torch.workspace import InlineExecutor, Workspace
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip-smoke-hub-"))
+    n_el = WAVE["nbytes"] // 4
+    T, K = B15["tenants"], B15["working_set"]
+    print(f"phase 3f: the multi-tenant hub on the card: B15 ({T} tenants x a working set of {K}, rotated) with "
+          f"payloads of {WAVE['nbytes']} B f32 on the card, journaled, inline, no topology ({card})")
+    g = torch.Generator(device=dev)
+    g.manual_seed(B15["seed"])
+
+    def draw():
+        return torch.randn(n_el, generator=g, device=dev)
+
+    payloads = [draw() for _ in range(K)]
+
+    def script(i):
+        return [payloads[(i + k) % K] for k in range(K)]
+
+    hub = WorkspaceHub("bench-hub", journal_path=str(tmp / "hub.jsonl"), executor_factory=InlineExecutor,
+                       workspace_defaults={"topology": False})
+    sessions = []
+    for i in range(T):
+        s = hub.create(f"tenant-{i:03d}", owner="bench")
+        wire_b15(s)
+        sessions.append(s)
+    launches3f = 0
+    ops.reset_launch_counts()
+    trees0 = hashing.hashing_stats()["tree_hashes"]
+    lat = []
+
+    def drive():
+        for i, s in enumerate(sessions):
+            for x in script(i):
+                t1 = time.perf_counter()
+                s.push("src", x=x)
+                lat.append(time.perf_counter() - t1)
+        hub.flush()
+
+    t_all = wall(drive)
+    launches = ops.launch_counts()
+    trees = hashing.hashing_stats()["tree_hashes"] - trees0
+    launches3f += launches["hash_tree"]
+    memo = hub.memo.stats()
+    logical = T * K * 4
+    executed = logical - memo["executions_avoided"]
+    records = hub.journal.stats()["records_written"] + sum(s.ws.journal.stats()["records_written"] for s in sessions)
+    # pipeline.py _inject -> store.put digests each pushed input; task.py
+    # _finish_execution digests the outputs of each firing, executed or
+    # replayed from another tenant's run: src, left and right one 4.5 MiB
+    # tensor each, join a float (no tree digest). One launch a digest.
+    want_trees = T * K * (1 + 3)
+    lat.sort()
+    p50, p99 = lat[len(lat) // 2] * 1e3, lat[int(len(lat) * 0.99)] * 1e3
+    print(f"  B15: {T * K} pushes in {t_all:.3f} s, {T * K / t_all:.1f} pushes/s; push p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms; logical firings {logical}, executions avoided {memo['executions_avoided']}, executed "
+          f"{executed}, dedup {logical / max(executed, 1):.1f}x, bytes_saved {memo['bytes_saved']}; journal "
+          f"{records} records, {records / t_all:.1f} records/s; hash_tree launches {launches['hash_tree']}, "
+          f"tree-tier digests {trees} (want {want_trees}); store {hub.store.stats()['puts']} puts ({card})")
+    if (memo["executions_avoided"], executed) != (logical - K * 4, K * 4):
+        fail(f"hub: executions avoided {memo['executions_avoided']} of {logical}, want {logical - K * 4}")
+    if not launches["hash_tree"] == trees == want_trees or any(v for k, v in launches.items() if k != "hash_tree"):
+        fail(f"hub: launches {launches}, tree-tier digests {trees}, want {want_trees}")
+
+    # a replaying tenant's pushes: the device-to-host copies are the digests'
+    # 12-byte states, no payload; then another's, profiled
+    extra = []
+    for name in ("tenant-replay-copies", "tenant-replay-profiled"):
+        s = hub.create(name, owner="bench")
+        wire_b15(s)
+        extra.append(s)
+    trees0 = hashing.hashing_stats()["tree_hashes"]
+    avoided0 = hub.memo.stats()["executions_avoided"]
+    ops.reset_launch_counts()
+    copies = device_to_host_copies(lambda: [extra[0].push("src", x=x) for x in payloads])
+    n_dig = hashing.hashing_stats()["tree_hashes"] - trees0
+    launches3f += ops.launch_counts()["hash_tree"]
+    avoided = hub.memo.stats()["executions_avoided"] - avoided0
+    print(f"  a replaying tenant's {K} pushes: {avoided} of {K * 4} firings avoided; device-to-host copies counted "
+          f"at the dispatcher: {len(copies)}, {sum(copies)} B, largest {max(copies, default=0)} B, for {n_dig} "
+          f"tree digests (a payload is {WAVE['nbytes']} B)")
+    if avoided != K * 4 or not copies or max(copies) > 12 or sum(copies) > 12 * n_dig:
+        fail(f"hub: a replaying tenant avoided {avoided} of {K * 4} firings; device-to-host copies {copies} B, "
+             f"want each <= 12 B and <= 12 B a digest ({n_dig})")
+    ops.reset_launch_counts()
+    t_p, busy, kern, _ = device_profile(lambda: [extra[1].push("src", x=x) for x in payloads])
+    launches3f += ops.launch_counts()["hash_tree"]
+    print(f"  a replaying tenant's {K} pushes, profiled: wall {t_p * 1e3:.2f} ms, device busy {busy * 1e3:.3f} ms, "
+          f"idle share {1 - busy / t_p:.3f}, {len(kern)} device events ({card})")
+
+    # four tenants against private runs of their scripts on the card
+    ops.reset_launch_counts()
+    live = {}
+    for i in B15["checked"]:
+        solo = Workspace("solo", executor=InlineExecutor(), topology=False, journal_path=False)
+        wire_b15(solo)
+        for x in script(i):
+            solo.push("src", x=x)
+        live[sessions[i].tenant] = sessions[i].fingerprint()
+        if live[sessions[i].tenant] != tenant_fingerprint(solo):
+            fail(f"hub: {sessions[i].tenant}'s fingerprint differs from a private run of its script")
+    launches3f += ops.launch_counts()["hash_tree"]
+    hub.flush()
+    t_re = wall(lambda: WorkspaceHub.from_journal(str(tmp / "hub.jsonl")))
+    re = WorkspaceHub.from_journal(str(tmp / "hub.jsonl"))
+    replayed = {name: tenant_fingerprint(re.workspace(name)) for name in live}
+    print(f"  tenants {sorted(live)}: fingerprints equal to private runs of their scripts; from_journal "
+          f"{t_re:.3f} s, {len(re.tenants())} tenants, {len(re.dedup_events)} dedup events, rehydrated "
+          f"fingerprints equal to the live ones {replayed == live}")
+    if replayed != live or len(re.dedup_events) != hub.memo.stats()["dedup_hits"] or len(re.tenants()) != T + 2:
+        fail(f"hub: rehydration: fingerprints equal {replayed == live}, {len(re.dedup_events)} dedup events "
+             f"(want {hub.memo.stats()['dedup_hits']}), {len(re.tenants())} tenants")
+    hub.shutdown()
+    del hub, sessions, extra, re
+
+    # a joule quota on a zoned tenant: the joules of one push, from a private
+    # run, price the limits; exactly JOULE_PUSHES pushes are admitted
+    ops.reset_launch_counts()
+    probe = Workspace("probe", executor=InlineExecutor(), topology=duo_topology(Topology), journal_path=False)
+    wire_b15(probe, zoned=True)
+    probe.push("src", x=draw())
+    e = probe.ledger.stats()["transfer_energy_j"]
+    quota = TenantQuota(hard_joules=(JOULE_PUSHES - 0.5) * e, soft_joules=1.5 * e)
+    jhub = WorkspaceHub("joule-hub", journal_path=str(tmp / "joule" / "hub.jsonl"))
+    js = jhub.create("edge-team", owner="ops", quota=quota, topology=duo_topology(Topology))
+    wire_b15(js, zoned=True)
+    admitted, before, after, refused = 0, None, None, None
+    for _ in range(JOULE_PUSHES + 1):
+        before = js.ws.ledger.stats()
+        try:
+            js.push("src", x=draw())
+            admitted += 1
+        except QuotaExceededError as err:
+            refused = str(err)
+            after = js.ws.ledger.stats()
+            break
+    jhub.flush()
+    seg = js.ws.journal.path
+    notes = [r["data"]["note"] for r in read_chain(seg)[0] if r.get("kind") == "anomaly"]
+    rejected = [n for n in notes if n.startswith("quota_rejected axis=joules")]
+    warned = [n for n in notes if n.startswith("quota_warning axis=joules")]
+    qs = js.quota_stats()
+    launches3f += ops.launch_counts()["hash_tree"]
+    print(f"  joule quota on a zoned tenant ({WAVE['nbytes']} B card pushes, {e:.6f} J a push; hard "
+          f"{quota.hard_joules:.6f} J, soft {quota.soft_joules:.6f} J): admitted {admitted}, refused: {refused!r}; "
+          f"ledger unchanged by the refusal {after == before}; journaled: {len(warned)} warning, {len(rejected)} "
+          f"rejection; {qs['joules_used']:.6f} J used, {qs['bytes_used']} B")
+    if (admitted != JOULE_PUSHES or refused is None or after != before or len(rejected) != 1 or len(warned) != 1
+            or qs["rejections"] != 1 or not e > 0):
+        fail(f"hub: joule quota admitted {admitted} (want {JOULE_PUSHES}), ledger unchanged {after == before}, "
+             f"journaled {len(warned)} warnings and {len(rejected)} rejections (want 1 and 1)")
+    jhub.shutdown()
+
+    # zone runners: card plans stay in the parent, host plans go to the
+    # runners; the tenant's merged segments replay to the inline run
+    ops.reset_launch_counts()
+    hg = np.random.RandomState(B15["working_set"])
+    drill = [draw() for _ in range(2)] + [
+        torch.from_numpy(hg.randn(B15["host_el"]).astype(np.float32)) for _ in range(2)]
+    zhub = WorkspaceHub("zoned-hub", journal_path=str(tmp / "zoned" / "hub.jsonl"),
+                        executor_factory=lambda: ZonedProcessExecutor(max_workers=2))
+    zs = zhub.create("zone-team", owner="ops", topology=duo_topology(Topology))
+    wire_b15(zs, zoned=True)
+    try:
+        for x in drill[:2]:
+            zs.push("src", x=x)
+        card_st = dict(zs.ws.executor.stats())
+        for x in drill[2:]:
+            zs.push("src", x=x)
+        st = dict(zs.ws.executor.stats())
+        n_zone_segs = len(zs.ws.executor.segment_paths())
+        zhub.flush()
+        live_fp = zs.fingerprint()
+    finally:
+        zhub.shutdown()
+    inline = Workspace("inline", executor=InlineExecutor(), topology=duo_topology(Topology), journal_path=False)
+    wire_b15(inline, zoned=True)
+    for x in drill:
+        inline.push("src", x=x)
+    zre = WorkspaceHub.from_journal(str(tmp / "zoned" / "hub.jsonl"))
+    merged_fp = tenant_fingerprint(zre.workspace("zone-team"))
+    launches3f += ops.launch_counts()["hash_tree"]
+    print(f"  zone runners: 2 card pushes: {card_st['tasks_remote']} plans remote, {card_st['tasks_inline']} in the "
+          f"parent; then 2 host pushes: {st['tasks_remote'] - card_st['tasks_remote']} remote, {n_zone_segs} zone "
+          f"runner segments; the hub's replay of the tenant, its segments merged, equals the inline run's "
+          f"fingerprint {merged_fp == tenant_fingerprint(inline)} and the live one's {merged_fp == live_fp}")
+    # each push's second wave (left, right) is the one a zone runner may take
+    if (card_st["tasks_remote"] != 0 or card_st["tasks_inline"] != 2 * 2 or st["tasks_remote"] != 2 * 2
+            or n_zone_segs < 1 or merged_fp != tenant_fingerprint(inline) or merged_fp != live_fp):
+        fail(f"hub: zone runners: card plans remote {card_st['tasks_remote']} (want 0), inline "
+             f"{card_st['tasks_inline']}; host plans remote {st['tasks_remote']}; {n_zone_segs} zone segments; "
+             f"merged replay equal to inline {merged_fp == tenant_fingerprint(inline)}, to live {merged_fp == live_fp}")
+    del payloads, drill, probe, inline, zre
+    shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # hash_tree at phase 3f's payloads, as phase 4 times it
+    w = torch.randint(-2**31, 2**31, (n_el,), dtype=torch.int32, device=dev)
+    got, want_state = hash_tree_state(w), ref.reference_hash_tree(w)
+    if not torch.equal(got, want_state):
+        fail(f"hash_tree at phase 3f's payloads: kernel {got.tolist()} != plain {want_state.tolist()}")
+    rows.append(dict(
+        name="hash_tree", path="phase 3f: the hub's digests (B15 on card payloads and its drills), 4.5 MiB, one launch",
+        route="cuda", source="src/repro_torch/kernels/csrc/hash_tree.cu",
+        replaces="src/repro/kernels/hash_tree.py:74", launches=launches3f, max_abs_err=0.0,
+        ms=time_ms(lambda: hash_tree_state(w)), plain_ms=time_ms(lambda: ref.reference_hash_tree(w), reps=5),
+        bound_ms=(WAVE["nbytes"] + 12) / PEAK_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None, library="none",
+    ))
+    del w
+
+
 def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, fail):
     """Phase 5: the training run of stablelm-1.6b at full width, and K1 timed."""
     import shutil
@@ -1218,6 +1520,18 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
 EVAL = dict(batch=4, seq=2048, seed=5)
 
 
+def map_tensors(fn, tree):
+    """``fn`` of every tensor of a tree of dicts, lists and tuples, each
+    container rebuilt in its own order (a dict's order is in its pickle)."""
+    import torch
+
+    if isinstance(tree, dict):
+        return {k: map_tensors(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tensors(fn, v) for v in tree)
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
 def eval_phase(model, state, step, batch, dev, rows, time_ms, bound, rand):
     """Phase 5f: ``EvalLoop`` over the trained state at full width. The eval
     function is the forward loss under ``no_grad`` on a frozen batch, through
@@ -1258,6 +1572,19 @@ def eval_phase(model, state, step, batch, dev, rows, time_ms, bound, rand):
           f"a frozen {B} x {L} batch")
     ckpt = {"params": state["params"], "step": int(state["step"])}
     digest, hash_s = wall_s(lambda: content_hash(ckpt))
+    # the pickle tier digests tensors by value: the same dict copied to the
+    # host, and cloned on the card, digests alike
+    host_ckpt = {"params": map_tensors(lambda t: t.cpu(), state["params"]), "step": ckpt["step"]}
+    host_digest, host_s = wall_s(lambda: content_hash(host_ckpt))
+    del host_ckpt
+    clone_ckpt = {"params": map_tensors(torch.clone, state["params"]), "step": ckpt["step"]}
+    clone_digest, clone_s = wall_s(lambda: content_hash(clone_ckpt))
+    del clone_ckpt
+    print(f"  checkpoint digest (pickle tier, tensors by value) {hash_s:.3f} s; the dict copied to the host "
+          f"digests alike {host_digest == digest} ({host_s:.3f} s), cloned on the card alike {clone_digest == digest} "
+          f"({clone_s:.3f} s)")
+    if host_digest != digest or clone_digest != digest:
+        fail(f"eval loop: the checkpoint digests {digest}, its host copy {host_digest}, its clone {clone_digest}")
     want = {**dict.fromkeys(ops.KERNELS, 0), "flash_attention": cfg.n_layers}
     none = dict.fromkeys(ops.KERNELS, 0)
     seen = []
@@ -2176,6 +2503,9 @@ def main() -> int:
 
     # -- 3e. the durable, zoned circuit on card payloads --------------------------
     durable_phase(dev, wall, time_ms, rows, (first_s, replay_s))
+
+    # -- 3f. the multi-tenant hub on card payloads -------------------------------
+    hub_phase(dev, smi[0], wall, time_ms, rows, device_profile)
 
     # -- 3d. serve the last four architectures at full width ---------------------
     four_shapes: dict = {}  # arch -> {kernel: {input shapes: calls}} of its served run
