@@ -6,7 +6,7 @@
 Phases, in order; any failure exits non-zero (a disagreement between the
 kernels' and the plain versions' logits is recorded and the later phases run
 on, so that their numbers are still printed):
-  1. name the card, build the six CUDA kernels from
+  1. name the card, build the six CUDA sources (eight kernels) from
      ``src/repro_torch/kernels/csrc`` (one nvcc each, in parallel), and count
      the tensor-core instructions in the built ``moe_gmm``,
      ``flash_attention`` and ``flash_attention_bwd`` libraries
@@ -29,7 +29,15 @@ on, so that their numbers are still printed):
      at stablelm-1.6b's training shape, GQA (gq 4, Dh 128), a window and
      ragged L, in f32 and bf16 (``BWD_TOL``), bf16 at Dh 64 and 128 on both
      its wgmma and mma routes, and bit-equal when run twice
-     (``BWD_BIT_EQUAL``);
+     (``BWD_BIT_EQUAL``); K7, the backward kernels ``moe_gmm_bwd`` (against
+     ``reference_gmm_bwd``, at the moe_gmm cases above, on bins partly
+     filled and empty, and at jamba's and mixtral's training bins, E 16 C 640
+     and E 8 C 1280) and ``mamba_scan_bwd`` (against
+     ``reference_selective_scan_bwd``, at the mamba_scan cases with h0 and
+     dh_final, and at jamba's training scan (4, 1024, 8192, 16) with and
+     without them), in f32 and bf16 (``BWD_TOL``), each bit-equal when run
+     twice at the training shapes, the scan's backward in 3 segments (offset
+     limit patched small) bit-equal to one;
   3. serve stablelm-1.6b at full width (24 layers, bf16, batch 4, prompt 512,
      32 generated tokens) through ``repro_torch.launch.serve.main``, count the
      kernel launches of that run (every bf16 launch on its tensor-core
@@ -137,7 +145,22 @@ on, so that their numbers are still printed):
      training shape (K1 also at qwen2.5-32b's heads, Dh 128) beside their
      bounds, their plain versions and SDPA, K1 on wgmma and on mma in turns,
      with each launch's device time from the profiler (dq and dkdv; on mma
-     also dot_do_o), null where the profiler kept no record of a launch.
+     also dot_do_o), null where the profiler kept no record of a launch;
+  5g. train jamba-v0.1-52b at full width, cut to its first 2 of 32 layers
+     (mamba + dense FFN, mamba + MoE), bf16, batch 4, seq 1024, remat
+     "block", 3 steps through ``repro_torch.launch.train.run`` (its final
+     checkpoint counted, not written): exact launches a step (per mamba layer
+     mamba_scan 2 and mamba_scan_bwd 1, per MoE layer moe_gmm 2 and
+     moe_gmm_bwd 1, every moe_gmm launch on wgmma and every moe_gmm_bwd on
+     mma), no plain version called, finite losses; ``make_train_step`` on a
+     repeated batch, whose loss must fall at every step (step time,
+     tokens/s, peak memory, each kernel's share of a profiled step); one
+     step's gradient of every leaf against the plain versions run on the
+     kernels run's routing (``GRAD_REL_TOL``), for jamba and for mixtral-8x7b
+     cut to 1 layer (attention with window 4096 through K1, MoE at E 8, C
+     1280); then K7a and K7b timed at jamba's training shapes as phase 4
+     times the kernels, beside their bounds, their plain versions and, for
+     K7a, the autograd backward of three ``torch.bmm`` and SiLU.
 The last line is ``{"ok": true, "device": {...}}``. The compiler's reports
 (registers, spills) go to ``build/repro_torch_kernels/nvcc_report.txt``.
 """
@@ -528,13 +551,14 @@ def forced_routing_gate(kernels, forced, probs_kernels, probs_forced, experts_ke
 class PlainSpy:
     """Counts the calls of the plain versions (``reference_attention``,
     ``reference_attention_bwd``, ``reference_decode``, ``reference_gmm``,
-    ``reference_selective_scan``) made through ``repro_torch.kernels.ref`` or
+    ``reference_gmm_bwd``, ``reference_selective_scan``,
+    ``reference_selective_scan_bwd``) made through ``repro_torch.kernels.ref`` or
     the names the kernels' wrapper modules hold: on card tensors the main
     path must make none. (The ``plain`` dict of the comparisons keeps the
     unwrapped functions.)"""
 
     NAMES = ("reference_attention", "reference_attention_bwd", "reference_decode", "reference_gmm",
-             "reference_selective_scan")
+             "reference_gmm_bwd", "reference_selective_scan", "reference_selective_scan_bwd")
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention, flash_decode, mamba_scan, moe_gmm, ref
@@ -632,6 +656,106 @@ def k1_checks(rand, check, check_grad):
                     del again
                 del got
             del q, k, v, do, o, lse, ro, rl, want
+            torch.cuda.empty_cache()
+
+
+# K7's checks (phase 2): the backward kernels against their plain versions,
+# under BWD_TOL in each output's dtype. moe_gmm_bwd: f32 sums in another
+# order; in bf16 the outputs, and dG, dU and h, which may round the other way
+# where g and u were summed in another order. mamba_scan_bwd (f32 but dxc, in
+# xc's dtype): ex2.approx against exp over L steps, taken three times
+# (checkpoints, recompute, reverse), and sums over Di, N and (B, L) in other
+# orders.
+# jamba-v0.1-52b's and mixtral-8x7b's training bins (batch 4 x seq 1024:
+# 4096 tokens > moe_exact_tokens, capacity 4096 x 2 x 1.25 / E)
+K7_GMM_TRAIN = [(16, 640, 4096, 14336), (8, 1280, 4096, 14336)]
+K7_SCAN_TRAIN = (4, 1024, 8192, 16)  # jamba's training scan (B, L, Di, N)
+
+
+def k7_checks(rand, check_grad, gmm_inputs, scan_inputs, gmm_cases, scan_cases):
+    """Phase 2's K7 part: moe_gmm_bwd against reference_gmm_bwd over phase
+    2's moe_gmm cases, partly empty bins and the training bins
+    (``K7_GMM_TRAIN``); mamba_scan_bwd against reference_selective_scan_bwd
+    over phase 2's scan cases (dh_final given where h0 is) and jamba's
+    training scan with and without h0 and dh_final, in f32 and bf16; each
+    bit-equal when run twice at the training shapes; the scan's backward cut
+    into 3 segments (offset limit patched small) bit-equal to one call."""
+    import torch
+
+    import repro_torch.kernels.mamba_scan as scan_module
+    import repro_torch.kernels.moe_gmm as gmm_module
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd
+    from repro_torch.kernels.moe_gmm import moe_gmm_bwd
+
+    names = ("dx", "dwg", "dwu", "dwd")
+    for dtype in (torch.float32, torch.bfloat16):
+        for E, C, D, Fd, scale in gmm_cases + [c + ("fan_in",) for c in K7_GMM_TRAIN]:
+            ins = gmm_inputs(E, C, D, Fd, scale, dtype)
+            dy = rand(E, C, D, dtype=dtype, scale=D**-0.5 if scale == "fan_in" else 1.0)
+            route = gmm_module._bwd_route(dtype, D, Fd)
+            n0 = moe_gmm_bwd.route_launches[route]
+            got = moe_gmm_bwd(*ins, dy)
+            if moe_gmm_bwd.route_launches[route] != n0 + 1:
+                fail(f"moe_gmm_bwd {dtype} E{E} C{C}: no launch on route {route}")
+            want = ref.reference_gmm_bwd(*ins, dy)
+            for n, g, w in zip(names, got, want):
+                check_grad(f"moe_gmm_bwd ({route}) {n} {dtype} E{E} C{C} D{D} F{Fd}", g, w, dtype)
+            if (E, C, D, Fd) in K7_GMM_TRAIN and dtype == torch.bfloat16:
+                again = moe_gmm_bwd(*ins, dy)
+                if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                    fail(f"moe_gmm_bwd ({route}) E{E} C{C}: two runs on one input differ")
+                print(f"  moe_gmm_bwd ({route}) E{E} C{C} D{D} F{Fd}: a second run is bit-equal")
+                del again
+            del ins, dy, got, want
+            torch.cuda.empty_cache()
+        # partly filled and empty bins, as a training dispatch leaves them: the
+        # rows past each bin's fill are zeros in x and in dY, and give exact zeros in dX
+        E, C, D, Fd = 6, 40, 64, 96
+        ins = gmm_inputs(E, C, D, Fd, "fan_in", dtype)
+        fill = torch.tensor([0, 1, 17, 40, 0, 33], device=ins[0].device)
+        live = torch.arange(C, device=fill.device)[None] < fill[:, None]
+        ins[0].mul_(live[..., None])
+        dy = rand(E, C, D, dtype=dtype, scale=D**-0.5) * live[..., None]
+        got, want = moe_gmm_bwd(*ins, dy), ref.reference_gmm_bwd(*ins, dy)
+        for n, g, w in zip(names, got, want):
+            check_grad(f"moe_gmm_bwd {n} {dtype}, bins filled {fill.tolist()} of {C}", g, w, dtype)
+        if got[0][~live].any():
+            fail("moe_gmm_bwd: empty capacity rows gave a non-zero dX")
+        print(f"  moe_gmm_bwd {dtype}: empty rows give exact zeros in dX")
+
+        cases = [(B, L, Di, N, h0, h0) for B, L, Di, N, h0 in scan_cases] + [
+            K7_SCAN_TRAIN + (False, False), K7_SCAN_TRAIN + (True, True)]
+        for B, L, Di, N, with_h0, with_dh in cases:
+            xc, dt, Bm, Cm, a, h0 = scan_inputs(B, L, Di, N, with_h0, dtype)
+            dy = rand(B, L, Di, dtype=torch.float32)
+            dh = rand(B, Di, N, dtype=torch.float32) if with_dh else None
+            got = mamba_scan_bwd(xc, dt, Bm, Cm, a, h0, dy, dh)
+            want = ref.reference_selective_scan_bwd(xc, dt, Bm, Cm, a, h0, dy, dh)
+            name = f"{dtype} B{B} L{L} Di{Di} N{N} h0={with_h0} dh_final={with_dh}"
+            for n, g, w in zip(("dxc", "ddt", "dB", "dC", "da", "dh0"), got, want):
+                check_grad(f"mamba_scan_bwd {n} {name}", g, w, g.dtype)
+            if (B, L, Di, N) == K7_SCAN_TRAIN:
+                again = mamba_scan_bwd(xc, dt, Bm, Cm, a, h0, dy, dh)
+                if not all(torch.equal(x, y) for x, y in zip(got, again)):
+                    fail(f"mamba_scan_bwd {name}: two runs on one input differ")
+                print(f"  mamba_scan_bwd {name}: a second run is bit-equal")
+                # the segmented path: 3 segments (offset limit patched small) against one call
+                limit = scan_module.OFFSET_LIMIT
+                scan_module.OFFSET_LIMIT = (400 + scan_module.MAX_AHEAD) * Di + 1
+                try:
+                    n0 = mamba_scan_bwd.launches
+                    segs = mamba_scan_bwd(xc, dt, Bm, Cm, a, h0, dy, dh)
+                    n_calls = mamba_scan_bwd.launches - n0
+                finally:
+                    scan_module.OFFSET_LIMIT = limit
+                equal = all(torch.equal(x, y) for x, y in zip(got, segs))
+                print(f"  mamba_scan_bwd {name} in 3 segments of <= 400 steps ({n_calls} call): bit-equal to one "
+                      f"segment {equal}")
+                if n_calls != 1 or not equal:
+                    fail(f"mamba_scan_bwd {name}: segmented in {n_calls} calls, bit-equal {equal}")
+                del again, segs
+            del xc, dt, Bm, Cm, a, h0, dy, dh, got, want
             torch.cuda.empty_cache()
 
 
@@ -1516,6 +1640,335 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
     k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, main_launches, step_s)
 
 
+# phase 5g: jamba-v0.1-52b trained at full width, cut to its first 2 of 32
+# layers (mamba + dense FFN, mamba + MoE: ~3.74 B params, ~45 GB of bf16
+# params and grads and f32 moments; all 32 layers cannot train on one 80 GB
+# card), batch 4 x seq 1024: 4096 tokens > moe_exact_tokens, so capacity
+# bins of C 640 with drops, the reference's training semantics; then one
+# gated step of mixtral-8x7b cut to 1 layer (attention with window 4096 and
+# MoE at E 8, C 1280)
+TRAIN_HYBRID = dict(arch="jamba-v0.1-52b", n_layers=2, batch=4, seq=1024, steps=3, seed=0, lr=3e-4)
+TRAIN_MIXTRAL = dict(arch="mixtral-8x7b", n_layers=1, batch=4, seq=1024, seed=0)
+# mamba_scan_bwd's least FMA-pipe work a (b, t, d, n) element beside one
+# exponential: the states recomputed (dt*A, a*h + dt*x*B: 3) and the reverse
+# step (g = C*dy + carry, dx's and ddt's sums, dA, the dB and dC terms, the
+# carry: 10)
+SCAN_BWD_FMA_INSTRS = 13
+
+
+def kernel_shares(kern) -> dict:
+    """Device ms by kernel family of a profiled step (torch.profiler CUDA
+    events): the port's kernels by their CUDA names, cuBLAS's matmuls, and the
+    rest (PyTorch's elementwise and reduction kernels)."""
+    fam = {"moe_gmm_bwd": ("bwd::tc::gemm_kernel", "bwd::ffma::gemm_kernel"),
+           "mamba_scan_bwd": ("ckpt_kernel", "rev_kernel", "reduce_bc_kernel", "reduce_a_kernel"),
+           "moe_gmm": ("wg::gemm_kernel", "swap_ab_kernel", "gmm_kernel"),
+           "mamba_scan": ("mamba_scan_kernel",),
+           "flash_attention_bwd": ("dq_kernel", "dkdv_kernel", "dot_do_o"),
+           "flash_attention": ("attn_kernel",)}
+    out: dict = {}
+    for e in kern:
+        name = next((f for f, keys in fam.items() if any(k in e.name for k in keys)), None)
+        if name is None:
+            name = "cuBLAS matmuls" if ("nvjet" in e.name or "gemm" in e.name.lower()) else "other"
+        out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
+    return out
+
+
+def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, n_sms, sm_clock_mhz):
+    """Phase 5g: train jamba-v0.1-52b at full width (2 layers) through
+    ``launch.train.run`` with exact launch counts of the four model kernels
+    and their backward kernels, then on a repeated batch (the loss falls;
+    step time, tokens/s, peak memory, each kernel's share of a profiled
+    step); one step's gradient of every leaf against the plain versions on
+    the kernels run's routing (``GRAD_REL_TOL``), for jamba and for mixtral
+    (1 layer); K7a and K7b timed at jamba's training shapes."""
+    import shutil
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.checkpoint import checkpoint as ckpt_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import build_data_pipeline, next_batch
+    from repro_torch.dist.step import make_train_step
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.mamba_scan import mamba_scan_bwd
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_bwd
+    from repro_torch.launch import train
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.registry import build_model, train_loss
+    from repro_torch.optim import adamw_init, adamw_update, constant_lr
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    def wall_s(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    spec = TRAIN_HYBRID
+    cfg = dataclasses.replace(get_config(spec["arch"]), n_layers=spec["n_layers"])
+    B, L = spec["batch"], spec["seq"]
+    if cfg.remat != "block" or cfg.dtype != "bfloat16":
+        fail(f"{cfg.name}: remat {cfg.remat!r}, dtype {cfg.dtype}: the counts below assume 'block', bf16")
+
+    def per_step(c):
+        """Launches a step under remat "block": each layer's forward kernels run
+        in the forward pass and again when the backward pass recomputes the
+        layer's period, its backward kernels once."""
+        n = dict.fromkeys(ops.KERNELS, 0)
+        for i in range(c.n_layers):
+            s = c.layout[i % len(c.layout)]
+            fwd, bwd = ("mamba_scan", "mamba_scan_bwd") if s.mixer == "mamba" else (
+                "flash_attention", "flash_attention_bwd")
+            n[fwd] += 2
+            n[bwd] += 1
+            if s.ffn == "moe":
+                n["moe_gmm"] += 2
+                n["moe_gmm_bwd"] += 1
+        return n
+
+    def times(n, k):
+        return {name: v * k for name, v in n.items()}
+
+    want1 = per_step(cfg)
+    print(f"phase 5g: train {cfg.name} at full width, {cfg.n_layers} of 32 layers "
+          f"({', '.join(f'{s.mixer} + {s.ffn}' for s in cfg.layout[: cfg.n_layers])}), bf16, batch {B}, seq {L}, "
+          f"remat {cfg.remat!r}; launches a step {({k: v for k, v in want1.items() if v})}")
+    t_phase = time.perf_counter()
+
+    # 5g-a. launch.train.run, as a user runs a config built in code; the final
+    # checkpoint (~45 GB with the f32 moments) is counted, not written: 5a writes stablelm's
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt_hybrid"
+    saves = []
+    save_async = ckpt_mod.CheckpointManager.save_async
+    ckpt_mod.CheckpointManager.save_async = lambda self, state, step, meta=None: saves.append(step)
+    try:
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with PlainSpy() as spy:
+            state, out = run_main_captured(
+                lambda _: train.run(cfg, steps=spec["steps"], batch=B, seq=L, lr=spec["lr"], ckpt_every=1000,
+                                    ckpt_dir=str(ckpt_dir), seed=spec["seed"], device=dev), None)
+        torch.cuda.synchronize()
+    finally:
+        ckpt_mod.CheckpointManager.save_async = save_async
+    launches = main_launches = ops.launch_counts()
+    routes = {"moe_gmm": dict(moe_gmm.route_launches), "moe_gmm_bwd": dict(moe_gmm_bwd.route_launches)}
+    want_main = times(want1, spec["steps"])
+    n_moe_calls = want_main["moe_gmm"]
+    want_routes = {"moe_gmm": {"fma": 0, "wgmma": n_moe_calls, "swap_ab": 0},
+                   "moe_gmm_bwd": {"fma": 0, "mma": want_main["moe_gmm_bwd"]}}
+    losses = step_losses(out)
+    n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+    print(f"  train.run: launches {launches} (want {want_main}); by route {routes}; plain versions called "
+          f"{spy.calls}; saves {saves}; {n_params} params; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches != want_main or routes != want_routes:
+        fail(f"train.run {cfg.name}: launches {launches}, routes {routes}: want {want_main}, {want_routes}")
+    if any(spy.calls.values()):
+        fail(f"train.run {cfg.name}: the plain versions ran on the card path: {spy.calls}")
+    if [s for s, _ in losses] != list(range(spec["steps"])) or not all(np.isfinite(l) for _, l in losses):
+        fail(f"train.run {cfg.name}: step losses {losses}")
+    if int(state["step"]) != spec["steps"] or saves != [spec["steps"]]:
+        fail(f"train.run {cfg.name}: step {int(state['step'])}, saves {saves}")
+    del state
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 5g-b. make_train_step on one repeated batch: the loss falls; time, memory, shares
+    model = build_model(cfg)
+    params = model.init(spec["seed"], dev)
+    state = {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32, device=dev)}
+    data = build_data_pipeline(cfg, B, L, seed=spec["seed"])
+    batch = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in next_batch(data, cfg).items()}
+    step = make_train_step(model, dev, constant_lr(REPEAT_LR), global_batch=B)
+    mets, step_times = [], []
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with PlainSpy() as spy:
+        for _ in range(TRAIN_REPEAT):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            step_times.append(time.perf_counter() - t0)
+            mets.append({k: v.item() for k, v in met.items()})
+    launches, peak = ops.launch_counts(), torch.cuda.max_memory_allocated()
+    for i, m in enumerate(mets):
+        print(f"  repeated batch step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
+              + f" ({step_times[i]:.3f} s)")
+    if launches != times(want1, TRAIN_REPEAT) or any(spy.calls.values()):
+        fail(f"make_train_step {cfg.name}: launches {launches} (want {times(want1, TRAIN_REPEAT)}), plain "
+             f"calls {spy.calls}")
+    if not all(np.isfinite(v) for m in mets for v in m.values()):
+        fail(f"make_train_step {cfg.name}: non-finite metrics {mets}")
+    losses = [m["loss"] for m in mets]
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"make_train_step {cfg.name}: the loss on a repeated batch did not fall at every step: {losses}")
+    step_s = statistics.median(step_times[1:])
+    print(f"  step time {step_s:.4f} s (median of steps 1-{TRAIN_REPEAT - 1}), {B * L / step_s:.1f} tokens/s, "
+          f"peak memory {peak / 2**30:.2f} GiB")
+    t, busy, kern, _ = device_profile(lambda: step(state, batch))
+    shares = kernel_shares(kern)
+    print(f"  profiled step: wall {t * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms (idle share {1 - busy / t:.3f}); "
+          "device ms (share of busy): " + "; ".join(
+              f"{n} {ms:.2f} ({ms / (busy * 1e3):.3f})" for n, ms in sorted(shares.items(), key=lambda kv: -kv[1])))
+    # the optimizer alone, as phase 5b times stablelm's
+    zeros = tree_map(torch.zeros_like, state["params"])
+    with torch.no_grad():
+        opt_s = [wall_s(lambda: adamw_update(state["params"], zeros, state["opt"],
+                                             torch.tensor(REPEAT_LR, device=dev))) for _ in range(2)]
+    print(f"  adamw_update alone: {min(opt_s) * 1e3:.2f} ms of the step ({n_params} params, f32 moments)")
+    del state, params, step, mets, zeros
+    torch.cuda.empty_cache()
+
+    # 5g-c. one step's gradient of every leaf, kernels vs plain versions on the
+    # kernels run's routing: the plain run's own router picks the kernels run's
+    # experts (its probabilities, renormalised over them, weight the slots), so
+    # both dispatch the same slots and the gradients differ by arithmetic alone
+    route = moe_mod.route
+
+    def gradient_gate(gcfg, label, gbatch):
+        gmodel = build_model(gcfg)
+        gparams = gmodel.init(spec["seed"], dev)
+        chosen: list = []
+
+        def recording_route(p, c, xf):
+            out = route(p, c, xf)
+            chosen.append(out[2])
+            return out
+
+        def grads_of(kernels, route_fn):
+            leaves = [p.detach().requires_grad_() for p in tree_leaves(gparams)]
+            it = iter(leaves)
+            live = tree_map(lambda _: next(it), gparams)
+            moe_mod.route = route_fn
+            try:
+                loss, met = train_loss(gmodel, live, gbatch, kernels=kernels)
+                grads = torch.autograd.grad(loss, leaves)
+            finally:
+                moe_mod.route = route
+            return loss.item(), met["aux"].item(), grads
+
+        ops.reset_launch_counts()
+        loss_k, aux_k, grads_k = grads_of(None, recording_route)
+        n_k = ops.launch_counts()
+        replay = iter(chosen)
+
+        def forced_route(p, c, xf):
+            probs, _, _ = route(p, c, xf)
+            experts = next(replay)
+            gate_w = probs.gather(1, experts)
+            return probs, gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9), experts
+
+        loss_p, aux_p, grads_p = grads_of(plain, forced_route)
+        n_p = ops.launch_counts()
+        want = per_step(gcfg)
+        if n_k != want or n_p != n_k or next(replay, None) is not None:
+            fail(f"{label} gradient gate: launches {n_k} (want {want}), then {n_p} with the plain versions; "
+                 f"{len(chosen)} routings recorded")
+        names = leaf_names(gparams)
+        rel = []
+        for name, gk, gp in zip(names, grads_k, grads_p):
+            gk, gp = gk.float(), gp.float()
+            if not torch.isfinite(gk).all():
+                fail(f"{label} gradient of {name}: non-finite")
+            rel.append(((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item())
+        worst = sorted(zip(rel, names), reverse=True)[:4]
+        print(f"  {label}: one step's gradient at batch {gbatch['tokens'].shape[0]} x {gbatch['tokens'].shape[1]}, "
+              f"kernels vs plain versions on the kernels' routing: loss {loss_k:.6f} vs {loss_p:.6f}, aux "
+              f"{aux_k:.6f} vs {aux_p:.6f}; relative L2 error per leaf max {max(rel):.4e} (tol {GRAD_REL_TOL}), "
+              f"median {statistics.median(rel):.4e} over {len(rel)} leaves; worst "
+              + "; ".join(f"{n} {r:.3e}" for r, n in worst))
+        if not max(rel) <= GRAD_REL_TOL or not (np.isfinite(loss_k) and np.isfinite(aux_k)):
+            fail(f"{label} gradient gate: relative L2 error {max(rel)} > {GRAD_REL_TOL}, loss {loss_k}, aux {aux_k}")
+        del gparams, grads_k, grads_p
+        torch.cuda.empty_cache()
+
+    gradient_gate(cfg, cfg.name, batch)
+    mspec = TRAIN_MIXTRAL
+    mcfg = dataclasses.replace(get_config(mspec["arch"]), n_layers=mspec["n_layers"])
+    mdata = build_data_pipeline(mcfg, mspec["batch"], mspec["seq"], seed=mspec["seed"])
+    mbatch = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev)
+              for k, v in next_batch(mdata, mcfg).items()}
+    gradient_gate(mcfg, f"{mcfg.name} ({mcfg.n_layers} layer, window {mcfg.window})", mbatch)
+    del batch, mbatch
+    torch.cuda.empty_cache()
+    print(f"  phase 5g's training and gradient gates: {time.perf_counter() - t_phase:.1f} s")
+
+    # 5g-d. K7a and K7b at jamba's training shapes, timed as phase 4 (L2 flushed)
+    bf, es = torch.bfloat16, 2
+    E, D, Fd = cfg.n_experts, cfg.d_model, cfg.d_ff
+    C = moe_mod.expert_capacity(B * L, cfg)
+    x, wg, wu, wd = (rand(E, C, D, dtype=bf), rand(E, D, Fd, dtype=bf, scale=D**-0.5),
+                     rand(E, D, Fd, dtype=bf, scale=D**-0.5), rand(E, Fd, D, dtype=bf, scale=Fd**-0.5))
+    dy = rand(E, C, D, dtype=bf, scale=D**-0.5)
+    want = ref.reference_gmm_bwd(x, wg, wu, wd, dy)
+    err = max(check_grad(f"moe_gmm_bwd {n} at {cfg.name} training (E{E} C{C})", g, w, bf)
+              for n, g, w in zip(("dx", "dwg", "dwu", "dwd"), moe_gmm_bwd(x, wg, wu, wd, dy), want))
+    del want
+    torch.cuda.empty_cache()
+    # x, dY and dX; Wg, Wu, Wd and their gradients: each read or written once
+    b_ms, b_by = bound(3 * E * C * D * es + 6 * E * D * Fd * es, 16 * E * C * D * Fd, "bfloat16")
+    leaves = [t.detach().requires_grad_() for t in (x, wg, wu, wd)]
+    lib_out = torch.bmm(F.silu(torch.bmm(leaves[0], leaves[1])) * torch.bmm(leaves[0], leaves[2]), leaves[3])
+    lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, leaves, dy, retain_graph=True), reps=10)
+    del lib_out
+    rows.append(dict(
+        name="moe_gmm_bwd", path=f"{cfg.name} training (E {E}, C {C}, D {D}, F {Fd}), bf16, route mma",
+        route="cuda", source="src/repro_torch/kernels/csrc/moe_gmm.cu",
+        replaces="src/repro/models/moe.py:128 (no Pallas kernel: jax autodiff of the grouped SwiGLU einsums)",
+        launches=main_launches["moe_gmm_bwd"], max_abs_err=err,
+        ms=time_ms(lambda: moe_gmm_bwd(x, wg, wu, wd, dy), reps=10),
+        plain_ms=time_ms(lambda: ref.reference_gmm_bwd(x, wg, wu, wd, dy), reps=3),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+        library="autograd backward of torch.bmm x3 + F.silu (torch.autograd.grad)",
+    ))
+    r = rows[-1]
+    print(f"  moe_gmm_bwd at {r['path']}: {r['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {r['ms'] / b_ms:.2f}x), "
+          f"library {lib_ms:.4f} ms ({r['ms'] / lib_ms:.2f}x), plain {r['plain_ms']:.4f} ms")
+    del x, wg, wu, wd, dy, leaves
+    torch.cuda.empty_cache()
+
+    Di, N = cfg.d_inner, cfg.ssm_state
+    xc, dt = rand(B, L, Di, dtype=bf), rand(B, L, Di, dtype=torch.float32).abs() * 0.1
+    Bm, Cm = rand(B, L, N, dtype=torch.float32), rand(B, L, N, dtype=torch.float32)
+    a = -rand(Di, N, dtype=torch.float32).abs() - 0.1
+    dys = rand(B, L, Di, dtype=torch.float32)
+    want = ref.reference_selective_scan_bwd(xc, dt, Bm, Cm, a, None, dys)
+    got = mamba_scan_bwd(xc, dt, Bm, Cm, a, None, dys)
+    err = max(check_grad(f"mamba_scan_bwd {n} at {cfg.name} training ({B}, {L}, {Di}, {N})", g, w, g.dtype)
+              for n, g, w in zip(("dxc", "ddt", "dB", "dC", "da", "dh0"), got, want))
+    del want, got
+    # xc, dt and dy read and dxc, ddt written once; B, C read and dB, dC written
+    # once; a read and da, dh0 written once (training: no h0 and no dh_final)
+    nbytes = B * L * Di * (es + 4 + 4 + es + 4) + 4 * B * L * N * 4 + 2 * Di * N * 4 + B * Di * N * 4
+    n_el = B * L * Di * N
+    fma_rate = PEAK_FLOPS["float32"] / 2
+    sfu_rate = SFU_PER_CLOCK * n_sms * sm_clock_mhz * 1e6
+    t_ops = max(SCAN_BWD_FMA_INSTRS * n_el / fma_rate,
+                (SCAN_BWD_FMA_INSTRS + EXP_FMA_INSTRS) * n_el / (fma_rate + EXP_FMA_INSTRS * sfu_rate)) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    rows.append(dict(
+        name="mamba_scan_bwd", path=f"{cfg.name} training ({B}, {L}, {Di}, {N}), bf16 xc", route="cuda",
+        source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+        replaces="src/repro/models/mamba.py:71 (no Pallas kernel: jax autodiff of the chunked selective_scan)",
+        launches=main_launches["mamba_scan_bwd"], max_abs_err=err,
+        ms=time_ms(lambda: mamba_scan_bwd(xc, dt, Bm, Cm, a, None, dys), reps=10),
+        plain_ms=time_ms(lambda: ref.reference_selective_scan_bwd(xc, dt, Bm, Cm, a, None, dys), reps=2),
+        bound_ms=max(t_ops, t_bytes), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, library="none",
+    ))
+    r = rows[-1]
+    print(f"  mamba_scan_bwd at {r['path']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
+          f"{t_bytes:.4f} ms, operations {t_ops:.4f} ms; {r['ms'] / r['bound_ms']:.2f}x), plain {r['plain_ms']:.4f} ms")
+    del xc, dt, Bm, Cm, a, dys
+    torch.cuda.empty_cache()
+
+
 # phase 5f: the eval circuit's frozen batch (rows x seq), made from this seed
 EVAL = dict(batch=4, seq=2048, seed=5)
 
@@ -1777,6 +2230,7 @@ def main() -> int:
     from repro_torch.models.registry import build_model, decode_step, init_serve_state, prefill
     from repro_torch.workspace import InlineExecutor, Workspace
 
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 references stay f32
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -1965,6 +2419,9 @@ def main() -> int:
     # K1: the forward's log-sum-exp on both routes, then the backward on each
     # of its bf16 routes against its plain version, and bit-equal when run twice
     k1_checks(rand, check, check_grad)
+    # K7: the moe_gmm and mamba_scan backward kernels against their plain
+    # versions, bit-equal when run twice, and the scan's backward in segments
+    k7_checks(rand, check_grad, gmm_inputs, scan_inputs, gmm_cases, scan_cases)
 
     # rows with no live key anywhere must stay finite (finite NEG_INF masking);
     # a decode step with every written slot masked weighs them all alike, as
@@ -2076,8 +2533,10 @@ def main() -> int:
         "flash_attention_bwd": ref.reference_attention_bwd,
         "flash_decode": ref.reference_decode,
         "moe_gmm": ref.reference_gmm,
+        "moe_gmm_bwd": ref.reference_gmm_bwd,
         "mamba_scan": lambda xc, dt, Bm, Cm, a, h0=None, chunk_len=0: ref.reference_selective_scan(
             xc, dt, Bm, Cm, a, h0),
+        "mamba_scan_bwd": ref.reference_selective_scan_bwd,
     }
 
     # every MoE layer's routing (probs, top-k experts) and dropped share,
@@ -2113,7 +2572,8 @@ def main() -> int:
         self_decode = 0 if cfg.attention == "mla" else n["attention"]
         return {"flash_attention": n["attention"] + cross + cfg.encoder_layers, "flash_attention_bwd": 0,
                 "flash_decode": (self_decode + cross) * (gen - 1),
-                "moe_gmm": n["moe"] * gen, "mamba_scan": n["mamba"], "hash_tree": 0}
+                "moe_gmm": n["moe"] * gen, "moe_gmm_bwd": 0, "mamba_scan": n["mamba"], "mamba_scan_bwd": 0,
+                "hash_tree": 0}
 
     def prefill_tokens(cfg, spec):
         """Token positions of one prefill: the vision prefix and the prompt."""
@@ -2838,7 +3298,10 @@ def main() -> int:
 
     # -- 5. train stablelm-1.6b at full width ----------------------------------
     training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, fail)
+    # -- 5g. train jamba-v0.1-52b at full width, 2 layers; mixtral's gated step -
+    hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, n_sms, sm_clock_mhz)
 
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     for r in rows:
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"  {r['name']} [{r['path']}]: kernel_ms {r['ms']:.4f} library_ms {lib} "

@@ -61,6 +61,37 @@
 //     64 x 128 tiles (8 x 128 for C <= 8). f32 stays here because the tensor
 //     cores would compute f32 products in TF32, which breaks the reference's
 //     f32 parity.
+//
+// THE BACKWARD (moe_gmm_bwd, K7a) has no Pallas counterpart: the JAX train
+// step differentiates the einsums of repro/models/moe.py:127-131. Per expert,
+// with dY the cotangent of out:
+//   g = x.Wg, u = x.Wu (recomputed), dH = dY.Wd^T,  s = sigmoid(g)
+//   h  = cast_T( silu(g) u )                  dWd = h^T . dY
+//   dG = cast_T( dH u s (1 + g (1 - s)) )     dU  = cast_T( dH silu(g) )
+//   dX = dG.Wg^T + dU.Wu^T                    dWg = x^T.dG, dWu = x^T.dU
+// dG and dU are rounded to x's dtype before their products, as h is in the
+// forward. What bounds it: operations, 16 E C D F (12 of the gradients and 4
+// of the recompute; 9.7 ms at jamba's training bins E 16, C 640 on the bf16
+// tensor cores). FOUR PASSES, each a batched product over the experts whose
+// K loop runs whole inside one block (the weight gradients sum over C in a
+// fixed order: no split-K, no float atomics, so a repeated call is
+// bit-equal):
+//   1. g, u and dH (three products over D, M C x N F) with the epilogue
+//      that writes h, dG and dU (E, C, F) in x's dtype, scratch the wrapper
+//      allocates;
+//   2. dWd = h^T . dY (F x D over C);
+//   3. dX = [dG dU] . [Wg Wu]^T (C x D over 2F, two products summed);
+//   4. dWg and dWu = x^T . [dG dU] (D x F over C, x read once for both).
+// Every operand is read in its stored layout: a tile is staged by 16-byte
+// cp.async copies along its contiguous dimension (D or F, so both must be
+// multiples of 8), zero past the edges, and ldmatrix (.trans where the
+// contiguous dimension is M or N) feeds the fragments.
+//   * route 1, "mma" (bf16): 64 x 64 tiles, 4 warps of 32 x 32 on mma.sync
+//     m16n8k16 with f32 sums, k tiles of 32 double-buffered. A simple first
+//     design (wgmma with TMA, as the forward, is later speed work).
+//   * route 0, "fma" (every f32 call, and bf16 where D or F is not a
+//     multiple of 8): 64 x 64 tiles of plain FMA in f32, as the forward's
+//     FMA route, so f32 keeps the reference's f32 parity.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -490,6 +521,310 @@ cudaError_t launch(const void* A, const void* W0, const void* W1, void* out, int
 }  // namespace swab
 
 enum Route { ROUTE_FMA = 0, ROUTE_WGMMA = 1, ROUTE_SWAP_AB = 2 };
+enum BwdRoute { BWD_FMA = 0, BWD_MMA = 1 };  // moe_gmm.py's BWD_ROUTES
+
+// ---------------------------------------------------------------------------
+// the backward (K7a)
+// ---------------------------------------------------------------------------
+namespace bwd {
+
+// Epilogues. GATED: (g, u, dH) -> h, dG, dU. ONE: out0 = acc0. SUM: out0 =
+// acc0 + acc1. PAIR: out0 = acc0, out1 = acc1.
+enum Epi { EPI_GATED = 0, EPI_ONE = 1, EPI_SUM = 2, EPI_PAIR = 3 };
+
+// out_j[e] (M x N) from NACC products acc_j = A_{a(j)}[e] (M x K) . B_j[e]
+// (K x N). Operand element (e, r, c) of a matrix stored (rows x cols) lies at
+// p + e * se + r * ld + c. A is stored [m][k] (A_KC) or [k][m]; B_j [n][k]
+// (bit j of B_KC) or [k][n]; a(j) = bit j of A1_OF.
+template <typename T>
+struct Args {
+  const T* a[2];
+  int64_t sa[2];
+  int lda[2];
+  const T* b[3];
+  int64_t sb[3];
+  int ldb[3];
+  T* out[3];
+  int M, N, K;
+};
+
+template <typename T, int EPI, int NACC>
+__device__ __forceinline__ void store_epi(const Args<T>& p, int64_t idx, const float (&v)[NACC]) {
+  if constexpr (EPI == EPI_GATED) {
+    const float g = v[0], u = v[1], dh = v[2];
+    const float e = expf(-g), s = 1.f / (1.f + e), silu = g / (1.f + e);
+    p.out[0][idx] = from_f<T>(silu * u);
+    p.out[1][idx] = from_f<T>(dh * u * (s * (1.f + g * (1.f - s))));
+    p.out[2][idx] = from_f<T>(dh * silu);
+  } else if constexpr (EPI == EPI_ONE) {
+    p.out[0][idx] = from_f<T>(v[0]);
+  } else if constexpr (EPI == EPI_SUM) {
+    p.out[0][idx] = from_f<T>(v[0] + v[1]);
+  } else {
+    p.out[0][idx] = from_f<T>(v[0]);
+    p.out[1][idx] = from_f<T>(v[1]);
+  }
+}
+
+namespace tc {  // route "mma"
+
+constexpr int BM = 64, BN = 64, BK = 32, THREADS = 128;
+constexpr int KROW = BK + 8;  // a [outer][k] tile's row: 80 bytes, conflict-free ldmatrix
+constexpr int OROW = 64 + 8;  // a [k][outer] tile's row: 144 bytes, conflict-free ldmatrix
+constexpr int TILE = 64 * KROW;  // elements of one staged tile (the larger layout)
+static_assert(BK * OROW <= TILE, "either layout fits a tile");
+
+template <int NA, int NACC>
+__host__ __device__ constexpr int smem_bytes() { return 2 * (NA + NACC) * TILE * 2; }
+
+// stage a 64 (outer: m or n) x 32 (k) tile of an operand stored [outer][k]
+// (kc) or [k][outer]; 16-byte chunks past an edge are zeros
+__device__ __forceinline__ void load_tile(__nv_bfloat16* s, const __nv_bfloat16* g, int ld, int o0, int k0,
+                                          int O, int K, bool kc) {
+#pragma unroll
+  for (int c = threadIdx.x; c < 256; c += THREADS) {
+    int o, k;
+    __nv_bfloat16* dst;
+    if (kc) {
+      o = o0 + c / 4, k = k0 + 8 * (c % 4);
+      dst = s + (c / 4) * KROW + 8 * (c % 4);
+    } else {
+      k = k0 + c / 8, o = o0 + 8 * (c % 8);
+      dst = s + (c / 8) * OROW + 8 * (c % 8);
+    }
+    const bool ok = o < O && k < K;
+    const int64_t off = ok ? (kc ? (int64_t)o * ld + k : (int64_t)k * ld + o) : 0;
+    cp_async16(dst, g + off, ok);
+  }
+}
+
+// A fragment (m16 x k16) at tile row mb, depth kb: a0..a3 of mma m16n8k16
+__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const __nv_bfloat16* s, int mb, int kb, int lane,
+                                       bool kc) {
+  const int j = lane >> 3, r = lane & 7;
+  if (kc) ldsm_x4(a, s + (mb + r + 8 * (j & 1)) * KROW + kb + 8 * (j >> 1));
+  else ldsm_x4_trans(a, s + (kb + r + 8 * (j >> 1)) * OROW + mb + 8 * (j & 1));
+}
+
+// B fragments (k16 x n16) at tile column nb, depth kb: (b0, b1) of n-tile nb
+// in b[0], b[1] and of n-tile nb + 8 in b[2], b[3]
+__device__ __forceinline__ void frag_b(uint32_t (&b)[4], const __nv_bfloat16* s, int nb, int kb, int lane,
+                                       bool kc) {
+  const int j = lane >> 3, r = lane & 7;
+  if (kc) ldsm_x4(b, s + (nb + r + 8 * (j >> 1)) * KROW + kb + 8 * (j & 1));
+  else ldsm_x4_trans(b, s + (kb + r + 8 * (j & 1)) * OROW + nb + 8 * (j >> 1));
+}
+
+template <int NA, int NACC, bool A_KC, int B_KC, int A1_OF, int EPI>
+__global__ void __launch_bounds__(THREADS)
+gemm_kernel(const Args<__nv_bfloat16> p) {
+  constexpr int STAGE = (NA + NACC) * TILE;
+  extern __shared__ __align__(16) __nv_bfloat16 bwd_smem[];
+  const int e = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int M = p.M, N = p.N, K = p.K;
+
+  auto stage = [&](int st, int k0) {
+    __nv_bfloat16* sm = bwd_smem + st * STAGE;
+#pragma unroll
+    for (int t = 0; t < NA; ++t) load_tile(sm + t * TILE, p.a[t] + e * p.sa[t], p.lda[t], m0, k0, M, K, A_KC);
+#pragma unroll
+    for (int j = 0; j < NACC; ++j)
+      load_tile(sm + (NA + j) * TILE, p.b[j] + e * p.sb[j], p.ldb[j], n0, k0, N, K, (B_KC >> j) & 1);
+    cp_async_commit();
+  };
+
+  float acc[NACC][2][4][4];
+#pragma unroll
+  for (int j = 0; j < NACC; ++j)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[j][mi][ni][i] = 0.f;
+
+  const int nk = (K + BK - 1) / BK;
+  stage(0, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    if (kt + 1 < nk) stage((kt + 1) & 1, (kt + 1) * BK);
+    else cp_async_commit();  // an empty group keeps the count
+    cp_async_wait<1>();
+    __syncthreads();
+    const __nv_bfloat16* sm = bwd_smem + (kt & 1) * STAGE;
+#pragma unroll
+    for (int kb = 0; kb < BK; kb += 16) {
+      uint32_t af[NA][2][4];
+#pragma unroll
+      for (int t = 0; t < NA; ++t)
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) frag_a(af[t][mi], sm + t * TILE, wm + 16 * mi, kb, lane, A_KC);
+#pragma unroll
+      for (int j = 0; j < NACC; ++j) {
+        uint32_t bf[2][4];
+#pragma unroll
+        for (int np = 0; np < 2; ++np)
+          frag_b(bf[np], sm + (NA + j) * TILE, wn + 16 * np, kb, lane, (B_KC >> j) & 1);
+        const int ta = (A1_OF >> j) & 1;
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+            mma_16816(acc[j][mi][ni], af[ta][mi], bf[ni >> 1][2 * (ni & 1)], bf[ni >> 1][2 * (ni & 1) + 1]);
+      }
+    }
+    __syncthreads();  // this stage is read by all before it is staged again
+  }
+  cp_async_wait<0>();
+
+  // value i of (mi, ni) at row wm + 16 mi + lane/4 + 8 (i / 2), column wn + 8 ni + 2 (lane % 4) + i % 2
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = m0 + wm + 16 * mi + (lane >> 2) + 8 * (i >> 1);
+        const int col = n0 + wn + 8 * ni + 2 * (lane & 3) + (i & 1);
+        if (row < M && col < N) {
+          float v[NACC];
+#pragma unroll
+          for (int j = 0; j < NACC; ++j) v[j] = acc[j][mi][ni][i];
+          store_epi<__nv_bfloat16, EPI, NACC>(p, ((int64_t)e * M + row) * N + col, v);
+        }
+      }
+}
+
+}  // namespace tc
+
+namespace ffma {  // route "fma"
+
+constexpr int BM = 64, BN = 64, BK = 16, TM = 4, TN = 4, TX = BN / TN, THREADS = (BM / TM) * TX;
+
+template <typename T, int NA, int NACC, bool A_KC, int B_KC, int A1_OF, int EPI>
+__global__ void __launch_bounds__(THREADS)
+gemm_kernel(const Args<T> p) {
+  __shared__ float As[NA][BK][BM + 1];
+  __shared__ float Bs[NACC][BK][BN];
+  const int e = blockIdx.z, m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int M = p.M, N = p.N, K = p.K;
+
+  float acc[NACC][TM][TN];
+#pragma unroll
+  for (int j = 0; j < NACC; ++j)
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int jj = 0; jj < TN; ++jj) acc[j][i][jj] = 0.f;
+
+  for (int k0 = 0; k0 < K; k0 += BK) {
+    // consecutive threads read consecutive elements of the stored rows
+#pragma unroll
+    for (int t = 0; t < NA; ++t) {
+      const T* a = p.a[t] + e * p.sa[t];
+      for (int idx = tid; idx < BM * BK; idx += THREADS) {
+        const int m = A_KC ? idx / BK : idx % BM, k = A_KC ? idx % BK : idx / BM;
+        const int gm = m0 + m, gk = k0 + k;
+        As[t][k][m] = (gm < M && gk < K)
+                          ? to_f(a[A_KC ? (int64_t)gm * p.lda[t] + gk : (int64_t)gk * p.lda[t] + gm])
+                          : 0.f;
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NACC; ++j) {
+      const T* b = p.b[j] + e * p.sb[j];
+      const bool kc = (B_KC >> j) & 1;
+      for (int idx = tid; idx < BN * BK; idx += THREADS) {
+        const int n = kc ? idx / BK : idx % BN, k = kc ? idx % BK : idx / BN;
+        const int gn = n0 + n, gk = k0 + k;
+        Bs[j][k][n] = (gn < N && gk < K)
+                          ? to_f(b[kc ? (int64_t)gn * p.ldb[j] + gk : (int64_t)gk * p.ldb[j] + gn])
+                          : 0.f;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < BK; ++k) {
+      float av[NA][TM];
+#pragma unroll
+      for (int t = 0; t < NA; ++t)
+#pragma unroll
+        for (int i = 0; i < TM; ++i) av[t][i] = As[t][k][ty * TM + i];
+#pragma unroll
+      for (int j = 0; j < NACC; ++j) {
+        const int ta = (A1_OF >> j) & 1;
+        float bv[TN];
+#pragma unroll
+        for (int jj = 0; jj < TN; ++jj) bv[jj] = Bs[j][k][tx + jj * TX];
+#pragma unroll
+        for (int i = 0; i < TM; ++i)
+#pragma unroll
+          for (int jj = 0; jj < TN; ++jj) acc[j][i][jj] = fmaf(av[ta][i], bv[jj], acc[j][i][jj]);
+      }
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int jj = 0; jj < TN; ++jj) {
+      const int row = m0 + ty * TM + i, col = n0 + tx + jj * TX;
+      if (row < M && col < N) {
+        float v[NACC];
+#pragma unroll
+        for (int j = 0; j < NACC; ++j) v[j] = acc[j][i][jj];
+        store_epi<T, EPI, NACC>(p, ((int64_t)e * M + row) * N + col, v);
+      }
+    }
+}
+
+}  // namespace ffma
+
+template <typename T, bool MMA, int NA, int NACC, bool A_KC, int B_KC, int A1_OF, int EPI>
+cudaError_t run_pass(const Args<T>& p, int E, cudaStream_t s) {
+  const dim3 grid((p.N + 63) / 64, (p.M + 63) / 64, E);
+  if constexpr (MMA) {
+    constexpr int smem = tc::smem_bytes<NA, NACC>();
+    auto kernel = tc::gemm_kernel<NA, NACC, A_KC, B_KC, A1_OF, EPI>;
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, tc::THREADS, smem, s>>>(p);
+  } else {
+    ffma::gemm_kernel<T, NA, NACC, A_KC, B_KC, A1_OF, EPI><<<grid, ffma::THREADS, 0, s>>>(p);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, bool MMA>
+cudaError_t passes(const void* x_, const void* wg_, const void* wu_, const void* wd_, const void* dy_, void* h_,
+                   void* dg_, void* du_, void* dx_, void* dwg_, void* dwu_, void* dwd_, int E, int C, int D, int F,
+                   cudaStream_t s) {
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
+  auto out = [](void* p) { return static_cast<T*>(p); };
+  const T *x = in(x_), *wg = in(wg_), *wu = in(wu_), *wd = in(wd_), *dy = in(dy_);
+  T *h = out(h_), *dg = out(dg_), *du = out(du_);
+  const int64_t sCD = (int64_t)C * D, sDF = (int64_t)D * F, sCF = (int64_t)C * F;
+  cudaError_t err;
+  // 1. g = x.Wg, u = x.Wu, dH = dY.Wd^T (C x F over D) -> h, dG, dU
+  Args<T> p1 = {{x, dy}, {sCD, sCD}, {D, D}, {wg, wu, wd}, {sDF, sDF, sDF}, {F, F, D}, {h, dg, du}, C, F, D};
+  if ((err = run_pass<T, MMA, 2, 3, true, 0b100, 0b100, EPI_GATED>(p1, E, s)) != cudaSuccess) return err;
+  // 2. dWd = h^T.dY (F x D over C)
+  Args<T> p2 = {{h, nullptr}, {sCF, 0}, {F, 0}, {dy, nullptr, nullptr}, {sCD, 0, 0}, {D, 0, 0},
+                {out(dwd_), nullptr, nullptr}, F, D, C};
+  if ((err = run_pass<T, MMA, 1, 1, false, 0, 0, EPI_ONE>(p2, E, s)) != cudaSuccess) return err;
+  // 3. dX = dG.Wg^T + dU.Wu^T (C x D over F, twice)
+  Args<T> p3 = {{dg, du}, {sCF, sCF}, {F, F}, {wg, wu, nullptr}, {sDF, sDF, 0}, {F, F, 0},
+                {out(dx_), nullptr, nullptr}, C, D, F};
+  if ((err = run_pass<T, MMA, 2, 2, true, 0b11, 0b10, EPI_SUM>(p3, E, s)) != cudaSuccess) return err;
+  // 4. dWg = x^T.dG, dWu = x^T.dU (D x F over C)
+  Args<T> p4 = {{x, nullptr}, {sCD, 0}, {D, 0}, {dg, du, nullptr}, {sCF, sCF, 0}, {F, F, 0},
+                {out(dwg_), out(dwu_), nullptr}, D, F, C};
+  return run_pass<T, MMA, 1, 2, false, 0, 0, EPI_PAIR>(p4, E, s);
+}
+
+}  // namespace bwd
 
 }  // namespace
 
@@ -524,4 +859,31 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w_gate, const void* w_up, 
     return (int)swab::launch<false>(h, w_down, nullptr, out, E, C, D, F, s);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// The backward of moe_gmm_fwd: dx (E, C, D), dwg and dwu (E, D, F), dwd
+// (E, F, D) from x, the weights and dy (E, C, D), all in one dtype (0 =
+// float32, 1 = bfloat16). h, dg and du are (E, C, F) scratch in that dtype.
+// route: BWD_FMA or BWD_MMA (bf16 with D and F multiples of 8 and 16-byte
+// aligned bases; the wrapper's _bwd_route picks it). Launches the four passes on
+// `stream`; returns the first non-zero cudaError_t, or cudaErrorInvalidValue
+// for a route these inputs cannot take.
+extern "C" int moe_gmm_bwd(const void* x, const void* w_gate, const void* w_up, const void* w_down,
+                           const void* dy, void* h, void* dg, void* du, void* dx, void* dwg, void* dwu, void* dwd,
+                           int dtype, int route, int E, int C, int D, int F, void* stream) {
+  if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535 || (C + 63) / 64 > 65535 || (D + 63) / 64 > 65535 ||
+      (F + 63) / 64 > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == BWD_FMA && dtype == 0)
+    return (int)bwd::passes<float, false>(x, w_gate, w_up, w_down, dy, h, dg, du, dx, dwg, dwu, dwd, E, C, D, F, s);
+  if (route == BWD_FMA && dtype == 1)
+    return (int)bwd::passes<__nv_bfloat16, false>(x, w_gate, w_up, w_down, dy, h, dg, du, dx, dwg, dwu, dwd, E, C,
+                                                  D, F, s);
+  // the tensor-core route: bf16, 16-byte rows and 16-byte aligned bases
+  const uintptr_t bases = (uintptr_t)x | (uintptr_t)w_gate | (uintptr_t)w_up | (uintptr_t)w_down | (uintptr_t)dy |
+                          (uintptr_t)h | (uintptr_t)dg | (uintptr_t)du;
+  if (route != BWD_MMA || dtype != 1 || D % 8 || F % 8 || (bases & 15)) return (int)cudaErrorInvalidValue;
+  return (int)bwd::passes<__nv_bfloat16, true>(x, w_gate, w_up, w_down, dy, h, dg, du, dx, dwg, dwu, dwd, E, C, D,
+                                               F, s);
 }

@@ -19,9 +19,28 @@ tensors through batch strides (no copy). Segmenting applies on every device:
 on the CPU each segment goes through the plain version. A scan under the
 limit is one launch, as before.
 
-For tensors on the CPU or the meta device the wrapper computes the plain version
-(``ref.reference_selective_scan``); for CUDA tensors it launches the kernel
-or raises. ``mamba_scan.launches`` counts kernel launches.
+``mamba_scan_bwd`` (K7b, no Pallas counterpart: the JAX train step
+differentiates the chunked scan of ``repro/models/mamba.py``) returns dxc,
+ddt, dB, dC, dA and dh0 from the forward's inputs and the cotangents of y and
+h_final, by ``csrc/mamba_scan.cu``'s ``mamba_scan_bwd``: one thread per
+(batch, channel) as in the forward. A forward pass stores the state at every
+``BWD_CHUNK`` steps in f32 scratch; a reverse pass recomputes each chunk's
+states from its checkpoint into shared memory and runs the state's cotangent
+back through them; dB and dC, sums over the channels of a (b, t), are reduced
+over each warp by shuffles into per-warp partial sums, and those, and dA's
+per-batch sums, are reduced in a fixed order by a last launch (no float
+atomics: a repeated call is bit-equal). A scan past the offset limit is
+walked in the forward's segments, in reverse for the cotangents, inside that
+one call.
+
+For tensors on the CPU or the meta device each wrapper computes its plain
+version (``ref.reference_selective_scan``, ``ref.reference_selective_scan_bwd``,
+segment by segment where the scan is cut); for CUDA tensors it launches its
+kernel or raises. ``mamba_scan.launches`` counts forward kernel launches,
+``mamba_scan_bwd.launches`` backward calls (each one call of the C entry). The
+bare ``mamba_scan`` refuses inputs that require a gradient: a gradient goes
+through ``repro_torch.models.mamba.MambaScan``, which pairs it with
+``mamba_scan_bwd``.
 """
 
 from __future__ import annotations
@@ -32,12 +51,14 @@ from typing import Optional
 import torch
 
 from . import build
-from .ref import PLAIN_DEVICES, reference_selective_scan
+from .ref import PLAIN_DEVICES, reference_selective_scan, reference_selective_scan_bwd
 
 STATE_SIZES = (4, 8, 16, 32)  # N states per thread, in registers
 MAX_AHEAD = 16  # the kernel computes step offsets t * Di up to t = L + 16
 OFFSET_LIMIT = 2**31  # a launch's step offsets (L + MAX_AHEAD) * Di stay below this (int32)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+BWD_CHUNK = 16  # steps between the backward's checkpoints (as the .cu's K)
+WARP = 32  # channels whose dB, dC terms one warp sums (as the .cu's per-warp partials)
 
 
 def _fn():
@@ -45,6 +66,15 @@ def _fn():
     fn = lib.mamba_scan_fwd
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _bwd_fn():
+    lib = build.load("mamba_scan")
+    fn = lib.mamba_scan_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -90,13 +120,14 @@ def mamba_scan(
     chunk_len: int = 256,  # the reference's time blocking; the kernel does not chunk
 ):
     """Returns (y (B, L, Di) f32, h_final (B, Di, N) f32). Refuses inputs that
-    require a gradient (outside ``torch.no_grad``/``inference_mode``): no
-    backward kernel exists yet (ROADMAP K7), and the kernel's output would
-    carry no graph."""
+    require a gradient (outside ``torch.no_grad``/``inference_mode``): the
+    kernel's outputs carry no graph, so a gradient goes through
+    ``repro_torch.models.mamba.MambaScan``, which pairs this call with
+    ``mamba_scan_bwd``."""
     _check_inputs(xc, dt, Bm, Cm, a, h0)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (xc, dt, Bm, Cm, a, h0)):
-        raise NotImplementedError("mamba_scan has no backward kernel yet (ROADMAP K7): "
-                                  "call it under torch.no_grad() or torch.inference_mode()")
+        raise RuntimeError("mamba_scan drops the gradient: differentiate through "
+                           "repro_torch.models.mamba.MambaScan")
     B, L, Di = xc.shape
     seg = segment_len(Di)
     if xc.device.type in PLAIN_DEVICES:
@@ -138,3 +169,80 @@ def mamba_scan(
 
 
 mamba_scan.launches = 0
+
+
+def _plain_bwd_segments(xc, dt, Bm, Cm, a, h0, dy, dh_final, seg):
+    """The plain backward of a scan cut into segments of ``seg`` steps: the
+    forward seeds each segment's state, then the segments run in reverse,
+    each seeded with the later one's state cotangent."""
+    L = xc.shape[1]
+    starts = list(range(0, L, seg))
+    cut = lambda t, s: t[:, s : s + seg]
+    seeds = [h0]
+    for s in starts[:-1]:
+        seeds.append(reference_selective_scan(cut(xc, s), cut(dt, s), cut(Bm, s), cut(Cm, s), a, seeds[-1])[1])
+    parts, da, carry = [], None, dh_final
+    for s, h in zip(reversed(starts), reversed(seeds)):
+        dxc, ddt, dB, dC, da_s, carry = reference_selective_scan_bwd(
+            cut(xc, s), cut(dt, s), cut(Bm, s), cut(Cm, s), a, h, cut(dy, s), carry)
+        parts.append((dxc, ddt, dB, dC))
+        da = da_s if da is None else da + da_s
+    dxc, ddt, dB, dC = (torch.cat([p[i] for p in reversed(parts)], dim=1) for i in range(4))
+    return dxc, ddt, dB, dC, da, carry
+
+
+def mamba_scan_bwd(
+    xc: torch.Tensor,  # (B, L, Di)
+    dt: torch.Tensor,  # (B, L, Di) f32
+    Bm: torch.Tensor,  # (B, L, N) f32
+    Cm: torch.Tensor,  # (B, L, N) f32
+    a: torch.Tensor,  # (Di, N) f32
+    h0: Optional[torch.Tensor],  # (B, Di, N) f32, or None (a zero state)
+    dy: torch.Tensor,  # (B, L, Di) f32, the cotangent of y
+    dh_final: Optional[torch.Tensor] = None,  # (B, Di, N) f32, the cotangent of h_final (None: zero)
+):
+    """Returns (dxc in xc's dtype, ddt, dB, dC, da, dh0), the rest f32: the
+    gradient of ``mamba_scan(xc, dt, Bm, Cm, a, h0)`` against (dy, dh_final).
+    dh0 is returned for h0 None too (the gradient of a zero state)."""
+    _check_inputs(xc, dt, Bm, Cm, a, h0)
+    B, L, Di = xc.shape
+    N = a.shape[1]
+    if dy.shape != (B, L, Di) or dy.dtype != torch.float32 or dy.device != xc.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype}: want {(B, L, Di)} float32 on {xc.device}")
+    if dh_final is not None and (dh_final.shape != (B, Di, N) or dh_final.dtype != torch.float32
+                                 or dh_final.device != xc.device):
+        raise ValueError(f"dh_final {tuple(dh_final.shape)} {dh_final.dtype}: want {(B, Di, N)} float32")
+    seg = segment_len(Di)
+    if xc.device.type in PLAIN_DEVICES:
+        if L <= seg:
+            return reference_selective_scan_bwd(xc, dt, Bm, Cm, a, h0, dy, dh_final)
+        return _plain_bwd_segments(xc, dt, Bm, Cm, a, h0, dy, dh_final, seg)
+    if xc.device.type != "cuda":
+        raise ValueError(f"mamba_scan_bwd: unsupported device {xc.device}")
+    ins = [None if t is None else t.contiguous() for t in (xc, dt, Bm, Cm, a, h0, dy, dh_final)]
+    dev = xc.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    # a checkpoint at the start of every BWD_CHUNK steps of each segment, and one more slot
+    slots = sum(-(-min(seg, L - s) // BWD_CHUNK) for s in range(0, L, seg)) + 1
+    ckpt = torch.empty((B, slots, N, Di), **f32)
+    part_bc = torch.empty((B, L, -(-Di // WARP), 2 * N), **f32)  # per-warp dB, dC partial sums
+    part_a = torch.empty((B, Di, N), **f32)  # dA summed over L, per batch row
+    dxc = torch.empty((B, L, Di), dtype=xc.dtype, device=dev)
+    ddt = torch.empty((B, L, Di), **f32)
+    dB, dC = torch.empty((B, L, N), **f32), torch.empty((B, L, N), **f32)
+    da, dh0 = torch.empty((Di, N), **f32), torch.empty((B, Di, N), **f32)
+    ptr = lambda t: 0 if t is None else t.data_ptr()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _bwd_fn()(
+            *(ptr(t) for t in ins), ckpt.data_ptr(), part_bc.data_ptr(), part_a.data_ptr(),
+            dxc.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), da.data_ptr(), dh0.data_ptr(),
+            _DTYPES[xc.dtype], B, L, Di, N, seg, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"mamba_scan_bwd kernel launch failed: cudaError_t {rc}")
+    mamba_scan_bwd.launches += 1
+    return dxc, ddt, dB, dC, da, dh0
+
+
+mamba_scan_bwd.launches = 0

@@ -22,10 +22,26 @@ launch order). ``h`` is scratch allocated here.
   for bf16 shapes whose D or F is not a multiple of 8 (TMA and the 16-byte
   copies need 16-byte rows).
 
-For tensors on the CPU or the meta device the wrapper computes the plain version
-(``ref.reference_gmm``); for CUDA tensors it launches the chosen route or
-raises, never another route. ``moe_gmm.launches`` counts calls that launched
-the kernel (one per call), ``moe_gmm.route_launches`` the same calls by route.
+``moe_gmm_bwd`` (K7a, no Pallas counterpart: the JAX train step
+differentiates the einsums of ``repro/models/moe.py``) returns dX, dWg, dWu
+and dWd from x, the weights and dY, in four launches of ``csrc/moe_gmm.cu``'s
+``moe_gmm_bwd``: a gated pass recomputes g and u beside dH = dY Wd^T and
+writes h, dG and dU in x's dtype (scratch allocated here); then dWd = h^T dY,
+dX = [dG dU] [Wg Wu]^T over 2F, and dWg, dWu = x^T [dG dU]. Weight gradients
+sum over C inside one block in a fixed order (no float atomics), so a
+repeated call is bit-equal. ``_bwd_route`` picks ``"mma"`` (``mma.sync``
+m16n8k16) for bf16 with D and F multiples of 8, else ``"fma"`` (every f32
+call, to keep the reference's f32 parity).
+
+For tensors on the CPU or the meta device each wrapper computes its plain
+version (``ref.reference_gmm``, ``ref.reference_gmm_bwd``); for CUDA tensors
+it launches the chosen route or raises, never another route.
+``moe_gmm.launches`` counts calls that launched the kernel (one per call),
+``moe_gmm.route_launches`` the same calls by route; ``moe_gmm_bwd.launches``
+and ``route_launches`` likewise count its calls (one call of the C entry, four
+kernels). The bare ``moe_gmm`` refuses inputs that require a gradient: a
+gradient goes through ``repro_torch.models.moe.MoeGmm``, which pairs it with
+``moe_gmm_bwd``.
 """
 
 from __future__ import annotations
@@ -35,10 +51,11 @@ import ctypes
 import torch
 
 from . import build
-from .ref import PLAIN_DEVICES, reference_gmm
+from .ref import PLAIN_DEVICES, reference_gmm, reference_gmm_bwd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"fma": 0, "wgmma": 1, "swap_ab": 2}  # as the .cu's Route enum
+BWD_ROUTES = {"fma": 0, "mma": 1}  # as moe_gmm_bwd's route argument
 
 
 def _fn():
@@ -50,11 +67,25 @@ def _fn():
     return fn
 
 
+def _bwd_fn():
+    lib = build.load("moe_gmm")
+    fn = lib.moe_gmm_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _route(dtype: torch.dtype, E: int, C: int, D: int, F: int) -> str:
     """The kernel design a CUDA call with these inputs takes (see the module note)."""
     if dtype != torch.bfloat16 or D % 8 or F % 8:
         return "fma"
     return "swap_ab" if C <= 8 else "wgmma"
+
+
+def _bwd_route(dtype: torch.dtype, D: int, F: int) -> str:
+    """The backward's design for a CUDA call with these inputs."""
+    return "mma" if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0 else "fma"
 
 
 def _check_inputs(x, w_gate, w_up, w_down):
@@ -81,12 +112,13 @@ def moe_gmm(
     w_down: torch.Tensor,  # (E, F, D)
 ) -> torch.Tensor:
     """Returns (E, C, D) in x's dtype. Refuses inputs that require a gradient
-    (outside ``torch.no_grad``/``inference_mode``): no backward kernel exists
-    yet (ROADMAP K7), and the kernel's output would carry no graph."""
+    (outside ``torch.no_grad``/``inference_mode``): the kernel's output
+    carries no graph, so a gradient goes through
+    ``repro_torch.models.moe.MoeGmm``, which pairs this call with
+    ``moe_gmm_bwd``."""
     _check_inputs(x, w_gate, w_up, w_down)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w_gate, w_up, w_down)):
-        raise NotImplementedError("moe_gmm has no backward kernel yet (ROADMAP K7): "
-                                  "call it under torch.no_grad() or torch.inference_mode()")
+        raise RuntimeError("moe_gmm drops the gradient: differentiate through repro_torch.models.moe.MoeGmm")
     if x.device.type in PLAIN_DEVICES:
         return reference_gmm(x, w_gate, w_up, w_down)
     if x.device.type != "cuda":
@@ -113,3 +145,45 @@ def moe_gmm(
 
 moe_gmm.launches = 0
 moe_gmm.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+def moe_gmm_bwd(
+    x: torch.Tensor,  # (E, C, D)
+    w_gate: torch.Tensor,  # (E, D, F)
+    w_up: torch.Tensor,  # (E, D, F)
+    w_down: torch.Tensor,  # (E, F, D)
+    dy: torch.Tensor,  # (E, C, D) the cotangent of moe_gmm's output
+):
+    """Returns (dx, dwg, dwu, dwd) in the inputs' dtype: the gradient of
+    ``moe_gmm(x, w_gate, w_up, w_down)`` against ``dy``."""
+    _check_inputs(x, w_gate, w_up, w_down)
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
+        raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device}: want x's {tuple(x.shape)} {x.dtype}")
+    if x.device.type in PLAIN_DEVICES:
+        return reference_gmm_bwd(x, w_gate, w_up, w_down, dy)
+    if x.device.type != "cuda":
+        raise ValueError(f"moe_gmm_bwd: unsupported device {x.device}")
+    # contiguous, and 16-byte aligned for the tensor-core route's copies (cp.async)
+    ins = [t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
+           for t in (x, w_gate, w_up, w_down, dy)]
+    E, C, D = x.shape
+    F = w_gate.shape[2]
+    route = _bwd_route(x.dtype, D, F)
+    h, dg, du = (torch.empty((E, C, F), dtype=x.dtype, device=x.device) for _ in range(3))
+    dx, dwg, dwu, dwd = (torch.empty_like(t) for t in (x, w_gate, w_up, w_down))
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = _bwd_fn()(
+            *(t.data_ptr() for t in ins), h.data_ptr(), dg.data_ptr(), du.data_ptr(), dx.data_ptr(),
+            dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), _DTYPES[x.dtype], BWD_ROUTES[route], E, C, D, F,
+            stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"moe_gmm_bwd kernel launch failed on route {route!r}: cudaError_t {rc}")
+    moe_gmm_bwd.launches += 1
+    moe_gmm_bwd.route_launches[route] += 1
+    return dx, dwg, dwu, dwd
+
+
+moe_gmm_bwd.launches = 0
+moe_gmm_bwd.route_launches = dict.fromkeys(BWD_ROUTES, 0)

@@ -237,14 +237,48 @@ def reference_gmm(
     w_up: torch.Tensor,  # (E, D, F)
     w_down: torch.Tensor,  # (E, F, D)
 ) -> torch.Tensor:
-    """Per-expert SwiGLU: ``silu(x Wg) * (x Wu)`` in f32, cast to x's dtype,
-    then ``@ Wd`` in f32, cast to x's dtype -- where the Pallas kernel casts.
-    Returns (E, C, D)."""
-    f32 = torch.float32
-    g = torch.einsum("ecd,edf->ecf", x.to(f32), w_gate.to(f32))
-    u = torch.einsum("ecd,edf->ecf", x.to(f32), w_up.to(f32))
+    """Per-expert SwiGLU: ``silu(x Wg) * (x Wu)`` in f32 (f64 for f64
+    inputs), cast to x's dtype, then ``@ Wd`` in f32, cast to x's dtype --
+    where the Pallas kernel casts. Returns (E, C, D)."""
+    acc = _acc(x.dtype)
+    g = torch.einsum("ecd,edf->ecf", x.to(acc), w_gate.to(acc))
+    u = torch.einsum("ecd,edf->ecf", x.to(acc), w_up.to(acc))
     h = (torch.nn.functional.silu(g) * u).to(x.dtype)
-    return torch.einsum("ecf,efd->ecd", h.to(f32), w_down.to(f32)).to(x.dtype)
+    return torch.einsum("ecf,efd->ecd", h.to(acc), w_down.to(acc)).to(x.dtype)
+
+
+def reference_gmm_bwd(
+    x: torch.Tensor,  # (E, C, D)
+    w_gate: torch.Tensor,  # (E, D, F)
+    w_up: torch.Tensor,  # (E, D, F)
+    w_down: torch.Tensor,  # (E, F, D)
+    dy: torch.Tensor,  # (E, C, D) the cotangent of reference_gmm's output
+):
+    """Plain oracle for ``moe_gmm_bwd``: (dx, dwg, dwu, dwd) in the inputs'
+    dtype, the gradient of ``reference_gmm`` against ``dy``, as explicit
+    formulas in f32 (f64 for f64 inputs). g = x Wg and u = x Wu are
+    recomputed; h = silu(g) u is cast to x's dtype, as the forward casts it,
+    and dWd = h^T dY takes that h. dH = dY Wd^T; with s = sigmoid(g),
+    dG = dH u s (1 + g (1 - s)) and dU = dH silu(g), each cast to x's dtype
+    (in bf16 they go into their products rounded, as h does in the forward;
+    in f32 the cast is no-op); dX = dG Wg^T + dU Wu^T, dWg = x^T dG and
+    dWu = x^T dU. The casts of the forward's outputs pass the gradient
+    through unchanged."""
+    acc = _acc(x.dtype)
+    xa, dya = x.to(acc), dy.to(acc)
+    g = torch.einsum("ecd,edf->ecf", xa, w_gate.to(acc))
+    u = torch.einsum("ecd,edf->ecf", xa, w_up.to(acc))
+    s = torch.sigmoid(g)
+    silu = torch.nn.functional.silu(g)
+    h = (silu * u).to(x.dtype).to(acc)
+    dh = torch.einsum("ecd,efd->ecf", dya, w_down.to(acc))
+    dwd = torch.einsum("ecf,ecd->efd", h, dya)
+    dg = (dh * u * (s * (1 + g * (1 - s)))).to(x.dtype).to(acc)
+    du = (dh * silu).to(x.dtype).to(acc)
+    dx = torch.einsum("ecf,edf->ecd", dg, w_gate.to(acc)) + torch.einsum("ecf,edf->ecd", du, w_up.to(acc))
+    dwg = torch.einsum("ecd,ecf->edf", xa, dg)
+    dwu = torch.einsum("ecd,ecf->edf", xa, du)
+    return dx.to(x.dtype), dwg.to(w_gate.dtype), dwu.to(w_up.dtype), dwd.to(w_down.dtype)
 
 
 def reference_selective_scan(
@@ -255,14 +289,63 @@ def reference_selective_scan(
     a: torch.Tensor,  # (Di, N) f32 negative
     h0: torch.Tensor | None = None,  # (B, Di, N) f32
 ):
-    """Direct sequential scan over time. Returns (y (B, L, Di) f32, h_final
-    (B, Di, N) f32)."""
+    """Direct sequential scan over time, in f32 (f64 for f64 inputs).
+    Returns (y (B, L, Di), h_final (B, Di, N))."""
     B, L, Di = xc.shape
     N = a.shape[1]
-    h = torch.zeros((B, Di, N), dtype=torch.float32, device=xc.device) if h0 is None else h0.float()
-    xcf = xc.float()
+    acc = _acc(dt.dtype)
+    h = torch.zeros((B, Di, N), dtype=acc, device=xc.device) if h0 is None else h0.to(acc)
+    xcf = xc.to(acc)
     ys = []
     for t in range(L):
         h = torch.exp(dt[:, t, :, None] * a) * h + (dt[:, t] * xcf[:, t])[..., None] * Bm[:, t, None, :]
         ys.append(torch.einsum("bin,bn->bi", h, Cm[:, t]))
     return torch.stack(ys, dim=1), h
+
+
+def reference_selective_scan_bwd(
+    xc: torch.Tensor,  # (B, L, Di)
+    dt: torch.Tensor,  # (B, L, Di) f32
+    Bm: torch.Tensor,  # (B, L, N) f32
+    Cm: torch.Tensor,  # (B, L, N) f32
+    a: torch.Tensor,  # (Di, N) f32
+    h0: torch.Tensor | None,  # (B, Di, N) f32, or None for a zero state
+    dy: torch.Tensor,  # (B, L, Di) f32, the cotangent of y
+    dh_final: torch.Tensor | None = None,  # (B, Di, N) f32, the cotangent of h_final
+):
+    """Plain oracle for ``mamba_scan_bwd``: (dxc, ddt, dB, dC, da, dh0), the
+    gradient of ``reference_selective_scan`` against (dy, dh_final), dxc in
+    xc's dtype and the rest in f32 (f64 for f64 inputs), as explicit formulas.
+
+    With a_t = exp(dt_t A) and h_t the forward's states (recomputed here),
+    the state's cotangent runs backwards, seeded with dh_final:
+    g_t = C_t dy_t + a_{t+1} g_{t+1}. Then dC_t[n] = sum_i dy_t[i] h_t[i, n],
+    dB_t[n] = sum_i g_t[i, n] dt_t[i] x_t[i], dx_t[i] = dt_t[i] sum_n
+    g_t[i, n] B_t[n], ddt_t[i] = sum_n g_t[i, n] (x_t[i] B_t[n] + A[i, n]
+    a_t[i, n] h_{t-1}[i, n]), dA = sum_{b, t} g_t dt_t a_t h_{t-1}, and
+    dh0 = a_1 g_1 (zeros, not None, for h0 None)."""
+    B, L, Di = xc.shape
+    N = a.shape[1]
+    acc = _acc(dt.dtype)
+    xcf = xc.to(acc)
+    h = torch.zeros((B, Di, N), dtype=acc, device=xc.device) if h0 is None else h0.to(acc)
+    hs, decays = [h], []
+    for t in range(L):
+        decay = torch.exp(dt[:, t, :, None] * a)
+        h = decay * h + (dt[:, t] * xcf[:, t])[..., None] * Bm[:, t, None, :]
+        hs.append(h)
+        decays.append(decay)
+    carry = torch.zeros_like(h) if dh_final is None else dh_final.to(acc)  # a_{t+1} g_{t+1}
+    dxc = torch.empty((B, L, Di), dtype=acc, device=xc.device)
+    ddt, dB, dC = torch.empty_like(dxc), torch.empty_like(Bm, dtype=acc), torch.empty_like(Cm, dtype=acc)
+    da = torch.zeros_like(a, dtype=acc)
+    for t in reversed(range(L)):
+        g = Cm[:, t, None, :] * dy[:, t, :, None] + carry  # (B, Di, N)
+        prev, decay = hs[t], decays[t]
+        dC[:, t] = torch.einsum("bi,bin->bn", dy[:, t], hs[t + 1])
+        dB[:, t] = torch.einsum("bin,bi->bn", g, dt[:, t] * xcf[:, t])
+        dxc[:, t] = dt[:, t] * torch.einsum("bin,bn->bi", g, Bm[:, t])
+        ddt[:, t] = (g * (xcf[:, t, :, None] * Bm[:, t, None, :] + a * decay * prev)).sum(-1)
+        da += (g * dt[:, t, :, None] * decay * prev).sum(0)
+        carry = decay * g
+    return dxc.to(xc.dtype), ddt, dB, dC, da, carry

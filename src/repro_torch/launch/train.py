@@ -13,6 +13,12 @@ next batches, not the ones they replace.
       --batch 8 --seq 2048 --steps 20 --device cuda
   PYTHONPATH=src python -m repro_torch.launch.train --device cpu --reduced \\
       --steps 6 --batch 4 --seq 32 --ckpt-every 2 --fail-at-step 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch jamba-v0.1-52b \\
+      --reduced --device cpu
+
+``run(cfg, ...)`` is the same loop for an ``ArchConfig`` built in code (a
+depth-cut config, as ``chip_smoke.py`` trains), as ``launch.serve.run`` is
+for serving.
 
 Weights are random, drawn from ``--seed``. The step runs on ``--device``
 (default ``cuda``, which raises without a card).
@@ -35,9 +41,109 @@ from repro_torch.core import ProvenanceRegistry, software_version_of
 from repro_torch.data.pipeline import build_data_pipeline, next_batch
 from repro_torch.dist.ft import FaultToleranceManager, SimulatedFailure
 from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.common import ArchConfig
 from repro_torch.models.registry import build_model, train_loss
 from repro_torch.optim import adamw_init, cosine_warmup
 from repro_torch.workspace import MeshExecutor
+
+DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
+def run(
+    cfg: ArchConfig,
+    *,
+    steps: int = 20,
+    batch: int = 8,
+    seq: int = 128,
+    lr: float = 3e-4,
+    microbatches: int = 1,
+    ckpt_every: int = 10,
+    ckpt_dir: str = DEFAULT_CKPT_DIR,
+    resume: bool = False,
+    fail_at_step: int = -1,
+    seed: int = 0,
+    device="cuda",
+):
+    """Train ``cfg`` for ``steps`` steps of ``batch`` x ``seq`` tokens from the
+    data circuit, with random weights from ``seed``, on ``device``: AdamW
+    under a cosine warmup to ``lr``, a checkpoint every ``ckpt_every`` steps
+    and after the last, and make-mode recovery from ``fail_at_step``.
+    Prints each step's loss; returns the final train state."""
+    model = build_model(cfg)
+    schedule = cosine_warmup(lr, max(2, steps // 10), steps)
+
+    # the executor backend owns the device; the same call targets another
+    # device by swapping the executor, nothing else
+    executor = MeshExecutor(make_host_mesh(device=device), cfg=cfg, mode="train", global_batch=batch)
+    dev = executor.mesh
+    train_step = executor.train_step(model, schedule, microbatches=microbatches)
+
+    registry = ProvenanceRegistry()
+    sw = software_version_of(train_loss)
+    registry.register_task("train_step", ["batch"], ["state", "metrics"], sw)
+    ckpt = CheckpointManager(ckpt_dir, software_version=sw)
+    data = build_data_pipeline(cfg, batch, seq, seed=seed)
+    ft = FaultToleranceManager(n_hosts=1)
+
+    def fresh_state():
+        params = model.init(seed, dev)
+        return {
+            "params": params,
+            "opt": adamw_init(params),
+            "step": torch.zeros((), dtype=torch.int32, device=dev),
+        }
+
+    def restore():
+        last = ckpt.latest_step()
+        if resume and last is not None:
+            state, manifest = ckpt.restore(fresh_state())
+            print(f"[restore] step {last} (sw={manifest['software_version']})")
+            return state, last
+        return fresh_state(), 0
+
+    def run_steps(start_state, start_step):
+        state = start_state
+        for step in range(start_step, steps):
+            t0 = time.time()
+            b = next_batch(data, cfg)
+            b = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in b.items()}
+            state, metrics = train_step(state, b)
+            loss = float(metrics["loss"])  # waits for the step
+            dt = time.time() - t0
+            ft.heartbeat(0, dt)
+            registry.log_visit("train_step", f"step-{step}", "executed", sw,
+                               note=f"loss={loss:.4f} wall={dt:.3f}s")
+            if step == fail_at_step:
+                ckpt.wait()
+                raise SimulatedFailure(host=0, msg=f"injected at step {step}")
+            print(
+                f"step {step:5d} loss {loss:.4f} "
+                f"lr {float(metrics['lr']):.2e} gnorm {float(metrics['grad_norm']):.3f} "
+                f"({dt:.2f}s)"
+            )
+            if (step + 1) % ckpt_every == 0 or step + 1 == steps:
+                ckpt.save_async(state, step + 1, meta={"loss": loss})
+        ckpt.wait()
+        return state
+
+    # make-mode recovery loop
+    attempts = 0
+    while True:
+        state, start = restore()
+        try:
+            state = run_steps(state, start)
+            break
+        except SimulatedFailure as e:
+            attempts += 1
+            resume = True
+            fail_at_step = -1  # replacement host joins; don't re-fail
+            print(f"[ft] {e} -> restart from latest checkpoint (attempt {attempts})")
+            if attempts > 3:
+                raise
+
+    print(f"[done] {steps} steps; checkpoints: {[a.meta['step'] for a in ckpt.saved]}")
+    print(f"[provenance] visitor log entries: {len(registry.visitor_log('train_step'))}")
+    return state
 
 
 def main(argv=None):
@@ -50,7 +156,7 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-every", type=int, default=10)
-    ap.add_argument("--ckpt-dir", default=os.path.join(tempfile.gettempdir(), "repro_torch_ckpt"))
+    ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--fail-at-step", type=int, default=-1,
                     help="inject a simulated host failure (tests recovery)")
@@ -65,81 +171,9 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
-    model = build_model(cfg)
-    schedule = cosine_warmup(args.lr, max(2, args.steps // 10), args.steps)
-
-    # the executor backend owns the device; the same call targets another
-    # device by swapping the executor, nothing else
-    executor = MeshExecutor(make_host_mesh(device=args.device), cfg=cfg, mode="train", global_batch=args.batch)
-    dev = executor.mesh
-    train_step = executor.train_step(model, schedule, microbatches=args.microbatches)
-
-    registry = ProvenanceRegistry()
-    sw = software_version_of(train_loss)
-    registry.register_task("train_step", ["batch"], ["state", "metrics"], sw)
-    ckpt = CheckpointManager(args.ckpt_dir, software_version=sw)
-    data = build_data_pipeline(cfg, args.batch, args.seq, seed=args.seed)
-    ft = FaultToleranceManager(n_hosts=1)
-
-    def fresh_state():
-        params = model.init(args.seed, dev)
-        return {
-            "params": params,
-            "opt": adamw_init(params),
-            "step": torch.zeros((), dtype=torch.int32, device=dev),
-        }
-
-    def restore():
-        last = ckpt.latest_step()
-        if args.resume and last is not None:
-            state, manifest = ckpt.restore(fresh_state())
-            print(f"[restore] step {last} (sw={manifest['software_version']})")
-            return state, last
-        return fresh_state(), 0
-
-    def run(start_state, start_step):
-        state = start_state
-        for step in range(start_step, args.steps):
-            t0 = time.time()
-            batch = next_batch(data, cfg)
-            batch = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in batch.items()}
-            state, metrics = train_step(state, batch)
-            loss = float(metrics["loss"])  # waits for the step
-            dt = time.time() - t0
-            ft.heartbeat(0, dt)
-            registry.log_visit("train_step", f"step-{step}", "executed", sw,
-                               note=f"loss={loss:.4f} wall={dt:.3f}s")
-            if step == args.fail_at_step:
-                ckpt.wait()
-                raise SimulatedFailure(host=0, msg=f"injected at step {step}")
-            print(
-                f"step {step:5d} loss {loss:.4f} "
-                f"lr {float(metrics['lr']):.2e} gnorm {float(metrics['grad_norm']):.3f} "
-                f"({dt:.2f}s)"
-            )
-            if (step + 1) % args.ckpt_every == 0 or step + 1 == args.steps:
-                ckpt.save_async(state, step + 1, meta={"loss": loss})
-        ckpt.wait()
-        return state
-
-    # make-mode recovery loop
-    attempts = 0
-    while True:
-        state, start = restore()
-        try:
-            state = run(state, start)
-            break
-        except SimulatedFailure as e:
-            attempts += 1
-            args.resume = True
-            args.fail_at_step = -1  # replacement host joins; don't re-fail
-            print(f"[ft] {e} -> restart from latest checkpoint (attempt {attempts})")
-            if attempts > 3:
-                raise
-
-    print(f"[done] {args.steps} steps; checkpoints: {[a.meta['step'] for a in ckpt.saved]}")
-    print(f"[provenance] visitor log entries: {len(registry.visitor_log('train_step'))}")
-    return state
+    return run(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr, microbatches=args.microbatches,
+               ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir, resume=args.resume,
+               fail_at_step=args.fail_at_step, seed=args.seed, device=args.device)
 
 
 if __name__ == "__main__":

@@ -5,8 +5,11 @@ associative ``selective_scan`` (or the Pallas kernel handed in as
 ``scan_impl``), the port calls ``kernels["mamba_scan"]`` (default
 ``repro_torch.kernels.ops.kernel_set()``), with the carry-in state ``h0`` and
 ``chunk_len``; the kernel and its plain version take the place of the chunked
-scan. Decode is the O(1) single-token affine update plus a depthwise-conv
-window, in plain PyTorch as in the reference.
+scan. Where a gradient is needed (training; the reference's train step
+differentiates its chunked scan), the call goes through ``MambaScan``, which
+pairs it with ``kernels["mamba_scan_bwd"]``. Decode is the O(1) single-token
+affine update plus a depthwise-conv window, in plain PyTorch as in the
+reference.
 """
 
 from __future__ import annotations
@@ -64,6 +67,40 @@ def _ssm_params(p: dict, cfg: ArchConfig, xc: torch.Tensor):
     return dt, Bm.float().contiguous(), Cm.float().contiguous()  # the scan takes contiguous B, C
 
 
+class MambaScan(torch.autograd.Function):
+    """(y, h_final) = mamba_scan(xc, dt, Bm, Cm, a, h0) with its gradient: the
+    forward saves its inputs, the backward calls ``bwd`` on them and the
+    cotangents of y and h_final (None where h_final is not used).
+
+    ``fwd(xc, dt, Bm, Cm, a, h0=, chunk_len=) -> (y, h_final)`` and
+    ``bwd(xc, dt, Bm, Cm, a, h0, dy, dh_final) -> (dxc, ddt, dB, dC, da,
+    dh0)``: the kernels' wrappers, or their plain versions (``kernels.ref``)
+    to hold the kernels against. Under activation checkpointing the forward
+    runs again in the backward pass, and launches its kernel again."""
+
+    @staticmethod
+    def forward(ctx, xc, dt, Bm, Cm, a, h0, chunk_len: int, fwd, bwd):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(xc, dt, Bm, Cm, a, h0)
+        ctx.bwd = bwd
+        return fwd(xc, dt, Bm, Cm, a, h0=h0, chunk_len=chunk_len)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        xc, dt, Bm, Cm, a, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(dt) if dy is None else dy.contiguous()
+        dxc, ddt, dB, dC, da, dh0 = ctx.bwd(xc, dt, Bm, Cm, a, h0, dy, None if dh is None else dh.contiguous())
+        return dxc, ddt, dB, dC, da, (None if h0 is None else dh0), None, None, None
+
+
+def selective_scan(kernels: dict, xc, dt, Bm, Cm, a, h0=None, chunk_len: int = 256):
+    """``kernels["mamba_scan"]``, through ``MambaScan`` with
+    ``kernels["mamba_scan_bwd"]`` when a gradient is needed."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (xc, dt, Bm, Cm, a, h0)):
+        return MambaScan.apply(xc, dt, Bm, Cm, a, h0, chunk_len, kernels["mamba_scan"], kernels["mamba_scan_bwd"])
+    return kernels["mamba_scan"](xc, dt, Bm, Cm, a, h0=h0, chunk_len=chunk_len)
+
+
 def mamba_block(
     p: dict,
     cfg: ArchConfig,
@@ -81,7 +118,7 @@ def mamba_block(
     if cache is None:
         xc = F.silu(_causal_conv(xr, p["conv_w"], p["conv_b"]))
         dt, Bm, Cm = _ssm_params(p, cfg, xc)
-        y, _ = kernels["mamba_scan"](xc, dt, Bm, Cm, a, chunk_len=min(256, L))
+        y, _ = selective_scan(kernels, xc, dt, Bm, Cm, a, chunk_len=min(256, L))
         new_cache = None
     elif L == 1:
         # decode: single-token affine update
@@ -102,7 +139,7 @@ def mamba_block(
             acc = acc + p["conv_w"][k] * conv_in[:, k : k + L]
         xc = F.silu(acc + p["conv_b"])
         dt, Bm, Cm = _ssm_params(p, cfg, xc)
-        y, h_final = kernels["mamba_scan"](xc, dt, Bm, Cm, a, h0=cache["h"], chunk_len=min(256, L))
+        y, h_final = selective_scan(kernels, xc, dt, Bm, Cm, a, cache["h"], chunk_len=min(256, L))
         new_cache = {"h": h_final, "conv": conv_in[:, -(K - 1) :]}
 
     y = y + xcf_skip(xc, p["d_skip"])

@@ -9,7 +9,9 @@ sort-based dispatch:
      expert (overflow goes to the dump slot ``E*C`` and is dropped), scatter
      the token vectors into an (E, C, D) buffer;
   3. grouped SwiGLU per expert over its capacity bin, through
-     ``kernels["moe_gmm"]``;
+     ``kernels["moe_gmm"]``; where a gradient is needed, through ``MoeGmm``,
+     which pairs it with ``kernels["moe_gmm_bwd"]`` (the reference's train
+     step differentiates its einsums, ``repro/models/moe.py:127-131``);
   4. combine: gather each slot's output back, weight, and sum over k.
 
 Group-local dispatch (``moe_groups > 1``) is not ported yet.
@@ -78,6 +80,36 @@ def _dispatch(xf: torch.Tensor, gate_e: torch.Tensor, K: int, E: int, C: int):
     return xbuf[: E * C].view(E, C, D), slot_by_flat, keep.sum()
 
 
+class MoeGmm(torch.autograd.Function):
+    """out = moe_gmm(x, w_gate, w_up, w_down) with its gradient: the forward
+    saves its inputs, the backward calls ``bwd`` on them and the output's
+    cotangent.
+
+    ``fwd(x, w_gate, w_up, w_down) -> out`` and ``bwd(x, w_gate, w_up,
+    w_down, dy) -> (dx, dwg, dwu, dwd)``: the kernels' wrappers, or their
+    plain versions (``kernels.ref``) to hold the kernels against. Under
+    activation checkpointing the forward runs again in the backward pass, and
+    launches its kernel again."""
+
+    @staticmethod
+    def forward(ctx, x, w_gate, w_up, w_down, fwd, bwd):
+        ctx.save_for_backward(x, w_gate, w_up, w_down)
+        ctx.bwd = bwd
+        return fwd(x, w_gate, w_up, w_down)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return (*ctx.bwd(*ctx.saved_tensors, dy.contiguous()), None, None)
+
+
+def grouped_swiglu(x, w_gate, w_up, w_down, kernels: dict) -> torch.Tensor:
+    """``kernels["moe_gmm"]``, through ``MoeGmm`` with ``kernels["moe_gmm_bwd"]``
+    when a gradient is needed."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w_gate, w_up, w_down)):
+        return MoeGmm.apply(x, w_gate, w_up, w_down, kernels["moe_gmm"], kernels["moe_gmm_bwd"])
+    return kernels["moe_gmm"](x, w_gate, w_up, w_down)
+
+
 def moe_ffn(
     p: dict,
     cfg: ArchConfig,
@@ -103,7 +135,7 @@ def moe_ffn(
     aux_loss = E * torch.mean(probs.mean(0) * onehot.mean(0))
 
     xe, slot_by_flat, kept = _dispatch(xf, gate_e, K, E, C)
-    h = kernels["moe_gmm"](xe, p["w_gate"], p["w_up"], p["w_down"])  # (E, C, D)
+    h = grouped_swiglu(xe, p["w_gate"], p["w_up"], p["w_down"], kernels)  # (E, C, D)
 
     ybuf = torch.cat([h.reshape(E * C, D), h.new_zeros((1, D))])
     y = ybuf[slot_by_flat].view(T, K, D)

@@ -2,9 +2,10 @@
 
 Port of ``repro.models.registry``: ``train_loss``, ``prefill`` and
 ``decode_step`` are functions of (params, batch or tokens, state).
-``train_loss`` trains the dense layouts: a layout with an MoE FFN or a Mamba
-mixer raises, since their kernels have no backward yet (ROADMAP K7), and so
-do MLA, an encoder and a frontend (ROADMAP queue 1, item 5b). The state holds
+``train_loss`` trains the dense, MoE and hybrid Mamba layouts (the MoE and
+Mamba layers through their kernels' backward, K7a and K7b, paired with the
+forwards in ``moe.MoeGmm`` and ``mamba.MambaScan``); MLA, an encoder and a
+frontend raise (ROADMAP queue 1, item 5b). The state holds
 one cache per layer, of that layer's mixer: an attention layer's K/V (or MLA
 latents) are updated in place, a Mamba layer's (h, conv window) state is
 replaced. The state's ``t`` and each cache's ``index`` are host ``int``s.
@@ -34,16 +35,10 @@ def build_model(cfg: ArchConfig) -> Model:
 
 def check_trainable(cfg: ArchConfig) -> None:
     """Raise for a layout whose gradient the port cannot take on the card."""
-    kinds = {s.mixer for s in cfg.layout} | {s.ffn for s in cfg.layout}
     if cfg.attention == "mla" or cfg.encoder_layers or cfg.frontend != "none":
         raise NotImplementedError(
             f"{cfg.name}: training MLA, an encoder-decoder or a frontend needs K1 at (Dk 96, Dv 64), "
             "K1 non-causal with Lq != Lk, and frames and prefix in train_loss (ROADMAP.md queue 1, item 5b)"
-        )
-    if kinds & {"moe", "mamba"}:
-        raise NotImplementedError(
-            f"{cfg.name}: training an {'/'.join(sorted(kinds & {'moe', 'mamba'}))} layout needs the "
-            "moe_gmm and mamba_scan backward kernels (ROADMAP K7), not written yet"
         )
 
 

@@ -27,9 +27,10 @@ from repro_torch.kernels.flash_decode import flash_decode, pick_split
 from repro_torch.kernels.hash_tree import hash_tree_state
 import repro_torch.kernels.mamba_scan as scan_module
 from repro_torch.kernels.mamba_scan import _check_inputs as _check_scan_inputs
-from repro_torch.kernels.mamba_scan import mamba_scan
+from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd
+from repro_torch.kernels.moe_gmm import _bwd_route as gmm_bwd_route
 from repro_torch.kernels.moe_gmm import _route as gmm_route
-from repro_torch.kernels.moe_gmm import moe_gmm
+from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_bwd
 from repro_torch.models.moe import expert_capacity
 
 # f32: both sides accumulate in f32, in different orders (online vs full
@@ -368,8 +369,11 @@ def test_cpu_path_launches_no_kernel():
     hash_tree_state(torch.zeros(8192, dtype=torch.int32))
     o, lse = flash_attention(q, q, q, return_lse=True)
     flash_attention_bwd(q, q, q, o, q, lse)
+    moe_gmm_bwd(torch.randn(2, 3, 8), w, w, w, torch.randn(2, 3, 8))
+    mamba_scan_bwd(x, x.abs(), torch.randn(1, 5, 4), torch.randn(1, 5, 4), -torch.rand(8, 4), None, x)
     assert ops.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0, "flash_decode": 0,
-                                   "moe_gmm": 0, "mamba_scan": 0, "hash_tree": 0}
+                                   "moe_gmm": 0, "moe_gmm_bwd": 0, "mamba_scan": 0, "mamba_scan_bwd": 0,
+                                   "hash_tree": 0}
 
 
 @pytest.mark.parametrize(
@@ -642,15 +646,16 @@ def test_rms_norm_and_grad_cast_backward_match_the_custom_vjps(dtype):
 
 
 def test_wrappers_refuse_a_gradient_they_would_drop():
-    """moe_gmm and mamba_scan have no backward kernel (ROADMAP K7) and the
-    forward flash_attention none outside FlashAttention: given inputs that
-    require a gradient, with grad mode on, they raise on every device rather
-    than return an output without a graph on a card."""
+    """The forward moe_gmm, mamba_scan and flash_attention take no gradient
+    outside their autograd Functions (MoeGmm, MambaScan, FlashAttention, which
+    pair them with their backward kernels): given inputs that require a
+    gradient, with grad mode on, they raise on every device rather than
+    return an output without a graph on a card."""
     w = torch.randn(2, 8, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K7"):
+    with pytest.raises(RuntimeError, match="MoeGmm"):
         moe_gmm(torch.randn(2, 3, 8), w, w, w)
     x = torch.randn(1, 5, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="K7"):
+    with pytest.raises(RuntimeError, match="MambaScan"):
         mamba_scan(x, x.detach().abs(), torch.randn(1, 5, 4), torch.randn(1, 5, 4), -torch.rand(8, 4))
     q = torch.randn(1, 16, 2, 16, requires_grad=True)
     with pytest.raises(RuntimeError, match="FlashAttention"):
@@ -662,3 +667,245 @@ def test_wrappers_refuse_a_gradient_they_would_drop():
     with torch.no_grad():
         mamba_scan(x, x.abs(), torch.randn(1, 5, 4), torch.randn(1, 5, 4), -torch.rand(8, 4))
     moe_gmm(torch.randn(2, 3, 8), w.detach(), w.detach(), w.detach())
+
+
+# -- K7: the backward of moe_gmm (K7a) and of mamba_scan (K7b) ------------------------
+
+from repro.models import mamba as jax_mamba  # noqa: E402
+from repro_torch.models.mamba import MambaScan, selective_scan as model_scan  # noqa: E402
+from repro_torch.models.moe import MoeGmm, grouped_swiglu  # noqa: E402
+
+# (E, C, D, F, rows filled per bin or None): ragged C, D and F not multiples
+# of 8 (the bf16 FMA route), and bins partly filled and empty, as a capacity
+# dispatch leaves them
+GMM_BWD_CASES = [
+    (4, 32, 64, 96, None),
+    (2, 100, 48, 80, None),
+    (3, 9, 44, 36, None),
+    (6, 20, 32, 48, (0, 1, 7, 20, 0, 13)),
+]
+# f32 sums of up to max(C, D, F) products in other orders (XLA vs ATen): the
+# gmm reference tests' 2e-4 as a share of each gradient's largest |value|
+GMM_BWD_REL = 2e-4
+
+
+def _gmm_bwd_inputs(rng, E, C, D, F, fill):
+    x, wg, wu, wd = _gmm_inputs(rng, E, C, D, F)
+    dy = rng.randn(E, C, D).astype(np.float32)
+    if fill is not None:  # rows past a bin's fill are zeros in x and in dY
+        live = (np.arange(C)[None] < np.asarray(fill)[:, None])[..., None]
+        x, dy = x * live, dy * live
+    return x, wg, wu, wd, dy
+
+
+@pytest.mark.parametrize("E,C,D,F,fill", GMM_BWD_CASES)
+def test_reference_gmm_bwd_matches_jax_grad(E, C, D, F, fill):
+    """The plain backward against jax.vjp of the reference's jnp oracle
+    (``repro.kernels.ref.reference_gmm``) and torch autograd of the plain
+    forward; empty rows give zero dX."""
+    arrays = _gmm_bwd_inputs(np.random.RandomState(21), E, C, D, F, fill)
+    t = [torch.from_numpy(a) for a in arrays]
+    got = ref.reference_gmm_bwd(*t)
+    assert [g.dtype for g in got] == [torch.float32] * 4
+    assert [g.shape for g in got] == [a.shape for a in t[:4]]
+    _, vjp = jax.vjp(jax_ref.reference_gmm, *(jnp.asarray(a) for a in arrays[:4]))
+    leaves = [a.clone().requires_grad_() for a in t[:4]]
+    ref.reference_gmm(*leaves).backward(t[4])
+    for name, g, w, leaf in zip(("dx", "dwg", "dwu", "dwd"), got, vjp(jnp.asarray(arrays[4])), leaves):
+        assert _rel_err(g, torch.from_numpy(np.array(w))) <= GMM_BWD_REL, name
+        assert _rel_err(g, leaf.grad) <= GMM_BWD_REL, f"{name} vs autograd"
+    if fill is not None:
+        live = torch.arange(C)[None] < torch.tensor(fill)[:, None]
+        assert not got[0][~live].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_moe_gmm_function_matches_autograd_of_the_plain_forward(dtype):
+    """MoeGmm through the wrappers (the plain versions on the CPU) gives
+    autograd's gradient of reference_gmm: bit for bit in f32; in bf16 the
+    plain backward rounds dG and dU to bf16 before their products, as the
+    forward rounds h, where autograd keeps them f32 (2e-2 of the largest)."""
+    arrays = _gmm_bwd_inputs(np.random.RandomState(22), 3, 17, 32, 48, None)
+    t = [torch.from_numpy(a).to(dtype) for a in arrays]
+    a = [x.clone().requires_grad_() for x in t[:4]]
+    out = grouped_swiglu(*a, ops.kernel_set())
+    assert out.grad_fn is not None and out.dtype == dtype
+    torch.testing.assert_close(out.detach(), moe_gmm(*t[:4]), rtol=0, atol=0)
+    out.backward(t[4])
+    b = [x.clone().requires_grad_() for x in t[:4]]
+    ref.reference_gmm(*b).backward(t[4])
+    for name, x, y in zip(("dx", "dwg", "dwu", "dwd"), a, b):
+        assert x.grad.dtype == dtype
+        if dtype == torch.float32:
+            assert _rel_err(x.grad, y.grad) <= 1e-6, name
+        else:
+            assert _rel_err(x.grad, y.grad) <= 2e-2, name
+
+
+def test_moe_gmm_function_passes_gradcheck_in_f64():
+    g = torch.Generator().manual_seed(1)
+    ins = [torch.randn(s, dtype=torch.float64, generator=g, requires_grad=True)
+           for s in ((2, 5, 6), (2, 6, 7), (2, 6, 7), (2, 7, 6))]
+
+    def fn(*args):
+        return MoeGmm.apply(*args, ref.reference_gmm, ref.reference_gmm_bwd)
+
+    assert torch.autograd.gradcheck(fn, ins, eps=1e-6, atol=1e-7, rtol=1e-5)
+
+
+# (B, L, Di, N, chunk_len): L not a multiple of the chunk, every N the kernel takes
+SCAN_BWD_CASES = [
+    (2, 37, 16, 8, 16),
+    (1, 64, 24, 4, 32),
+    (2, 20, 8, 16, 8),
+    (1, 33, 12, 32, 16),
+]
+
+
+def _scan_bwd_inputs(rng, B, L, Di, N, with_h0):
+    ins = _scan_inputs(rng, B, L, Di, N, with_h0)
+    ins["dy"] = rng.randn(B, L, Di).astype(np.float32)
+    ins["dh_final"] = rng.randn(B, Di, N).astype(np.float32)
+    return ins
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("B,L,Di,N,Lc", SCAN_BWD_CASES)
+def test_reference_selective_scan_bwd_matches_jax_grad(B, L, Di, N, Lc, with_h0):
+    """The plain backward against jax.vjp of the JAX model's chunked scan
+    (``repro.models.mamba.selective_scan``, the function the reference's
+    train step differentiates), with a cotangent for h_final, and against
+    torch autograd of the plain forward. The chunked associative scan sums in
+    another order than the sequential one: SCAN_TOL as a share of each
+    gradient's largest |value|."""
+    ins = _scan_bwd_inputs(np.random.RandomState(23), B, L, Di, N, with_h0)
+    t = {k: None if v is None else torch.from_numpy(v) for k, v in ins.items()}
+    got = ref.reference_selective_scan_bwd(**t)
+    names = ("dxc", "ddt", "dB", "dC", "da", "dh0")
+    assert [g.shape for g in got] == [(B, L, Di), (B, L, Di), (B, L, N), (B, L, N), (Di, N), (B, Di, N)]
+    js = [jnp.asarray(ins[k]) for k in ("xc", "dt", "Bm", "Cm", "a")] + ([jnp.asarray(ins["h0"])] if with_h0 else [])
+    f = lambda *a: jax_mamba.selective_scan(*a, chunk_len=Lc)
+    _, vjp = jax.vjp(f, *js)
+    want = vjp((jnp.asarray(ins["dy"]), jnp.asarray(ins["dh_final"])))
+    leaves = [t[k].clone().requires_grad_() for k in ("xc", "dt", "Bm", "Cm", "a")] + (
+        [t["h0"].clone().requires_grad_()] if with_h0 else [])
+    y, h = ref.reference_selective_scan(*leaves)
+    ((y * t["dy"]).sum() + (h * t["dh_final"]).sum()).backward()
+    for name, g, w, leaf in zip(names, got, want, leaves):
+        assert _rel_err(g, torch.from_numpy(np.array(w))) <= SCAN_TOL["rtol"], name
+        assert _rel_err(g, leaf.grad) <= 1e-6, f"{name} vs autograd"
+
+
+@pytest.mark.parametrize("with_dh", [False, True])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("xc_dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_function_matches_autograd_of_the_plain_forward(xc_dtype, with_h0, with_dh):
+    """MambaScan through the wrappers (the plain versions on the CPU): the
+    gradients autograd takes through reference_selective_scan, h0's only
+    where it was given, and a cotangent of h_final only where h_final is
+    used (else the backward is called with None)."""
+    ins = _scan_bwd_inputs(np.random.RandomState(24), 2, 21, 8, 8, with_h0)
+    t = {k: None if v is None else torch.from_numpy(v) for k, v in ins.items()}
+    t["xc"] = t["xc"].to(xc_dtype)
+    keys = ("xc", "dt", "Bm", "Cm", "a") + (("h0",) if with_h0 else ())
+    a = {k: t[k].clone().requires_grad_() for k in keys}
+    b = {k: t[k].clone().requires_grad_() for k in keys}
+    y, h = model_scan(ops.kernel_set(), a["xc"], a["dt"], a["Bm"], a["Cm"], a["a"], a.get("h0"), chunk_len=8)
+    assert y.grad_fn is not None
+    yr, hr = ref.reference_selective_scan(*(b[k] for k in keys))
+    torch.testing.assert_close(y.detach(), yr.detach(), rtol=0, atol=0)
+    loss = (y * t["dy"]).sum() + ((h * t["dh_final"]).sum() if with_dh else 0)
+    loss_r = (yr * t["dy"]).sum() + ((hr * t["dh_final"]).sum() if with_dh else 0)
+    loss.backward()
+    loss_r.backward()
+    for k in keys:
+        assert a[k].grad.dtype == t[k].dtype
+        tol = 1e-6 if k != "xc" or xc_dtype == torch.float32 else 2e-2  # dxc rounds to bf16
+        assert _rel_err(a[k].grad, b[k].grad) <= tol, k
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba_scan_function_passes_gradcheck_in_f64(with_h0):
+    g = torch.Generator().manual_seed(2)
+    B, L, Di, N = 1, 6, 3, 4
+    ins = [torch.randn(B, L, Di, dtype=torch.float64, generator=g),
+           torch.rand(B, L, Di, dtype=torch.float64, generator=g) * 0.5,
+           torch.randn(B, L, N, dtype=torch.float64, generator=g),
+           torch.randn(B, L, N, dtype=torch.float64, generator=g),
+           -torch.rand(Di, N, dtype=torch.float64, generator=g) - 0.1]
+    if with_h0:
+        ins.append(torch.randn(B, Di, N, dtype=torch.float64, generator=g))
+    for x in ins:
+        x.requires_grad_()
+
+    def fn(*args):
+        h0 = args[5] if with_h0 else None
+        return MambaScan.apply(*args[:5], h0, 0,
+                               lambda *a, h0=None, chunk_len=0: ref.reference_selective_scan(*a, h0),
+                               ref.reference_selective_scan_bwd)
+
+    assert torch.autograd.gradcheck(fn, ins, eps=1e-6, atol=1e-7, rtol=1e-5)
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("xc_dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_bwd_segments_a_scan_past_the_offset_limit(monkeypatch, with_h0, xc_dtype):
+    """With the limit patched small the backward walks 3 segments (seeded by
+    the forward's segment states, the cotangents carried back): every output
+    but dA bit-equal to the unsegmented plain backward; dA, summed a segment
+    at a time, within 1e-6 of it."""
+    B, L, Di, N = 2, 45, 24, 8
+    ins = {k: None if v is None else torch.from_numpy(v)
+           for k, v in _scan_bwd_inputs(np.random.RandomState(25), B, L, Di, N, with_h0).items()}
+    ins["xc"] = ins["xc"].to(xc_dtype)
+    whole = ref.reference_selective_scan_bwd(**ins)
+    monkeypatch.setattr(scan_module, "OFFSET_LIMIT", (20 + scan_module.MAX_AHEAD) * Di + 1)
+    assert scan_module.segment_len(Di) == 20  # segments of 20, 20 and 5 steps
+    segs = mamba_scan_bwd(**ins)
+    for name, g, w in zip(("dxc", "ddt", "dB", "dC", "da", "dh0"), segs, whole):
+        if name == "da":
+            torch.testing.assert_close(g, w, rtol=1e-6, atol=1e-6)
+        else:
+            assert torch.equal(g, w), name
+
+
+def test_backward_kernels_are_registered_and_counted():
+    """K7a and K7b sit in the kernel registry beside their forwards, with
+    launch counters that reset_launch_counts zeroes (moe_gmm_bwd by route
+    too); a call on CPU tensors computes the plain version and counts none."""
+    assert ops.KERNELS["moe_gmm_bwd"] is moe_gmm_bwd and ops.KERNELS["mamba_scan_bwd"] is mamba_scan_bwd
+    ks = ops.kernel_set()
+    assert {"moe_gmm_bwd", "mamba_scan_bwd"} <= set(ks)
+    moe_gmm_bwd.launches, mamba_scan_bwd.launches = 2, 3
+    moe_gmm_bwd.route_launches.update(fma=1, mma=1)
+    assert ops.launch_counts()["moe_gmm_bwd"] == 2 and ops.launch_counts()["mamba_scan_bwd"] == 3
+    ops.reset_launch_counts()
+    assert moe_gmm_bwd.launches == mamba_scan_bwd.launches == 0
+    assert moe_gmm_bwd.route_launches == {"fma": 0, "mma": 0}
+    w = torch.randn(2, 8, 8)
+    moe_gmm_bwd(torch.randn(2, 3, 8), w, w, w, torch.randn(2, 3, 8))
+    assert ops.launch_counts()["moe_gmm_bwd"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,F,bf16_route", [(4096, 14336, "mma"), (64, 128, "mma"), (44, 36, "fma"), (64, 36, "fma")])
+def test_moe_gmm_bwd_route(D, F, bf16_route, dtype):
+    """bf16 with 16-byte rows (D and F multiples of 8) on mma.sync; f32, and
+    bf16 rows the 16-byte copies cannot take, on FMA."""
+    assert gmm_bwd_route(dtype, D, F) == (bf16_route if dtype == torch.bfloat16 else "fma")
+
+
+def test_backward_wrappers_reject_what_the_kernels_do_not_take():
+    w = torch.randn(2, 8, 8)
+    with pytest.raises(ValueError, match="dy"):
+        moe_gmm_bwd(torch.randn(2, 3, 8), w, w, w, torch.randn(2, 4, 8))
+    with pytest.raises(ValueError, match="dy"):
+        moe_gmm_bwd(torch.randn(2, 3, 8), w, w, w, torch.randn(2, 3, 8, dtype=torch.bfloat16))
+    x = torch.randn(1, 5, 8)
+    args = (x, x.abs(), torch.randn(1, 5, 4), torch.randn(1, 5, 4), -torch.rand(8, 4), None)
+    with pytest.raises(ValueError, match="dy"):
+        mamba_scan_bwd(*args, torch.randn(1, 5, 7))
+    with pytest.raises(ValueError, match="dh_final"):
+        mamba_scan_bwd(*args, x, torch.randn(1, 8, 5))
+    with pytest.raises(ValueError, match="state size"):
+        mamba_scan_bwd(x, x.abs(), torch.randn(1, 5, 3), torch.randn(1, 5, 3), -torch.rand(8, 3), None, x)

@@ -1,15 +1,20 @@
 """The port's training step against the JAX package, on the CPU.
 
-Reduced dense configs in f32, the JAX weights carried over with
-``params_from_jax`` (the G-stacked ``blocks`` leaves become one dict per
-layer), and the same numpy batches handed to both packages: ``train_loss``
-and every gradient leaf against ``jax.value_and_grad``, three steps of
-``make_train_step`` (with and without microbatches) against the JAX step on
-``make_host_mesh()``, AdamW and the cosine schedule alone, and the layouts
-that must refuse to train.
+Reduced dense, MoE and hybrid Mamba configs in f32, the JAX weights carried
+over with ``params_from_jax`` (the G-stacked ``blocks`` leaves become one
+dict per layer), and the same numpy batches handed to both packages:
+``train_loss`` (ce and the MoE aux loss) and every gradient leaf against
+``jax.value_and_grad``, also with capacity bins that drop tokens, three steps
+of ``make_train_step`` (with and without microbatches) against the JAX step
+on ``make_host_mesh()``, AdamW and the cosine schedule alone, and the inputs
+that must refuse to train. On the CPU the MoE and Mamba layers' gradients
+come from the plain backward versions that the Functions ``MoeGmm`` and
+``MambaScan`` call (``ref.reference_gmm_bwd``,
+``ref.reference_selective_scan_bwd``), where the card runs K7a and K7b.
 """
 
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -26,12 +31,17 @@ from repro.optim import adamw_update as jax_adamw_update
 from repro.optim import cosine_warmup as jax_cosine_warmup
 from repro_torch.configs import get_config
 from repro_torch.dist.step import make_train_state_specs, make_train_step
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import registry
 from repro_torch.models.convert import params_from_jax
 from repro_torch.optim import adamw_init, adamw_update, cosine_warmup
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
 ARCHS = ["stablelm-1.6b", "internlm2-20b", "qwen2.5-32b"]
+# the MoE and hybrid layouts: Mamba + attention + MoE, attention + MoE (a
+# sliding window), attention + MoE, attention-free Mamba
+MOE_HYBRID = ["jamba-v0.1-52b", "mixtral-8x7b", "phi3.5-moe-42b", "falcon-mamba-7b"]
+MOE_ARCHS = ["jamba-v0.1-52b", "mixtral-8x7b", "phi3.5-moe-42b"]
 B, L = 4, 40
 # loss and gradients of one f32 forward/backward: XLA and ATen sum in other
 # orders (matmuls, the norm's means, logsumexp), ~1e-6 relative per op,
@@ -53,8 +63,11 @@ NOISE_REL = 1e-4
 MOMENT_REL = 1e-3  # max |diff| over the leaf's max |moment|
 
 
-def _models(arch, seed=0):
-    cfg, jcfg = get_config(arch).reduced(), jax_get_config(arch).reduced()
+def _models(arch, seed=0, **overrides):
+    """The reduced config of ``arch`` (with ``overrides`` replaced in both
+    packages') and its JAX weights carried over."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), **overrides)
+    jcfg = dataclasses.replace(jax_get_config(arch).reduced(), **overrides)
     jm = jax_registry.build_model(jcfg)
     jparams, _ = jm.init(jax.random.key(seed))
     params = params_from_jax(cfg, jax.tree.map(np.asarray, jparams), device="cpu")
@@ -88,32 +101,88 @@ def _rel_close(name, got, want, rel):
     assert diff <= rel * scale, f"{name}: max |diff| {diff} > {rel} x {scale}"
 
 
-@pytest.mark.parametrize("remat", ["none", "block", "full"])
-@pytest.mark.parametrize("arch", ARCHS)
-def test_train_loss_and_grads_match_jax(arch, remat):
-    m, params, jm, jparams = _models(arch)
-    m = registry.build_model(dataclasses.replace(m.cfg, remat=remat))
-    jm = jax_registry.build_model(dataclasses.replace(jm.cfg, remat=remat))
-    tokens, labels = _batch(m.cfg.vocab)
+def _jax_loss_and_grads(jm, jparams, tokens, labels):
+    """(loss, metrics, gradients) of ``jax.value_and_grad`` of the reference's
+    train_loss, the gradients as a numpy tree."""
     jb = {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)}
     (jloss, jaux), jgrads = jax.value_and_grad(
         lambda p: jax_registry.train_loss(jm, p, jb), has_aux=True)(jparams)
+    return float(jloss), {k: float(v) for k, v in jaux.items()}, jax.tree.map(np.asarray, jgrads)
 
+
+@functools.lru_cache(maxsize=None)
+def _jax_reference(arch):
+    """The JAX package's loss and gradients of ``arch`` at remat none on
+    ``_batch``: its remat variants compute the same values, and tracing
+    jamba's eight layer kinds takes ~15 s a variant on the CPU, so the
+    MoE and hybrid layouts' port variants are held against this one."""
+    m, _, jm, jparams = _models(arch)
+    return _jax_loss_and_grads(jm, jparams, *_batch(m.cfg.vocab))
+
+
+def _loss_and_grads(m, params, tokens, labels, jref):
+    """(loss, metrics, grads) of the port, and ``jref`` with its gradients in
+    the port's layout."""
     leaves = [p.clone().requires_grad_() for p in tree_leaves(params)]
     it = iter(leaves)
     live = tree_map(lambda _: next(it), params)
     loss, aux = registry.train_loss(m, live, {"tokens": torch.from_numpy(tokens),
                                               "labels": torch.from_numpy(labels)})
     grads = torch.autograd.grad(loss, leaves)
-    np.testing.assert_allclose(loss.item(), float(jloss), **LOSS_TOL)
-    np.testing.assert_allclose(aux["ce"].item(), float(jaux["ce"]), **LOSS_TOL)
-    assert aux["aux"].item() == float(jaux["aux"]) == 0.0
-    want = _port_tree(m.cfg, jgrads)
+    jloss, jaux, jgrads = jref
+    return (loss, aux, grads), (jloss, jaux, _port_tree(m.cfg, jgrads))
+
+
+def _check_loss_and_grads(port, ref):
+    (loss, aux, grads), (jloss, jaux, want) = port, ref
+    np.testing.assert_allclose(loss.item(), jloss, **LOSS_TOL)
+    np.testing.assert_allclose(aux["ce"].item(), jaux["ce"], **LOSS_TOL)
+    np.testing.assert_allclose(aux["aux"].item(), jaux["aux"], **LOSS_TOL)
     names = _leaf_names(want)
-    assert len(names) == len(grads) == 3 + 9 * m.cfg.n_layers + 3 * m.cfg.qkv_bias * m.cfg.n_layers
+    assert len(names) == len(grads)
     for name, g, w in zip(names, grads, tree_leaves(want)):
         assert g.shape == w.shape and g.dtype == w.dtype, name
         _rel_close(name, g, w, GRAD_REL)
+    return names
+
+
+@pytest.mark.parametrize("remat", ["none", "block", "full"])
+@pytest.mark.parametrize("arch", ARCHS + MOE_HYBRID)
+def test_train_loss_and_grads_match_jax(arch, remat):
+    """The port at each remat against the JAX package at the same remat
+    (dense) or at remat none (``_jax_reference``: MoE and hybrid)."""
+    m, params, jm, jparams = _models(arch, remat=remat)
+    tokens, labels = _batch(m.cfg.vocab)
+    jref = _jax_loss_and_grads(jm, jparams, tokens, labels) if arch in ARCHS else _jax_reference(arch)
+    port, ref = _loss_and_grads(m, params, tokens, labels, jref)
+    names = _check_loss_and_grads(port, ref)
+    cfg = m.cfg
+    if arch in ARCHS:  # dense: no aux loss; embed, head, final norm and 9 leaves a layer
+        assert port[1]["aux"].item() == ref[1]["aux"] == 0.0
+        assert len(names) == 3 + 9 * cfg.n_layers + 3 * cfg.qkv_bias * cfg.n_layers
+    else:  # every MoE layer adds its load-balancing loss
+        assert (port[1]["aux"].item() > 0) == any(s.ffn == "moe" for s in cfg.layout)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_train_loss_and_grads_with_capacity_drops_match_jax(arch, monkeypatch):
+    """moe_exact_tokens 16 and capacity_factor 0.5 in both packages' configs:
+    the 160 tokens of a batch go to capacity bins that overflow, and the
+    dropped token-slots carry no gradient in either package."""
+    m, params, jm, jparams = _models(arch, moe_exact_tokens=16, capacity_factor=0.5)
+    dropped = []
+    moe_ffn = moe_mod.moe_ffn
+
+    def recording_moe_ffn(*args, **kwargs):
+        y, aux = moe_ffn(*args, **kwargs)
+        dropped.append(aux["dropped_frac"].item())
+        return y, aux
+
+    monkeypatch.setattr(moe_mod, "moe_ffn", recording_moe_ffn)
+    tokens, labels = _batch(m.cfg.vocab)
+    _check_loss_and_grads(*_loss_and_grads(m, params, tokens, labels, _jax_loss_and_grads(jm, jparams, tokens, labels)))
+    n_moe = sum(m.cfg.layout[i % len(m.cfg.layout)].ffn == "moe" for i in range(m.cfg.n_layers))
+    assert len(dropped) == n_moe and all(d > 0 for d in dropped), dropped
 
 
 LR = 3e-4
@@ -153,7 +222,7 @@ def _check_state(cfg, state, jstate, n_steps=3):
             _rel_close(f"{moment}{name}", got, want, MOMENT_REL)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MOE_HYBRID)
 def test_three_train_steps_match_jax(arch):
     _check_state(*_run_steps(arch, microbatches=1))
 
@@ -205,18 +274,6 @@ def test_cosine_warmup_matches_jax():
         want = float(ref(jnp.asarray(step, jnp.int32)))
         np.testing.assert_allclose(port(torch.tensor(step, dtype=torch.int32)).item(), want, rtol=1e-6, atol=0)
         np.testing.assert_allclose(port(step).item(), want, rtol=1e-6, atol=0)
-
-
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "falcon-mamba-7b", "phi3.5-moe-42b"])
-def test_moe_and_hybrid_layouts_refuse_to_train(arch):
-    cfg = get_config(arch).reduced()
-    model = registry.build_model(cfg)
-    with pytest.raises(NotImplementedError, match="K7"):
-        make_train_step(model, "cpu", cosine_warmup(1e-3, 1, 4), global_batch=2)
-    params = model.init(0, "cpu")
-    tokens = torch.zeros((2, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="K7"):
-        registry.train_loss(model, params, {"tokens": tokens, "labels": tokens})
 
 
 def test_prefix_inputs_and_pod_compression_raise():
