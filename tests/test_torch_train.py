@@ -191,10 +191,13 @@ LR = 3e-4
 def _run_steps(arch, microbatches, n_steps=3, lr=LR):
     m, params, jm, jparams = _models(arch)
     batches = [_batch(m.cfg.vocab, seed=s) for s in range(n_steps)]
-    jstep, *_ = jax_make_train_step(jm, make_host_mesh(), jax_cosine_warmup(lr, 1, 4), global_batch=B,
-                                    microbatches=microbatches)
+    jstep, _, state_shard, _ = jax_make_train_step(jm, make_host_mesh(), jax_cosine_warmup(lr, 1, 4),
+                                                   global_batch=B, microbatches=microbatches)
     step = make_train_step(m, "cpu", cosine_warmup(lr, 1, 4), global_batch=B, microbatches=microbatches)
-    jstate = {"params": jparams, "opt": jax_adamw_init(jparams), "step": jnp.zeros((), jnp.int32)}
+    # placed as the step places its output state, so the second step does not
+    # compile the step again (~18 s for reduced jamba on the CPU)
+    jstate = jax.device_put({"params": jparams, "opt": jax_adamw_init(jparams), "step": jnp.zeros((), jnp.int32)},
+                            state_shard)
     state = {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32)}
     for tokens, labels in batches:
         jstate, jmet = jstep(jstate, {"tokens": jnp.asarray(tokens), "labels": jnp.asarray(labels)})
