@@ -32,12 +32,13 @@ on, so that their numbers are still printed):
      (``BWD_BIT_EQUAL``); K7, the backward kernels ``moe_gmm_bwd`` (against
      ``reference_gmm_bwd``, at the moe_gmm cases above, on bins partly
      filled and empty, and at jamba's and mixtral's training bins, E 16 C 640
-     and E 8 C 1280) and ``mamba_scan_bwd`` (against
-     ``reference_selective_scan_bwd``, at the mamba_scan cases with h0 and
-     dh_final, and at jamba's training scan (4, 1024, 8192, 16) with and
-     without them), in f32 and bf16 (``BWD_TOL``), each bit-equal when run
-     twice at the training shapes, the scan's backward in 3 segments (offset
-     limit patched small) bit-equal to one;
+     and E 8 C 1280; bf16 on wgmma and on the mma baseline) and
+     ``mamba_scan_bwd`` (against ``reference_selective_scan_bwd``, at the
+     mamba_scan cases with h0 and dh_final, and at jamba's training scan (4,
+     1024, 8192, 16) with and without them; the chunked design and the
+     per_step baseline), in f32 and bf16 (``BWD_TOL``), each chosen design
+     bit-equal when run twice at the training shapes, the scan's backward in
+     3 segments (offset limit patched small) bit-equal to one;
   3. serve stablelm-1.6b at full width (24 layers, bf16, batch 4, prompt 512,
      32 generated tokens) through ``repro_torch.launch.serve.main``, count the
      kernel launches of that run (every bf16 launch on its tensor-core
@@ -151,16 +152,20 @@ on, so that their numbers are still printed):
      "block", 3 steps through ``repro_torch.launch.train.run`` (its final
      checkpoint counted, not written): exact launches a step (per mamba layer
      mamba_scan 2 and mamba_scan_bwd 1, per MoE layer moe_gmm 2 and
-     moe_gmm_bwd 1, every moe_gmm launch on wgmma and every moe_gmm_bwd on
-     mma), no plain version called, finite losses; ``make_train_step`` on a
+     moe_gmm_bwd 1, every moe_gmm and moe_gmm_bwd launch on wgmma, every
+     mamba_scan_bwd call on the chunked design), no plain version called,
+     finite losses; ``make_train_step`` on a
      repeated batch, whose loss must fall at every step (step time,
      tokens/s, peak memory, each kernel's share of a profiled step); one
      step's gradient of every leaf against the plain versions run on the
      kernels run's routing (``GRAD_REL_TOL``), for jamba and for mixtral-8x7b
      cut to 1 layer (attention with window 4096 through K1, MoE at E 8, C
      1280); then K7a and K7b timed at jamba's training shapes as phase 4
-     times the kernels, beside their bounds, their plain versions and, for
-     K7a, the autograd backward of three ``torch.bmm`` and SiLU.
+     times the kernels, each beside its first design in turns (K7a wgmma
+     and mma, K7b chunked and per_step: new, old, old, new; the new one must
+     be faster), their bounds, their plain versions, for K7a the autograd
+     backward of three ``torch.bmm`` and SiLU, and each launch's device time
+     from the profiler (K7a's passes, K7b's ckpt, rev, reduce_bc, reduce_a).
 The last line is ``{"ok": true, "device": {...}}``. The compiler's reports
 (registers, spills) go to ``build/repro_torch_kernels/nvcc_report.txt``.
 """
@@ -604,17 +609,35 @@ def spilling_entries(report: str) -> list:
     return [(m[0] if (m := kernel.search(name)) else name, l) for name, (_, l) in zip(names, found)]
 
 
-def on_bwd_route(route: str, fn):
-    """fn() with flash_attention_bwd's route forced to ``route``: another
-    design on the same inputs, as phase 4's ``on_fma`` forces moe_gmm's."""
-    import repro_torch.kernels.flash_attention as fa_module
-
-    chosen = fa_module._bwd_route
-    fa_module._bwd_route = lambda *args: route
+def forcing(module, chooser: str, choice: str, fn):
+    """fn() with ``module.<chooser>`` (a wrapper's route or design choice)
+    answering ``choice``: another design on the same inputs."""
+    chosen = getattr(module, chooser)
+    setattr(module, chooser, lambda *args: choice)
     try:
         return fn()
     finally:
-        fa_module._bwd_route = chosen
+        setattr(module, chooser, chosen)
+
+
+def on_bwd_route(route: str, fn):
+    """fn() with flash_attention_bwd's route forced to ``route``, as phase
+    4's ``on_fma`` forces moe_gmm's."""
+    import repro_torch.kernels.flash_attention as fa_module
+
+    return forcing(fa_module, "_bwd_route", route, fn)
+
+
+def on_k7_baseline(kernel: str, fn):
+    """fn() with K7a (``kernel`` "moe_gmm_bwd") on its first design, route
+    mma, or K7b ("mamba_scan_bwd") on its first, per_step: the baselines
+    phases 2 and 5g hold and time beside the designs the wrappers choose."""
+    import repro_torch.kernels.mamba_scan as scan_module
+    import repro_torch.kernels.moe_gmm as gmm_module
+
+    if kernel == "moe_gmm_bwd":
+        return forcing(gmm_module, "_bwd_route", "mma", fn)
+    return forcing(scan_module, "_bwd_design", "per_step", fn)
 
 
 def k1_checks(rand, check, check_grad):
@@ -675,11 +698,13 @@ K7_SCAN_TRAIN = (4, 1024, 8192, 16)  # jamba's training scan (B, L, Di, N)
 def k7_checks(rand, check_grad, gmm_inputs, scan_inputs, gmm_cases, scan_cases):
     """Phase 2's K7 part: moe_gmm_bwd against reference_gmm_bwd over phase
     2's moe_gmm cases, partly empty bins and the training bins
-    (``K7_GMM_TRAIN``); mamba_scan_bwd against reference_selective_scan_bwd
+    (``K7_GMM_TRAIN``), on the route it picks and, where that is wgmma, on
+    the mma baseline; mamba_scan_bwd against reference_selective_scan_bwd
     over phase 2's scan cases (dh_final given where h0 is) and jamba's
-    training scan with and without h0 and dh_final, in f32 and bf16; each
-    bit-equal when run twice at the training shapes; the scan's backward cut
-    into 3 segments (offset limit patched small) bit-equal to one call."""
+    training scan with and without h0 and dh_final, on the chunked design
+    and the per_step baseline; in f32 and bf16; each chosen design bit-equal
+    when run twice at the training shapes; the scan's backward cut into 3
+    segments (offset limit patched small) bit-equal to one call."""
     import torch
 
     import repro_torch.kernels.mamba_scan as scan_module
@@ -688,26 +713,36 @@ def k7_checks(rand, check_grad, gmm_inputs, scan_inputs, gmm_cases, scan_cases):
     from repro_torch.kernels.mamba_scan import mamba_scan_bwd
     from repro_torch.kernels.moe_gmm import moe_gmm_bwd
 
+    def gmm_routes(dtype, D, Fd):
+        """(route, call wrapper) for the route the wrapper picks and, where that
+        is wgmma, the mma baseline on the same inputs."""
+        own = gmm_module._bwd_route(dtype, D, Fd)
+        both = [(own, lambda f: f())]
+        if own == "wgmma":
+            both.append(("mma", lambda f: on_k7_baseline("moe_gmm_bwd", f)))
+        return both
+
     names = ("dx", "dwg", "dwu", "dwd")
     for dtype in (torch.float32, torch.bfloat16):
         for E, C, D, Fd, scale in gmm_cases + [c + ("fan_in",) for c in K7_GMM_TRAIN]:
             ins = gmm_inputs(E, C, D, Fd, scale, dtype)
             dy = rand(E, C, D, dtype=dtype, scale=D**-0.5 if scale == "fan_in" else 1.0)
-            route = gmm_module._bwd_route(dtype, D, Fd)
-            n0 = moe_gmm_bwd.route_launches[route]
-            got = moe_gmm_bwd(*ins, dy)
-            if moe_gmm_bwd.route_launches[route] != n0 + 1:
-                fail(f"moe_gmm_bwd {dtype} E{E} C{C}: no launch on route {route}")
             want = ref.reference_gmm_bwd(*ins, dy)
-            for n, g, w in zip(names, got, want):
-                check_grad(f"moe_gmm_bwd ({route}) {n} {dtype} E{E} C{C} D{D} F{Fd}", g, w, dtype)
-            if (E, C, D, Fd) in K7_GMM_TRAIN and dtype == torch.bfloat16:
-                again = moe_gmm_bwd(*ins, dy)
-                if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                    fail(f"moe_gmm_bwd ({route}) E{E} C{C}: two runs on one input differ")
-                print(f"  moe_gmm_bwd ({route}) E{E} C{C} D{D} F{Fd}: a second run is bit-equal")
-                del again
-            del ins, dy, got, want
+            for i, (route, on) in enumerate(gmm_routes(dtype, D, Fd)):
+                n0 = moe_gmm_bwd.route_launches[route]
+                got = on(lambda: moe_gmm_bwd(*ins, dy))
+                if moe_gmm_bwd.route_launches[route] != n0 + 1:
+                    fail(f"moe_gmm_bwd {dtype} E{E} C{C}: no launch on route {route}")
+                for n, g, w in zip(names, got, want):
+                    check_grad(f"moe_gmm_bwd ({route}) {n} {dtype} E{E} C{C} D{D} F{Fd}", g, w, dtype)
+                if i == 0 and (E, C, D, Fd) in K7_GMM_TRAIN and dtype == torch.bfloat16:
+                    again = moe_gmm_bwd(*ins, dy)
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        fail(f"moe_gmm_bwd ({route}) E{E} C{C}: two runs on one input differ")
+                    print(f"  moe_gmm_bwd ({route}) E{E} C{C} D{D} F{Fd}: a second run is bit-equal")
+                    del again
+                del got
+            del ins, dy, want
             torch.cuda.empty_cache()
         # partly filled and empty bins, as a training dispatch leaves them: the
         # rows past each bin's fill are zeros in x and in dY, and give exact zeros in dX
@@ -717,12 +752,14 @@ def k7_checks(rand, check_grad, gmm_inputs, scan_inputs, gmm_cases, scan_cases):
         live = torch.arange(C, device=fill.device)[None] < fill[:, None]
         ins[0].mul_(live[..., None])
         dy = rand(E, C, D, dtype=dtype, scale=D**-0.5) * live[..., None]
-        got, want = moe_gmm_bwd(*ins, dy), ref.reference_gmm_bwd(*ins, dy)
-        for n, g, w in zip(names, got, want):
-            check_grad(f"moe_gmm_bwd {n} {dtype}, bins filled {fill.tolist()} of {C}", g, w, dtype)
-        if got[0][~live].any():
-            fail("moe_gmm_bwd: empty capacity rows gave a non-zero dX")
-        print(f"  moe_gmm_bwd {dtype}: empty rows give exact zeros in dX")
+        want = ref.reference_gmm_bwd(*ins, dy)
+        for route, on in gmm_routes(dtype, D, Fd):
+            got = on(lambda: moe_gmm_bwd(*ins, dy))
+            for n, g, w in zip(names, got, want):
+                check_grad(f"moe_gmm_bwd ({route}) {n} {dtype}, bins filled {fill.tolist()} of {C}", g, w, dtype)
+            if got[0][~live].any():
+                fail(f"moe_gmm_bwd ({route}): empty capacity rows gave a non-zero dX")
+            print(f"  moe_gmm_bwd ({route}) {dtype}: empty rows give exact zeros in dX")
 
         cases = [(B, L, Di, N, h0, h0) for B, L, Di, N, h0 in scan_cases] + [
             K7_SCAN_TRAIN + (False, False), K7_SCAN_TRAIN + (True, True)]
@@ -730,16 +767,24 @@ def k7_checks(rand, check_grad, gmm_inputs, scan_inputs, gmm_cases, scan_cases):
             xc, dt, Bm, Cm, a, h0 = scan_inputs(B, L, Di, N, with_h0, dtype)
             dy = rand(B, L, Di, dtype=torch.float32)
             dh = rand(B, Di, N, dtype=torch.float32) if with_dh else None
-            got = mamba_scan_bwd(xc, dt, Bm, Cm, a, h0, dy, dh)
             want = ref.reference_selective_scan_bwd(xc, dt, Bm, Cm, a, h0, dy, dh)
             name = f"{dtype} B{B} L{L} Di{Di} N{N} h0={with_h0} dh_final={with_dh}"
-            for n, g, w in zip(("dxc", "ddt", "dB", "dC", "da", "dh0"), got, want):
-                check_grad(f"mamba_scan_bwd {n} {name}", g, w, g.dtype)
+            own = scan_module._bwd_design()
+            for design, on in ((own, lambda f: f()), ("per_step", lambda f: on_k7_baseline("mamba_scan_bwd", f))):
+                n0 = mamba_scan_bwd.route_launches[design]
+                out = on(lambda: mamba_scan_bwd(xc, dt, Bm, Cm, a, h0, dy, dh))
+                if mamba_scan_bwd.route_launches[design] != n0 + 1:
+                    fail(f"mamba_scan_bwd {name}: no call on design {design}")
+                for n, g, w in zip(("dxc", "ddt", "dB", "dC", "da", "dh0"), out, want):
+                    check_grad(f"mamba_scan_bwd ({design}) {n} {name}", g, w, g.dtype)
+                if design == own:
+                    got = out
+                del out
             if (B, L, Di, N) == K7_SCAN_TRAIN:
                 again = mamba_scan_bwd(xc, dt, Bm, Cm, a, h0, dy, dh)
                 if not all(torch.equal(x, y) for x, y in zip(got, again)):
-                    fail(f"mamba_scan_bwd {name}: two runs on one input differ")
-                print(f"  mamba_scan_bwd {name}: a second run is bit-equal")
+                    fail(f"mamba_scan_bwd ({own}) {name}: two runs on one input differ")
+                print(f"  mamba_scan_bwd ({own}) {name}: a second run is bit-equal")
                 # the segmented path: 3 segments (offset limit patched small) against one call
                 limit = scan_module.OFFSET_LIMIT
                 scan_module.OFFSET_LIMIT = (400 + scan_module.MAX_AHEAD) * Di + 1
@@ -750,10 +795,10 @@ def k7_checks(rand, check_grad, gmm_inputs, scan_inputs, gmm_cases, scan_cases):
                 finally:
                     scan_module.OFFSET_LIMIT = limit
                 equal = all(torch.equal(x, y) for x, y in zip(got, segs))
-                print(f"  mamba_scan_bwd {name} in 3 segments of <= 400 steps ({n_calls} call): bit-equal to one "
-                      f"segment {equal}")
+                print(f"  mamba_scan_bwd ({own}) {name} in 3 segments of <= 400 steps ({n_calls} call): bit-equal "
+                      f"to one segment {equal}")
                 if n_calls != 1 or not equal:
-                    fail(f"mamba_scan_bwd {name}: segmented in {n_calls} calls, bit-equal {equal}")
+                    fail(f"mamba_scan_bwd ({own}) {name}: segmented in {n_calls} calls, bit-equal {equal}")
                 del again, segs
             del xc, dt, Bm, Cm, a, h0, dy, dh, got, want
             torch.cuda.empty_cache()
@@ -1660,8 +1705,9 @@ def kernel_shares(kern) -> dict:
     """Device ms by kernel family of a profiled step (torch.profiler CUDA
     events): the port's kernels by their CUDA names, cuBLAS's matmuls, and the
     rest (PyTorch's elementwise and reduction kernels)."""
-    fam = {"moe_gmm_bwd": ("bwd::tc::gemm_kernel", "bwd::ffma::gemm_kernel"),
-           "mamba_scan_bwd": ("ckpt_kernel", "rev_kernel", "reduce_bc_kernel", "reduce_a_kernel"),
+    fam = {"moe_gmm_bwd": ("wg::bwd_kernel", "bwd::tc::gemm_kernel", "bwd::ffma::gemm_kernel"),
+           "mamba_scan_bwd": ("ckpt_ahead_kernel", "rev_chunk_kernel", "ckpt_kernel", "rev_kernel",
+                              "reduce_bc_kernel", "reduce_a_kernel"),
            "moe_gmm": ("wg::gemm_kernel", "swap_ab_kernel", "gmm_kernel"),
            "mamba_scan": ("mamba_scan_kernel",),
            "flash_attention_bwd": ("dq_kernel", "dkdv_kernel", "dot_do_o"),
@@ -1673,6 +1719,23 @@ def kernel_shares(kern) -> dict:
             name = "cuBLAS matmuls" if ("nvjet" in e.name or "gemm" in e.name.lower()) else "other"
         out[name] = out.get(name, 0.0) + e.time_range.elapsed_us() / 1e3
     return out
+
+
+def k7_part(name: str):
+    """The part of a K7 call that a CUDA kernel name is: K7a's passes
+    ("pass0" .. "pass4": ``wg::bwd_kernel<P>`` on wgmma; "pass1" ..
+    "pass4": ``bwd::tc::gemm_kernel`` on mma by its epilogue, the last
+    template argument), K7b's launches ("ckpt", "rev", "reduce_bc",
+    "reduce_a", in either design); else None."""
+    if m := re.search(r"wg::bwd_kernel<(\d)>", name):
+        return f"pass{m[1]}"
+    if m := re.search(r"bwd::tc::gemm_kernel<[^<>]*?(\d+)>", name):
+        return f"pass{int(m[1]) + 1}"
+    for part, keys in (("ckpt", ("ckpt_ahead_kernel", "ckpt_kernel")), ("rev", ("rev_chunk_kernel", "rev_kernel")),
+                       ("reduce_bc", ("reduce_bc_kernel",)), ("reduce_a", ("reduce_a_kernel",))):
+        if any(k in name for k in keys):
+            return part
+    return None
 
 
 def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, n_sms, sm_clock_mhz):
@@ -1692,6 +1755,8 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import build_data_pipeline, next_batch
     from repro_torch.dist.step import make_train_step
+    import repro_torch.kernels.mamba_scan as scan_module
+    import repro_torch.kernels.moe_gmm as gmm_module
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.mamba_scan import mamba_scan_bwd
     from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_bwd
@@ -1756,11 +1821,13 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
     finally:
         ckpt_mod.CheckpointManager.save_async = save_async
     launches = main_launches = ops.launch_counts()
-    routes = {"moe_gmm": dict(moe_gmm.route_launches), "moe_gmm_bwd": dict(moe_gmm_bwd.route_launches)}
+    routes = {"moe_gmm": dict(moe_gmm.route_launches), "moe_gmm_bwd": dict(moe_gmm_bwd.route_launches),
+              "mamba_scan_bwd": dict(mamba_scan_bwd.route_launches)}
     want_main = times(want1, spec["steps"])
     n_moe_calls = want_main["moe_gmm"]
     want_routes = {"moe_gmm": {"fma": 0, "wgmma": n_moe_calls, "swap_ab": 0},
-                   "moe_gmm_bwd": {"fma": 0, "mma": want_main["moe_gmm_bwd"]}}
+                   "moe_gmm_bwd": {"fma": 0, "mma": 0, "wgmma": want_main["moe_gmm_bwd"]},
+                   "mamba_scan_bwd": {"chunked": want_main["mamba_scan_bwd"], "per_step": 0}}
     losses = step_losses(out)
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
     print(f"  train.run: launches {launches} (want {want_main}); by route {routes}; plain versions called "
@@ -1899,7 +1966,39 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
     torch.cuda.empty_cache()
     print(f"  phase 5g's training and gradient gates: {time.perf_counter() - t_phase:.1f} s")
 
-    # 5g-d. K7a and K7b at jamba's training shapes, timed as phase 4 (L2 flushed)
+    # 5g-d. K7a and K7b at jamba's training shapes, timed as phase 4 (L2 flushed):
+    # each on the design its wrapper picks and on its first design in turns
+    # (new, old, old, new), and each launch's device time from the profiler
+    def launch_split(fn, parts):
+        """Each launch's mean device ms over the calls of a 3-call window
+        whose records the profiler kept (L2 warm), by k7_part: up to 5
+        windows, then null (the profiler has kept no record of either
+        design's launches in 3 windows in a row of this phase)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        split = dict.fromkeys(parts)
+        for _ in range(5):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+                time.sleep(0.2)  # the device's records reach the profiler before it stops
+            for part in parts:
+                ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events() if k7_part(e.name) == part]
+                if ms and split[part] is None:
+                    split[part] = statistics.mean(ms)
+            if all(v is not None for v in split.values()):
+                break
+        return split
+
+    def in_turns(call, baseline):
+        """(new ms, baseline ms): the two designs timed new, old, old, new."""
+        new = [time_ms(call, reps=10)]
+        old = [time_ms(baseline, reps=10), time_ms(baseline, reps=10)]
+        new.append(time_ms(call, reps=10))
+        return new, old
+
     bf, es = torch.bfloat16, 2
     E, D, Fd = cfg.n_experts, cfg.d_model, cfg.d_ff
     C = moe_mod.expert_capacity(B * L, cfg)
@@ -1913,23 +2012,39 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
     torch.cuda.empty_cache()
     # x, dY and dX; Wg, Wu, Wd and their gradients: each read or written once
     b_ms, b_by = bound(3 * E * C * D * es + 6 * E * D * Fd * es, 16 * E * C * D * Fd, "bfloat16")
+
+    def gmm_call():
+        return moe_gmm_bwd(x, wg, wu, wd, dy)
+
+    def gmm_old():
+        return on_k7_baseline("moe_gmm_bwd", gmm_call)
+
+    route = gmm_module._bwd_route(bf, D, Fd)
+    new, old = in_turns(gmm_call, gmm_old)
+    split = {route: launch_split(gmm_call, [f"pass{i}" for i in range(5)]),
+             "mma": launch_split(gmm_old, [f"pass{i}" for i in range(1, 5)])}
     leaves = [t.detach().requires_grad_() for t in (x, wg, wu, wd)]
     lib_out = torch.bmm(F.silu(torch.bmm(leaves[0], leaves[1])) * torch.bmm(leaves[0], leaves[2]), leaves[3])
     lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, leaves, dy, retain_graph=True), reps=10)
     del lib_out
+    ms = statistics.mean(new)
     rows.append(dict(
-        name="moe_gmm_bwd", path=f"{cfg.name} training (E {E}, C {C}, D {D}, F {Fd}), bf16, route mma",
+        name="moe_gmm_bwd", path=f"{cfg.name} training (E {E}, C {C}, D {D}, F {Fd}), bf16, route {route}",
         route="cuda", source="src/repro_torch/kernels/csrc/moe_gmm.cu",
         replaces="src/repro/models/moe.py:128 (no Pallas kernel: jax autodiff of the grouped SwiGLU einsums)",
-        launches=main_launches["moe_gmm_bwd"], max_abs_err=err,
-        ms=time_ms(lambda: moe_gmm_bwd(x, wg, wu, wd, dy), reps=10),
+        launches=main_launches["moe_gmm_bwd"], max_abs_err=err, ms=ms,
         plain_ms=time_ms(lambda: ref.reference_gmm_bwd(x, wg, wu, wd, dy), reps=3),
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
         library="autograd backward of torch.bmm x3 + F.silu (torch.autograd.grad)",
+        mma_ms=statistics.mean(old), pass_ms=split[route], mma_pass_ms=split["mma"],
     ))
     r = rows[-1]
-    print(f"  moe_gmm_bwd at {r['path']}: {r['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {r['ms'] / b_ms:.2f}x), "
-          f"library {lib_ms:.4f} ms ({r['ms'] / lib_ms:.2f}x), plain {r['plain_ms']:.4f} ms")
+    print(f"  moe_gmm_bwd at {r['path']}: {route} {new[0]:.4f}, {new[1]:.4f} ms; mma {old[0]:.4f}, {old[1]:.4f} ms "
+          f"(in turns; mma {statistics.mean(old) / ms:.2f}x); bound {b_ms:.4f} ms ({b_by}; {ms / b_ms:.2f}x), "
+          f"library {lib_ms:.4f} ms ({ms / lib_ms:.2f}x), plain {r['plain_ms']:.4f} ms; device ms by pass "
+          f"(profiler, mean of the recorded calls of 3, L2 warm): {split}")
+    if ms >= statistics.mean(old):
+        fail(f"moe_gmm_bwd: {route} {ms:.4f} ms is not faster than mma {statistics.mean(old):.4f} ms")
     del x, wg, wu, wd, dy, leaves
     torch.cuda.empty_cache()
 
@@ -1952,19 +2067,36 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
     t_ops = max(SCAN_BWD_FMA_INSTRS * n_el / fma_rate,
                 (SCAN_BWD_FMA_INSTRS + EXP_FMA_INSTRS) * n_el / (fma_rate + EXP_FMA_INSTRS * sfu_rate)) * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+
+    def scan_call():
+        return mamba_scan_bwd(xc, dt, Bm, Cm, a, None, dys)
+
+    def scan_old():
+        return on_k7_baseline("mamba_scan_bwd", scan_call)
+
+    design = scan_module._bwd_design()
+    new, old = in_turns(scan_call, scan_old)
+    parts = ("ckpt", "rev", "reduce_bc", "reduce_a")
+    split = {design: launch_split(scan_call, parts), "per_step": launch_split(scan_old, parts)}
+    ms = statistics.mean(new)
     rows.append(dict(
-        name="mamba_scan_bwd", path=f"{cfg.name} training ({B}, {L}, {Di}, {N}), bf16 xc", route="cuda",
-        source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+        name="mamba_scan_bwd", path=f"{cfg.name} training ({B}, {L}, {Di}, {N}), bf16 xc, design {design}",
+        route="cuda", source="src/repro_torch/kernels/csrc/mamba_scan.cu",
         replaces="src/repro/models/mamba.py:71 (no Pallas kernel: jax autodiff of the chunked selective_scan)",
-        launches=main_launches["mamba_scan_bwd"], max_abs_err=err,
-        ms=time_ms(lambda: mamba_scan_bwd(xc, dt, Bm, Cm, a, None, dys), reps=10),
+        launches=main_launches["mamba_scan_bwd"], max_abs_err=err, ms=ms,
         plain_ms=time_ms(lambda: ref.reference_selective_scan_bwd(xc, dt, Bm, Cm, a, None, dys), reps=2),
         bound_ms=max(t_ops, t_bytes), bound_by="bytes" if t_bytes >= t_ops else "operations",
-        library_ms=None, library="none",
+        library_ms=None, library="none", per_step_ms=statistics.mean(old), launch_ms=split[design],
+        per_step_launch_ms=split["per_step"],
     ))
     r = rows[-1]
-    print(f"  mamba_scan_bwd at {r['path']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}; bytes "
-          f"{t_bytes:.4f} ms, operations {t_ops:.4f} ms; {r['ms'] / r['bound_ms']:.2f}x), plain {r['plain_ms']:.4f} ms")
+    print(f"  mamba_scan_bwd at {r['path']}: {design} {new[0]:.4f}, {new[1]:.4f} ms; per_step {old[0]:.4f}, "
+          f"{old[1]:.4f} ms (in turns; per_step {statistics.mean(old) / ms:.2f}x); bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}; bytes {t_bytes:.4f} ms, operations {t_ops:.4f} ms; {ms / r['bound_ms']:.2f}x), plain "
+          f"{r['plain_ms']:.4f} ms; device ms by launch (profiler, mean of the recorded calls of 3, L2 warm): "
+          f"{split}")
+    if ms >= statistics.mean(old):
+        fail(f"mamba_scan_bwd: {design} {ms:.4f} ms is not faster than per_step {statistics.mean(old):.4f} ms")
     del xc, dt, Bm, Cm, a, dys
     torch.cuda.empty_cache()
 

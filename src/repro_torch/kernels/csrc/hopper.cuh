@@ -151,9 +151,12 @@ __device__ __forceinline__ void fence_frags(uint32_t (&a)[T][4]) {
 
 // The products, d (f32 accumulator: value 4j + 2i + c at row 16 warp + lane/4
 // + 8i, column 8j + 2 (lane % 4) + c) = scale_d ? d : 0, + A (64 x 16) . B
-// (16 x N), bf16 in. _ss: A and B from shared-memory descriptors, A K-major;
-// _rs: A from registers, in the fragment layout of mma.sync m16n8k16 for the
-// warp's 16 rows (the accumulator's own layout, rounded to bf16 pairs).
+// (16 x N), bf16 in. _ss: A and B from shared-memory descriptors, A K-major
+// (but m64n256's TRANS_A = 1: A MN-major, stored K x M; its 64 values of M
+// are one 128-byte row, so sw128_desc's leading offset is never used, and a
+// k-step is 16 rows, 2048 bytes); _rs: A from registers, in the fragment
+// layout of mma.sync m16n8k16 for the warp's 16 rows (the accumulator's own
+// layout, rounded to bf16 pairs).
 // TRANS_B = 0: B K-major (stored N x K); 1: B MN-major (stored K x N).
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
@@ -212,7 +215,7 @@ __device__ __forceinline__ void wgmma_m64n96k16_ss(float (&d)[48], uint64_t desc
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
-template <int TRANS_B>
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n"
@@ -228,7 +231,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
       " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
       " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n"
+      "%128, %129, p, 1, 1, %132, %131;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -246,7 +249,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 template <int TRANS_B>

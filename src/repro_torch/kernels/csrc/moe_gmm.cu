@@ -72,23 +72,37 @@
 // dG and dU are rounded to x's dtype before their products, as h is in the
 // forward. What bounds it: operations, 16 E C D F (12 of the gradients and 4
 // of the recompute; 9.7 ms at jamba's training bins E 16, C 640 on the bf16
-// tensor cores). FOUR PASSES, each a batched product over the experts whose
-// K loop runs whole inside one block (the weight gradients sum over C in a
-// fixed order: no split-K, no float atomics, so a repeated call is
-// bit-equal):
-//   1. g, u and dH (three products over D, M C x N F) with the epilogue
-//      that writes h, dG and dU (E, C, F) in x's dtype, scratch the wrapper
-//      allocates;
-//   2. dWd = h^T . dY (F x D over C);
-//   3. dX = [dG dU] . [Wg Wu]^T (C x D over 2F, two products summed);
-//   4. dWg and dWu = x^T . [dG dU] (D x F over C, x read once for both).
-// Every operand is read in its stored layout: a tile is staged by 16-byte
-// cp.async copies along its contiguous dimension (D or F, so both must be
-// multiples of 8), zero past the edges, and ldmatrix (.trans where the
-// contiguous dimension is M or N) feeds the fragments.
-//   * route 1, "mma" (bf16): 64 x 64 tiles, 4 warps of 32 x 32 on mma.sync
-//     m16n8k16 with f32 sums, k tiles of 32 double-buffered. A simple first
-//     design (wgmma with TMA, as the forward, is later speed work).
+// tensor cores; the bytes, ~12 GB of weights and their gradients, take 3.6
+// ms). Each pass is a batched product over the experts whose K loop runs
+// whole inside one block (the weight gradients sum over C in a fixed order:
+// no split-K, no float atomics, so a repeated call is bit-equal).
+//   * route 2, "wgmma" (bf16, D and F multiples of 8): five passes on the
+//     forward's machinery (namespace wg: TMA with the 128-byte swizzle and
+//     zero fill past every edge, a 4-stage mbarrier ring, one producer
+//     thread, two consumer warpgroups, setmaxnreg, persistent blocks), every
+//     product wgmma m64n256k16 on 128 x 256 tiles:
+//       0. dH = dY.Wd^T (C x F over D) into f32 scratch (dh);
+//       1. g, u = x.[Wg Wu] (C x F over D, gate and up of 128 columns in
+//          one product) with the epilogue that reads dH and writes h, dG and
+//          dU (E, C, F) in x's dtype;
+//       2. dWd = h^T . dY (F x D over C);
+//       3. dX = [dG dU] . [Wg Wu]^T (C x D over 2F, one K loop);
+//       4. dWg and dWu = x^T . [dG dU] (D x F over C, x read once for both).
+//     Operands are read in their stored layouts: one whose stored rows run
+//     along the reduction (h and x as A in passes 2 and 4; Wg and Wu in
+//     pass 1, dY in pass 2, dG and dU in pass 4 as B) is read MN-major
+//     through the product's transpose bits; no transposed copy is made. The
+//     epilogues store 16 bytes a lane (quad_transpose): stores of 4 bytes,
+//     half a sector each, made passes 2 and 4 markedly slower. dH goes
+//     through f32 scratch because a pass 1 fused with it (three products on
+//     two A tiles, m64n128 and m64n64 to fit the accumulators) measured
+//     slower than the two passes: a narrow product reads more shared memory
+//     a FLOP. Pairs of blocks in clusters that multicast the shared operand
+//     (halving its L2 traffic) measured no faster, so L2 is not what holds
+//     the passes.
+//   * route 1, "mma": the first design (64 x 64 tiles of mma.sync m16n8k16,
+//     cp.async and ldmatrix, four passes with dH fused into the first); no
+//     longer chosen, kept as the baseline chip_smoke.py times beside wgmma.
 //   * route 0, "fma" (every f32 call, and bf16 where D or F is not a
 //     multiple of 8): 64 x 64 tiles of plain FMA in f32, as the forward's
 //     FMA route, so f32 keeps the reference's f32 parity.
@@ -371,6 +385,301 @@ cudaError_t launch(const void* A, const void* B0, const void* B1, void* out, int
   return cudaGetLastError();
 }
 
+// ---- the backward's passes (K7a, route "wgmma") ---------------------------
+// The forward's machinery (TMA with the 128-byte swizzle and zero fill, a ring
+// of STAGES stages with full and empty mbarriers, one producer thread, two
+// consumer warpgroups of 64 rows, setmaxnreg, persistent blocks walking the
+// M-tiles of one (expert, N-tile) adjacently) with each pass's operands read
+// in their stored layouts, and every product m64n256k16 (128 f32
+// accumulators a thread). A stage is 6 CHUNKs: 64 rows of 128 bytes (64
+// bf16), the span of one swizzle row, 1024-byte aligned. Descriptors:
+//   K-major tile (rows M or N, 64 k along a row): sw128_desc(tile + 32 kk,
+//     16, 1024) at k-step kk (16 k are 32 bytes along the rows; the stride
+//     offset is the 8-row group; the leading offset is unused);
+//   MN-major tile (rows k, 64 M or N along a row, chunks of 64 columns
+//     CHUNK apart): sw128_desc(tile + 2048 kk, CHUNK, 1024) (a k-step is 16
+//     rows; the leading offset is the distance to the next 64 columns; A's
+//     64 rows of a warpgroup are one chunk, so for A it is never used).
+// Pass 0 (C x F over D, BN 256): dH = dY.Wd^T in f32 to scratch: dY [128][64
+//   d] (K-major A), Wd [256 f][64 d] (K-major B: Wd is (F, D) = (n, k)).
+// Pass 1 (C x F over D, BN 128): x [128][64 d] (K-major A), Wg's and Wu's
+//   chunks [64 d][64 f] (MN-major B): gate and up of 128 columns in one
+//   product, A read once, as the forward's gated pass; the epilogue reads dH
+//   and writes h, dG and dU.
+// Pass 2 (F x D over C, BN 256): h chunks [64 c][64 f] x 2 (MN-major A, the
+//   transpose bit), dY chunks [64 c][64 d] x 4 (MN-major B).
+// Pass 3 (C x D over 2F, BN 256): dG or dU [128][64 f] (K-major A), Wg or Wu
+//   [256 d][64 f] (K-major B); k-tiles 0 .. nk - 1 on dG and Wg, then
+//   nk .. 2 nk - 1 on dU and Wu, one accumulator.
+// Pass 4 (D x F over C, BN 128): x chunks [64 c][64 d] x 2 (MN-major A), dG
+//   chunks then dU chunks [64 c][64 f] x 2 each (MN-major B): one product
+//   gives dWg's 128 columns and dWu's.
+// dH goes through f32 scratch rather than into pass 1 as a third product:
+// beside gate and up (on x) it needs its own A (dY), and two products on two
+// A tiles fit a thread's accumulators only as m64n128 and m64n64, which read
+// more shared memory a FLOP than m64n256 (see the note at the top).
+constexpr int CHUNK = 64 * 128;
+constexpr int BWD_STAGE = 6 * CHUNK;
+constexpr int BWD_SMEM = STAGES * BWD_STAGE + 2 * STAGES * 8 + 1024;
+static_assert(BWD_SMEM <= 232448, "over the 227 KB a block may use");
+
+struct Maps {  // the pass's tensor maps (see bwd_passes)
+  CUtensorMap a0, a1, b0, b1;
+};
+
+template <int P>
+__host__ __device__ constexpr int bwd_bn() { return P == 1 || P == 4 ? 128 : 256; }
+
+// the TMA loads of k-tile kt of the tile at (m0, n0, e) into stage st
+template <int P>
+__device__ __forceinline__ void bwd_load(uint8_t* st, const Maps& mp, uint64_t* bar, int kt, int nk, int m0, int n0,
+                                         int e) {
+  if constexpr (P == 0 || P == 3) {  // A and B both K-major
+    const bool up = P == 3 && kt >= nk;
+    const int k0 = (up ? kt - nk : kt) * BK;
+    tma_load_3d(st, up ? &mp.a1 : &mp.a0, bar, k0, m0, e);              // dY (E, C, D); dG or dU (E, C, F)
+    tma_load_3d(st + 2 * CHUNK, up ? &mp.b1 : &mp.b0, bar, k0, n0, e);  // Wd (E, F, D); Wg or Wu (E, D, F)
+  } else if constexpr (P == 1) {
+    const int k0 = kt * BK;
+    tma_load_3d(st, &mp.a0, bar, k0, m0, e);  // x (E, C, D)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)  // Wg's 128 columns, then Wu's (E, D, F)
+      tma_load_3d(st + (2 + c) * CHUNK, c < 2 ? &mp.b0 : &mp.b1, bar, n0 + 64 * (c % 2), k0, e);
+  } else {  // passes 2 and 4: A and B both MN-major, rows k
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) tma_load_3d(st + c * CHUNK, &mp.a0, bar, m0 + 64 * c, k0, e);  // h or x
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if constexpr (P == 2) tma_load_3d(st + (2 + c) * CHUNK, &mp.b0, bar, n0 + 64 * c, k0, e);  // dY
+      else tma_load_3d(st + (2 + c) * CHUNK, c < 2 ? &mp.b0 : &mp.b1, bar, n0 + 64 * (c % 2), k0, e);  // dG, dU
+    }
+  }
+}
+
+// k-step kk of a stage's product for warpgroup wgi
+template <int P>
+__device__ __forceinline__ void bwd_product(float (&acc)[128], const uint8_t* st, int wgi, int kk) {
+  if constexpr (P == 0 || P == 3) {
+    wgmma_m64n256k16_ss<0>(acc, sw128_desc(st + wgi * CHUNK + kk * 32, 16, 1024),
+                           sw128_desc(st + 2 * CHUNK + kk * 32, 16, 1024), 1);
+  } else if constexpr (P == 1) {
+    wgmma_m64n256k16_ss<1>(acc, sw128_desc(st + wgi * CHUNK + kk * 32, 16, 1024),
+                           sw128_desc(st + 2 * CHUNK + kk * 2048, CHUNK, 1024), 1);
+  } else {
+    wgmma_m64n256k16_ss<1, 1>(acc, sw128_desc(st + wgi * CHUNK + kk * 2048, CHUNK, 1024),
+                              sw128_desc(st + 2 * CHUNK + kk * 2048, CHUNK, 1024), 1);
+  }
+}
+
+// The 4 x 4 transpose across a quad of lanes (lane % 4 = t) by two shuffle
+// steps: lane t gives p[c], its two columns of 8-column group c of a row, and
+// gets group t's 8 columns, [p_0[t], p_1[t], p_2[t], p_3[t]] of lanes 0 .. 3,
+// for one 16-byte store (4 times fewer than by pairs).
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&p)[4], int lane) {
+  const bool b0 = lane & 1, b1 = lane & 2;
+  uint32_t x[4], y[4];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {  // swap the 2 x 2 blocks' off-diagonal entries between lanes t and t ^ 1
+    const uint32_t r = __shfl_xor_sync(0xffffffffu, b0 ? p[2 * k] : p[2 * k + 1], 1);
+    x[2 * k] = b0 ? r : p[2 * k];
+    x[2 * k + 1] = b0 ? p[2 * k + 1] : r;
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {  // then the 2 x 2 blocks between lanes t and t ^ 2
+    const uint32_t r = __shfl_xor_sync(0xffffffffu, b1 ? x[k] : x[k + 2], 2);
+    y[k] = b1 ? r : x[k];
+    y[k + 2] = b1 ? x[k + 2] : r;
+  }
+  return make_uint4(y[0], y[1], y[2], y[3]);
+}
+
+// Pass P of the backward: out (E, M, N) tiles of BM x bwd_bn<P>() over K (pass
+// 3: 2K), bf16 in, f32 sums, stores masked past M and N; dh (E, M, N) f32 is
+// pass 0's output and pass 1's input.
+template <int P>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_kernel(__grid_constant__ const Maps mp, __nv_bfloat16* __restrict__ o0, __nv_bfloat16* __restrict__ o1,
+           __nv_bfloat16* __restrict__ o2, float* __restrict__ dh, int E, int M, int N, int K) {
+  constexpr int BN = bwd_bn<P>();
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + STAGES * BWD_STAGE);
+  uint64_t* empty = full + STAGES;
+
+  const int m_tiles = (M + BM - 1) / BM, n_tiles = (N + BN - 1) / BN;
+  const int tiles = m_tiles * n_tiles * E;
+  const int nk = (K + BK - 1) / BK;
+  const int kts = P == 3 ? 2 * nk : nk;  // pass 3 runs over dG then dU
+  const int wgi = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread releases the stage
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    // ---- producer: one thread keeps the ring full, across tiles ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 256) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const int m0 = (tile % m_tiles) * BM, n0 = (tile / m_tiles % n_tiles) * BN;
+        const int e = tile / (m_tiles * n_tiles);
+        for (int kt = 0; kt < kts; ++kt, ++it) {
+          const int s = it % STAGES;
+          mbar_wait(&empty[s], ((it / STAGES) & 1) ^ 1);
+          mbar_expect_tx(&full[s], BWD_STAGE);  // zero-filled bytes count too
+          bwd_load<P>(smem + s * BWD_STAGE, mp, &full[s], kt, nk, m0, n0, e);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wgi owns rows m0 + 64 wgi .. + 63 of each tile ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    float acc[128];
+    const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32, tq = lane % 4;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int m0 = (tile % m_tiles) * BM, n0 = (tile / m_tiles % n_tiles) * BN;
+      const int e = tile / (m_tiles * n_tiles);
+#pragma unroll
+      for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+      for (int kt = 0; kt < kts; ++kt, ++it) {
+        const int s = it % STAGES;
+        mbar_wait(&full[s], (it / STAGES) & 1);
+        const uint8_t* st = smem + s * BWD_STAGE;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk) bwd_product<P>(acc, st, wgi, kk);
+        wgmma_commit();
+        // the previous k-tile's products are done: hand its stage back
+        wgmma_wait<1>();
+        fence_acc(acc);
+        if (kt > 0) mbar_arrive(&empty[(it - 1) % STAGES]);
+      }
+      wgmma_wait<0>();
+      fence_acc(acc);
+      mbar_arrive(&empty[(it - 1) % STAGES]);  // the tile's last stage
+
+      // accumulator value 4j + 2i + c at row 16 warp + lane/4 + 8i, column
+      // 8j + 2 (lane % 4) + c. The bf16 outputs: a quad's lanes share the row
+      // and trade pairs (quad_transpose) so that each stores 8 columns, one
+      // 8-column group of 4; N is a multiple of 8, so a group is whole. Every
+      // lane takes part in the shuffles; rows past M and columns past N are
+      // neither stored nor read.
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int row = m0 + wgi * 64 + warp * 16 + lane / 4 + 8 * i;
+        const int64_t base = ((int64_t)e * M + row) * N;
+        if constexpr (P == 0) {  // f32 pairs: a warp's store is 8 whole 32-byte sectors
+#pragma unroll
+          for (int j = 0; j < 32; ++j) {
+            const int col = n0 + 8 * j + 2 * tq;
+            if (row < M && col < N)
+              *reinterpret_cast<float2*>(dh + base + col) = make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+          }
+        } else if constexpr (P == 1) {
+          // gate column j pairs with up column j + 16 and dH's same column; as EPI_GATED
+#pragma unroll
+          for (int jg = 0; jg < 4; ++jg) {
+            uint32_t hp[4], gp[4], up[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) {
+              const int j = 4 * jg + c, col = n0 + 8 * j + 2 * tq;
+              const float2 d2 = row < M && col < N ? *reinterpret_cast<const float2*>(dh + base + col)
+                                                   : make_float2(0.f, 0.f);
+              float hv[2], gv[2], uv[2];
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float g = acc[4 * j + 2 * i + h], u = acc[4 * (j + 16) + 2 * i + h], dv = h ? d2.y : d2.x;
+                const float ex = expf(-g), sg = 1.f / (1.f + ex), sl = g / (1.f + ex);
+                hv[h] = sl * u;
+                gv[h] = dv * u * (sg * (1.f + g * (1.f - sg)));
+                uv[h] = dv * sl;
+              }
+              hp[c] = pack_bf16(hv[0], hv[1]);
+              gp[c] = pack_bf16(gv[0], gv[1]);
+              up[c] = pack_bf16(uv[0], uv[1]);
+            }
+            const uint4 hq = quad_transpose(hp, lane), gq = quad_transpose(gp, lane), uq = quad_transpose(up, lane);
+            const int col = n0 + 8 * (4 * jg + tq);
+            if (row < M && col < N) {
+              *reinterpret_cast<uint4*>(o0 + base + col) = hq;
+              *reinterpret_cast<uint4*>(o1 + base + col) = gq;
+              *reinterpret_cast<uint4*>(o2 + base + col) = uq;
+            }
+          }
+        } else {
+          // pass 4: groups 0 .. 3 are dWg's 128 columns, 4 .. 7 dWu's, both at n0
+#pragma unroll
+          for (int jg = 0; jg < 8; ++jg) {
+            uint32_t pk[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              pk[c] = pack_bf16(acc[4 * (4 * jg + c) + 2 * i], acc[4 * (4 * jg + c) + 2 * i + 1]);
+            const uint4 v = quad_transpose(pk, lane);
+            const int col = n0 + 8 * (4 * (P == 4 ? jg % 4 : jg) + tq);
+            __nv_bfloat16* o = P == 4 && jg >= 4 ? o1 : o0;
+            if (row < M && col < N) *reinterpret_cast<uint4*>(o + base + col) = v;
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int P>
+cudaError_t bwd_launch(const Maps& mp, void* o0, void* o1, void* o2, float* dh, int E, int M, int N, int K, int sms,
+                       cudaStream_t stream) {
+  constexpr int BN = bwd_bn<P>();
+  cudaError_t err = cudaFuncSetAttribute(bwd_kernel<P>, cudaFuncAttributeMaxDynamicSharedMemorySize, BWD_SMEM);
+  if (err != cudaSuccess) return err;
+  const int64_t tiles = (int64_t)((M + BM - 1) / BM) * ((N + BN - 1) / BN) * E;
+  if (tiles > 2147483647LL) return cudaErrorInvalidValue;
+  const int grid = (int)(tiles < sms ? tiles : sms);  // one persistent block per SM
+  auto o = [](void* p) { return static_cast<__nv_bfloat16*>(p); };
+  bwd_kernel<P><<<grid, THREADS, BWD_SMEM, stream>>>(mp, o(o0), o(o1), o(o2), dh, E, M, N, K);
+  return cudaGetLastError();
+}
+
+// The backward's five passes (see the note above CHUNK); x, dy (E, C, D), the
+// weights and the (E, C, F) scratch h, dg, du are bf16 with 16-byte rows, dh
+// (E, C, F) f32 scratch.
+inline cudaError_t bwd_passes(const void* x, const void* wgt, const void* wup, const void* wdn, const void* dy, void* h,
+                              void* dg, void* du, float* dh, void* dx, void* dwg, void* dwu, void* dwd, int E, int C,
+                              int D, int F, cudaStream_t s) {
+  Maps m0{}, m1{}, m2{}, m3{}, m4{};
+  // make_map(map, base, depth, rows, inner, box_rows): boxes of 64 inner x box_rows
+  if (!make_map(&m0.a0, dy, E, C, D, BM) || !make_map(&m0.b0, wdn, E, F, D, 256) ||  // pass 0
+      !make_map(&m1.a0, x, E, C, D, BM) || !make_map(&m1.b0, wgt, E, D, F, BK) ||
+      !make_map(&m1.b1, wup, E, D, F, BK) ||                                          // pass 1
+      !make_map(&m2.a0, h, E, C, F, BK) || !make_map(&m2.b0, dy, E, C, D, BK) ||      // pass 2
+      !make_map(&m3.a0, dg, E, C, F, BM) || !make_map(&m3.a1, du, E, C, F, BM) ||
+      !make_map(&m3.b0, wgt, E, D, F, 256) || !make_map(&m3.b1, wup, E, D, F, 256) ||  // pass 3
+      !make_map(&m4.a0, x, E, C, D, BK) || !make_map(&m4.b0, dg, E, C, F, BK) ||
+      !make_map(&m4.b1, du, E, C, F, BK))  // pass 4
+    return cudaErrorInvalidValue;
+  int dev, sms;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  // 0. dH = dY.Wd^T (C x F over D), f32
+  if ((err = bwd_launch<0>(m0, nullptr, nullptr, nullptr, dh, E, C, F, D, sms, s)) != cudaSuccess) return err;
+  // 1. g = x.Wg, u = x.Wu (C x F over D) and dH -> h, dG, dU
+  if ((err = bwd_launch<1>(m1, h, dg, du, dh, E, C, F, D, sms, s)) != cudaSuccess) return err;
+  // 2. dWd = h^T.dY (F x D over C)
+  if ((err = bwd_launch<2>(m2, dwd, nullptr, nullptr, nullptr, E, F, D, C, sms, s)) != cudaSuccess) return err;
+  // 3. dX = dG.Wg^T + dU.Wu^T (C x D over F, twice, in one K loop)
+  if ((err = bwd_launch<3>(m3, dx, nullptr, nullptr, nullptr, E, C, D, F, sms, s)) != cudaSuccess) return err;
+  // 4. dWg = x^T.dG, dWu = x^T.dU (D x F over C)
+  return bwd_launch<4>(m4, dwg, dwu, nullptr, nullptr, E, D, F, C, sms, s);
+}
+
 }  // namespace wg
 
 // ---------------------------------------------------------------------------
@@ -521,7 +830,7 @@ cudaError_t launch(const void* A, const void* W0, const void* W1, void* out, int
 }  // namespace swab
 
 enum Route { ROUTE_FMA = 0, ROUTE_WGMMA = 1, ROUTE_SWAP_AB = 2 };
-enum BwdRoute { BWD_FMA = 0, BWD_MMA = 1 };  // moe_gmm.py's BWD_ROUTES
+enum BwdRoute { BWD_FMA = 0, BWD_MMA = 1, BWD_WGMMA = 2 };  // moe_gmm.py's BWD_ROUTES
 
 // ---------------------------------------------------------------------------
 // the backward (K7a)
@@ -863,14 +1172,16 @@ extern "C" int moe_gmm_fwd(const void* x, const void* w_gate, const void* w_up, 
 
 // The backward of moe_gmm_fwd: dx (E, C, D), dwg and dwu (E, D, F), dwd
 // (E, F, D) from x, the weights and dy (E, C, D), all in one dtype (0 =
-// float32, 1 = bfloat16). h, dg and du are (E, C, F) scratch in that dtype.
-// route: BWD_FMA or BWD_MMA (bf16 with D and F multiples of 8 and 16-byte
-// aligned bases; the wrapper's _bwd_route picks it). Launches the four passes on
+// float32, 1 = bfloat16). h, dg and du are (E, C, F) scratch in that dtype;
+// dh (E, C, F) f32 scratch for route BWD_WGMMA (the others take null).
+// route: BWD_FMA, BWD_WGMMA or BWD_MMA (both bf16 with D and F multiples of 8
+// and 16-byte aligned bases; the wrapper's _bwd_route picks fma or wgmma, mma
+// is the earlier design, kept as a baseline). Launches the four passes on
 // `stream`; returns the first non-zero cudaError_t, or cudaErrorInvalidValue
 // for a route these inputs cannot take.
 extern "C" int moe_gmm_bwd(const void* x, const void* w_gate, const void* w_up, const void* w_down,
-                           const void* dy, void* h, void* dg, void* du, void* dx, void* dwg, void* dwu, void* dwd,
-                           int dtype, int route, int E, int C, int D, int F, void* stream) {
+                           const void* dy, void* h, void* dg, void* du, void* dh, void* dx, void* dwg, void* dwu,
+                           void* dwd, int dtype, int route, int E, int C, int D, int F, void* stream) {
   if (E <= 0 || C <= 0 || D <= 0 || F <= 0 || E > 65535 || (C + 63) / 64 > 65535 || (D + 63) / 64 > 65535 ||
       (F + 63) / 64 > 65535)
     return (int)cudaErrorInvalidValue;
@@ -880,10 +1191,17 @@ extern "C" int moe_gmm_bwd(const void* x, const void* w_gate, const void* w_up, 
   if (route == BWD_FMA && dtype == 1)
     return (int)bwd::passes<__nv_bfloat16, false>(x, w_gate, w_up, w_down, dy, h, dg, du, dx, dwg, dwu, dwd, E, C,
                                                   D, F, s);
-  // the tensor-core route: bf16, 16-byte rows and 16-byte aligned bases
+  // the tensor-core routes: bf16, 16-byte rows and 16-byte aligned bases
   const uintptr_t bases = (uintptr_t)x | (uintptr_t)w_gate | (uintptr_t)w_up | (uintptr_t)w_down | (uintptr_t)dy |
                           (uintptr_t)h | (uintptr_t)dg | (uintptr_t)du;
-  if (route != BWD_MMA || dtype != 1 || D % 8 || F % 8 || (bases & 15)) return (int)cudaErrorInvalidValue;
-  return (int)bwd::passes<__nv_bfloat16, true>(x, w_gate, w_up, w_down, dy, h, dg, du, dx, dwg, dwu, dwd, E, C, D,
-                                               F, s);
+  if (dtype != 1 || D % 8 || F % 8 || (bases & 15)) return (int)cudaErrorInvalidValue;
+  if (route == BWD_WGMMA) {
+    if (dh == nullptr || ((uintptr_t)dh & 15)) return (int)cudaErrorInvalidValue;
+    return (int)wg::bwd_passes(x, w_gate, w_up, w_down, dy, h, dg, du, static_cast<float*>(dh), dx, dwg, dwu, dwd, E,
+                               C, D, F, s);
+  }
+  if (route == BWD_MMA)
+    return (int)bwd::passes<__nv_bfloat16, true>(x, w_gate, w_up, w_down, dy, h, dg, du, dx, dwg, dwu, dwd, E, C,
+                                                 D, F, s);
+  return (int)cudaErrorInvalidValue;
 }

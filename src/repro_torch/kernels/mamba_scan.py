@@ -22,22 +22,29 @@ limit is one launch, as before.
 ``mamba_scan_bwd`` (K7b, no Pallas counterpart: the JAX train step
 differentiates the chunked scan of ``repro/models/mamba.py``) returns dxc,
 ddt, dB, dC, dA and dh0 from the forward's inputs and the cotangents of y and
-h_final, by ``csrc/mamba_scan.cu``'s ``mamba_scan_bwd``: one thread per
-(batch, channel) as in the forward. A forward pass stores the state at every
-``BWD_CHUNK`` steps in f32 scratch; a reverse pass recomputes each chunk's
-states from its checkpoint into shared memory and runs the state's cotangent
-back through them; dB and dC, sums over the channels of a (b, t), are reduced
-over each warp by shuffles into per-warp partial sums, and those, and dA's
-per-batch sums, are reduced in a fixed order by a last launch (no float
-atomics: a repeated call is bit-equal). A scan past the offset limit is
-walked in the forward's segments, in reverse for the cotangents, inside that
-one call.
+h_final, by ``csrc/mamba_scan.cu``'s ``mamba_scan_bwd``. A forward pass
+stores the state at every ``BWD_CHUNK`` steps in f32 scratch, loading the
+next chunk's inputs while it runs a chunk; a reverse pass walks the chunks
+backwards with no global load on a step's critical path: a block of
+``BWD_BLOCK`` channels stages a chunk's dt, xc, dy, B and C in shared memory
+(the next chunk's copies in flight meanwhile), each channel's states split
+over lanes, recomputed from the checkpoint into registers, and the state's
+cotangent run back through them; dB and dC, sums over the channels of a (b,
+t), are summed over each block in a fixed order into one partial a block,
+and those, and dA's per-batch sums, by a last launch (no float atomics: a
+repeated call is bit-equal). A scan past the offset limit is walked in the
+forward's segments, in reverse for the cotangents, inside that one call.
+The first design (one thread a channel, per-step loads, per-warp partials;
+``mamba_scan_bwd_per_step`` in the .cu) is no longer chosen: it stays
+reachable only as the baseline ``chip_smoke.py`` times beside the chunked one
+(``_bwd_design``). ``bwd_scratch_shapes`` gives each design's scratch.
 
 For tensors on the CPU or the meta device each wrapper computes its plain
 version (``ref.reference_selective_scan``, ``ref.reference_selective_scan_bwd``,
 segment by segment where the scan is cut); for CUDA tensors it launches its
 kernel or raises. ``mamba_scan.launches`` counts forward kernel launches,
-``mamba_scan_bwd.launches`` backward calls (each one call of the C entry). The
+``mamba_scan_bwd.launches`` backward calls (each one call of the C entry), and
+``mamba_scan_bwd.route_launches`` the same calls by design. The
 bare ``mamba_scan`` refuses inputs that require a gradient: a gradient goes
 through ``repro_torch.models.mamba.MambaScan``, which pairs it with
 ``mamba_scan_bwd``.
@@ -58,7 +65,12 @@ MAX_AHEAD = 16  # the kernel computes step offsets t * Di up to t = L + 16
 OFFSET_LIMIT = 2**31  # a launch's step offsets (L + MAX_AHEAD) * Di stay below this (int32)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 BWD_CHUNK = 16  # steps between the backward's checkpoints (as the .cu's K)
-WARP = 32  # channels whose dB, dC terms one warp sums (as the .cu's per-warp partials)
+# the backward's designs, by the C entry each calls: "chunked" (the one
+# chosen) and "per_step" (the first, a baseline), and the channels each sums
+# into one dB, dC partial (the .cu's CHB, a block; a warp's 32)
+BWD_DESIGNS = {"chunked": "mamba_scan_bwd", "per_step": "mamba_scan_bwd_per_step"}
+BWD_BLOCK = 64
+_PARTIAL_CHANNELS = {"chunked": BWD_BLOCK, "per_step": 32}
 
 
 def _fn():
@@ -70,9 +82,9 @@ def _fn():
     return fn
 
 
-def _bwd_fn():
+def _bwd_fn(design: str):
     lib = build.load("mamba_scan")
-    fn = lib.mamba_scan_bwd
+    fn = getattr(lib, BWD_DESIGNS[design])
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -99,6 +111,24 @@ def _check_inputs(xc, dt, Bm, Cm, a, h0):
     if N not in STATE_SIZES:
         raise ValueError(f"state size {N} not in {STATE_SIZES}")
     segment_len(Di)
+
+
+def _bwd_design() -> str:
+    """The backward's design a CUDA call takes (``"per_step"`` is never
+    chosen; see the module note)."""
+    return "chunked"
+
+
+def bwd_scratch_shapes(B: int, L: int, Di: int, N: int, seg: int, design: str = "chunked") -> dict:
+    """The f32 scratch ``mamba_scan_bwd``'s C entry of ``design`` takes for
+    a scan of (B, L, Di, N) cut into segments of ``seg`` steps: ``ckpt`` (a
+    checkpoint at the start of every ``BWD_CHUNK`` steps of each segment, and
+    one more slot), ``part_bc`` (dB and dC partial sums, one for each
+    ``_PARTIAL_CHANNELS[design]`` channels) and ``part_a`` (dA summed over L,
+    per batch row)."""
+    slots = sum(-(-min(seg, L - s) // BWD_CHUNK) for s in range(0, L, seg)) + 1
+    parts = -(-Di // _PARTIAL_CHANNELS[design])
+    return {"ckpt": (B, slots, N, Di), "part_bc": (B, L, parts, 2 * N), "part_a": (B, Di, N)}
 
 
 def segment_len(Di: int) -> int:
@@ -222,11 +252,9 @@ def mamba_scan_bwd(
     ins = [None if t is None else t.contiguous() for t in (xc, dt, Bm, Cm, a, h0, dy, dh_final)]
     dev = xc.device
     f32 = dict(dtype=torch.float32, device=dev)
-    # a checkpoint at the start of every BWD_CHUNK steps of each segment, and one more slot
-    slots = sum(-(-min(seg, L - s) // BWD_CHUNK) for s in range(0, L, seg)) + 1
-    ckpt = torch.empty((B, slots, N, Di), **f32)
-    part_bc = torch.empty((B, L, -(-Di // WARP), 2 * N), **f32)  # per-warp dB, dC partial sums
-    part_a = torch.empty((B, Di, N), **f32)  # dA summed over L, per batch row
+    design = _bwd_design()
+    ckpt, part_bc, part_a = (torch.empty(shape, **f32)
+                             for shape in bwd_scratch_shapes(B, L, Di, N, seg, design).values())
     dxc = torch.empty((B, L, Di), dtype=xc.dtype, device=dev)
     ddt = torch.empty((B, L, Di), **f32)
     dB, dC = torch.empty((B, L, N), **f32), torch.empty((B, L, N), **f32)
@@ -234,15 +262,17 @@ def mamba_scan_bwd(
     ptr = lambda t: 0 if t is None else t.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _bwd_fn()(
+        rc = _bwd_fn(design)(
             *(ptr(t) for t in ins), ckpt.data_ptr(), part_bc.data_ptr(), part_a.data_ptr(),
             dxc.data_ptr(), ddt.data_ptr(), dB.data_ptr(), dC.data_ptr(), da.data_ptr(), dh0.data_ptr(),
             _DTYPES[xc.dtype], B, L, Di, N, seg, stream,
         )
     if rc != 0:
-        raise RuntimeError(f"mamba_scan_bwd kernel launch failed: cudaError_t {rc}")
+        raise RuntimeError(f"mamba_scan_bwd kernel launch failed on design {design!r}: cudaError_t {rc}")
     mamba_scan_bwd.launches += 1
+    mamba_scan_bwd.route_launches[design] += 1
     return dxc, ddt, dB, dC, da, dh0
 
 
 mamba_scan_bwd.launches = 0
+mamba_scan_bwd.route_launches = dict.fromkeys(BWD_DESIGNS, 0)

@@ -24,14 +24,19 @@ launch order). ``h`` is scratch allocated here.
 
 ``moe_gmm_bwd`` (K7a, no Pallas counterpart: the JAX train step
 differentiates the einsums of ``repro/models/moe.py``) returns dX, dWg, dWu
-and dWd from x, the weights and dY, in four launches of ``csrc/moe_gmm.cu``'s
-``moe_gmm_bwd``: a gated pass recomputes g and u beside dH = dY Wd^T and
-writes h, dG and dU in x's dtype (scratch allocated here); then dWd = h^T dY,
-dX = [dG dU] [Wg Wu]^T over 2F, and dWg, dWu = x^T [dG dU]. Weight gradients
-sum over C inside one block in a fixed order (no float atomics), so a
-repeated call is bit-equal. ``_bwd_route`` picks ``"mma"`` (``mma.sync``
-m16n8k16) for bf16 with D and F multiples of 8, else ``"fma"`` (every f32
-call, to keep the reference's f32 parity).
+and dWd from x, the weights and dY, by ``csrc/moe_gmm.cu``'s ``moe_gmm_bwd``.
+``_bwd_route`` picks ``"wgmma"`` for bf16 with D and F multiples of 8: five
+passes on the forward's warp-specialised, persistent GEMM (``wgmma``
+m64n256k16 fed by TMA, each operand read in its stored layout, the
+transposed ones through the instruction's transpose bits): dH = dY Wd^T into
+f32 scratch; g and u recomputed, with dH, into h, dG and dU in x's dtype
+(scratch allocated here); then dWd = h^T dY, dX = [dG dU] [Wg Wu]^T over 2F,
+and dWg, dWu = x^T [dG dU]. Else ``"fma"`` (every f32 call, to keep the
+reference's f32 parity). Weight gradients sum over C inside one block in a
+fixed order (no float atomics), so a repeated call is bit-equal. ``"mma"``
+(``mma.sync`` m16n8k16 on 64 x 64 tiles, four passes, the first design) is
+no longer chosen: it stays reachable only as the baseline ``chip_smoke.py``
+times beside ``"wgmma"``.
 
 For tensors on the CPU or the meta device each wrapper computes its plain
 version (``ref.reference_gmm``, ``ref.reference_gmm_bwd``); for CUDA tensors
@@ -39,7 +44,7 @@ it launches the chosen route or raises, never another route.
 ``moe_gmm.launches`` counts calls that launched the kernel (one per call),
 ``moe_gmm.route_launches`` the same calls by route; ``moe_gmm_bwd.launches``
 and ``route_launches`` likewise count its calls (one call of the C entry, four
-kernels). The bare ``moe_gmm`` refuses inputs that require a gradient: a
+or five kernels). The bare ``moe_gmm`` refuses inputs that require a gradient: a
 gradient goes through ``repro_torch.models.moe.MoeGmm``, which pairs it with
 ``moe_gmm_bwd``.
 """
@@ -55,7 +60,7 @@ from .ref import PLAIN_DEVICES, reference_gmm, reference_gmm_bwd
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"fma": 0, "wgmma": 1, "swap_ab": 2}  # as the .cu's Route enum
-BWD_ROUTES = {"fma": 0, "mma": 1}  # as moe_gmm_bwd's route argument
+BWD_ROUTES = {"fma": 0, "mma": 1, "wgmma": 2}  # as moe_gmm_bwd's route argument (the .cu's BwdRoute)
 
 
 def _fn():
@@ -71,7 +76,7 @@ def _bwd_fn():
     lib = build.load("moe_gmm")
     fn = lib.moe_gmm_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -84,8 +89,9 @@ def _route(dtype: torch.dtype, E: int, C: int, D: int, F: int) -> str:
 
 
 def _bwd_route(dtype: torch.dtype, D: int, F: int) -> str:
-    """The backward's design for a CUDA call with these inputs."""
-    return "mma" if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0 else "fma"
+    """The backward's design for a CUDA call with these inputs (``"mma"`` is
+    never chosen; see the module note)."""
+    return "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 and F % 8 == 0 else "fma"
 
 
 def _check_inputs(x, w_gate, w_up, w_down):
@@ -163,20 +169,22 @@ def moe_gmm_bwd(
         return reference_gmm_bwd(x, w_gate, w_up, w_down, dy)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm_bwd: unsupported device {x.device}")
-    # contiguous, and 16-byte aligned for the tensor-core route's copies (cp.async)
+    # contiguous, and 16-byte aligned for the tensor-core routes' copies (TMA, cp.async)
     ins = [t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
            for t in (x, w_gate, w_up, w_down, dy)]
     E, C, D = x.shape
     F = w_gate.shape[2]
     route = _bwd_route(x.dtype, D, F)
     h, dg, du = (torch.empty((E, C, F), dtype=x.dtype, device=x.device) for _ in range(3))
+    # dH in f32 between the wgmma route's first two passes
+    dh = torch.empty((E, C, F), dtype=torch.float32, device=x.device) if route == "wgmma" else None
     dx, dwg, dwu, dwd = (torch.empty_like(t) for t in (x, w_gate, w_up, w_down))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = _bwd_fn()(
-            *(t.data_ptr() for t in ins), h.data_ptr(), dg.data_ptr(), du.data_ptr(), dx.data_ptr(),
-            dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(), _DTYPES[x.dtype], BWD_ROUTES[route], E, C, D, F,
-            stream,
+            *(t.data_ptr() for t in ins), h.data_ptr(), dg.data_ptr(), du.data_ptr(),
+            0 if dh is None else dh.data_ptr(), dx.data_ptr(), dwg.data_ptr(), dwu.data_ptr(), dwd.data_ptr(),
+            _DTYPES[x.dtype], BWD_ROUTES[route], E, C, D, F, stream,
         )
     if rc != 0:
         raise RuntimeError(f"moe_gmm_bwd kernel launch failed on route {route!r}: cudaError_t {rc}")

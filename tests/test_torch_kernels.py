@@ -877,22 +877,73 @@ def test_backward_kernels_are_registered_and_counted():
     ks = ops.kernel_set()
     assert {"moe_gmm_bwd", "mamba_scan_bwd"} <= set(ks)
     moe_gmm_bwd.launches, mamba_scan_bwd.launches = 2, 3
-    moe_gmm_bwd.route_launches.update(fma=1, mma=1)
+    moe_gmm_bwd.route_launches.update(fma=1, mma=1, wgmma=1)
+    mamba_scan_bwd.route_launches.update(chunked=2, per_step=1)
     assert ops.launch_counts()["moe_gmm_bwd"] == 2 and ops.launch_counts()["mamba_scan_bwd"] == 3
     ops.reset_launch_counts()
     assert moe_gmm_bwd.launches == mamba_scan_bwd.launches == 0
-    assert moe_gmm_bwd.route_launches == {"fma": 0, "mma": 0}
+    assert moe_gmm_bwd.route_launches == {"fma": 0, "mma": 0, "wgmma": 0}
+    assert mamba_scan_bwd.route_launches == {"chunked": 0, "per_step": 0}
     w = torch.randn(2, 8, 8)
     moe_gmm_bwd(torch.randn(2, 3, 8), w, w, w, torch.randn(2, 3, 8))
     assert ops.launch_counts()["moe_gmm_bwd"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D,F,bf16_route", [(4096, 14336, "mma"), (64, 128, "mma"), (44, 36, "fma"), (64, 36, "fma")])
+@pytest.mark.parametrize("D,F,bf16_route", [(4096, 14336, "wgmma"), (64, 128, "wgmma"), (44, 36, "fma"),
+                                            (64, 36, "fma")])
 def test_moe_gmm_bwd_route(D, F, bf16_route, dtype):
-    """bf16 with 16-byte rows (D and F multiples of 8) on mma.sync; f32, and
-    bf16 rows the 16-byte copies cannot take, on FMA."""
+    """bf16 with 16-byte rows (D and F multiples of 8) on wgmma fed by TMA;
+    f32, and bf16 rows TMA cannot take, on FMA; mma.sync (the first design)
+    is never chosen."""
     assert gmm_bwd_route(dtype, D, F) == (bf16_route if dtype == torch.bfloat16 else "fma")
+
+
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "mixtral-8x7b", "phi3.5-moe-42b"])
+def test_moe_training_layouts_take_the_wgmma_backward(arch):
+    """The MoE layouts that train (jamba and mixtral at (4096, 14336),
+    phi3.5-moe at (4096, 6400)) send their bf16 backward to wgmma, f32 to FMA."""
+    cfg = get_config(arch)
+    assert cfg.n_experts > 0 and cfg.dtype == "bfloat16"
+    assert gmm_bwd_route(torch.bfloat16, cfg.d_model, cfg.d_ff) == "wgmma"
+    assert gmm_bwd_route(torch.float32, cfg.d_model, cfg.d_ff) == "fma"
+
+
+def test_mamba_scan_bwd_takes_the_chunked_design():
+    """The wrapper calls the chunked design's C entry; the first design's
+    entry stays only as a baseline, and both count under route_launches."""
+    assert scan_module._bwd_design() == "chunked"
+    assert scan_module.BWD_DESIGNS == {"chunked": "mamba_scan_bwd", "per_step": "mamba_scan_bwd_per_step"}
+    assert set(mamba_scan_bwd.route_launches) == set(scan_module.BWD_DESIGNS)
+
+
+@pytest.mark.parametrize(
+    "B,L,Di,N,seg,design,slots,parts",
+    [
+        # jamba's training scan, one segment: 1024 / 16 = 64 checkpoints and the
+        # final slot; 8192 / 64 = 128 block partials (8192 / 32 = 256 warp partials)
+        (4, 1024, 8192, 16, 262128, "chunked", 65, 128),
+        (4, 1024, 8192, 16, 262128, "per_step", 65, 256),
+        # ragged Di: 130 channels are 3 blocks of 64 (5 warps of 32); L 45 is 3 chunks
+        (2, 45, 130, 16, 1000, "chunked", 4, 3),
+        (2, 45, 130, 16, 1000, "per_step", 4, 5),
+        # segments of 20, 20 and 5 steps: 2 + 2 + 1 chunks, and the final slot
+        (2, 45, 130, 8, 20, "chunked", 6, 3),
+    ],
+)
+def test_mamba_scan_bwd_scratch_shapes(B, L, Di, N, seg, design, slots, parts):
+    assert scan_module.bwd_scratch_shapes(B, L, Di, N, seg, design) == {
+        "ckpt": (B, slots, N, Di), "part_bc": (B, L, parts, 2 * N), "part_a": (B, Di, N)}
+
+
+def test_mamba_scan_bwd_scratch_at_jambas_training_shape_in_bytes():
+    """The chunked design halves part_bc against the first (one partial a
+    block of 64 channels, not a warp of 32): 67,108,864 bytes for 134,217,728
+    at jamba's (4, 1024, 8192, 16); ckpt stays 136,314,880."""
+    nbytes = {d: {k: 4 * int(np.prod(v)) for k, v in scan_module.bwd_scratch_shapes(
+        4, 1024, 8192, 16, scan_module.segment_len(8192), d).items()} for d in ("chunked", "per_step")}
+    assert nbytes["chunked"]["part_bc"] == 67_108_864 and nbytes["per_step"]["part_bc"] == 134_217_728
+    assert nbytes["chunked"]["ckpt"] == nbytes["per_step"]["ckpt"] == 136_314_880
 
 
 def test_backward_wrappers_reject_what_the_kernels_do_not_take():
@@ -909,3 +960,61 @@ def test_backward_wrappers_reject_what_the_kernels_do_not_take():
         mamba_scan_bwd(*args, x, torch.randn(1, 8, 5))
     with pytest.raises(ValueError, match="state size"):
         mamba_scan_bwd(x, x.abs(), torch.randn(1, 5, 3), torch.randn(1, 5, 3), -torch.rand(8, 3), None, x)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports no CUDA at import time)."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+class _Event:  # the fields of a torch.profiler CUDA event that kernel_shares reads
+    def __init__(self, name, us):
+        self.name = name
+        self.time_range = type("TR", (), {"elapsed_us": lambda _self: us})()
+
+
+# CUDA kernel names as the profiler gives them (demangled), by family
+K7_KERNEL_NAMES = [
+    ("void (anonymous namespace)::wg::bwd_kernel<0>((anonymous namespace)::wg::Maps, __nv_bfloat16*, "
+     "__nv_bfloat16*, __nv_bfloat16*, float*, int, int, int, int)", "moe_gmm_bwd", "pass0"),
+    ("void (anonymous namespace)::wg::bwd_kernel<4>((anonymous namespace)::wg::Maps, __nv_bfloat16*, "
+     "__nv_bfloat16*, __nv_bfloat16*, float*, int, int, int, int)", "moe_gmm_bwd", "pass4"),
+    ("void (anonymous namespace)::bwd::tc::gemm_kernel<2, 3, true, 4, 4, 0>((anonymous namespace)::bwd::"
+     "Args<__nv_bfloat16>)", "moe_gmm_bwd", "pass1"),
+    ("void (anonymous namespace)::bwd::tc::gemm_kernel<1, 2, false, 0, 0, 3>((anonymous namespace)::bwd::"
+     "Args<__nv_bfloat16>)", "moe_gmm_bwd", "pass4"),
+    ("void (anonymous namespace)::bwd::ffma::gemm_kernel<float, 1, 1, false, 0, 0, 1>((anonymous namespace)::"
+     "bwd::Args<float>)", "moe_gmm_bwd", None),
+    ("void (anonymous namespace)::chunked::ckpt_ahead_kernel<__nv_bfloat16, 16>(__nv_bfloat16 const*, float "
+     "const*, float const*, float const*, float const*, float*, int, int, int, int, int, int, long, long)",
+     "mamba_scan_bwd", "ckpt"),
+    ("void (anonymous namespace)::chunked::rev_chunk_kernel<__nv_bfloat16, 16>(__nv_bfloat16 const*, ...)",
+     "mamba_scan_bwd", "rev"),
+    ("void (anonymous namespace)::bwd::ckpt_kernel<float, 16>(float const*, ...)", "mamba_scan_bwd", "ckpt"),
+    ("void (anonymous namespace)::bwd::rev_kernel<float, 16>(float const*, ...)", "mamba_scan_bwd", "rev"),
+    ("(anonymous namespace)::bwd::reduce_bc_kernel(float const*, float*, float*, long, int, int)",
+     "mamba_scan_bwd", "reduce_bc"),
+    ("(anonymous namespace)::bwd::reduce_a_kernel(float const*, float*, int, long)", "mamba_scan_bwd", "reduce_a"),
+    ("void (anonymous namespace)::wg::gemm_kernel<true>(CUtensorMap, CUtensorMap, CUtensorMap, "
+     "__nv_bfloat16*, int, int, int, int)", "moe_gmm", None),
+    ("void (anonymous namespace)::mamba_scan_kernel<__nv_bfloat16, 16>(__nv_bfloat16 const*, ...)",
+     "mamba_scan", None),
+    ("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT", "cuBLAS matmuls", None),
+    ("void at::native::vectorized_elementwise_kernel<4, ...>", "other", None),
+]
+
+
+@pytest.mark.parametrize("name,family,part", K7_KERNEL_NAMES)
+def test_chip_smoke_sorts_the_backward_kernels(name, family, part):
+    """Phase 5g's step breakdown (kernel_shares) puts K7a's five wgmma passes
+    and K7b's chunked launches, beside both first designs, in their kernels'
+    families, and its per-launch split (k7_part) names each pass and launch."""
+    smoke = _chip_smoke()
+    assert smoke.kernel_shares([_Event(name, 1500.0)]) == {family: 1.5}
+    assert smoke.k7_part(name) == part
