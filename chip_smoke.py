@@ -27,8 +27,11 @@ on, so that their numbers are still printed):
      forward's log-sum-exp on both routes and the backward
      ``flash_attention_bwd`` (dQ, dK, dV) against ``reference_attention_bwd``
      at stablelm-1.6b's training shape, GQA (gq 4, Dh 128), a window and
-     ragged L, in f32 and bf16 (``BWD_TOL``), bf16 at Dh 64 and 128 on both
-     its wgmma and mma routes, and bit-equal when run twice
+     ragged L, and phase 5h's: MLA's (Dk 96, Dv 64) at minicpm3-4b's heads,
+     non-causal with Lq != Lk (seamless's cross-attention, 1024 x 4096),
+     its encoder's 4096 x 4096, internvl2's gq 7, and their ragged edges, in
+     f32 and bf16 (``BWD_TOL``), bf16 at Dh 64 and 128 on both its wgmma
+     and mma routes, and bit-equal when run twice at the training shapes
      (``BWD_BIT_EQUAL``); K7, the backward kernels ``moe_gmm_bwd`` (against
      ``reference_gmm_bwd``, at the moe_gmm cases above, on bins partly
      filled and empty, and at jamba's and mixtral's training bins, E 16 C 640
@@ -165,7 +168,24 @@ on, so that their numbers are still printed):
      and mma, K7b chunked and per_step: new, old, old, new; the new one must
      be faster), their bounds, their plain versions, for K7a the autograd
      backward of three ``torch.bmm`` and SiLU, and each launch's device time
-     from the profiler (K7a's passes, K7b's ckpt, rev, reduce_bc, reduce_a).
+     from the profiler (K7a's passes, K7b's ckpt, rev, reduce_bc, reduce_a);
+  5h. train minicpm3-4b (62 layers, MLA at Dk 96 / Dv 64),
+     seamless-m4t-medium (12 encoder layers over 4096 stub frames a sample,
+     12 decoder layers with cross-attention) and internvl2-1b (24 layers, a
+     prefix of 1024 stub embeddings, gq 7) at full width, uncut, bf16, batch
+     4, seq 1024, remat "block", 3 steps each through
+     ``repro_torch.launch.train.run`` (final checkpoint counted, not
+     written): exact launches a step (flash_attention twice and
+     flash_attention_bwd once an attention call: decoder, cross-attention,
+     encoder), every forward on mma and every backward on wgmma, the
+     backward's calls by input shapes, no plain version called, finite
+     losses; ``make_train_step`` on a repeated batch, whose loss must fall at
+     every step (step time, tokens/s, MFU at 6 N tokens with attention's own
+     FLOPs beside it, peak memory, each kernel's share of a profiled step);
+     one step's gradient of every leaf against the plain versions at full
+     width, batch 2 and 2 layers (seamless 1 + 1; ``GRAD_REL_TOL``); and K1
+     timed at each training shape as phase 5e times it, beside its bound,
+     its plain version and SDPA's backward.
 The last line is ``{"ok": true, "device": {...}}``. The compiler's reports
 (registers, spills) go to ``build/repro_torch_kernels/nvcc_report.txt``.
 """
@@ -277,20 +297,35 @@ SCAN_CASES = [  # (B, L, Di, N, h0): tests/test_kernels.py::test_mamba_scan_swee
     (2, 1, 200, 16, True),  # L = 1
     (2, 77, 136, 16, False),  # L not a multiple of 32 or 16, Di not of 128
 ] + [(2, 45, 130, n, h0) for n in (4, 8, 16, 32) for h0 in (False, True)]  # every N, with and without h0
-BWD_CASES = [  # (B, L, H, KVH, Dh, window): the backward's checks (causal self-attention)
-    (8, 2048, 32, 32, 64, 0),  # stablelm-1.6b's training shape
-    (2, 512, 32, 8, 128, 0),  # GQA: gq 4, Dh 128
-    (2, 300, 16, 4, 64, 128),  # a window, L not a multiple of the tiles
-    (3, 197, 8, 2, 32, 0),  # ragged L
-    (1, 77, 4, 4, 16, 5),  # Dh 16, a window shorter than a tile
+BWD_CASES = [  # (B, Lq, Lk, H, KVH, Dk, Dv, causal, window): the backward's checks
+    (8, 2048, 2048, 32, 32, 64, 64, True, 0),  # stablelm-1.6b's training shape
+    (2, 512, 512, 32, 8, 128, 128, True, 0),  # GQA: gq 4, Dh 128
+    (2, 300, 300, 16, 4, 64, 64, True, 128),  # a window, L not a multiple of the tiles
+    (3, 197, 197, 8, 2, 32, 32, True, 0),  # ragged L
+    (1, 77, 77, 4, 4, 16, 16, True, 5),  # Dh 16, a window shorter than a tile
+    # phase 5h's attention: MLA's (Dk 96, Dv 64) at minicpm3-4b's 40 heads;
+    # seamless-m4t-medium's cross-attention (1024 decoder tokens over 4096
+    # memory slots) and encoder (4096 x 4096), both non-causal; internvl2-1b's
+    # gq 7 over prefix + tokens; and their ragged edges (keys past Lk in a
+    # tile with no causal edge, queries past Lq, dq's padding row at gq 7)
+    (2, 1024, 1024, 40, 40, 96, 64, True, 0),
+    (2, 200, 200, 8, 8, 96, 64, True, 0),
+    (2, 77, 150, 8, 4, 96, 64, False, 0),
+    (2, 1024, 4096, 16, 16, 64, 64, False, 0),
+    (2, 77, 150, 8, 4, 64, 64, False, 0),
+    (2, 4096, 4096, 16, 16, 64, 64, False, 0),
+    (2, 2048, 2048, 14, 2, 64, 64, True, 0),
+    (2, 131, 131, 14, 2, 64, 64, True, 0),
 ]
 # dQ, dK, dV against the plain backward: sums over up to L products in
 # another order (f32), and one rounding of each output to bf16 on top of
 # bf16 inputs (bf16). (rtol, atol as a share of the tensor's largest |value|)
 BWD_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}
-# the BWD_CASES (B, L, H, KVH) whose backward, on its own route, must be
-# bit-equal when run twice: the training shape and GQA
-BWD_BIT_EQUAL = {(8, 2048, 32, 32), (2, 512, 32, 8)}
+# the BWD_CASES (B, Lq, Lk, H, KVH, Dk) whose backward, on its own route, must
+# be bit-equal when run twice: the training shapes (stablelm's, minicpm3's
+# MLA, seamless's cross-attention) and GQA
+BWD_BIT_EQUAL = {(8, 2048, 2048, 32, 32, 64), (2, 512, 512, 32, 8, 128), (2, 1024, 1024, 40, 40, 96),
+                 (2, 1024, 4096, 16, 16, 64)}
 # phase 5e's Dh 128 row: qwen2.5-32b's heads (40 query, 8 KV) over one
 # causal sequence of 4096 (B, L, H, KVH, Dh)
 K1_QWEN = (1, 4096, 40, 8, 128)
@@ -307,6 +342,9 @@ GRAD_BATCH = 2  # rows of the gradient comparison with the plain versions
 # kernel rounds P to bf16 before P.V, the plain version keeps f32): one bf16
 # rounding is 2^-9 relative, and ~20 rounding steps a layer (forward and
 # backward) over 24 layers add up like a random walk, sqrt(480) x 2^-9 ~ 0.04.
+# Phases 5g and 5h gate at 1 or 2 layers (seamless: 1 decoder + 1 encoder
+# layer, ~40 steps on the encoder's path): a shorter walk, sqrt(40) x 2^-9
+# ~ 0.012, under the same bound.
 GRAD_REL_TOL = 2**-4
 DRILL = ["--arch", "stablelm-1.6b", "--reduced", "--dtype", "bfloat16", "--steps", "6", "--batch", "4",
          "--seq", "64", "--ckpt-every", "2", "--fail-at-step", "3", "--seed", "0"]
@@ -643,8 +681,8 @@ def on_k7_baseline(kernel: str, fn):
 def k1_checks(rand, check, check_grad):
     """Phase 2's K1 part: the forward's log-sum-exp on both routes, then the
     backward against its plain version on the route it takes and, where that
-    is wgmma (bf16 at Dh 64 and 128), on mma too; on its own route, bit-equal
-    when run twice at the ``BWD_BIT_EQUAL`` shapes."""
+    is wgmma at Dk = Dv (bf16 at Dh 64 and 128), on mma too; on its own route,
+    bit-equal when run twice at the ``BWD_BIT_EQUAL`` shapes."""
     import torch
 
     import repro_torch.kernels.flash_attention as fa_module
@@ -652,27 +690,28 @@ def k1_checks(rand, check, check_grad):
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
 
     for dtype in (torch.float32, torch.bfloat16):
-        for B, L, H, KVH, Dh, window in BWD_CASES:
-            q, do = rand(B, L, H, Dh, dtype=dtype), rand(B, L, H, Dh, dtype=dtype)
-            k, v = rand(B, L, KVH, Dh, dtype=dtype), rand(B, L, KVH, Dh, dtype=dtype)
+        for B, Lq, Lk, H, KVH, Dk, Dv, causal, window in BWD_CASES:
+            q, do = rand(B, Lq, H, Dk, dtype=dtype), rand(B, Lq, H, Dv, dtype=dtype)
+            k, v = rand(B, Lk, KVH, Dk, dtype=dtype), rand(B, Lk, KVH, Dv, dtype=dtype)
+            mask = dict(causal=causal, window=window)
             routes0 = dict(flash_attention.route_launches)
-            o, lse = flash_attention(q, k, v, window=window, return_lse=True)
+            o, lse = flash_attention(q, k, v, **mask, return_lse=True)
             fwd = [r for r in routes0 if flash_attention.route_launches[r] != routes0[r]][0]
-            ro, rl = ref.reference_attention(q, k, v, window=window, return_lse=True)
-            name = f"{dtype} B{B} L{L} H{H}/{KVH} Dh{Dh} window={window}"
+            ro, rl = ref.reference_attention(q, k, v, **mask, return_lse=True)
+            name = f"{dtype} B{B} Lq{Lq} Lk{Lk} H{H}/{KVH} Dk{Dk} Dv{Dv} causal={causal} window={window}"
             check(f"flash_attention lse ({fwd}) {name}", lse, rl, torch.float32)
             check(f"flash_attention o ({fwd}) {name}", o, ro, dtype)
-            want = ref.reference_attention_bwd(q, k, v, o, do, rl, window=window)
-            own = fa_module._bwd_route(dtype, Dh)
-            for route in (own, "mma") if own == "wgmma" else (own,):
+            want = ref.reference_attention_bwd(q, k, v, o, do, rl, **mask)
+            own = fa_module._bwd_route(dtype, Dk, Dv)
+            for route in (own, "mma") if own == "wgmma" and Dk == Dv else (own,):
                 n0 = flash_attention_bwd.route_launches[route]
-                got = on_bwd_route(route, lambda: flash_attention_bwd(q, k, v, o, do, lse, window=window))
+                got = on_bwd_route(route, lambda: flash_attention_bwd(q, k, v, o, do, lse, **mask))
                 if flash_attention_bwd.route_launches[route] != n0 + 1:
                     fail(f"flash_attention_bwd {name}: no launch on route {route}")
                 for n, g, w in zip(("dq", "dk", "dv"), got, want):
                     check_grad(f"flash_attention_bwd ({route}) {n} {name}", g, w, dtype)
-                if route == own and (B, L, H, KVH) in BWD_BIT_EQUAL:
-                    again = flash_attention_bwd(q, k, v, o, do, lse, window=window)
+                if route == own and (B, Lq, Lk, H, KVH, Dk) in BWD_BIT_EQUAL:
+                    again = flash_attention_bwd(q, k, v, o, do, lse, **mask)
                     if not all(torch.equal(a, b) for a, b in zip(got, again)):
                         fail(f"flash_attention_bwd ({route}) {name}: two runs on one input differ")
                     print(f"  flash_attention_bwd ({route}) {name}: a second run is bit-equal")
@@ -1682,7 +1721,7 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
     torch.cuda.empty_cache()
 
     # 5e. K1 and the forward (with lse) at the training shape, timed as phase 4
-    k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, main_launches, step_s)
+    k1_timing(rand, check_grad, time_ms, bound, rows, main_launches, step_s)
 
 
 # phase 5g: jamba-v0.1-52b trained at full width, cut to its first 2 of 32
@@ -1736,6 +1775,37 @@ def k7_part(name: str):
         if any(k in name for k in keys):
             return part
     return None
+
+
+def k1_part(name: str):
+    """The part of a K1 call that a CUDA kernel name is ("dot_do_o", "dq",
+    "dkdv", on any route), else None."""
+    return next((part for part in ("dot_do_o", "dq", "dkdv") if f"{part}_kernel" in name), None)
+
+
+def launch_split(fn, parts, part_of):
+    """Each launch's mean device ms over the calls of a 3-call window whose
+    records the profiler kept (L2 warm), by ``part_of`` (a CUDA kernel name
+    -> its part, or None): up to 5 windows, then null (the profiler has kept
+    no record of the part in 5 windows in a row)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    split = dict.fromkeys(parts)
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.2)  # the device's records reach the profiler before it stops
+        for part in parts:
+            ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events() if part_of(e.name) == part]
+            if ms and split[part] is None:
+                split[part] = statistics.mean(ms)
+        if all(v is not None for v in split.values()):
+            break
+    return split
 
 
 def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, n_sms, sm_clock_mhz):
@@ -1969,29 +2039,6 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
     # 5g-d. K7a and K7b at jamba's training shapes, timed as phase 4 (L2 flushed):
     # each on the design its wrapper picks and on its first design in turns
     # (new, old, old, new), and each launch's device time from the profiler
-    def launch_split(fn, parts):
-        """Each launch's mean device ms over the calls of a 3-call window
-        whose records the profiler kept (L2 warm), by k7_part: up to 5
-        windows, then null (the profiler has kept no record of either
-        design's launches in 3 windows in a row of this phase)."""
-        from torch.profiler import ProfilerActivity, profile
-
-        fn()
-        split = dict.fromkeys(parts)
-        for _ in range(5):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(3):
-                    fn()
-                torch.cuda.synchronize()
-                time.sleep(0.2)  # the device's records reach the profiler before it stops
-            for part in parts:
-                ms = [e.time_range.elapsed_us() / 1e3 for e in prof.events() if k7_part(e.name) == part]
-                if ms and split[part] is None:
-                    split[part] = statistics.mean(ms)
-            if all(v is not None for v in split.values()):
-                break
-        return split
-
     def in_turns(call, baseline):
         """(new ms, baseline ms): the two designs timed new, old, old, new."""
         new = [time_ms(call, reps=10)]
@@ -2021,8 +2068,8 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
 
     route = gmm_module._bwd_route(bf, D, Fd)
     new, old = in_turns(gmm_call, gmm_old)
-    split = {route: launch_split(gmm_call, [f"pass{i}" for i in range(5)]),
-             "mma": launch_split(gmm_old, [f"pass{i}" for i in range(1, 5)])}
+    split = {route: launch_split(gmm_call, [f"pass{i}" for i in range(5)], k7_part),
+             "mma": launch_split(gmm_old, [f"pass{i}" for i in range(1, 5)], k7_part)}
     leaves = [t.detach().requires_grad_() for t in (x, wg, wu, wd)]
     lib_out = torch.bmm(F.silu(torch.bmm(leaves[0], leaves[1])) * torch.bmm(leaves[0], leaves[2]), leaves[3])
     lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, leaves, dy, retain_graph=True), reps=10)
@@ -2077,7 +2124,7 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
     design = scan_module._bwd_design()
     new, old = in_turns(scan_call, scan_old)
     parts = ("ckpt", "rev", "reduce_bc", "reduce_a")
-    split = {design: launch_split(scan_call, parts), "per_step": launch_split(scan_old, parts)}
+    split = {design: launch_split(scan_call, parts, k7_part), "per_step": launch_split(scan_old, parts, k7_part)}
     ms = statistics.mean(new)
     rows.append(dict(
         name="mamba_scan_bwd", path=f"{cfg.name} training ({B}, {L}, {Di}, {N}), bf16 xc, design {design}",
@@ -2098,6 +2145,319 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
     if ms >= statistics.mean(old):
         fail(f"mamba_scan_bwd: {design} {ms:.4f} ms is not faster than per_step {statistics.mean(old):.4f} ms")
     del xc, dt, Bm, Cm, a, dys
+    torch.cuda.empty_cache()
+
+
+# phase 5h: the three layouts that train since MLA, the encoder-decoder and
+# the vision prefix got their gradient, each at full width and uncut, bf16,
+# remat "block" (their configs'), batch 4 x seq 1024: minicpm3-4b (62 layers,
+# MLA at Dk 96 / Dv 64; 4.26 B params, ~48 GiB of bf16 params and grads and
+# f32 moments), seamless-m4t-medium (12 encoder layers over 4096 stub frames a
+# sample, 12 decoder layers with cross-attention), internvl2-1b (24 layers,
+# gq 7, a prefix of 1024 stub embeddings before the 1024 tokens). The
+# gradient gate runs each at full width, batch 2, and the depth of
+# grad_layers (decoder, encoder). repeat_lr: the repeated batch's constant
+# lr. At REPEAT_LR minicpm3-4b's 62 random layers overshoot at the fourth
+# step (losses 11.5747, 10.0097, 9.7881, 9.8439), with its kernels and with
+# the plain versions alike (tools/torch_train_probe.py --plain, seed 0, on an
+# H100): Adam's first steps move every weight by ~lr whatever its gradient;
+# at 1e-5 the loss falls at every step
+TRAIN_5H = [
+    dict(arch="minicpm3-4b", batch=4, seq=1024, steps=3, seed=0, lr=3e-4, repeat_lr=1e-5, grad_layers=(2, 0)),
+    dict(arch="seamless-m4t-medium", batch=4, seq=1024, steps=3, seed=0, lr=3e-4, repeat_lr=REPEAT_LR,
+         grad_layers=(1, 1)),
+    dict(arch="internvl2-1b", batch=4, seq=1024, steps=3, seed=0, lr=3e-4, repeat_lr=REPEAT_LR, grad_layers=(2, 0)),
+]
+
+
+def attention_calls(cfg, B: int, L: int) -> list:
+    """The attention calls of one training step of ``cfg`` at batch B x L
+    tokens: [(label, (B, Lq, Lk, H, KVH, Dk, Dv, causal), calls a step)], each
+    call one flash_attention_bwd launch and, under remat "block", two
+    flash_attention launches. A vision prefix goes before the tokens; an
+    encoder attends over its frames, cross-attention from the tokens to them."""
+    H, T = cfg.n_heads_eff, cfg.frontend_len
+    Lt = L + (T if cfg.frontend == "vision" else 0)
+    if cfg.attention == "mla":
+        self_shape = (B, Lt, Lt, H, H, cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim, True)
+    else:
+        self_shape = (B, Lt, Lt, H, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim, True)
+    calls = [("self-attention", self_shape, cfg.n_layers)]
+    if cfg.cross_attention:
+        calls.append(("cross-attention", (B, Lt, T) + self_shape[3:7] + (False,), cfg.n_layers))
+    if cfg.encoder_layers:
+        calls.append(("encoder", (B, T, T) + self_shape[3:7] + (False,), cfg.encoder_layers))
+    return calls
+
+
+def attention_pairs(Lq: int, Lk: int, causal: bool) -> int:
+    """(query, key) pairs a query sees: causal aligned at the top left, or all."""
+    return sum(min(q + 1, Lk) for q in range(Lq)) if causal else Lq * Lk
+
+
+def frontend_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile):
+    """Phase 5h: train minicpm3-4b, seamless-m4t-medium and internvl2-1b at
+    full width through ``launch.train.run`` (exact launches by kernel, route
+    and input shape; no plain version), then each on a repeated batch (the
+    loss falls; step time, tokens/s, MFU, peak memory, kernel shares), one
+    step's gradient of every leaf against the plain versions at a reduced
+    depth (``GRAD_REL_TOL``), and K1 timed at each of its training shapes."""
+    import shutil
+
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.checkpoint import checkpoint as ckpt_mod
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import build_data_pipeline, next_batch
+    from repro_torch.dist.step import make_train_step
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.launch import train
+    from repro_torch.models.registry import build_model, train_loss
+    from repro_torch.optim import adamw_init, constant_lr
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    t_phase = time.perf_counter()
+    for spec in TRAIN_5H:
+        cfg = get_config(spec["arch"])
+        B, L, n_steps = spec["batch"], spec["seq"], spec["steps"]
+        if cfg.remat != "block" or cfg.dtype != "bfloat16":
+            fail(f"{cfg.name}: remat {cfg.remat!r}, dtype {cfg.dtype}: the counts below assume 'block', bf16")
+        calls = attention_calls(cfg, B, L)
+        n_calls = sum(n for _, _, n in calls)
+        per_step = dict.fromkeys(ops.KERNELS, 0)
+        per_step.update(flash_attention=2 * n_calls, flash_attention_bwd=n_calls)
+        frontend = (f", {cfg.encoder_layers} encoder layers over {cfg.frontend_len} stub frames a sample"
+                    if cfg.encoder_layers else
+                    f", a prefix of {cfg.frontend_len} stub embeddings" if cfg.frontend == "vision" else "")
+        print(f"phase 5h: train {cfg.name} at full width, uncut ({cfg.n_layers} layers{frontend}), bf16, batch {B}, "
+              f"seq {L}, remat {cfg.remat!r}; attention calls a step "
+              + "; ".join(f"{label} {shape} x{n}" for label, shape, n in calls))
+
+        # 5h-a. launch.train.run, its final checkpoint counted, not written (5a
+        # writes stablelm's); the backward's calls counted by input shapes
+        ckpt_dir = ROOT / "build" / "chip_smoke_ckpt_5h"
+        saves, by_shape = [], {}
+        save_async = ckpt_mod.CheckpointManager.save_async
+        ckpt_mod.CheckpointManager.save_async = lambda self, state, step, meta=None: saves.append(step)
+        ops.reset_launch_counts()
+        kept = dict(ops.KERNELS)
+
+        def counted_bwd(q, k, v, *args, **kwargs):
+            key = (tuple(q.shape), tuple(k.shape), tuple(v.shape), kwargs.get("causal", True))
+            by_shape[key] = by_shape.get(key, 0) + 1
+            return kept["flash_attention_bwd"](q, k, v, *args, **kwargs)
+
+        ops.KERNELS["flash_attention_bwd"] = counted_bwd
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            with PlainSpy() as spy:
+                state, out = run_main_captured(
+                    lambda _: train.run(cfg, steps=n_steps, batch=B, seq=L, lr=spec["lr"], ckpt_every=1000,
+                                        ckpt_dir=str(ckpt_dir), seed=spec["seed"], device=dev), None)
+            torch.cuda.synchronize()
+        finally:
+            ckpt_mod.CheckpointManager.save_async = save_async
+            ops.KERNELS.update(kept)
+        launches = ops.launch_counts()
+        routes = {"flash_attention": dict(flash_attention.route_launches),
+                  "flash_attention_bwd": dict(flash_attention_bwd.route_launches)}
+        want_main = {k: v * n_steps for k, v in per_step.items()}
+        want_routes = {"flash_attention": {"fma": 0, "mma": want_main["flash_attention"]},
+                       "flash_attention_bwd": {"fma": 0, "mma": 0, "wgmma": want_main["flash_attention_bwd"]}}
+
+        def shape_key(shape):
+            b, lq, lk, h, kvh, dk, dv, causal = shape
+            return (b, lq, h, dk), (b, lk, kvh, dk), (b, lk, kvh, dv), causal
+
+        want_shapes = {shape_key(shape): n * n_steps for _, shape, n in calls}
+        losses = step_losses(out)
+        n_params = sum(p.numel() for p in tree_leaves(state["params"]))
+        n_enc = sum(p.numel() for p in tree_leaves(state["params"].get("encoder", {})))
+        print(f"  train.run: launches {launches} (want {want_main}); by route {routes}; backward calls by shapes "
+              f"{by_shape}; plain versions called {spy.calls}; saves {saves}; {n_params} params; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if launches != want_main or routes != want_routes or by_shape != want_shapes:
+            fail(f"train.run {cfg.name}: launches {launches}, routes {routes}, shapes {by_shape}: want {want_main}, "
+                 f"{want_routes}, {want_shapes}")
+        if any(spy.calls.values()):
+            fail(f"train.run {cfg.name}: the plain versions ran on the card path: {spy.calls}")
+        if [s for s, _ in losses] != list(range(n_steps)) or not all(np.isfinite(l) for _, l in losses):
+            fail(f"train.run {cfg.name}: step losses {losses}")
+        if int(state["step"]) != n_steps or saves != [n_steps]:
+            fail(f"train.run {cfg.name}: step {int(state['step'])}, saves {saves}")
+        del state
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # 5h-b. make_train_step on one repeated batch (the data circuit's
+        # tokens, the stub frames or prefix run draws at step 0)
+        model = build_model(cfg)
+        params = model.init(spec["seed"], dev)
+        state = {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32, device=dev)}
+        data = build_data_pipeline(cfg, B, L, seed=spec["seed"])
+        batch = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in next_batch(data, cfg).items()}
+        if cfg.encoder_layers:
+            batch["frames"] = train._stub_embeddings(cfg, B, 0, dev)
+        if cfg.frontend == "vision":
+            batch["prefix"] = train._stub_embeddings(cfg, B, 0, dev)
+        step = make_train_step(model, dev, constant_lr(spec["repeat_lr"]), global_batch=B)
+        mets, step_times = [], []
+        ops.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        with PlainSpy() as spy:
+            for _ in range(TRAIN_REPEAT):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, met = step(state, batch)
+                torch.cuda.synchronize()
+                step_times.append(time.perf_counter() - t0)
+                mets.append({k: v.item() for k, v in met.items()})
+        launches, peak = ops.launch_counts(), torch.cuda.max_memory_allocated()
+        for i, m in enumerate(mets):
+            print(f"  repeated batch step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
+                  + f" ({step_times[i]:.3f} s)")
+        want_rep = {k: v * TRAIN_REPEAT for k, v in per_step.items()}
+        if launches != want_rep or any(spy.calls.values()):
+            fail(f"make_train_step {cfg.name}: launches {launches} (want {want_rep}), plain calls {spy.calls}")
+        if not all(np.isfinite(v) for m in mets for v in m.values()):
+            fail(f"make_train_step {cfg.name}: non-finite metrics {mets}")
+        losses = [m["loss"] for m in mets]
+        if not all(b < a for a, b in zip(losses, losses[1:])):
+            fail(f"make_train_step {cfg.name}: the loss on a repeated batch did not fall at every step: {losses}")
+        step_s = statistics.median(step_times[1:])
+        positions = B * (L + (cfg.frontend_len if cfg.frontend == "vision" else 0))
+        frames = B * cfg.frontend_len if cfg.encoder_layers else 0
+        # 6 N a position: the encoder's params see the frames, the rest the decoder's positions
+        dense = 6 * ((n_params - n_enc) * positions + n_enc * frames)
+        attn_flops = sum(n * 6 * b * h * attention_pairs(lq, lk, c) * (dk + dv)
+                         for _, (b, lq, lk, h, kvh, dk, dv, c), n in calls)  # forward and backward, 3x the forward
+        peak_flops = PEAK_FLOPS["bfloat16"]
+        print(f"  step time {step_s:.4f} s (median of steps 1-{TRAIN_REPEAT - 1}), {positions / step_s:.1f} tokens/s "
+              f"({positions} decoder positions a step" + (f", {frames} encoder frames" if frames else "") + "), "
+              f"MFU {dense / step_s / peak_flops:.4f} at 6 N tokens ({dense:.4e} FLOP, N = {n_params}"
+              + (f", {n_enc} of them the encoder's, counted at its frames" if n_enc else "")
+              + f"); attention's own {attn_flops:.4e} FLOP (3x its forward), MFU with it "
+              f"{(dense + attn_flops) / step_s / peak_flops:.4f}; peak memory {peak / 2**30:.2f} GiB")
+        t, busy, kern, _ = device_profile(lambda: step(state, batch))
+        shares = kernel_shares(kern)
+        print(f"  profiled step: wall {t * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms (idle share "
+              f"{1 - busy / t:.3f}); device ms (share of busy): " + "; ".join(
+                  f"{n} {ms:.2f} ({ms / (busy * 1e3):.3f})" for n, ms in sorted(shares.items(), key=lambda kv: -kv[1])))
+        del state, params, step, mets, model
+        torch.cuda.empty_cache()
+
+        # 5h-c. one step's gradient of every leaf, kernels vs plain versions, at
+        # full width, batch 2 and a reduced depth
+        n_dec, n_enc_layers = spec["grad_layers"]
+        gcfg = dataclasses.replace(cfg, n_layers=n_dec, encoder_layers=n_enc_layers if cfg.encoder_layers else 0)
+        gmodel = build_model(gcfg)
+        gparams = gmodel.init(spec["seed"], dev)
+        small = {k: v[:GRAD_BATCH] for k, v in batch.items()}
+
+        def grads_of(kernels):
+            leaves = [p.detach().requires_grad_() for p in tree_leaves(gparams)]
+            it = iter(leaves)
+            live = tree_map(lambda _: next(it), gparams)
+            loss, _ = train_loss(gmodel, live, small, kernels=kernels)
+            return loss.item(), torch.autograd.grad(loss, leaves)
+
+        gcalls = sum(n for _, _, n in attention_calls(gcfg, GRAD_BATCH, L))
+        want1 = dict.fromkeys(ops.KERNELS, 0)
+        want1.update(flash_attention=2 * gcalls, flash_attention_bwd=gcalls)
+        ops.reset_launch_counts()
+        loss_k, grads_k = grads_of(None)
+        n_k = ops.launch_counts()
+        loss_p, grads_p = grads_of(plain)
+        n_p = ops.launch_counts()
+        if n_k != want1 or n_p != n_k:
+            fail(f"{cfg.name} gradient gate: launches {n_k} (want {want1}), then {n_p} with the plain versions")
+        names = leaf_names(gparams)
+        rel = []
+        for name, gk, gp in zip(names, grads_k, grads_p):
+            gk, gp = gk.float(), gp.float()
+            if not torch.isfinite(gk).all():
+                fail(f"{cfg.name} gradient of {name}: non-finite")
+            rel.append(((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item())
+        worst = sorted(zip(rel, names), reverse=True)[:4]
+        depth = f"{n_dec} layer{'s' * (n_dec > 1)}" + (f" + {n_enc_layers} encoder" if gcfg.encoder_layers else "")
+        print(f"  one step's gradient at batch {GRAD_BATCH}, {depth}, kernels vs plain versions: loss {loss_k:.6f} vs "
+              f"{loss_p:.6f}; relative L2 error per leaf max {max(rel):.4e} (tol {GRAD_REL_TOL}), median "
+              f"{statistics.median(rel):.4e} over {len(rel)} leaves; worst "
+              + "; ".join(f"{n} {r:.3e}" for r, n in worst))
+        if not max(rel) <= GRAD_REL_TOL or not np.isfinite(loss_k):
+            fail(f"{cfg.name} gradient gate: relative L2 error {max(rel)} > {GRAD_REL_TOL}, loss {loss_k}")
+        del gparams, grads_k, grads_p, batch, small, data
+        torch.cuda.empty_cache()
+
+        # 5h-d. K1 at each of the step's attention shapes, timed as phase 5e
+        for label, shape, n in calls:
+            k1_row(f"{cfg.name} training {label}", shape, by_shape.get(shape_key(shape), 0), rand, check_grad,
+                   time_ms, bound, rows)
+    print(f"  phase 5h: {time.perf_counter() - t_phase:.1f} s")
+
+
+def k1_row(label, shape, n_main, rand, check_grad, time_ms, bound, rows):
+    """K1 at one training shape (B, Lq, Lk, H, KVH, Dk, Dv, causal), bf16, on
+    the route it takes, timed as phase 4 (L2 flushed) beside its bound, its
+    plain version and SDPA's backward where SDPA takes the shape; each
+    launch's device time from the profiler (dq, dkdv). ``n_main``: its
+    launches on the main path."""
+    import torch
+    import torch.nn.functional as F
+
+    import repro_torch.kernels.flash_attention as fa_module
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+
+    B, Lq, Lk, H, KVH, Dk, Dv, causal = shape
+    bf, es = torch.bfloat16, 2
+    q, do = rand(B, Lq, H, Dk, dtype=bf), rand(B, Lq, H, Dv, dtype=bf)
+    k, v = rand(B, Lk, KVH, Dk, dtype=bf), rand(B, Lk, KVH, Dv, dtype=bf)
+    o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+    name = f"({B}, {Lq} x {Lk}, {H}/{KVH}, {Dk}/{Dv}, {'causal' if causal else 'non-causal'})"
+    want = ref.reference_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    err = max(check_grad(f"flash_attention_bwd {n} at {label} {name}", g, w, bf)
+              for n, g, w in zip(("dq", "dk", "dv"), flash_attention_bwd(q, k, v, o, do, lse, causal=causal), want))
+    del want
+    torch.cuda.empty_cache()
+    pairs = attention_pairs(Lq, Lk, causal)
+    # q, dq, o and dO; k, dk, v and dv; lse: each read or written once. The five
+    # products Q.K^T, dO.V^T, P^T.dO, dS.K, dS^T.Q: 6 Dk + 4 Dv FLOP a visible pair
+    nbytes = B * Lq * H * (2 * Dk + 2 * Dv) * es + B * Lk * KVH * (2 * Dk + 2 * Dv) * es + B * H * Lq * 4
+    b_ms, b_by = bound(nbytes, B * H * pairs * (6 * Dk + 4 * Dv), "bfloat16")
+
+    def call():
+        return flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
+
+    own = [time_ms(call, reps=10), time_ms(call, reps=10)]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    try:  # the yardstick only: a shape SDPA does not take has no library time
+        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=H != KVH)
+        lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True), reps=10)
+        library = "scaled_dot_product_attention backward (torch.autograd.grad)"
+        del lib_out
+    except RuntimeError as e:
+        lib_ms, library = None, f"none (SDPA: {str(e).splitlines()[0][:80]})"
+    plain_ms = time_ms(lambda: ref.reference_attention_bwd(q, k, v, o, do, lse, causal=causal), reps=3)
+    torch.cuda.empty_cache()
+    split = launch_split(call, ("dq", "dkdv"), k1_part)
+    ms = statistics.mean(own)
+    route = fa_module._bwd_route(bf, Dk, Dv)
+    rows.append(dict(
+        name="flash_attention_bwd", path=f"{label} {name}, bf16, route {route}", route="cuda",
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/attention.py:48 (no Pallas kernel: jax autodiff of blocked_attention)",
+        launches=n_main, max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms, library=library, dq_ms=split["dq"], dkdv_ms=split["dkdv"],
+    ))
+    lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x)"
+    print(f"  flash_attention_bwd at {label} {name}: {route} {own[0]:.4f}, {own[1]:.4f} ms; bound {b_ms:.4f} ms "
+          f"({b_by}; {ms / b_ms:.2f}x); SDPA's backward {lib}; plain {plain_ms:.4f} ms; device time by launch "
+          f"(profiler, mean of the recorded calls of 3, L2 warm): {split}; {n_main} launches on the main path")
+    del q, k, v, do, o, lse, qt, kt, vt, dot
     torch.cuda.empty_cache()
 
 
@@ -2230,7 +2590,7 @@ def eval_phase(model, state, step, batch, dev, rows, time_ms, bound, rand):
     torch.cuda.empty_cache()
 
 
-def k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, launches, step_s):
+def k1_timing(rand, check_grad, time_ms, bound, rows, launches, step_s):
     """Phase 5e: the forward with lse at stablelm-1.6b's training shape, and
     K1 there and at qwen2.5-32b's heads (``K1_QWEN``: Dh 128, gq 5), timed as
     phase 4 (L2 flushed) beside their bounds, their plain versions and SDPA;
@@ -2302,21 +2662,8 @@ def k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, launches, 
         del lib_out
         plain_ms = time_ms(lambda: ref.reference_attention_bwd(q, k, v, o, do, lse), reps=3)
         torch.cuda.empty_cache()
-        # each launch's mean device time over the calls of a 5-call window
-        # whose records the profiler kept (a short window can lose a call's
-        # device records): up to 3 windows, then null
-        split = {}
-        for route, fn, parts in (("wgmma", call, ("dq", "dkdv")), ("mma", on_mma, ("dot_do_o", "dq", "dkdv"))):
-            fn()
-            split[route] = dict.fromkeys(parts)
-            for _ in range(3):
-                _, _, kern, _ = device_profile(lambda: [fn() for _ in range(5)])
-                for part in parts:
-                    us = [e.time_range.elapsed_us() for e in kern if f"{part}_kernel" in e.name]
-                    if us and split[route][part] is None:
-                        split[route][part] = statistics.mean(us) / 1e3
-                if all(v is not None for v in split[route].values()):
-                    break
+        split = {"wgmma": launch_split(call, ("dq", "dkdv"), k1_part),
+                 "mma": launch_split(on_mma, ("dot_do_o", "dq", "dkdv"), k1_part)}
         ms = statistics.mean(own)
         rows.append(dict(
             name="flash_attention_bwd", path=f"{label} {shape}, bf16, route wgmma", route="cuda",
@@ -2331,7 +2678,7 @@ def k1_timing(rand, check_grad, time_ms, bound, device_profile, rows, launches, 
         print(f"  flash_attention_bwd at {label} {shape}: wgmma {own[0]:.4f}, {own[1]:.4f} ms; mma {mma[0]:.4f}, "
               f"{mma[1]:.4f} ms (in turns; {statistics.mean(mma) / ms:.2f}x); bound {b_ms:.4f} ms ({b_by}; "
               f"{ms / b_ms:.2f}x); SDPA's backward {lib_ms:.4f} ms ({ms / lib_ms:.2f}x); device time by launch "
-              f"(profiler, mean of the recorded calls of 5, L2 warm): wgmma {split['wgmma']}, mma {split['mma']}")
+              f"(profiler, mean of the recorded calls of 3, L2 warm): wgmma {split['wgmma']}, mma {split['mma']}")
         if label.startswith(cfg.name):
             print(f"  {cfg.n_layers} a step: {cfg.n_layers * ms:.1f} ms of the {step_s * 1e3:.1f} ms step")
         del q, k, v, do, o, lse, qt, kt, vt, dot
@@ -3432,6 +3779,8 @@ def main() -> int:
     training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, fail)
     # -- 5g. train jamba-v0.1-52b at full width, 2 layers; mixtral's gated step -
     hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, n_sms, sm_clock_mhz)
+    # -- 5h. train minicpm3-4b, seamless-m4t-medium and internvl2-1b at full width
+    frontend_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     for r in rows:

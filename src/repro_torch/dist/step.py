@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import resolve_device
-from repro_torch.models.registry import check_trainable, decode_step, prefill, train_loss
+from repro_torch.models.registry import decode_step, prefill, train_loss
 from repro_torch.optim import adamw_update
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
@@ -47,13 +47,13 @@ def make_train_step(
 
     ``state`` is {"params", "opt": adamw state, "step": int32 scalar}, all on
     ``device``; the step updates it in place and returns it. ``batch`` holds
-    tokens and labels (B, L) int32. metrics: loss, lr, grad_norm and
-    clip_scale, f32 scalars on the device. ``microbatches > 1`` sums f32
-    gradients over equal splits of the batch and divides by their number,
-    as the reference does. Raises if ``device`` is CUDA and no card is
-    present."""
+    tokens and labels (B, L) int32, and ``frames`` or ``prefix`` (B, T, D)
+    where the model takes them (``registry.train_loss``). metrics: loss, lr,
+    grad_norm and clip_scale, f32 scalars on the device. ``microbatches > 1``
+    sums f32 gradients over equal splits of the batch (every key's rows) and
+    divides by their number, as the reference does. Raises if ``device`` is
+    CUDA and no card is present."""
     dev = resolve_device(device)
-    check_trainable(model.cfg)
     if compress_pods:
         raise NotImplementedError(
             "compress_pods: int8 gradient compression across pods needs sharding "

@@ -470,14 +470,12 @@ cudaError_t dispatch_dh(const void* q, const void* k, const void* v, void* o, fl
 // only); the wrapper's _route picks it. (Dk, Dv): Dk = Dv in {16, 32, 64,
 // 128}, or (96, 64). lse: null, or (B, H, Lq) f32 that receives each row's
 // natural log-sum-exp of its scaled, masked scores (the backward's input,
-// flash_attention_bwd.cu, which takes Dk = Dv only: so lse is refused at
-// Dk != Dv). Returns the launch's cudaError_t.
+// flash_attention_bwd.cu), at every pair. Returns the launch's cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int dtype,
                                    int route, int B, int Lq, int Lk, int H, int KVH, int Dk, int Dv, int causal,
                                    int window, float scale, void* stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0 || KVH <= 0 || H % KVH != 0 || H / KVH > ROWS)
     return (int)cudaErrorInvalidValue;
-  if (lse != nullptr && Dk != Dv) return (int)cudaErrorInvalidValue;
   const int bq = ROWS / (H / KVH);
   if ((int64_t)B * KVH > 2147483647LL || (Lq + bq - 1) / bq > 65535)
     return (int)cudaErrorInvalidValue;

@@ -5,9 +5,13 @@
 // the port runs its forward as the hand-written flash_attention kernel, so the
 // gradient is this kernel: dQ, dK and dV of o = softmax(Q K^T * scale + mask) V
 // from q, k, v, o, dO and the forward's per-row log-sum-exp lse (B, H, Lq) f32
-// (flash_attention.cu writes it). GQA is folded as in the forward: dK and dV of
-// a KV head sum over its gq query heads. Masks as the forward (causal means
-// k_pos <= q_pos, aligned at the top left; a window keeps k_pos > q_pos - window).
+// (flash_attention.cu writes it). q and k rows hold Dk values, v and o rows
+// Dv: Dk = Dv, or MLA's (Dk 96, Dv 64) (minicpm3: nope 64 + rope 32), scale
+// Dk^-0.5. GQA is folded as in the forward: dK and dV of a KV head sum over
+// its gq query heads. Masks as the forward (causal means k_pos <= q_pos,
+// aligned at the top left; a window keeps k_pos > q_pos - window); Lq and Lk
+// may differ (an encoder's non-causal self-attention, cross-attention over
+// an encoder memory).
 //
 // FlashAttention-2's backward, recomputing P from lse and never forming an
 // (Lq, Lk) matrix in device memory: D = rowsum(dO * O) (B, H, Lq) f32, then
@@ -23,18 +27,26 @@
 //      depend on the order of blocks: two runs are bit-equal.
 // What bounds it on this card: at stablelm-1.6b's training shape (8, 2048,
 // 32, 64), causal, bf16, operations: the five products a visible (query, key)
-// pair needs are 10 Dh FLOP, 3.4e11 a call (0.35 ms at 989 TFLOP/s) against
-// 0.27 GB of inputs and outputs (0.08 ms); two kernels recompute S and dP
-// (7 products a pair, a floor of 7/5 of the bound) and take two exp2 a pair.
-// Three routes share that mapping; the wrapper (_bwd_route) picks one by the
-// dtype and the head dim:
-//   * route 2, "wgmma" (bf16, Dh 64 and 128): dq then dkdv, each a block of
-//     two warpgroups of 64 rows on wgmma, fed by TMA (128-byte swizzle; 4-D
-//     maps (Dh, heads, L, B), so rows past L are zeros and never the next
-//     batch's; a Dh 128 row as two 64-column boxes) through a ring of 3 or
-//     4 stages with full and empty mbarriers. One thread of warpgroup 0 (in
-//     dkdv its first warp, which also copies the tile's lse and D rows by
-//     cp.async) refills a stage two tiles after the one that used it: a
+// pair needs are 6 Dk + 4 Dv FLOP (10 Dh), 3.4e11 a call (0.35 ms at 989
+// TFLOP/s) against 0.27 GB of inputs and outputs (0.08 ms); two kernels
+// recompute S and dP (7 products a pair, a floor of 7/5 of the bound) and
+// take two exp2 a pair. Three routes share that mapping; the wrapper
+// (_bwd_route) picks one by the dtype and the head dims:
+//   * route 2, "wgmma" (bf16, (Dk, Dv) = (64, 64), (128, 128) and (96, 64)):
+//     dq then dkdv, each a block of two warpgroups of 64 rows on wgmma, fed
+//     by TMA (128-byte swizzle; 4-D maps (D, heads, L, B), so rows past L
+//     are zeros and never the next batch's; a row of 128 as two 64-column
+//     boxes, and a row of 96 as two as well, the second box half past the
+//     row's end, so TMA fills its last 32 columns with zeros: every tile then
+//     has the one swizzle and descriptor layout the Dh 64 and 128 kernels
+//     use, S's products stop at depth 96 (6 k-steps), and dQ += dS K and dK
+//     += dS^T Q run at N = 96 over 1.5 chunks of K or Q read MN-major; a
+//     64-column box plus a 32-column one in the 64-byte swizzle would need a
+//     second swizzle in every descriptor and map for no fewer bytes moved)
+//     through a ring of 3 or 4 stages with full and empty mbarriers. One
+//     thread of warpgroup 0 (in dkdv its first warp, which also copies the
+//     tile's lse and D rows by cp.async) refills a stage two tiles after the
+//     one that used it: a
 //     separate producer warp would cap every thread at 168 registers (see
 //     the note in namespace wg). S and dP (or S^T and dP^T) come from wgmma
 //     m64nNk16 with both operands K-major in shared memory, as two commit
@@ -42,27 +54,29 @@
 //     rounded to bf16 in registers, where the accumulator's layout is the
 //     register A operand's, and multiply K, dO or Q read MN-major (the
 //     instruction's transpose of B): dQ += dS K, dV += P^T dO (issued before
-//     dS is formed, which it overlaps), dK += dS^T Q, by wgmma m64nDhk16.
+//     dS is formed, which it overlaps), dK += dS^T Q, by wgmma m64nNk16 (N
+//     = Dk for dQ and dK, Dv for dV).
 //     Every group is waited for within its tile: ptxas serialises wgmma
 //     whose group stays pending across the loop's back edge while other
 //     registers of the warpgroup are written (measured: C7513, C7515).
 //     dq: Q and dO resident (a (64, gq, bq) box a warpgroup: rows are
-//     position-major, the padding rows of gq 5 or 6 zeroed once and never
+//     position-major, the padding rows of gq 5, 6 or 7 zeroed once and never
 //     stored), K/V tiles of 64 keys streamed, the q-tiles in reverse order so
 //     the longest causal rows start first; its prologue computes D from the
 //     resident dO and O and writes it for dkdv, which runs after it on the
 //     stream. dkdv: 128 keys resident (64 a warpgroup), (Q, dO) tiles of 96
-//     queries (32 at Dh 128, for registers) streamed head by head. Masking
-//     of diagonal tiles is a select on P, never a branch around the products
-//     (ptxas serialises wgmma on a divergent path).
-//   * route 1, "mma" (bf16, Dh 16 and 32; any Dh when forced): dot_do_o
-//     (four threads a row) writes D, then dq and dkdv on mma.sync m16n8k16
+//     queries (64 at Dk 96 and 32 at Dk 128, for registers) streamed head
+//     by head. Masking of diagonal tiles, and of keys past Lk, is a select on
+//     P, never a branch around the products (ptxas serialises wgmma on a
+//     divergent path).
+//   * route 1, "mma" (bf16, Dk = Dv 16 and 32; 64 and 128 when forced):
+//     dot_do_o (four threads a row) writes D, then dq and dkdv on mma.sync m16n8k16
 //     (bf16 in, f32 accumulate), 4 warps of 16 rows, tiles staged in bf16 by
 //     16-byte cp.async into double-buffered, swizzled shared memory, with the
 //     forward's fragment layouts (flash_attention.cu); query tiles of 64 in
 //     dkdv (32 at Dh 128, for registers).
-//   * route 0, "fma" (f32): dot_do_o, then all arithmetic f32 FMA, 4 threads
-//     a row (a query row in dq, a key in dkdv) each holding a quarter of the
+//   * route 0, "fma" (f32, every pair): dot_do_o, then all arithmetic f32
+//     FMA, 4 threads a row (a query row in dq, a key in dkdv) each holding a quarter of the
 //     row's vectors in registers; tiles of 32 rows staged in shared memory as
 //     f32. The tensor cores would round f32 products to TF32 and break the
 //     reference's f32 parity.
@@ -110,20 +124,20 @@ __device__ __forceinline__ bool visible(int kpos, int qpos, int causal, int wind
   return ok;
 }
 
-// D[b, h, q] = sum_d dO[b, q, h, d] * O[b, q, h, d]; row n = (b * Lq + q) * H + h
-template <typename T, int DH>
+// D[b, h, q] = sum_d dO[b, q, h, d] * O[b, q, h, d] over d < DV; row n = (b * Lq + q) * H + h
+template <typename T, int DV>
 __global__ void __launch_bounds__(THREADS)
 dot_do_o_kernel(const T* __restrict__ dout, const T* __restrict__ o, float* __restrict__ dvec,
                 int64_t n_rows, int Lq, int H) {
   const int64_t n = (int64_t)blockIdx.x * ROWS + threadIdx.x / TPR;
   const int t = threadIdx.x % TPR;
   const bool ok = n < n_rows;
-  float a[DH / TPR], c[DH / TPR];
-  load_slice<T, DH>(dout + (ok ? n * DH : 0), t, ok, a);
-  load_slice<T, DH>(o + (ok ? n * DH : 0), t, ok, c);
+  float a[DV / TPR], c[DV / TPR];
+  load_slice<T, DV>(dout + (ok ? n * DV : 0), t, ok, a);
+  load_slice<T, DV>(o + (ok ? n * DV : 0), t, ok, c);
   float part = 0.f;
 #pragma unroll
-  for (int i = 0; i < DH / TPR; ++i) part = fmaf(a[i], c[i], part);
+  for (int i = 0; i < DV / TPR; ++i) part = fmaf(a[i], c[i], part);
   part = row_sum(part);
   if (ok && t == 0) {
     const int h = (int)(n % H);
@@ -134,21 +148,22 @@ dot_do_o_kernel(const T* __restrict__ dout, const T* __restrict__ o, float* __re
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DV>
 cudaError_t launch_dot_do_o(const T* dout, const T* o, float* dvec, int B, int Lq, int H, cudaStream_t s) {
   const int64_t n_rows = (int64_t)B * Lq * H;
-  dot_do_o_kernel<T, DH><<<(unsigned)((n_rows + ROWS - 1) / ROWS), THREADS, 0, s>>>(dout, o, dvec, n_rows, Lq, H);
+  dot_do_o_kernel<T, DV><<<(unsigned)((n_rows + ROWS - 1) / ROWS), THREADS, 0, s>>>(dout, o, dvec, n_rows, Lq, H);
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
+// q, k, dq rows hold DK values; v, o, dO rows DV
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(THREADS)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
           const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dvec,
           T* __restrict__ dq, int Lq, int Lk, int H, int KVH, int bq, int causal, int window, float scale) {
-  constexpr int NI = DH / 16, ND = DH / TPR;
-  __shared__ __align__(16) float Ks[BT][DH];
-  __shared__ __align__(16) float Vs[BT][DH];
+  constexpr int NIK = DK / 16, NIV = DV / 16;
+  __shared__ __align__(16) float Ks[BT][DK];
+  __shared__ __align__(16) float Vs[BT][DV];
 
   const int bh = blockIdx.x;  // b * KVH + kvh
   const int b = bh / KVH, kvh = bh % KVH;
@@ -159,43 +174,47 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int g = r / bq, qpos = q_lo + r % bq;
   const bool row_ok = g < gq && qpos < Lq;
   const int h = kvh * gq + g;
-  const int64_t row_off = row_ok ? (((int64_t)b * Lq + qpos) * H + h) * DH : 0;
+  const int64_t row = row_ok ? ((int64_t)b * Lq + qpos) * H + h : 0;
 
-  float qr[ND], dor[ND], acc[ND];
-  load_slice<T, DH>(q + row_off, t, row_ok, qr);
-  load_slice<T, DH>(dout + row_off, t, row_ok, dor);
+  float qr[DK / TPR], dor[DV / TPR], acc[DK / TPR];
+  load_slice<T, DK>(q + row * DK, t, row_ok, qr);
+  load_slice<T, DV>(dout + row * DV, t, row_ok, dor);
 #pragma unroll
-  for (int c = 0; c < ND; ++c) acc[c] = 0.f;
+  for (int c = 0; c < DK / TPR; ++c) acc[c] = 0.f;
   const int64_t stat = row_ok ? ((int64_t)b * H + h) * Lq + qpos : 0;
   const float lse_r = row_ok ? lse[stat] : 0.f;
   const float d_r = row_ok ? dvec[stat] : 0.f;
 
-  const int64_t kv_stride = (int64_t)KVH * DH;  // between consecutive keys
-  const T* kb = k + ((int64_t)b * Lk * KVH + kvh) * DH;
-  const T* vb = v + ((int64_t)b * Lk * KVH + kvh) * DH;
+  const T* kb = k + ((int64_t)b * Lk * KVH + kvh) * DK;
+  const T* vb = v + ((int64_t)b * Lk * KVH + kvh) * DV;
   const int nkt = (Lk + BT - 1) / BT;
   for (int kt = 0; kt < nkt; ++kt) {
     const int k_lo = kt * BT, k_hi = k_lo + BT - 1;
     if (causal && k_lo > q_hi) break;                   // every later tile is dead too
     if (window > 0 && k_hi <= q_lo - window) continue;  // below every row's window
     __syncthreads();  // the previous tile's readers are done
-    for (int idx = tid; idx < BT * DH; idx += THREADS) {
-      const int j = idx / DH, d = idx % DH;
-      const bool in = k_lo + j < Lk;
-      Ks[j][d] = in ? to_f(kb[(int64_t)(k_lo + j) * kv_stride + d]) : 0.f;
-      Vs[j][d] = in ? to_f(vb[(int64_t)(k_lo + j) * kv_stride + d]) : 0.f;
+    for (int idx = tid; idx < BT * DK; idx += THREADS) {
+      const int j = idx / DK, d = idx % DK;
+      Ks[j][d] = k_lo + j < Lk ? to_f(kb[(int64_t)(k_lo + j) * KVH * DK + d]) : 0.f;
+    }
+    for (int idx = tid; idx < BT * DV; idx += THREADS) {
+      const int j = idx / DV, d = idx % DV;
+      Vs[j][d] = k_lo + j < Lk ? to_f(vb[(int64_t)(k_lo + j) * KVH * DV + d]) : 0.f;
     }
     __syncthreads();
     for (int j = 0; j < BT; ++j) {
       float s = 0.f, dp = 0.f;
 #pragma unroll
-      for (int i = 0; i < NI; ++i) {
+      for (int i = 0; i < NIK; ++i) {
         const float4 kk = *reinterpret_cast<const float4*>(&Ks[j][16 * i + 4 * t]);
-        const float4 vv = *reinterpret_cast<const float4*>(&Vs[j][16 * i + 4 * t]);
         s = fmaf(qr[4 * i + 0], kk.x, s);
         s = fmaf(qr[4 * i + 1], kk.y, s);
         s = fmaf(qr[4 * i + 2], kk.z, s);
         s = fmaf(qr[4 * i + 3], kk.w, s);
+      }
+#pragma unroll
+      for (int i = 0; i < NIV; ++i) {
+        const float4 vv = *reinterpret_cast<const float4*>(&Vs[j][16 * i + 4 * t]);
         dp = fmaf(dor[4 * i + 0], vv.x, dp);
         dp = fmaf(dor[4 * i + 1], vv.y, dp);
         dp = fmaf(dor[4 * i + 2], vv.z, dp);
@@ -208,7 +227,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       const float p = ok ? expf(s * scale - lse_r) : 0.f;
       const float ds = p * (dp - d_r);
 #pragma unroll
-      for (int i = 0; i < NI; ++i) {
+      for (int i = 0; i < NIK; ++i) {
         const float4 kk = *reinterpret_cast<const float4*>(&Ks[j][16 * i + 4 * t]);
         acc[4 * i + 0] = fmaf(ds, kk.x, acc[4 * i + 0]);
         acc[4 * i + 1] = fmaf(ds, kk.y, acc[4 * i + 1]);
@@ -219,21 +238,21 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   }
   if (row_ok) {
 #pragma unroll
-    for (int i = 0; i < NI; ++i)
+    for (int i = 0; i < NIK; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) dq[row_off + 16 * i + 4 * t + e] = from_f<T>(acc[4 * i + e] * scale);
+      for (int e = 0; e < 4; ++e) dq[row * DK + 16 * i + 4 * t + e] = from_f<T>(acc[4 * i + e] * scale);
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DK, int DV>
 __global__ void __launch_bounds__(THREADS)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
             const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ dvec,
             T* __restrict__ dk, T* __restrict__ dv, int Lq, int Lk, int H, int KVH, int causal, int window,
             float scale) {
-  constexpr int NI = DH / 16, ND = DH / TPR;
-  __shared__ __align__(16) float Qs[BT][DH];
-  __shared__ __align__(16) float Os[BT][DH];  // dO rows
+  constexpr int NIK = DK / 16, NIV = DV / 16;
+  __shared__ __align__(16) float Qs[BT][DK];
+  __shared__ __align__(16) float Os[BT][DV];  // dO rows
   __shared__ float Ls[BT], Dl[BT];
 
   const int bh = blockIdx.x;  // b * KVH + kvh
@@ -244,13 +263,15 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   const int tid = threadIdx.x, r = tid / TPR, t = tid % TPR;
   const int kpos = k_lo + r;
   const bool row_ok = kpos < Lk;
-  const int64_t key_off = row_ok ? (((int64_t)b * Lk + kpos) * KVH + kvh) * DH : 0;
+  const int64_t key = row_ok ? ((int64_t)b * Lk + kpos) * KVH + kvh : 0;
 
-  float kr[ND], vr[ND], dka[ND], dva[ND];
-  load_slice<T, DH>(k + key_off, t, row_ok, kr);
-  load_slice<T, DH>(v + key_off, t, row_ok, vr);
+  float kr[DK / TPR], vr[DV / TPR], dka[DK / TPR], dva[DV / TPR];
+  load_slice<T, DK>(k + key * DK, t, row_ok, kr);
+  load_slice<T, DV>(v + key * DV, t, row_ok, vr);
 #pragma unroll
-  for (int c = 0; c < ND; ++c) dka[c] = dva[c] = 0.f;
+  for (int c = 0; c < DK / TPR; ++c) dka[c] = 0.f;
+#pragma unroll
+  for (int c = 0; c < DV / TPR; ++c) dva[c] = 0.f;
 
   // the queries that see some key of this tile: [q_begin, q_end)
   const int q_begin = causal ? k_lo : 0;
@@ -261,13 +282,15 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     const int64_t stat0 = ((int64_t)b * H + h) * Lq;
     for (int q0 = q_begin; q0 < q_end; q0 += BT) {
       __syncthreads();  // the previous tile's readers are done
-      for (int idx = tid; idx < BT * DH; idx += THREADS) {
-        const int j = idx / DH, d = idx % DH;
-        const int qp = q0 + j;
-        const bool in = qp < q_end;
-        const int64_t off = in ? (((int64_t)b * Lq + qp) * H + h) * DH + d : 0;
-        Qs[j][d] = in ? to_f(q[off]) : 0.f;
-        Os[j][d] = in ? to_f(dout[off]) : 0.f;
+      for (int idx = tid; idx < BT * DK; idx += THREADS) {
+        const int j = idx / DK, d = idx % DK;
+        const bool in = q0 + j < q_end;
+        Qs[j][d] = in ? to_f(q[(((int64_t)b * Lq + q0 + j) * H + h) * DK + d]) : 0.f;
+      }
+      for (int idx = tid; idx < BT * DV; idx += THREADS) {
+        const int j = idx / DV, d = idx % DV;
+        const bool in = q0 + j < q_end;
+        Os[j][d] = in ? to_f(dout[(((int64_t)b * Lq + q0 + j) * H + h) * DV + d]) : 0.f;
       }
       if (tid < BT) {
         const bool in = q0 + tid < q_end;
@@ -278,13 +301,16 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
       for (int j = 0; j < BT; ++j) {
         float s = 0.f, dp = 0.f;
 #pragma unroll
-        for (int i = 0; i < NI; ++i) {
+        for (int i = 0; i < NIK; ++i) {
           const float4 qq = *reinterpret_cast<const float4*>(&Qs[j][16 * i + 4 * t]);
-          const float4 oo = *reinterpret_cast<const float4*>(&Os[j][16 * i + 4 * t]);
           s = fmaf(qq.x, kr[4 * i + 0], s);
           s = fmaf(qq.y, kr[4 * i + 1], s);
           s = fmaf(qq.z, kr[4 * i + 2], s);
           s = fmaf(qq.w, kr[4 * i + 3], s);
+        }
+#pragma unroll
+        for (int i = 0; i < NIV; ++i) {
+          const float4 oo = *reinterpret_cast<const float4*>(&Os[j][16 * i + 4 * t]);
           dp = fmaf(oo.x, vr[4 * i + 0], dp);
           dp = fmaf(oo.y, vr[4 * i + 1], dp);
           dp = fmaf(oo.z, vr[4 * i + 2], dp);
@@ -297,13 +323,16 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
         const float p = ok ? expf(s * scale - Ls[j]) : 0.f;
         const float ds = p * (dp - Dl[j]);
 #pragma unroll
-        for (int i = 0; i < NI; ++i) {
-          const float4 qq = *reinterpret_cast<const float4*>(&Qs[j][16 * i + 4 * t]);
+        for (int i = 0; i < NIV; ++i) {
           const float4 oo = *reinterpret_cast<const float4*>(&Os[j][16 * i + 4 * t]);
           dva[4 * i + 0] = fmaf(p, oo.x, dva[4 * i + 0]);
           dva[4 * i + 1] = fmaf(p, oo.y, dva[4 * i + 1]);
           dva[4 * i + 2] = fmaf(p, oo.z, dva[4 * i + 2]);
           dva[4 * i + 3] = fmaf(p, oo.w, dva[4 * i + 3]);
+        }
+#pragma unroll
+        for (int i = 0; i < NIK; ++i) {
+          const float4 qq = *reinterpret_cast<const float4*>(&Qs[j][16 * i + 4 * t]);
           dka[4 * i + 0] = fmaf(ds, qq.x, dka[4 * i + 0]);
           dka[4 * i + 1] = fmaf(ds, qq.y, dka[4 * i + 1]);
           dka[4 * i + 2] = fmaf(ds, qq.z, dka[4 * i + 2]);
@@ -314,16 +343,17 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
   }
   if (row_ok) {
 #pragma unroll
-    for (int i = 0; i < NI; ++i)
+    for (int i = 0; i < NIK; ++i)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        dk[key_off + 16 * i + 4 * t + e] = from_f<T>(dka[4 * i + e] * scale);
-        dv[key_off + 16 * i + 4 * t + e] = from_f<T>(dva[4 * i + e]);
-      }
+      for (int e = 0; e < 4; ++e) dk[key * DK + 16 * i + 4 * t + e] = from_f<T>(dka[4 * i + e] * scale);
+#pragma unroll
+    for (int i = 0; i < NIV; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dv[key * DV + 16 * i + 4 * t + e] = from_f<T>(dva[4 * i + e]);
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const void* lse, void* dvec, void* dq, void* dk, void* dv, int B, int Lq, int Lk, int H,
                    int KVH, int causal, int window, float scale, cudaStream_t s) {
@@ -333,30 +363,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o, c
   const T* do_ = static_cast<const T*>(dout);
   const float* lse_ = static_cast<const float*>(lse);
   float* dvec_ = static_cast<float*>(dvec);
-  cudaError_t err = launch_dot_do_o<T, DH>(do_, static_cast<const T*>(o), dvec_, B, Lq, H, s);
+  cudaError_t err = launch_dot_do_o<T, DV>(do_, static_cast<const T*>(o), dvec_, B, Lq, H, s);
   if (err != cudaSuccess) return err;
   const int bq = ROWS / (H / KVH);  // q positions per dq block
-  dq_kernel<T, DH><<<dim3(B * KVH, (Lq + bq - 1) / bq), THREADS, 0, s>>>(
+  dq_kernel<T, DK, DV><<<dim3(B * KVH, (Lq + bq - 1) / bq), THREADS, 0, s>>>(
       q_, k_, v_, do_, lse_, dvec_, static_cast<T*>(dq), Lq, Lk, H, KVH, bq, causal, window, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<T, DH><<<dim3(B * KVH, (Lk + ROWS - 1) / ROWS), THREADS, 0, s>>>(
+  dkdv_kernel<T, DK, DV><<<dim3(B * KVH, (Lk + ROWS - 1) / ROWS), THREADS, 0, s>>>(
       q_, k_, v_, do_, lse_, dvec_, static_cast<T*>(dk), static_cast<T*>(dv), Lq, Lk, H, KVH, causal, window,
       scale);
   return cudaGetLastError();
 }
 
+// the (Dk, Dv) pairs: Dk = Dv in {16, 32, 64, 128}, and MLA's (96, 64)
+#define BWD_PAIRS(X) X(16, 16) X(32, 32) X(64, 64) X(128, 128) X(96, 64)
+
 template <typename T>
-cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v, const void* o, const void* dout,
-                        const void* lse, void* dvec, void* dq, void* dk, void* dv, int B, int Lq, int Lk, int H,
-                        int KVH, int causal, int window, float scale, cudaStream_t s) {
-  switch (Dh) {
-    case 16: return launch<T, 16>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    case 32: return launch<T, 32>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    case 64: return launch<T, 64>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    case 128: return launch<T, 128>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch_pair(int Dk, int Dv, const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const void* lse, void* dvec, void* dq, void* dk, void* dv, int B, int Lq,
+                          int Lk, int H, int KVH, int causal, int window, float scale, cudaStream_t s) {
+#define BWD_CASE(DK, DV)                                                                                     \
+  if (Dk == DK && Dv == DV)                                                                                  \
+    return launch<T, DK, DV>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window, scale, \
+                             s);
+  BWD_PAIRS(BWD_CASE)
+#undef BWD_CASE
+  return cudaErrorInvalidValue;
 }
 
 // ---------------------------------------------------------------------------
@@ -768,23 +801,29 @@ constexpr int CHUNK = TILE * 128;         // one 64-column chunk of a 64-row til
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float NO_ROW = 1e30f;           // lse * log2(e) of a query row past the range: exp2(s - NO_ROW) = 0
 
-template <int DH>
+// The tiles of q and k rows hold DK values, those of v, o and dO rows DV;
+// each is NC 64-column chunks (the 128-byte swizzle's rows). A Dk 96 row is
+// two chunks whose second holds 32 columns and 32 of TMA's zeros (the map's
+// row is 96 long): one swizzle and one descriptor for every tile, and no
+// product reads the zeros (S's depth stops at 96 columns; dQ and dK are
+// 96 wide).
+template <int DK, int DV>
 struct Plan {
-  static constexpr int NCH = DH / 64;                   // 64-column chunks of a row (the swizzle's 128 bytes)
-  static constexpr int TILE_BYTES = NCH * CHUNK;        // 64 rows of q, k, v or dO
+  static constexpr int NCK = (DK + 63) / 64, NCV = DV / 64;
+  static constexpr int KT = NCK * CHUNK, VT = NCV * CHUNK;  // 64 rows of q or k; of v, o or dO
   // dkdv streams query tiles of BQ, as long as its registers allow (S^T and
-  // dP^T take BQ f32 a thread beside dK's and dV's DH), so that each wait
+  // dP^T take BQ f32 a thread beside dK's DK and dV's DV), so that each wait
   // covers more products; dq streams K/V tiles of 64 keys (128 measured
   // slower)
-  static constexpr int BQ = DH == 64 ? 96 : 32;
-  static constexpr int QCHUNK = BQ * 128, QTILE_BYTES = NCH * QCHUNK;
-  static constexpr int DQ_STAGES = DH == 64 ? 4 : 3;
+  static constexpr int BQ = DK == 128 ? 32 : DK == 96 ? 64 : 96;
+  static constexpr int QCHUNK = BQ * 128, QKT = NCK * QCHUNK, QVT = NCV * QCHUNK;
+  static constexpr int DQ_STAGES = DK == 128 ? 3 : 4;
   static constexpr int KV_STAGES = 4;
   // dq: Q and dO of both warpgroups resident, a ring of (K, V) tiles
-  static constexpr int DQ_SMEM = 2 * NWG * TILE_BYTES + DQ_STAGES * 2 * TILE_BYTES + 8 * (2 * DQ_STAGES + 1) + 1024;
+  static constexpr int DQ_SMEM = NWG * (KT + VT) + DQ_STAGES * (KT + VT) + 8 * (2 * DQ_STAGES + 1) + 1024;
   // dkdv: K and V of both warpgroups resident, a ring of (Q, dO) tiles with their lse and D rows
   static constexpr int KV_SMEM =
-      2 * NWG * TILE_BYTES + KV_STAGES * (2 * QTILE_BYTES + 2 * BQ * 4) + 8 * (2 * KV_STAGES + 1) + 1024;
+      NWG * (KT + VT) + KV_STAGES * (QKT + QVT + 2 * BQ * 4) + 8 * (2 * KV_STAGES + 1) + 1024;
   static_assert(DQ_SMEM <= 232448 && KV_SMEM <= 232448, "over the 227 KB a block may use");
 };
 
@@ -810,15 +849,15 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// s = A . B^T (64 x N, f32), A (64 x DH) and B (N x DH) K-major, as one
+// s = A . B^T (64 x N, f32), A (64 x D) and B (N x D) K-major, as one
 // commit group with its own wgmma.fence (a pipeline stage: S's registers can
 // be rewritten once its group is waited for while dP's products still run)
-template <int DH, int N>
+template <int D, int N>
 __device__ __forceinline__ void product_t(float (&s)[N / 2], uint64_t a, uint64_t b) {
   fence_acc(s);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < DH / 16; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     const uint64_t ak = kstep(a, kk, CHUNK), bk = kstep(b, kk, N * 128);
     if constexpr (N == 96) wgmma_m64n96k16_ss<0>(s, ak, bk, kk > 0);
     else if constexpr (N == 64) wgmma_m64n64k16_ss<0>(s, ak, bk, kk > 0);
@@ -827,15 +866,18 @@ __device__ __forceinline__ void product_t(float (&s)[N / 2], uint64_t a, uint64_
   wgmma_commit();
   fence_acc(s);
 }
-// acc (64 x DH, f32) += A (64 x 16 K, from registers) . B (16 K x DH, MN-major), one commit group
-template <int DH, int K>
-__device__ __forceinline__ void product_rs(float (&acc)[DH / 2], uint32_t (&a)[K / 16][4], uint64_t b) {
+// acc (64 x N, f32) += A (64 x K, from registers) . B (K x N, MN-major), one
+// commit group; N 96 reads its last 32 columns from the first half of B's
+// second chunk
+template <int N, int K>
+__device__ __forceinline__ void product_rs(float (&acc)[N / 2], uint32_t (&a)[K / 16][4], uint64_t b) {
   fence_acc(acc);
   fence_frags(a);
   wgmma_fence();
 #pragma unroll
   for (int t = 0; t < K / 16; ++t) {
-    if constexpr (DH == 64) wgmma_m64n64k16_rs<1>(acc, a[t], mnstep(b, t), 1);
+    if constexpr (N == 64) wgmma_m64n64k16_rs<1>(acc, a[t], mnstep(b, t), 1);
+    else if constexpr (N == 96) wgmma_m64n96k16_rs<1>(acc, a[t], mnstep(b, t), 1);
     else wgmma_m64n128k16_rs<1>(acc, a[t], mnstep(b, t), 1);
   }
   wgmma_commit();
@@ -856,19 +898,19 @@ __device__ __forceinline__ void acc_frag(uint32_t (&a)[4], const float (&x)[R], 
 // 64 rows: positions p_lo = q_lo + w bq .. + bq - 1 of the gq query heads of
 // the KV head, row r = (position - p_lo) gq + head (TMA loads a (64, gq, bq)
 // box); rows r >= gq bq are padding, zero and never stored.
-template <int DH>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 dq_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtensorMap mdO,
           __grid_constant__ const CUtensorMap mK, __grid_constant__ const CUtensorMap mV,
           const bf16* __restrict__ o, const float* __restrict__ lse, float* __restrict__ dvec,
           bf16* __restrict__ dq, int Lq, int Lk, int H, int KVH, int bq, int causal, int window, float scale_log2,
           float scale) {
-  using P = Plan<DH>;
-  constexpr int STAGES = P::DQ_STAGES, STAGE = 2 * P::TILE_BYTES;
+  using P = Plan<DK, DV>;
+  constexpr int STAGES = P::DQ_STAGES, STAGE = P::KT + P::VT;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* Qs = align1024(smem_raw);                   // [NWG] tiles
-  uint8_t* Os = Qs + NWG * P::TILE_BYTES;               // dO, [NWG] tiles
-  uint8_t* ring = Os + NWG * P::TILE_BYTES;             // [STAGES] x (K tile, V tile)
+  uint8_t* Qs = align1024(smem_raw);                   // [NWG] tiles of DK
+  uint8_t* Os = Qs + NWG * P::KT;                       // dO, [NWG] tiles of DV
+  uint8_t* ring = Os + NWG * P::VT;                     // [STAGES] x (K tile, V tile)
   uint64_t* full = reinterpret_cast<uint64_t*>(ring + STAGES * STAGE);
   uint64_t* empty = full + STAGES;
   uint64_t* qbar = empty + STAGES;
@@ -891,8 +933,8 @@ dq_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtens
     mbar_init(qbar, 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if (rows < TILE) {  // the padding rows of the Q and dO tiles, which no TMA box covers
-    const int cnt = 2 * NWG * P::NCH * (TILE - rows) * 8;
+  if (rows < TILE) {  // the padding rows of the Q and dO tiles (contiguous chunks), which no TMA box covers
+    const int cnt = NWG * (P::NCK + P::NCV) * (TILE - rows) * 8;
     for (int idx = threadIdx.x; idx < cnt; idx += THREADS) {
       const int u = idx % 8, r = rows + idx / 8 % (TILE - rows), c = idx / (8 * (TILE - rows));
       *reinterpret_cast<uint4*>(Qs + c * CHUNK + r * 128 + u * 16) = make_uint4(0, 0, 0, 0);
@@ -906,29 +948,28 @@ dq_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtens
     const int s = i % STAGES, kt = kt_begin + i;
     uint8_t* st = ring + s * STAGE;
     mbar_expect_tx(&full[s], STAGE);
-    for (int c = 0; c < P::NCH; ++c) {
-      tma_load_4d(st + c * CHUNK, &mK, &full[s], 64 * c, kvh, kt * TILE, b);
-      tma_load_4d(st + P::TILE_BYTES + c * CHUNK, &mV, &full[s], 64 * c, kvh, kt * TILE, b);
-    }
+    for (int c = 0; c < P::NCK; ++c) tma_load_4d(st + c * CHUNK, &mK, &full[s], 64 * c, kvh, kt * TILE, b);
+    for (int c = 0; c < P::NCV; ++c) tma_load_4d(st + P::KT + c * CHUNK, &mV, &full[s], 64 * c, kvh, kt * TILE, b);
   };
   if (threadIdx.x == 0) {
-    mbar_expect_tx(qbar, 2 * NWG * P::NCH * rows * 128);
-    for (int w = 0; w < NWG; ++w)
-      for (int c = 0; c < P::NCH; ++c) {
-        tma_load_4d(Qs + w * P::TILE_BYTES + c * CHUNK, &mQ, qbar, 64 * c, kvh * gq, q_lo + w * bq, b);
-        tma_load_4d(Os + w * P::TILE_BYTES + c * CHUNK, &mdO, qbar, 64 * c, kvh * gq, q_lo + w * bq, b);
-      }
+    mbar_expect_tx(qbar, NWG * (P::NCK + P::NCV) * rows * 128);
+    for (int w = 0; w < NWG; ++w) {
+      for (int c = 0; c < P::NCK; ++c)
+        tma_load_4d(Qs + w * P::KT + c * CHUNK, &mQ, qbar, 64 * c, kvh * gq, q_lo + w * bq, b);
+      for (int c = 0; c < P::NCV; ++c)
+        tma_load_4d(Os + w * P::VT + c * CHUNK, &mdO, qbar, 64 * c, kvh * gq, q_lo + w * bq, b);
+    }
     for (int i = 0; i < min(n, STAGES); ++i) load_kv(i);
   }
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
-  const uint8_t* q_t = Qs + wgi * P::TILE_BYTES;
-  const uint8_t* do_t = Os + wgi * P::TILE_BYTES;
+  const uint8_t* q_t = Qs + wgi * P::KT;
+  const uint8_t* do_t = Os + wgi * P::VT;
   const int p_lo = q_lo + wgi * bq;
   // this thread's rows r0 (accumulator values 4j, 4j + 1) and r0 + 8 (4j + 2, 4j + 3)
   const int r0 = 16 * warp + lane / 4;
   int qpos[2];
   bool ok[2];
-  int64_t row_off[2], stat[2];
+  int64_t row[2], stat[2];
   float lse2[2], dd[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -936,19 +977,19 @@ dq_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtens
     const int h = kvh * gq + r % gq;
     qpos[i] = p_lo + r / gq;
     ok[i] = r < rows && qpos[i] < Lq;
-    row_off[i] = ok[i] ? (((int64_t)b * Lq + qpos[i]) * H + h) * DH : 0;
+    row[i] = ok[i] ? ((int64_t)b * Lq + qpos[i]) * H + h : 0;
     stat[i] = ok[i] ? ((int64_t)b * H + h) * Lq + qpos[i] : 0;
     lse2[i] = ok[i] ? lse[stat[i]] * LOG2E : NO_ROW;
   }
-  // D = rowsum(dO * O) of the two rows: dO from the tile, O from device
-  // memory (loaded before the tile's wait); the four lanes of a row take
-  // its 16-byte chunks c = lane % 4 + 4 u in turn
-  uint4 ov[2][DH / 32];
+  // D = rowsum(dO * O) of the two rows over DV: dO from the tile, O from
+  // device memory (loaded before the tile's wait); the four lanes of a row
+  // take its 16-byte chunks c = lane % 4 + 4 u in turn
+  uint4 ov[2][DV / 32];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int u = 0; u < DH / 32; ++u)
-      ov[i][u] = ok[i] ? __ldg(reinterpret_cast<const uint4*>(o + row_off[i] + 8 * (lane % 4 + 4 * u)))
+    for (int u = 0; u < DV / 32; ++u)
+      ov[i][u] = ok[i] ? __ldg(reinterpret_cast<const uint4*>(o + row[i] * DV + 8 * (lane % 4 + 4 * u)))
                        : make_uint4(0, 0, 0, 0);
   mbar_wait(qbar, 0);
 #pragma unroll
@@ -956,7 +997,7 @@ dq_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtens
     const int r = r0 + 8 * i;
     float part = 0.f;
 #pragma unroll
-    for (int u = 0; u < DH / 32; ++u) {
+    for (int u = 0; u < DV / 32; ++u) {
       const int c = lane % 4 + 4 * u;
       const uint4 gv =
           *reinterpret_cast<const uint4*>(do_t + (c / 8) * CHUNK + r * 128 + (((c % 8) ^ (r % 8)) << 4));
@@ -979,10 +1020,10 @@ dq_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtens
   // products; every group is waited for within its tile (ptxas serialises
   // wgmma whose group stays pending across the loop's back edge while
   // other accumulators are written).
-  float acc[DH / 2], sv[32], dp[32];
+  float acc[DK / 2], sv[32], dp[32];
   uint32_t da[4][4];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DK / 2; ++i) acc[i] = 0.f;
   const uint64_t qd = kmajor(q_t), dod = kmajor(do_t), ring_k = kmajor(ring), ring_mn = mnmajor(ring, CHUNK);
   for (int i = 0; i < n; ++i) {
     const int s = i % STAGES;
@@ -993,22 +1034,24 @@ dq_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtens
     }
     mbar_wait(&full[s], (i / STAGES) & 1);
     const uint64_t kd = plus_bytes(ring_k, s * STAGE);
-    product_t<DH, 64>(sv, qd, kd);
-    product_t<DH, 64>(dp, dod, plus_bytes(kd, P::TILE_BYTES));
+    product_t<DK, 64>(sv, qd, kd);
+    product_t<DV, 64>(dp, dod, plus_bytes(kd, P::KT));
     wgmma_wait<1>();  // S is done
     fence_acc(sv);
     // P = exp2(S scale log2(e) - lse log2(e)), 0 where masked (per element
-    // only on tiles that hold a masked pair); dS = P (dP - D). Keys past Lk
-    // are TMA's zeros: their dS multiplies a zero row of K.
+    // only on tiles that hold a masked pair: causal, window, or keys past Lk,
+    // whose K and V rows are TMA's zeros, so that P there is exactly 0 as the
+    // plain version's, whatever the row's lse); dS = P (dP - D)
     const int k0 = (kt_begin + i) * TILE;
-    const bool edge = (causal && k0 + TILE - 1 > p_lo) || (window > 0 && k0 <= p_lo + bq - 1 - window);
+    const bool edge = k0 + TILE > Lk || (causal && k0 + TILE - 1 > p_lo) ||
+                      (window > 0 && k0 <= p_lo + bq - 1 - window);
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
+        const int r = e >> 1, kpos = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
         float p = exp2_approx(sv[4 * j + e] * scale_log2 - lse2[r]);
-        if (edge && !visible(k0 + 8 * j + 2 * (lane % 4) + (e & 1), qpos[r], causal, window)) p = 0.f;
+        if (edge && !(kpos < Lk && visible(kpos, qpos[r], causal, window))) p = 0.f;
         sv[4 * j + e] = p;
       }
     wgmma_wait<0>();
@@ -1018,7 +1061,7 @@ dq_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtens
     // dQ += dS K: dS rounded to bf16 as the register A operand, K MN-major as B
 #pragma unroll
     for (int t4 = 0; t4 < 4; ++t4) acc_frag(da[t4], sv, t4);
-    product_rs<DH, 64>(acc, da, plus_bytes(ring_mn, s * STAGE));
+    product_rs<DK, 64>(acc, da, plus_bytes(ring_mn, s * STAGE));
     wgmma_wait<0>();
     fence_acc(acc);
     fence_frags(da);
@@ -1027,10 +1070,10 @@ dq_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtens
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (!ok[i]) continue;
-    bf16* row = dq + row_off[i];
+    bf16* out = dq + row[i] * DK;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j)
-      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * (lane % 4)) =
+    for (int j = 0; j < DK / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j + 2 * (lane % 4)) =
           pack_bf16(acc[4 * j + 2 * i] * scale, acc[4 * j + 2 * i + 1] * scale);
   }
 }
@@ -1039,19 +1082,19 @@ dq_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtens
 // keys k_lo + 64 w .. + 63 for every query head of the group. The (Q, dO)
 // tiles of BQ queries that see a key of the block stream through the ring
 // head by head, with their lse and D rows.
-template <int DH>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 dkdv_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtensorMap mdO,
             __grid_constant__ const CUtensorMap mK, __grid_constant__ const CUtensorMap mV,
             const float* __restrict__ lse, const float* __restrict__ dvec, bf16* __restrict__ dk,
             bf16* __restrict__ dv, int Lq, int Lk, int H, int KVH, int causal, int window, float scale_log2,
             float scale) {
-  using P = Plan<DH>;
-  constexpr int STAGES = P::KV_STAGES, STAGE = 2 * P::QTILE_BYTES, BQ = P::BQ;
+  using P = Plan<DK, DV>;
+  constexpr int STAGES = P::KV_STAGES, STAGE = P::QKT + P::QVT, BQ = P::BQ;
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* Ks = align1024(smem_raw);                    // [NWG] tiles
-  uint8_t* Vs = Ks + NWG * P::TILE_BYTES;               // [NWG] tiles
-  uint8_t* ring = Vs + NWG * P::TILE_BYTES;             // [STAGES] x (Q tile, dO tile) of BQ rows
+  uint8_t* Ks = align1024(smem_raw);                    // [NWG] tiles of DK
+  uint8_t* Vs = Ks + NWG * P::KT;                       // [NWG] tiles of DV
+  uint8_t* ring = Vs + NWG * P::VT;                     // [STAGES] x (Q tile, dO tile) of BQ rows
   float* Ls = reinterpret_cast<float*>(ring + STAGES * STAGE);  // [STAGES][BQ] lse
   float* Ds = Ls + STAGES * BQ;                                 // [STAGES][BQ] D
   uint64_t* full = reinterpret_cast<uint64_t*>(Ds + STAGES * BQ);
@@ -1097,38 +1140,40 @@ dkdv_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUte
     if (lane == 0) {
       mbar_expect_tx(&full[s], STAGE);
       uint8_t* st = ring + s * STAGE;
-      for (int c = 0; c < P::NCH; ++c) {
-        tma_load_4d(st + c * P::QCHUNK, &mQ, &full[s], 64 * c, h, q0, b);
-        tma_load_4d(st + P::QTILE_BYTES + c * P::QCHUNK, &mdO, &full[s], 64 * c, h, q0, b);
-      }
+      for (int c = 0; c < P::NCK; ++c) tma_load_4d(st + c * P::QCHUNK, &mQ, &full[s], 64 * c, h, q0, b);
+      for (int c = 0; c < P::NCV; ++c)
+        tma_load_4d(st + P::QKT + c * P::QCHUNK, &mdO, &full[s], 64 * c, h, q0, b);
     } else {
       mbar_arrive(&full[s]);
     }
   };
   if (threadIdx.x < 32) {
     if (threadIdx.x == 0) {
-      mbar_expect_tx(kvbar, 2 * NWG * P::TILE_BYTES);
-      for (int w = 0; w < NWG; ++w)
-        for (int c = 0; c < P::NCH; ++c) {
-          tma_load_4d(Ks + w * P::TILE_BYTES + c * CHUNK, &mK, kvbar, 64 * c, kvh, k_lo + w * TILE, b);
-          tma_load_4d(Vs + w * P::TILE_BYTES + c * CHUNK, &mV, kvbar, 64 * c, kvh, k_lo + w * TILE, b);
-        }
+      mbar_expect_tx(kvbar, NWG * (P::KT + P::VT));
+      for (int w = 0; w < NWG; ++w) {
+        for (int c = 0; c < P::NCK; ++c)
+          tma_load_4d(Ks + w * P::KT + c * CHUNK, &mK, kvbar, 64 * c, kvh, k_lo + w * TILE, b);
+        for (int c = 0; c < P::NCV; ++c)
+          tma_load_4d(Vs + w * P::VT + c * CHUNK, &mV, kvbar, 64 * c, kvh, k_lo + w * TILE, b);
+      }
     }
     for (int i = 0; i < min(n_tiles, STAGES); ++i) load_q(i);
   }
   const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
-  const uint8_t* k_t = Ks + wgi * P::TILE_BYTES;
-  const uint8_t* v_t = Vs + wgi * P::TILE_BYTES;
+  const uint8_t* k_t = Ks + wgi * P::KT;
+  const uint8_t* v_t = Vs + wgi * P::VT;
   const int kw = k_lo + wgi * TILE;
   // this thread's keys kw + r0 (accumulator values 4j, 4j + 1) and kw + r0 + 8 (4j + 2, 4j + 3)
   const int r0 = 16 * warp + lane / 4;
   // S^T and dP^T are two commit groups, so P^T's exponentials overlap
   // dP^T's products, and dV's product overlaps dS^T; every group is waited
   // for within its tile.
-  float dka[DH / 2], dva[DH / 2], sv[BQ / 2], dp[BQ / 2];
+  float dka[DK / 2], dva[DV / 2], sv[BQ / 2], dp[BQ / 2];
   uint32_t pa[BQ / 16][4], da[BQ / 16][4];
 #pragma unroll
-  for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < DK / 2; ++i) dka[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) dva[i] = 0.f;
   const uint64_t kd = kmajor(k_t), vd = kmajor(v_t), ring_k = kmajor(ring), ring_mn = mnmajor(ring, P::QCHUNK);
   mbar_wait(kvbar, 0);
   for (int i = 0; i < n_tiles; ++i) {
@@ -1141,8 +1186,8 @@ dkdv_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUte
     }
     mbar_wait(&full[s], (i / STAGES) & 1);
     const uint64_t qk = plus_bytes(ring_k, s * STAGE);
-    product_t<DH, BQ>(sv, kd, qk);
-    product_t<DH, BQ>(dp, vd, plus_bytes(qk, P::QTILE_BYTES));
+    product_t<DK, BQ>(sv, kd, qk);
+    product_t<DV, BQ>(dp, vd, plus_bytes(qk, P::QKT));
     wgmma_wait<1>();  // S^T is done
     fence_acc(sv);
     // P^T = exp2(S^T scale log2(e) - lse log2(e)), 0 where masked; dS^T =
@@ -1166,7 +1211,7 @@ dkdv_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUte
     const uint64_t qd = plus_bytes(ring_mn, s * STAGE);
 #pragma unroll
     for (int t4 = 0; t4 < BQ / 16; ++t4) acc_frag(pa[t4], sv, t4);
-    product_rs<DH, BQ>(dva, pa, plus_bytes(qd, P::QTILE_BYTES));
+    product_rs<DV, BQ>(dva, pa, plus_bytes(qd, P::QKT));
     wgmma_wait<1>();  // dP^T is done
     fence_acc(dp);
 #pragma unroll
@@ -1178,7 +1223,7 @@ dkdv_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUte
     // dK += dS^T Q: dS^T rounded to bf16 as the register A operand, Q MN-major
 #pragma unroll
     for (int t4 = 0; t4 < BQ / 16; ++t4) acc_frag(da[t4], dp, t4);
-    product_rs<DH, BQ>(dka, da, qd);
+    product_rs<DK, BQ>(dka, da, qd);
     wgmma_wait<0>();
     fence_acc(dva);
     fence_acc(dka);
@@ -1190,63 +1235,71 @@ dkdv_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUte
   for (int i = 0; i < 2; ++i) {
     const int kpos = kw + r0 + 8 * i;
     if (kpos >= Lk) continue;
-    const int64_t off = (((int64_t)b * Lk + kpos) * KVH + kvh) * DH;
+    const int64_t key = ((int64_t)b * Lk + kpos) * KVH + kvh;
 #pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
-      *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * (lane % 4)) =
+    for (int j = 0; j < DK / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dk + key * DK + 8 * j + 2 * (lane % 4)) =
           pack_bf16(dka[4 * j + 2 * i] * scale, dka[4 * j + 2 * i + 1] * scale);
-      *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * (lane % 4)) =
+#pragma unroll
+    for (int j = 0; j < DV / 8; ++j)
+      *reinterpret_cast<uint32_t*>(dv + key * DV + 8 * j + 2 * (lane % 4)) =
           pack_bf16(dva[4 * j + 2 * i], dva[4 * j + 2 * i + 1]);
-    }
   }
 }
 
-template <int DH>
+template <int DK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const void* lse, void* dvec, void* dq, void* dk, void* dv, int B, int Lq, int Lk, int H,
                    int KVH, int causal, int window, float scale, cudaStream_t s) {
-  using P = Plan<DH>;
+  using P = Plan<DK, DV>;
   const int gq = H / KVH, bq = TILE / gq;
-  // (B, L, heads, DH) tensors as 4-D maps (DH, heads, L, B): TMA zero-fills
-  // the rows past L and never reads into the next batch
-  const cuuint64_t qdims[4] = {DH, (cuuint64_t)H, (cuuint64_t)Lq, (cuuint64_t)B};
-  const cuuint64_t qstr[3] = {DH * 2, (cuuint64_t)H * DH * 2, (cuuint64_t)Lq * H * DH * 2};
-  const cuuint64_t kdims[4] = {DH, (cuuint64_t)KVH, (cuuint64_t)Lk, (cuuint64_t)B};
-  const cuuint64_t kstr[3] = {DH * 2, (cuuint64_t)KVH * DH * 2, (cuuint64_t)Lk * KVH * DH * 2};
+  // (B, L, heads, D) tensors as 4-D maps (D, heads, L, B): TMA zero-fills
+  // the rows past L (and a Dk 96 row's second chunk past its 96 columns) and
+  // never reads into the next batch
+  const cuuint64_t qdims[4] = {DK, (cuuint64_t)H, (cuuint64_t)Lq, (cuuint64_t)B};
+  const cuuint64_t qstr[3] = {DK * 2, (cuuint64_t)H * DK * 2, (cuuint64_t)Lq * H * DK * 2};
+  const cuuint64_t odims[4] = {DV, (cuuint64_t)H, (cuuint64_t)Lq, (cuuint64_t)B};
+  const cuuint64_t ostr[3] = {DV * 2, (cuuint64_t)H * DV * 2, (cuuint64_t)Lq * H * DV * 2};
+  const cuuint64_t kdims[4] = {DK, (cuuint64_t)KVH, (cuuint64_t)Lk, (cuuint64_t)B};
+  const cuuint64_t kstr[3] = {DK * 2, (cuuint64_t)KVH * DK * 2, (cuuint64_t)Lk * KVH * DK * 2};
+  const cuuint64_t vdims[4] = {DV, (cuuint64_t)KVH, (cuuint64_t)Lk, (cuuint64_t)B};
+  const cuuint64_t vstr[3] = {DV * 2, (cuuint64_t)KVH * DV * 2, (cuuint64_t)Lk * KVH * DV * 2};
   const cuuint32_t group_box[4] = {64, (cuuint32_t)gq, (cuuint32_t)bq, 1};  // dq: gq heads x bq positions
   const cuuint32_t q_box[4] = {64, 1, P::BQ, 1};                          // dkdv: one head's BQ queries
   const cuuint32_t kv_box[4] = {64, 1, TILE, 1};                          // one KV head's 64 keys
   CUtensorMap mQg, mdOg, mQ, mdO, mK, mV;
-  if (!tma_map_bf16(&mQg, q, 4, qdims, qstr, group_box) || !tma_map_bf16(&mdOg, dout, 4, qdims, qstr, group_box) ||
-      !tma_map_bf16(&mQ, q, 4, qdims, qstr, q_box) || !tma_map_bf16(&mdO, dout, 4, qdims, qstr, q_box) ||
-      !tma_map_bf16(&mK, k, 4, kdims, kstr, kv_box) || !tma_map_bf16(&mV, v, 4, kdims, kstr, kv_box))
+  if (!tma_map_bf16(&mQg, q, 4, qdims, qstr, group_box) || !tma_map_bf16(&mdOg, dout, 4, odims, ostr, group_box) ||
+      !tma_map_bf16(&mQ, q, 4, qdims, qstr, q_box) || !tma_map_bf16(&mdO, dout, 4, odims, ostr, q_box) ||
+      !tma_map_bf16(&mK, k, 4, kdims, kstr, kv_box) || !tma_map_bf16(&mV, v, 4, vdims, vstr, kv_box))
     return cudaErrorInvalidValue;
   const float* lse_ = static_cast<const float*>(lse);
   float* dvec_ = static_cast<float*>(dvec);
   // dq first: it writes D, which dkdv reads
-  cudaError_t err = cudaFuncSetAttribute(dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::DQ_SMEM);
+  cudaError_t err =
+      cudaFuncSetAttribute(dq_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::DQ_SMEM);
   if (err != cudaSuccess) return err;
-  dq_kernel<DH><<<dim3(B * KVH, (Lq + NWG * bq - 1) / (NWG * bq)), THREADS, P::DQ_SMEM, s>>>(
+  dq_kernel<DK, DV><<<dim3(B * KVH, (Lq + NWG * bq - 1) / (NWG * bq)), THREADS, P::DQ_SMEM, s>>>(
       mQg, mdOg, mK, mV, static_cast<const bf16*>(o), lse_, dvec_, static_cast<bf16*>(dq), Lq, Lk, H, KVH, bq,
       causal, window, scale * LOG2E, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(dkdv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::KV_SMEM);
+  err = cudaFuncSetAttribute(dkdv_kernel<DK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::KV_SMEM);
   if (err != cudaSuccess) return err;
-  dkdv_kernel<DH><<<dim3(B * KVH, (Lk + NWG * TILE - 1) / (NWG * TILE)), THREADS, P::KV_SMEM, s>>>(
+  dkdv_kernel<DK, DV><<<dim3(B * KVH, (Lk + NWG * TILE - 1) / (NWG * TILE)), THREADS, P::KV_SMEM, s>>>(
       mQ, mdO, mK, mV, lse_, dvec_, static_cast<bf16*>(dk), static_cast<bf16*>(dv), Lq, Lk, H, KVH, causal, window,
       scale * LOG2E, scale);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v, const void* o, const void* dout,
-                        const void* lse, void* dvec, void* dq, void* dk, void* dv, int B, int Lq, int Lk, int H,
-                        int KVH, int causal, int window, float scale, cudaStream_t s) {
-  switch (Dh) {
-    case 64: return launch<64>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    case 128: return launch<128>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window, scale, s);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch_pair(int Dk, int Dv, const void* q, const void* k, const void* v, const void* o,
+                          const void* dout, const void* lse, void* dvec, void* dq, void* dk, void* dv, int B, int Lq,
+                          int Lk, int H, int KVH, int causal, int window, float scale, cudaStream_t s) {
+#define WG_CASE(DK, DV)                                                                                    \
+  if (Dk == DK && Dv == DV)                                                                                \
+    return launch<DK, DV>(q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window, scale, s);
+  WG_CASE(64, 64) WG_CASE(128, 128) WG_CASE(96, 64)
+#undef WG_CASE
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace wg
@@ -1255,14 +1308,19 @@ cudaError_t dispatch_dh(int Dh, const void* q, const void* k, const void* v, con
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, dout, dq, dk, dv alike); lse
 // (B, H, Lq) f32 from flash_attention_fwd; dvec (B, H, Lq) f32 scratch (D).
-// route: 0 fma (f32 only), 1 mma (bf16 only, 16-byte aligned bases), 2 wgmma
-// (bf16, Dh 64 or 128, 16-byte aligned bases); the wrapper's _bwd_route picks
-// it. Returns the first failing launch's cudaError_t, or 0.
+// (Dk, Dv): q, k, dq and dk rows hold Dk values, v, o, dO and dv rows Dv;
+// Dk = Dv, or MLA's (96, 64). route: 0 fma (f32 only; every pair of
+// BWD_PAIRS), 1 mma (bf16 only, Dk = Dv, 16-byte aligned bases), 2 wgmma
+// (bf16, (64, 64), (128, 128) or (96, 64), 16-byte aligned bases); the
+// wrapper's _bwd_route picks it. Returns the first failing launch's
+// cudaError_t, or 0.
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, const void* o, const void* dout,
                                    const void* lse, void* dvec, void* dq, void* dk, void* dv, int dtype, int route,
-                                   int B, int Lq, int Lk, int H, int KVH, int Dh, int causal, int window,
+                                   int B, int Lq, int Lk, int H, int KVH, int Dk, int Dv, int causal, int window,
                                    float scale, void* stream) {
   if (B <= 0 || Lq <= 0 || Lk <= 0 || KVH <= 0 || H % KVH != 0 || H / KVH > ROWS || window < 0)
+    return (int)cudaErrorInvalidValue;
+  if (Dk != Dv && !(Dk == 96 && Dv == 64))  // the one unequal pair, MLA's
     return (int)cudaErrorInvalidValue;
   if (window > 0 && (int64_t)Lq >= (int64_t)Lk + window)  // rows with no visible key
     return (int)cudaErrorInvalidValue;
@@ -1274,16 +1332,16 @@ extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v, 
   const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o | (uintptr_t)dout |
                           (uintptr_t)dq | (uintptr_t)dk | (uintptr_t)dv;
   if (route == 2) {
-    if (dtype != 1 || (bases & 15) || (Dh != 64 && Dh != 128)) return (int)cudaErrorInvalidValue;
-    return (int)wg::dispatch_dh(Dh, q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window,
-                                scale, s);
+    if (dtype != 1 || (bases & 15)) return (int)cudaErrorInvalidValue;
+    return (int)wg::dispatch_pair(Dk, Dv, q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal,
+                                  window, scale, s);
   }
   if (route == 1) {
-    if (dtype != 1 || (bases & 15)) return (int)cudaErrorInvalidValue;
-    return (int)mma::dispatch_dh(Dh, q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window,
+    if (dtype != 1 || (bases & 15) || Dk != Dv) return (int)cudaErrorInvalidValue;
+    return (int)mma::dispatch_dh(Dk, q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window,
                                  scale, s);
   }
   if (route != 0 || dtype != 0) return (int)cudaErrorInvalidValue;
-  return (int)dispatch_dh<float>(Dh, q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal, window,
-                                 scale, s);
+  return (int)dispatch_pair<float>(Dk, Dv, q, k, v, o, dout, lse, dvec, dq, dk, dv, B, Lq, Lk, H, KVH, causal,
+                                   window, scale, s);
 }

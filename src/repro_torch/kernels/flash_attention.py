@@ -19,13 +19,15 @@ since the tensor cores would round f32 products to TF32 and break the
 reference's f32 parity. The C entry refuses any other pairing.
 
 With ``return_lse=True`` either route also writes each row's log-sum-exp
-(B, H, Lq) f32, which ``flash_attention_bwd`` takes: the backward (K1, no
-Pallas counterpart; ``csrc/flash_attention_bwd.cu``) recomputes P from it and
-returns dQ, dK and dV, with dK and dV summed over each KV head's ``gq`` query
-heads. ``_bwd_route`` picks its design from the dtype and the head dim:
-``"wgmma"`` for bf16 at Dh 64 and 128 (``wgmma`` fed by a TMA ring, D folded
-into dQ's launch, its longest causal q-tiles first), ``"mma"`` (``mma.sync``)
-for bf16 at Dh 16 and 32, ``"fma"`` for f32.
+(B, H, Lq) f32, at every pair, which ``flash_attention_bwd`` takes: the
+backward (K1, no Pallas counterpart; ``csrc/flash_attention_bwd.cu``)
+recomputes P from it and returns dQ, dK and dV, with dK and dV summed over
+each KV head's ``gq`` query heads, causal or not, with Lq and Lk apart (an
+encoder, cross-attention). ``_bwd_route`` picks its design from the dtype
+and the head dims: ``"wgmma"`` for bf16 at (Dk, Dv) = (64, 64), (128, 128)
+and MLA's (96, 64) (``wgmma`` fed by a TMA ring, D folded into dQ's launch,
+its longest causal q-tiles first), ``"mma"`` (``mma.sync``) for bf16 at
+(16, 16) and (32, 32), ``"fma"`` for f32 at every pair.
 
 For tensors on the CPU or the meta device (``ref.PLAIN_DEVICES``) each
 wrapper computes the plain version
@@ -46,8 +48,8 @@ import torch
 from . import build
 from .ref import PLAIN_DEVICES, reference_attention, reference_attention_bwd
 
-# the (Dk, Dv) pairs the forward kernel is built for (as the .cu's FA_DISPATCH):
-# Dk = Dv, and MLA's (96, 64); the backward takes Dk = Dv of the first four only
+# the (Dk, Dv) pairs both kernels are built for (the forward's FA_DISPATCH, the
+# backward's BWD_PAIRS): Dk = Dv, and MLA's (96, 64)
 HEAD_DIM_PAIRS = ((16, 16), (32, 32), (64, 64), (128, 128), (96, 64))
 ROWS = 64  # query rows (gq heads x q positions) per thread block; as in the .cu
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -68,7 +70,7 @@ def _bwd_fn():
     lib = build.load("flash_attention_bwd")
     fn = lib.flash_attention_bwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -79,14 +81,14 @@ def _route(dtype: torch.dtype) -> str:
     return "mma" if dtype == torch.bfloat16 else "fma"
 
 
-def _bwd_route(dtype: torch.dtype, Dh: int) -> str:
-    """The backward's design for a CUDA call in this dtype at head dim Dh."""
+def _bwd_route(dtype: torch.dtype, Dk: int, Dv: int) -> str:
+    """The backward's design for a CUDA call in this dtype at head dims (Dk, Dv)."""
     if dtype != torch.bfloat16:
         return "fma"
-    return "wgmma" if Dh in (64, 128) else "mma"
+    return "wgmma" if (Dk, Dv) in ((64, 64), (128, 128), (96, 64)) else "mma"
 
 
-def _check_inputs(q, k, v, window: int, return_lse: bool = False):
+def _check_inputs(q, k, v, window: int):
     """Raise on anything the kernel does not take."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
         raise ValueError(f"want q (B,Lq,H,Dk), k (B,Lk,KVH,Dk), v (B,Lk,KVH,Dv); got {q.shape} {k.shape} {v.shape}")
@@ -102,9 +104,6 @@ def _check_inputs(q, k, v, window: int, return_lse: bool = False):
     pair = (Dk, v.shape[3])
     if pair not in HEAD_DIM_PAIRS:
         raise ValueError(f"head dims (Dk, Dv) = {pair} not in {HEAD_DIM_PAIRS}")
-    if return_lse and pair[0] != pair[1]:
-        raise ValueError(f"return_lse at (Dk, Dv) = {pair}: the backward takes Dk = Dv only "
-                         "(ROADMAP.md queue 1, item 5b)")
     if window < 0:
         raise ValueError(f"window {window} < 0")
 
@@ -119,14 +118,14 @@ def flash_attention(
     return_lse: bool = False,
 ):
     """Returns (B, Lq, H, Dv) in q's dtype, scaled by Dk**-0.5, and with
-    ``return_lse`` (Dk = Dv only) also each row's log-sum-exp (B, H, Lq) f32.
+    ``return_lse`` also each row's log-sum-exp (B, H, Lq) f32.
     Positions are 0..Lq-1 and 0..Lk-1
     (causal means k_pos <= q_pos, aligned at the top left). Refuses inputs
     that require a gradient (outside ``torch.no_grad``/``inference_mode``):
     the kernel's output carries no graph, so a gradient goes through
     ``repro_torch.models.attention.FlashAttention``, which pairs this call
     with ``flash_attention_bwd``."""
-    _check_inputs(q, k, v, window, return_lse)
+    _check_inputs(q, k, v, window)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError("flash_attention drops the gradient: differentiate through "
                            "repro_torch.models.attention.FlashAttention")
@@ -160,28 +159,27 @@ flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def flash_attention_bwd(
-    q: torch.Tensor,  # (B, Lq, H, Dh)
-    k: torch.Tensor,  # (B, Lk, KVH, Dh)
-    v: torch.Tensor,  # (B, Lk, KVH, Dh)
-    o: torch.Tensor,  # (B, Lq, H, Dh) the forward's output
-    do: torch.Tensor,  # (B, Lq, H, Dh) its cotangent
+    q: torch.Tensor,  # (B, Lq, H, Dk)
+    k: torch.Tensor,  # (B, Lk, KVH, Dk)
+    v: torch.Tensor,  # (B, Lk, KVH, Dv)
+    o: torch.Tensor,  # (B, Lq, H, Dv) the forward's output
+    do: torch.Tensor,  # (B, Lq, H, Dv) its cotangent
     lse: torch.Tensor,  # (B, H, Lq) f32 from flash_attention(..., return_lse=True)
     *,
     causal: bool = True,
     window: int = 0,
 ):
     """Returns (dq, dk, dv) in the inputs' dtype: the gradient of
-    ``flash_attention(q, k, v, causal=causal, window=window)`` against ``do``.
-    Shapes with a row that sees no key (``window > 0`` and Lq >= Lk + window)
-    are refused: the forward leaves such a row's output undefined."""
+    ``flash_attention(q, k, v, causal=causal, window=window)`` against ``do``,
+    at every pair of ``HEAD_DIM_PAIRS``. Shapes with a row that sees no key
+    (``window > 0`` and Lq >= Lk + window) are refused: the forward leaves
+    such a row's output undefined."""
     _check_inputs(q, k, v, window)
-    B, Lq, H, _ = q.shape
-    if v.shape != k.shape:
-        raise ValueError(f"flash_attention_bwd takes Dk = Dv only, not {q.shape[3]}, {v.shape[3]} "
-                         "(ROADMAP.md queue 1, item 5b)")
-    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype or do.dtype != q.dtype:
-        raise ValueError(f"o {tuple(o.shape)} {o.dtype}, do {tuple(do.shape)} {do.dtype}: want q's "
-                         f"{tuple(q.shape)} {q.dtype}")
+    B, Lq, H, Dk = q.shape
+    want = (B, Lq, H, v.shape[3])
+    if o.shape != want or do.shape != want or o.dtype != q.dtype or do.dtype != q.dtype:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype}, do {tuple(do.shape)} {do.dtype}: want {want} "
+                         f"{q.dtype}")
     if lse.shape != (B, H, Lq) or lse.dtype != torch.float32:
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}: want ({B}, {H}, {Lq}) float32")
     if any(t.device != q.device for t in (o, do, lse)):
@@ -195,16 +193,16 @@ def flash_attention_bwd(
     # contiguous, and 16-byte aligned for the tensor-core routes' copies (cp.async, TMA)
     ins = [t if t.is_contiguous() and t.data_ptr() % 16 == 0 else t.clone(memory_format=torch.contiguous_format)
            for t in (q, k, v, o, do, lse)]
-    Lk, KVH, Dh = k.shape[1], k.shape[2], k.shape[3]
-    route = _bwd_route(q.dtype, Dh)
+    Lk, KVH, Dv = k.shape[1], k.shape[2], v.shape[3]
+    route = _bwd_route(q.dtype, Dk, Dv)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dvec = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _bwd_fn()(
             *(t.data_ptr() for t in ins), dvec.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPES[q.dtype], BWD_ROUTES[route], B, Lq, Lk, H, KVH, Dh, int(causal), int(window), Dh**-0.5,
-            stream,
+            _DTYPES[q.dtype], BWD_ROUTES[route], B, Lq, Lk, H, KVH, Dk, Dv, int(causal), int(window),
+            Dk**-0.5, stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_attention_bwd kernel launch failed on route {route!r}: cudaError_t {rc}")

@@ -76,11 +76,11 @@ def reference_attention(
 
 
 def reference_attention_bwd(
-    q: torch.Tensor,  # (B, Lq, H, Dh)
-    k: torch.Tensor,  # (B, Lk, KVH, Dh)
-    v: torch.Tensor,  # (B, Lk, KVH, Dh)
-    o: torch.Tensor,  # (B, Lq, H, Dh) the forward's output
-    do: torch.Tensor,  # (B, Lq, H, Dh) its cotangent
+    q: torch.Tensor,  # (B, Lq, H, Dk)
+    k: torch.Tensor,  # (B, Lk, KVH, Dk)
+    v: torch.Tensor,  # (B, Lk, KVH, Dv)
+    o: torch.Tensor,  # (B, Lq, H, Dv) the forward's output
+    do: torch.Tensor,  # (B, Lq, H, Dv) its cotangent
     lse: torch.Tensor,  # (B, H, Lq) the forward's log-sum-exp
     *,
     causal: bool = True,
@@ -90,20 +90,21 @@ def reference_attention_bwd(
     dtypes, computed in f32 (f64 for f64 inputs) from the full score matrix.
     P = exp(S * scale - lse) is recomputed from lse; dV = P^T dO;
     dS = P * (dO V^T - rowsum(dO * O)); dQ = dS K * scale and dK = dS^T Q *
-    scale. dK and dV sum over each KV head's gq query heads."""
-    B, Lq, H, Dh = q.shape
-    Lk, KVH = k.shape[1], k.shape[2]
+    scale, with scale = Dk**-0.5. dK and dV sum over each KV head's gq query
+    heads. Lq and Lk may differ (the mask is the forward's)."""
+    B, Lq, H, Dk = q.shape
+    Lk, KVH, Dv = k.shape[1], k.shape[2], v.shape[3]
     gq = H // KVH
     acc = _acc(q.dtype)
-    qg = q.reshape(B, Lq, KVH, gq, Dh)
-    dog = do.reshape(B, Lq, KVH, gq, Dh).to(acc)
+    qg = q.reshape(B, Lq, KVH, gq, Dk)
+    dog = do.reshape(B, Lq, KVH, gq, Dv).to(acc)
     s = _gqa_scores(qg, k, _attention_mask(Lq, Lk, causal, window, q.device))
     p = torch.exp(s - lse.to(acc).reshape(B, KVH, gq, Lq)[..., None])  # masked: exp(NEG_INF - lse) = 0
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.to(acc))
     dsum = (do.to(acc) * o.to(acc)).sum(-1).reshape(B, Lq, KVH, gq).permute(0, 2, 3, 1)  # (B, KVH, gq, Lq)
     ds = p * (dp - dsum[..., None])
-    scale = Dh**-0.5
+    scale = Dk**-0.5
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.to(acc)) * scale
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg.to(acc)) * scale
     return dq.reshape(q.shape).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

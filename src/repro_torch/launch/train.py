@@ -18,7 +18,10 @@ next batches, not the ones they replace.
 
 ``run(cfg, ...)`` is the same loop for an ``ArchConfig`` built in code (a
 depth-cut config, as ``chip_smoke.py`` trains), as ``launch.serve.run`` is
-for serving.
+for serving. As in the reference, an encoder-decoder's stub ``frames`` and
+a vision model's stub ``prefix`` (``cfg.frontend_len`` embeddings of
+``d_model``) are drawn each step as f32 ``RandomState(step).randn``, since
+the data circuit carries tokens only.
 
 Weights are random, drawn from ``--seed``. The step runs on ``--device``
 (default ``cuda``, which raises without a card).
@@ -47,6 +50,13 @@ from repro_torch.optim import adamw_init, cosine_warmup
 from repro_torch.workspace import MeshExecutor
 
 DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
+
+
+def _stub_embeddings(cfg: ArchConfig, batch: int, step: int, dev) -> torch.Tensor:
+    """(batch, frontend_len, d_model) f32 stub frontend embeddings of a step,
+    the reference's ``np.random.RandomState(step).randn``."""
+    x = np.random.RandomState(step).randn(batch, cfg.frontend_len, cfg.d_model).astype(np.float32)
+    return torch.from_numpy(x).to(dev)
 
 
 def run(
@@ -105,8 +115,12 @@ def run(
         state = start_state
         for step in range(start_step, steps):
             t0 = time.time()
-            b = next_batch(data, cfg)
-            b = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in b.items()}
+            b = {k: torch.from_numpy(np.asarray(v, dtype=np.int32 if k in ("tokens", "labels") else np.float32))
+                 .to(dev) for k, v in next_batch(data, cfg).items()}
+            if cfg.encoder_layers and "frames" not in b:
+                b["frames"] = _stub_embeddings(cfg, batch, step, dev)
+            if cfg.frontend == "vision" and "prefix" not in b:
+                b["prefix"] = _stub_embeddings(cfg, batch, step, dev)
             state, metrics = train_step(state, b)
             loss = float(metrics["loss"])  # waits for the step
             dt = time.time() - t0

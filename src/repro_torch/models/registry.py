@@ -2,10 +2,13 @@
 
 Port of ``repro.models.registry``: ``train_loss``, ``prefill`` and
 ``decode_step`` are functions of (params, batch or tokens, state).
-``train_loss`` trains the dense, MoE and hybrid Mamba layouts (the MoE and
+``train_loss`` trains every layout: dense, MoE and hybrid Mamba (the MoE and
 Mamba layers through their kernels' backward, K7a and K7b, paired with the
-forwards in ``moe.MoeGmm`` and ``mamba.MambaScan``); MLA, an encoder and a
-frontend raise (ROADMAP queue 1, item 5b). The state holds
+forwards in ``moe.MoeGmm`` and ``mamba.MambaScan``), MLA (attention at Dk 96
+/ Dv 64 through K1), an encoder-decoder (the batch's ``frames`` encoded into
+the memory that each decoder layer's cross-attention reads) and a vision
+prefix (the batch's ``prefix`` before the tokens, its labels -1), as the
+reference's does. The state holds
 one cache per layer, of that layer's mixer: an attention layer's K/V (or MLA
 latents) are updated in place, a Mamba layer's (h, conv window) state is
 replaced. The state's ``t`` and each cache's ``index`` are host ``int``s.
@@ -33,15 +36,6 @@ def build_model(cfg: ArchConfig) -> Model:
     return Model(cfg)
 
 
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise for a layout whose gradient the port cannot take on the card."""
-    if cfg.attention == "mla" or cfg.encoder_layers or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: training MLA, an encoder-decoder or a frontend needs K1 at (Dk 96, Dv 64), "
-            "K1 non-causal with Lq != Lk, and frames and prefix in train_loss (ROADMAP.md queue 1, item 5b)"
-        )
-
-
 def train_loss(
     model: Model,
     params: dict,
@@ -49,19 +43,28 @@ def train_loss(
     kernels: Optional[dict] = None,
     aux_weight: float = 0.01,
 ):
-    """batch: tokens (B, L) int32, labels (B, L) int32 (-1 ignore). Returns
-    (loss, metrics): loss = ce + aux_weight * aux, both f32 scalars."""
+    """batch: tokens (B, L) int32, labels (B, L) int32 (-1 ignore), and
+    ``frames`` (B, T, D) for an encoder-decoder or ``prefix`` (B, Lf, D)
+    stub embeddings for a model with a frontend (ignored without one, as in
+    the reference). Returns (loss, metrics): loss = ce + aux_weight * aux,
+    both f32 scalars."""
     cfg = model.cfg
-    check_trainable(cfg)
-    if "frames" in batch or "prefix" in batch:
-        raise NotImplementedError(
-            f"{cfg.name}: frames and prefix inputs in train_loss (ROADMAP.md queue 1, item 5b)"
-        )
     tokens, labels = batch["tokens"], batch["labels"]
     x = model.embed(params, tokens)
     B, L = tokens.shape
     positions = torch.arange(L, device=tokens.device).expand(B, L)
-    x, aux, _ = model.trunk(params, x, positions, kernels=kernels)
+    memory = None
+    if cfg.encoder_layers:
+        if "frames" not in batch:
+            raise ValueError(f"{cfg.name}: an encoder-decoder trains on a batch with frames")
+        memory = model.encode(params, batch["frames"], kernels=kernels)
+    if cfg.frontend != "none" and "prefix" in batch:
+        prefix = batch["prefix"].to(x.dtype)  # (B, Lf, D)
+        x = torch.cat([prefix, x], dim=1)
+        positions = torch.arange(x.shape[1], device=tokens.device).expand(B, x.shape[1])
+        labels = torch.cat([torch.full((B, prefix.shape[1]), -1, dtype=labels.dtype, device=labels.device),
+                            labels], dim=1)
+    x, aux, _ = model.trunk(params, x, positions, kernels=kernels, memory=memory)
     ce = model.chunked_loss(params, x, labels)
     loss = ce + aux_weight * aux
     return loss, {"ce": ce, "aux": aux}

@@ -21,6 +21,11 @@ scan body: ``full`` keeps only the period's input
 matrix products (``aten.mm``, the reference's
 ``dots_with_no_batch_dims_saveable``), ``none`` keeps everything. Under
 either remat the attention forward runs again in the backward pass.
+``encode`` applies it to each encoder layer, and a training trunk takes the
+encoder's ``memory`` itself, so that each decoder layer projects its
+cross-attention K and V inside its checkpointed period, as the reference's
+scan body does (``repro/models/transformer.py:100-105``); serving passes
+the K/V that prefill computed once instead (``cross_kvs``).
 ``chunked_loss`` is the reference's token-mean cross-entropy over L-chunks
 of 512, which never forms the (B, L, V) logits.
 """
@@ -73,11 +78,15 @@ def apply_layer(
     cache: Optional[dict],
     kernels: Optional[dict] = None,
     cross_kv: Optional[tuple] = None,
+    memory: Optional[torch.Tensor] = None,
 ):
     """Returns (x, new_cache, aux_loss); aux_loss is 0.0 without an MoE FFN.
-    ``cross_kv``: this layer's (k, v) of the encoder memory
-    (``attention.memory_kv``), for a layer with cross-attention."""
+    A layer with cross-attention attends to ``cross_kv``, its (k, v) of the
+    encoder memory (``attention.memory_kv``), or projects them here from
+    ``memory``."""
     aux = 0.0
+    if "cross" in p and cross_kv is None and memory is not None:
+        cross_kv = attn.memory_kv(p["cross"], memory)
     h = _rms(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == "mamba":
         y, new_cache = mb.mamba_block(p["mixer"], cfg, h, positions, cache, kernels=kernels)
@@ -141,21 +150,26 @@ class Model:
         """frames (B, T, D) stub frontend embeddings -> (B, T, D) memory:
         each encoder layer is non-causal self-attention with RoPE on q and k
         and no bias, then the dense FFN; ``encoder.norm`` at the end
-        (reference ``:164-188``)."""
+        (reference ``:164-188``). With a gradient enabled each layer runs
+        under the config's remat, as the reference's scan body."""
         cfg = self.cfg
         kernels = kernels or kernel_set()
         x = frames.to(cfg.compute_dtype())
         B, T, _ = x.shape
         positions = torch.arange(T, device=x.device).expand(B, T)
         for p in params["encoder"]["layers"]:
-            h = _rms(x, p["ln1"], cfg.norm_eps)
-            m = p["mixer"]
-            q = apply_rope(attn._proj(h, m["wq"]), positions[:, :, None], cfg.rope_theta)
-            k = apply_rope(attn._proj(h, m["wk"]), positions[:, :, None], cfg.rope_theta)
-            o = attn.attention(q, k, attn._proj(h, m["wv"]), causal=False, window=0, kernels=kernels)
-            x = x + attn._out_proj(m, o)
-            x = x + moe_mod.dense_ffn(p["ffn"], _rms(x, p["ln2"], cfg.norm_eps))
+            x = _remat(cfg, self._encoder_layer, p, x, positions, kernels)
         return _rms(x, params["encoder"]["norm"], cfg.norm_eps)
+
+    def _encoder_layer(self, p: dict, x, positions, kernels):
+        cfg = self.cfg
+        h = _rms(x, p["ln1"], cfg.norm_eps)
+        m = p["mixer"]
+        q = apply_rope(attn._proj(h, m["wq"]), positions[:, :, None], cfg.rope_theta)
+        k = apply_rope(attn._proj(h, m["wk"]), positions[:, :, None], cfg.rope_theta)
+        o = attn.attention(q, k, attn._proj(h, m["wv"]), causal=False, window=0, kernels=kernels)
+        x = x + attn._out_proj(m, o)
+        return x + moe_mod.dense_ffn(p["ffn"], _rms(x, p["ln2"], cfg.norm_eps))
 
     def memory_kv(self, params: dict, memory: torch.Tensor) -> list:
         """Each decoder layer's cross-attention (k, v) of the encoder memory."""
@@ -169,20 +183,21 @@ class Model:
         caches: Optional[list] = None,  # one per layer
         kernels: Optional[dict] = None,
         cross_kvs: Optional[list] = None,  # one (k, v) per layer: Model.memory_kv
+        memory: Optional[torch.Tensor] = None,  # (B, T, D) the encoder's, when training
     ):
         """Returns (x, aux_loss, new_caches): aux_loss is the f32 sum of the
         MoE layers' load-balancing losses; new_caches is None without caches.
-        Without caches and with a gradient enabled, each layout period runs
-        under the config's remat (see the module docstring)."""
+        Cross-attention attends to ``cross_kvs`` (serving) or to K/V each
+        layer projects from ``memory`` (training). Without caches and with a
+        gradient enabled, each layout period runs under the config's remat
+        (see the module docstring)."""
         cfg = self.cfg
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         period = len(cfg.layout)
         layers = params["layers"]
-        if caches is None and cross_kvs is None and torch.is_grad_enabled() and cfg.remat != "none":
-            ctx = {"full": None, "block": _save_matmuls}[cfg.remat]
+        if caches is None and cross_kvs is None:
             for g in range(0, len(layers), period):
-                x, aux = checkpoint(self._period, layers[g : g + period], x, aux, positions, kernels,
-                                    use_reentrant=False, **({} if ctx is None else {"context_fn": ctx}))
+                x, aux = _remat(cfg, self._period, layers[g : g + period], x, aux, positions, kernels, memory)
             return x, aux, None
         new_caches = []
         for i, p in enumerate(layers):
@@ -195,10 +210,10 @@ class Model:
             new_caches.append(nc)
         return x, aux, (new_caches if caches is not None else None)
 
-    def _period(self, layers: list, x, aux, positions, kernels):
+    def _period(self, layers: list, x, aux, positions, kernels, memory=None):
         """One layout period without caches: the reference's scan body."""
         for spec, p in zip(self.cfg.layout, layers):
-            x, _, a = apply_layer(p, self.cfg, spec, x, positions, None, kernels)
+            x, _, a = apply_layer(p, self.cfg, spec, x, positions, None, kernels, memory=memory)
             aux = aux + a
         return x, aux
 
@@ -254,6 +269,14 @@ class Model:
             else:
                 caches.append(attn.init_attention_cache(cfg, batch, max_len, dt, dev))
         return caches
+
+
+def _remat(cfg: ArchConfig, fn, *args):
+    """fn(*args), under the config's remat where a gradient is being taken."""
+    if not torch.is_grad_enabled() or cfg.remat == "none":
+        return fn(*args)
+    ctx = {"full": None, "block": _save_matmuls}[cfg.remat]
+    return checkpoint(fn, *args, use_reentrant=False, **({} if ctx is None else {"context_fn": ctx}))
 
 
 def _save_policy(ctx, op, *args, **kwargs):

@@ -6,9 +6,9 @@ seamless's encoder-decoder: module parity first (the ring through a wrap,
 ``mla_block`` in each of its three branches, cross-attention in prefill and
 decode, ``Model.encode``, the plain ``flash_attention`` at (96, 64)), then
 prefill + decode logits and greedy tokens of each whole reduced model with
-the JAX weights carried over by ``params_from_jax``. Inputs are made with
-numpy from a seed and handed to both packages; everything runs in f32, with
-``tests/test_torch_serve.py``'s tolerances.
+the JAX weights carried over by ``params_from_jax``; each takes a training
+step. Inputs are made with numpy from a seed and handed to both packages;
+everything runs in f32, with ``tests/test_torch_serve.py``'s tolerances.
 """
 
 import dataclasses
@@ -29,7 +29,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.launch import serve
 from repro_torch.models import attention, registry, transformer
 from repro_torch.models.convert import params_from_jax
-from repro_torch.optim import cosine_warmup
+from repro_torch.optim import adamw_init, cosine_warmup
 from repro_torch.dist.step import make_train_step
 
 ARCHS = ["mixtral-8x7b", "minicpm3-4b", "internvl2-1b", "seamless-m4t-medium"]
@@ -82,11 +82,20 @@ def test_flash_attention_refuses_other_head_dim_pairs(dk, dv):
         flash_attention(q, k, v)
 
 
-def test_flash_attention_refuses_lse_at_mla_head_dims():
-    """Only K1 (Dk = Dv) reads the log-sum-exp: ROADMAP item 5b."""
-    q, v = torch.zeros(1, 8, 2, 96), torch.zeros(1, 8, 2, 64)
-    with pytest.raises(ValueError, match="item 5b"):
-        flash_attention(q, q, v, return_lse=True)
+def test_flash_attention_lse_at_mla_head_dims_is_the_rows_logsumexp():
+    """The log-sum-exp that K1 reads, at (Dk 96, Dv 64): each row's
+    logsumexp of its scores scaled by Dk**-0.5, masked causally; the output
+    the one without it."""
+    rng = np.random.RandomState(2)
+    q, k = _t(rng.randn(2, 40, 4, 96).astype(np.float32)), _t(rng.randn(2, 40, 2, 96).astype(np.float32))
+    v = _t(rng.randn(2, 40, 2, 64).astype(np.float32))
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    assert tuple(lse.shape) == (2, 4, 40) and lse.dtype == torch.float32
+    torch.testing.assert_close(o, flash_attention(q, k, v), rtol=0, atol=0)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", q.reshape(2, 40, 2, 2, 96), k) * 96**-0.5
+    causal = torch.ones(40, 40, dtype=torch.bool).tril()
+    want = torch.logsumexp(s.masked_fill(~causal, float("-inf")), dim=-1).reshape(2, 4, 40)
+    torch.testing.assert_close(lse, want, rtol=1e-6, atol=1e-6)
 
 
 # -- mixtral's ring cache ----------------------------------------------------------
@@ -390,21 +399,35 @@ def test_serve_driver_sizes_the_cache_for_the_prefix():
     assert prefix is None and tuple(frames.shape) == (2, 8, 64)
 
 
-# -- training refuses, serving checks its state ---------------------------------------
+# -- training takes a step, serving checks its state ---------------------------------
 
 
 @pytest.mark.parametrize("arch", [a for a in ARCHS if a != "mixtral-8x7b"])
-def test_training_the_four_raises(arch):
-    """MLA, the encoder-decoder and the vision prefix need ROADMAP item 5b
-    (mixtral's MoE layout trains since K7: tests/test_torch_train.py)."""
+def test_make_train_step_takes_a_step(arch):
+    """MLA, the vision prefix and the encoder-decoder train: one step of
+    ``make_train_step`` on the reduced config, with the stub frames or
+    prefix in the batch, moves the params and gives finite metrics (their
+    parity with the JAX package: tests/test_torch_train.py)."""
     cfg = get_config(arch).reduced()
     m = registry.build_model(cfg)
-    item = "item 5b"
-    with pytest.raises(NotImplementedError, match=item):
-        make_train_step(m, "cpu", cosine_warmup(1e-3, 1, 4), global_batch=2)
-    tokens = torch.zeros((2, 8), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match=item):
-        registry.train_loss(m, m.init(0, "cpu"), {"tokens": tokens, "labels": tokens})
+    params = m.init(0, "cpu")
+    before = {n: t.clone() for n, t in (("embed", params["embed"]), ("wo", params["layers"][0]["mixer"]["wo"]))}
+    rng = np.random.RandomState(0)
+    tokens = _t(rng.randint(0, cfg.vocab, size=(2, 8)).astype(np.int32))
+    batch = {"tokens": tokens, "labels": tokens}
+    stub = _t(rng.randn(2, cfg.frontend_len, cfg.d_model).astype(np.float32))
+    if cfg.encoder_layers:
+        batch["frames"] = stub
+    if cfg.frontend == "vision":
+        batch["prefix"] = stub
+    state = {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32)}
+    step = make_train_step(m, "cpu", cosine_warmup(1e-3, 1, 4), global_batch=2)
+    state, met = step(state, batch)
+    state, met = step(state, batch)  # the warmup's first lr is 0
+    assert int(state["step"]) == 2 and all(np.isfinite(v.item()) for v in met.values())
+    for name, t in before.items():
+        now = params["embed"] if name == "embed" else params["layers"][0]["mixer"]["wo"]
+        assert not torch.equal(now, t), name
 
 
 @pytest.mark.parametrize("arch,max_len", [("mixtral-8x7b", 70), ("minicpm3-4b", 16), ("seamless-m4t-medium", 16)])

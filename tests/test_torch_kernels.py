@@ -462,10 +462,10 @@ def test_route_counts_reset_with_the_launch_counts():
         assert not any(fn.route_launches.values()), fn.__name__
 
 
-# K1's route by dtype and head dim: wgmma for bf16 at Dh 64 and 128, mma for
-# bf16 at Dh 16 and 32, fma for f32. The (Dh, gq) pairs include every dense
-# config that trains: stablelm-1.6b (64, 1), qwen2.5-32b (128, 5) and
-# internlm2-20b (128, 6).
+# K1's route by dtype and head dims: wgmma for bf16 at Dh 64 and 128 (and
+# MLA's (96, 64), below), mma for bf16 at Dh 16 and 32, fma for f32. The
+# (Dh, gq) pairs include every dense config that trains: stablelm-1.6b (64,
+# 1), qwen2.5-32b (128, 5) and internlm2-20b (128, 6).
 _DENSE_TRAINING = ("stablelm-1.6b", "qwen2.5-32b", "internlm2-20b")
 BWD_ROUTE_CASES = [  # (Dh, gq, bf16 route)
     (16, 8, "mma"),
@@ -480,7 +480,7 @@ BWD_ROUTE_CASES = [  # (Dh, gq, bf16 route)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Dh,gq,bf16_route", BWD_ROUTE_CASES)
 def test_flash_attention_bwd_route(Dh, gq, bf16_route, dtype):
-    route = _bwd_route(dtype, Dh)
+    route = _bwd_route(dtype, Dh, Dh)
     assert route == (bf16_route if dtype == torch.bfloat16 else "fma")
     assert route in BWD_ROUTES and route in flash_attention_bwd.route_launches
 
@@ -490,7 +490,25 @@ def test_dense_training_configs_are_in_the_route_cases():
     for arch in _DENSE_TRAINING:
         cfg = get_config(arch)
         assert (cfg.head_dim, cfg.n_heads_eff // cfg.n_kv_heads) in cases, arch
-        assert _bwd_route(torch.bfloat16, cfg.head_dim) == "wgmma", arch
+        assert _bwd_route(torch.bfloat16, cfg.head_dim, cfg.head_dim) == "wgmma", arch
+
+
+@pytest.mark.parametrize("arch", ["minicpm3-4b", "internvl2-1b", "seamless-m4t-medium", "mixtral-8x7b",
+                                  "jamba-v0.1-52b"])
+def test_attention_training_layouts_take_the_wgmma_backward(arch):
+    """Every attention a training config runs has its bf16 backward on wgmma:
+    MLA at (Dk 96, Dv 64), internvl2 at gq 7, seamless's encoder, decoder and
+    cross-attention at Dh 64, the MoE and hybrid layouts; f32 on fma. The
+    unequal pairs but MLA's are refused by the pair check, before a route."""
+    cfg = get_config(arch)
+    if cfg.attention == "mla":
+        pair = (cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim)
+        assert pair == (96, 64)
+    else:
+        pair = (cfg.head_dim, cfg.head_dim)
+    assert cfg.n_heads_eff // cfg.n_kv_heads <= 64
+    assert _bwd_route(torch.bfloat16, *pair) == "wgmma"
+    assert _bwd_route(torch.float32, *pair) == "fma"
 
 
 # The ragged edges of the new tiles, as chip_smoke.py phase 2 holds the CUDA
@@ -529,11 +547,17 @@ from repro.models.attention import blocked_attention  # noqa: E402
 from repro_torch.models import common as torch_common  # noqa: E402
 from repro_torch.models.attention import FlashAttention  # noqa: E402
 
-BWD_CASES = [  # (B, L, H, KVH, Dh, window): L not a multiple of 16
-    (2, 37, 4, 4, 16, 0),  # MHA
-    (1, 45, 4, 2, 64, 0),  # gq 2
-    (2, 29, 8, 2, 16, 9),  # gq 4, a window
-    (1, 50, 4, 1, 64, 20),  # gq 4, a window
+BWD_CASES = [  # (B, Lq, Lk, H, KVH, Dk, Dv, causal, window): lengths not multiples of 16
+    pytest.param(2, 37, 37, 4, 4, 16, 16, True, 0, id="2-37-4-4-16-0"),  # MHA
+    pytest.param(1, 45, 45, 4, 2, 64, 64, True, 0, id="1-45-4-2-64-0"),  # gq 2
+    pytest.param(2, 29, 29, 8, 2, 16, 16, True, 9, id="2-29-8-2-16-9"),  # gq 4, a window
+    pytest.param(1, 50, 50, 4, 1, 64, 64, True, 20, id="1-50-4-1-64-20"),  # gq 4, a window
+    # MLA's (Dk 96, Dv 64), a small unequal pair, and non-causal Lq != Lk (an
+    # encoder's self-attention, cross-attention over a longer memory)
+    pytest.param(2, 37, 37, 4, 2, 96, 64, True, 0, id="mla-96-64"),
+    pytest.param(1, 23, 23, 4, 4, 24, 8, True, 5, id="dk24-dv8-window"),
+    pytest.param(2, 21, 45, 4, 2, 16, 16, False, 0, id="noncausal-lq21-lk45"),
+    pytest.param(1, 45, 19, 4, 4, 96, 64, False, 0, id="noncausal-lq45-lk19-mla"),
 ]
 # dq, dk, dv against jax.grad of the jnp blocked_attention. f32: full vs
 # blocked online softmax and XLA vs ATen sum orders. bf16: the reference
@@ -543,10 +567,13 @@ BWD_CASES = [  # (B, L, H, KVH, Dh, window): L not a multiple of 16
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}  # max |diff| over the largest |grad|
 
 
-def _bwd_inputs(B, L, H, KVH, Dh, dtype, seed=0):
+def _bwd_inputs(B, L, H, KVH, Dh, dtype, seed=0, Lk=None, Dv=None):
+    """q (B, L, H, Dh), k (B, Lk, KVH, Dh), v (B, Lk, KVH, Dv) and do (B, L,
+    H, Dv); Lk = L and Dv = Dh unless given."""
+    Lk, Dv = Lk or L, Dv or Dh
     rng = np.random.RandomState(seed)
-    q, do = (rng.randn(B, L, H, Dh).astype(np.float32) for _ in range(2))
-    k, v = (rng.randn(B, L, KVH, Dh).astype(np.float32) for _ in range(2))
+    q, do = rng.randn(B, L, H, Dh).astype(np.float32), rng.randn(B, L, H, Dv).astype(np.float32)
+    k, v = rng.randn(B, Lk, KVH, Dh).astype(np.float32), rng.randn(B, Lk, KVH, Dv).astype(np.float32)
     return [torch.from_numpy(a).to(dtype) for a in (q, k, v, do)]
 
 
@@ -556,18 +583,20 @@ def _rel_err(got, want):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,L,H,KVH,Dh,window", BWD_CASES)
-def test_reference_attention_bwd_matches_jax_grad(B, L, H, KVH, Dh, window, dtype):
-    q, k, v, do = _bwd_inputs(B, L, H, KVH, Dh, dtype)
-    o, lse = ref.reference_attention(q, k, v, window=window, return_lse=True)
-    got = ref.reference_attention_bwd(q, k, v, o, do, lse, window=window)
+@pytest.mark.parametrize("B,Lq,Lk,H,KVH,Dk,Dv,causal,window", BWD_CASES)
+def test_reference_attention_bwd_matches_jax_grad(B, Lq, Lk, H, KVH, Dk, Dv, causal, window, dtype):
+    q, k, v, do = _bwd_inputs(B, Lq, H, KVH, Dk, dtype, Lk=Lk, Dv=Dv)
+    mask = dict(causal=causal, window=window)
+    o, lse = ref.reference_attention(q, k, v, **mask, return_lse=True)
+    got = ref.reference_attention_bwd(q, k, v, o, do, lse, **mask)
     assert [g.dtype for g in got] == [dtype] * 3 and lse.dtype == torch.float32
+    assert [g.shape for g in got] == [q.shape, k.shape, v.shape]
 
     def j(t):
         return jnp.asarray(t.float().numpy()).astype(JNP[dtype])
 
     def f(q_, k_, v_):
-        return blocked_attention(q_, k_, v_, causal=True, window=window, block_q=16, block_kv=16)
+        return blocked_attention(q_, k_, v_, **mask, block_q=16, block_kv=16)
 
     _, vjp = jax.vjp(f, j(q), j(k), j(v))
     want = vjp(j(do))
@@ -576,7 +605,7 @@ def test_reference_attention_bwd_matches_jax_grad(B, L, H, KVH, Dh, window, dtyp
 
     # autograd through the plain forward: the same function, differentiated by torch
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    ref.reference_attention(*leaves, window=window).backward(do)
+    ref.reference_attention(*leaves, **mask).backward(do)
     for name, g, leaf in zip("qkv", got, leaves):
         assert _rel_err(g, leaf.grad) <= BWD_TOL[dtype], f"d{name} vs autograd"
 
@@ -593,17 +622,35 @@ def test_reference_lse_is_the_rows_logsumexp(window):
     torch.testing.assert_close(lse, want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("window", [0, 5])
-def test_flash_attention_function_passes_gradcheck_in_f64(window):
+GRADCHECK_CASES = [  # (Lq, Lk, Dk, Dv, causal, window)
+    pytest.param((9, 9, 16, 16, True, 0), id="0"),
+    pytest.param((9, 9, 16, 16, True, 5), id="5"),
+    pytest.param((7, 11, 24, 8, False, 0), id="noncausal-lq7-lk11-dk24-dv8"),
+]
+
+
+@pytest.mark.parametrize("case", GRADCHECK_CASES)
+def test_flash_attention_function_passes_gradcheck_in_f64(case):
+    Lq, Lk, Dk, Dv, causal, window = case
     g = torch.Generator().manual_seed(0)
-    q = torch.randn(1, 9, 2, 16, dtype=torch.float64, generator=g, requires_grad=True)  # gq 2
-    k = torch.randn(1, 9, 1, 16, dtype=torch.float64, generator=g, requires_grad=True)
-    v = torch.randn(1, 9, 1, 16, dtype=torch.float64, generator=g, requires_grad=True)
+    q = torch.randn(1, Lq, 2, Dk, dtype=torch.float64, generator=g, requires_grad=True)  # gq 2
+    k = torch.randn(1, Lk, 1, Dk, dtype=torch.float64, generator=g, requires_grad=True)
+    v = torch.randn(1, Lk, 1, Dv, dtype=torch.float64, generator=g, requires_grad=True)
 
     def fn(q_, k_, v_):
-        return FlashAttention.apply(q_, k_, v_, True, window, ref.reference_attention, ref.reference_attention_bwd)
+        return FlashAttention.apply(q_, k_, v_, causal, window, ref.reference_attention, ref.reference_attention_bwd)
 
     assert torch.autograd.gradcheck(fn, (q, k, v), eps=1e-6, atol=1e-7, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dk,dv", [(64, 32), (96, 96), (128, 64)])
+def test_flash_attention_bwd_refuses_other_head_dim_pairs(dk, dv):
+    """K1 takes Dk = Dv and MLA's (96, 64) only: any other pair raises, on
+    the CPU as on a card, before a plain version or a kernel runs."""
+    q, k, v = torch.zeros(1, 8, 2, dk), torch.zeros(1, 8, 2, dk), torch.zeros(1, 8, 2, dv)
+    o, do, lse = torch.zeros(1, 8, 2, dv), torch.zeros(1, 8, 2, dv), torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention_bwd(q, k, v, o, do, lse)
 
 
 def test_flash_attention_bwd_refuses_rows_without_keys():
