@@ -145,7 +145,8 @@ on, so that their numbers are still printed):
      ``flash_attention`` launches, an unchanged republish a memo hit with no
      launch, one more train step a recompute (the checkpoint's pickle-tier
      digest, equal for the dict copied to the host and cloned on the card;
-     the eval's and the hit's seconds); and the forward and K1 timed at the
+     the eval's and the hit's seconds); and the forward (o and lse checked
+     against the plain forward's) and K1 timed at the
      training shape (K1 also at qwen2.5-32b's heads, Dh 128) beside their
      bounds, their plain versions and SDPA, K1 on wgmma and on mma in turns,
      with each launch's device time from the profiler (dq and dkdv; on mma
@@ -183,9 +184,13 @@ on, so that their numbers are still printed):
      every step (step time, tokens/s, MFU at 6 N tokens with attention's own
      FLOPs beside it, peak memory, each kernel's share of a profiled step);
      one step's gradient of every leaf against the plain versions at full
-     width, batch 2 and 2 layers (seamless 1 + 1; ``GRAD_REL_TOL``); and K1
-     timed at each training shape as phase 5e times it, beside its bound,
-     its plain version and SDPA's backward.
+     width, batch 2 and 2 layers (seamless 1 + 1; ``GRAD_REL_TOL``); and at
+     each training shape the forward's o and lse checked against the plain
+     forward, then K1 checked and timed as phase 5e times it, beside its
+     bound, its plain version and SDPA's backward. Phases 5b, 5g and 5h share
+     the repeated batch (``repeated_batch``), 5c, 5g and 5h the gradient
+     gate (``gradient_gate``), 5g and 5h the checked ``launch.train.run``
+     (``checked_train_run``), 5e and 5h K1's row (``k1_row``).
 The last line is ``{"ok": true, "device": {...}}``. The compiler's reports
 (registers, spills) go to ``build/repro_torch_kernels/nvcc_report.txt``.
 """
@@ -870,6 +875,138 @@ def step_losses(out: str) -> list:
     return [(int(s), float(l)) for s, l in re.findall(r"^step\s+(\d+) loss (\S+)", out, re.M)]
 
 
+def checked_train_run(cfg, dev, B, L, steps, lr, seed, want, routes_of, want_routes, spies=None):
+    """Phases 5g and 5h: ``launch.train.run`` of ``cfg``, as a user runs a
+    config built in code, its final checkpoint counted, not written (5a
+    writes stablelm's); exact launches (``want``) and routes (``routes_of()``
+    against ``want_routes``), no plain version, a finite loss at every step.
+    ``spies``: kernel name -> a callable that stands in ``ops.KERNELS`` for
+    the run (installed after the counts are zeroed, removed before they are
+    read). Returns the final state."""
+    import shutil
+
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt_mod
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import tree_leaves
+
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt_run"
+    saves = []
+    save_async = ckpt_mod.CheckpointManager.save_async
+    ckpt_mod.CheckpointManager.save_async = lambda self, state, step, meta=None: saves.append(step)
+    ops.reset_launch_counts()
+    kept = dict(ops.KERNELS)
+    ops.KERNELS.update(spies or {})
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        with PlainSpy() as spy:
+            state, out = run_main_captured(
+                lambda _: train.run(cfg, steps=steps, batch=B, seq=L, lr=lr, ckpt_every=1000, ckpt_dir=str(ckpt_dir),
+                                    seed=seed, device=dev), None)
+        torch.cuda.synchronize()
+    finally:
+        ckpt_mod.CheckpointManager.save_async = save_async
+        ops.KERNELS.update(kept)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    launches, routes, losses = ops.launch_counts(), routes_of(), step_losses(out)
+    print(f"  train.run: launches {launches} (want {want}); by route {routes}; plain versions called {spy.calls}; "
+          f"saves {saves}; {sum(p.numel() for p in tree_leaves(state['params']))} params; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if launches != want or routes != want_routes:
+        fail(f"train.run {cfg.name}: launches {launches}, routes {routes}: want {want}, {want_routes}")
+    if any(spy.calls.values()):
+        fail(f"train.run {cfg.name}: the plain versions ran on the card path: {spy.calls}")
+    if [s for s, _ in losses] != list(range(steps)) or not all(np.isfinite(l) for _, l in losses):
+        fail(f"train.run {cfg.name}: step losses {losses}")
+    if int(state["step"]) != steps or saves != [steps]:
+        fail(f"train.run {cfg.name}: step {int(state['step'])}, saves {saves}")
+    return state
+
+
+def repeated_batch(name, step, state, batch, per_step):
+    """Phases 5b, 5g and 5h: ``TRAIN_REPEAT`` steps of ``make_train_step`` on
+    one repeated batch, with exact launches (``per_step`` a step), no plain
+    version, finite metrics, and a loss that falls at every step. Returns
+    (the state, the median time of steps 1 on in s, the peak memory in
+    bytes)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    mets, times = [], []
+    ops.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with PlainSpy() as spy:
+        for _ in range(TRAIN_REPEAT):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, met = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            mets.append({k: v.item() for k, v in met.items()})
+    launches, peak = ops.launch_counts(), torch.cuda.max_memory_allocated()
+    for i, m in enumerate(mets):
+        print(f"  repeated batch step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
+              + f" ({times[i]:.3f} s)")
+    want = {k: v * TRAIN_REPEAT for k, v in per_step.items()}
+    if launches != want or any(spy.calls.values()):
+        fail(f"make_train_step {name}: launches {launches} (want {want}), plain calls {spy.calls}")
+    if not all(np.isfinite(v) for m in mets for v in m.values()):
+        fail(f"make_train_step {name}: non-finite metrics {mets}")
+    losses = [m["loss"] for m in mets]
+    if not all(b < a for a, b in zip(losses, losses[1:])):
+        fail(f"make_train_step {name}: the loss on a repeated batch did not fall at every step: {losses}")
+    return state, statistics.median(times[1:]), peak
+
+
+def grads_of(model, params, batch, kernels):
+    """(loss, metrics, the gradient of every leaf of ``params``) of one
+    ``train_loss`` on ``batch``; ``kernels``: None, or the plain versions."""
+    import torch
+
+    from repro_torch.models.registry import train_loss
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves)
+    live = tree_map(lambda _: next(it), params)
+    loss, met = train_loss(model, live, batch, kernels=kernels)
+    return loss.item(), {k: v.item() for k, v in met.items()}, torch.autograd.grad(loss, leaves)
+
+
+def gradient_gate(label, names, run_kernels, run_plain, want):
+    """Phases 5c, 5g and 5h: one step's gradient of every leaf (``names``),
+    ``run_kernels()`` against ``run_plain()`` (each ``grads_of``): exact
+    launches (``want``, and as many with the plain versions), finite loss
+    and metrics, and each leaf's relative L2 error within ``GRAD_REL_TOL``."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    ops.reset_launch_counts()
+    loss_k, met_k, grads_k = run_kernels()
+    n_k = ops.launch_counts()
+    loss_p, met_p, grads_p = run_plain()
+    n_p = ops.launch_counts()
+    if n_k != want or n_p != n_k:
+        fail(f"{label} gradient gate: launches {n_k} (want {want}), then {n_p} with the plain versions")
+    rel = []
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        gk, gp = gk.float(), gp.float()
+        if not torch.isfinite(gk).all():
+            fail(f"{label} gradient of {name}: non-finite")
+        rel.append(((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item())
+    worst = sorted(zip(rel, names), reverse=True)[:4]
+    print(f"  {label}, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f}"
+          + "".join(f", {k} {met_k[k]:.6f} vs {met_p[k]:.6f}" for k in met_k)
+          + f"; relative L2 error per leaf max {max(rel):.4e} (tol {GRAD_REL_TOL}), median "
+          f"{statistics.median(rel):.4e} over {len(rel)} leaves; worst " + "; ".join(f"{n} {r:.3e}" for r, n in worst))
+    if not max(rel) <= GRAD_REL_TOL or not all(np.isfinite(v) for v in (loss_k, *met_k.values())):
+        fail(f"{label} gradient gate: relative L2 error {max(rel)} > {GRAD_REL_TOL}, loss {loss_k}, metrics {met_k}")
+
+
 # phase 3e: B10's IoT fan-in (benchmarks/bench_koalja.py: 437-480) with its
 # readings on the card at B14's payload size: 3 zones x 8 sensors x 3 rounds
 FANIN = dict(zones=3, sensors=8, rounds=3, seed=11)
@@ -1494,21 +1631,20 @@ def hub_phase(dev, card, wall, time_ms, rows, device_profile):
     del w
 
 
-def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, fail):
+def training_phase(dev, rand, check, check_grad, time_ms, bound, rows, plain, device_profile, fail):
     """Phase 5: the training run of stablelm-1.6b at full width, and K1 timed."""
     import shutil
 
     import torch
-    import torch.nn.functional as F
 
     from repro_torch.checkpoint import checkpoint as ckpt_mod
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import build_data_pipeline, next_batch
     from repro_torch.dist.step import make_train_step
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.launch import train
-    from repro_torch.models.registry import build_model, train_loss
+    from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw_init, adamw_update, constant_lr
     from repro_torch.optim.adamw import tree_leaves, tree_map
 
@@ -1594,29 +1730,7 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
     data = build_data_pipeline(cfg, B, L, seed=TRAIN["seed"])
     batch = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in next_batch(data, cfg).items()}
     step = make_train_step(model, dev, constant_lr(REPEAT_LR), global_batch=B)
-    mets, times = [], []
-    ops.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    with PlainSpy() as spy:
-        for _ in range(TRAIN_REPEAT):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, met = step(state, batch)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-            mets.append({k: v.item() for k, v in met.items()})
-    launches, peak = ops.launch_counts(), torch.cuda.max_memory_allocated()
-    for i, m in enumerate(mets):
-        print(f"  repeated batch step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
-              + f" ({times[i]:.3f} s)")
-    if launches != want_launches(TRAIN_REPEAT) or any(spy.calls.values()):
-        fail(f"make_train_step: launches {launches} (want {want_launches(TRAIN_REPEAT)}), plain calls {spy.calls}")
-    if not all(np.isfinite(v) for m in mets for v in m.values()):
-        fail(f"make_train_step: non-finite metrics {mets}")
-    losses = [m["loss"] for m in mets]
-    if not all(b < a for a, b in zip(losses, losses[1:])):
-        fail(f"make_train_step: the loss on a repeated batch did not fall at every step: {losses}")
-    step_s = statistics.median(times[1:])
+    state, step_s, peak = repeated_batch(cfg.name, step, state, batch, want_launches(1))
     flops = 6 * n_params * tokens_a_step
     print(f"  step time {step_s:.4f} s (median of steps 1-{TRAIN_REPEAT - 1}), {tokens_a_step / step_s:.1f} tokens/s, "
           f"MFU {flops / step_s / PEAK_FLOPS['bfloat16']:.4f} (6 N tokens = {flops:.4e} FLOP, N = {n_params}, "
@@ -1649,34 +1763,10 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
     # 5c. one step's gradient of every leaf, kernels vs plain versions
     params = model.init(TRAIN["seed"], dev)
     small = {k: v[:GRAD_BATCH] for k, v in batch.items()}
-
-    def grads_of(kernels):
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        it = iter(leaves)
-        live = tree_map(lambda _: next(it), params)
-        loss, _ = train_loss(model, live, small, kernels=kernels)
-        return loss.item(), torch.autograd.grad(loss, leaves)
-
-    ops.reset_launch_counts()
-    loss_k, grads_k = grads_of(None)
-    n_k = ops.launch_counts()
-    loss_p, grads_p = grads_of(plain)
-    n_p = ops.launch_counts()
-    if n_k != want_launches(1) or n_p != n_k:
-        fail(f"gradient comparison: launches {n_k} (want {want_launches(1)}), then {n_p} with the plain versions")
-    rel = []
-    for name, gk, gp in zip(leaf_names(params), grads_k, grads_p):
-        gk, gp = gk.float(), gp.float()
-        if not torch.isfinite(gk).all():
-            fail(f"gradient of {name}: non-finite")
-        rel.append(((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item())
-    worst = sorted(zip(rel, leaf_names(params)), reverse=True)[:4]
-    print(f"  one step's gradient at batch {GRAD_BATCH}, kernels vs plain versions: loss {loss_k:.6f} vs {loss_p:.6f}; "
-          f"relative L2 error per leaf max {max(rel):.4e} (tol {GRAD_REL_TOL}), median {statistics.median(rel):.4e} "
-          f"over {len(rel)} leaves; worst " + "; ".join(f"{n} {r:.3e}" for r, n in worst))
-    if not max(rel) <= GRAD_REL_TOL:
-        fail(f"gradient comparison: relative L2 error {max(rel)} > {GRAD_REL_TOL}")
-    del params, grads_k, grads_p, batch, small, data
+    gradient_gate(f"{cfg.name}: one step's gradient at batch {GRAD_BATCH}", leaf_names(params),
+                  lambda: grads_of(model, params, small, None), lambda: grads_of(model, params, small, plain),
+                  want_launches(1))
+    del params, batch, small, data
     torch.cuda.empty_cache()
 
     # 5d. the --fail-at-step drill (reduced, bf16): the restored checkpoint is
@@ -1721,7 +1811,7 @@ def training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_pr
     torch.cuda.empty_cache()
 
     # 5e. K1 and the forward (with lse) at the training shape, timed as phase 4
-    k1_timing(rand, check_grad, time_ms, bound, rows, main_launches, step_s)
+    k1_timing(rand, check, check_grad, time_ms, bound, rows, main_launches, step_s)
 
 
 # phase 5g: jamba-v0.1-52b trained at full width, cut to its first 2 of 32
@@ -1816,12 +1906,9 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
     step); one step's gradient of every leaf against the plain versions on
     the kernels run's routing (``GRAD_REL_TOL``), for jamba and for mixtral
     (1 layer); K7a and K7b timed at jamba's training shapes."""
-    import shutil
-
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.checkpoint import checkpoint as ckpt_mod
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import build_data_pipeline, next_batch
     from repro_torch.dist.step import make_train_step
@@ -1830,9 +1917,8 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.mamba_scan import mamba_scan_bwd
     from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_bwd
-    from repro_torch.launch import train
     from repro_torch.models import moe as moe_mod
-    from repro_torch.models.registry import build_model, train_loss
+    from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw_init, adamw_update, constant_lr
     from repro_torch.optim.adamw import tree_leaves, tree_map
 
@@ -1875,44 +1961,19 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
     t_phase = time.perf_counter()
 
     # 5g-a. launch.train.run, as a user runs a config built in code; the final
-    # checkpoint (~45 GB with the f32 moments) is counted, not written: 5a writes stablelm's
-    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt_hybrid"
-    saves = []
-    save_async = ckpt_mod.CheckpointManager.save_async
-    ckpt_mod.CheckpointManager.save_async = lambda self, state, step, meta=None: saves.append(step)
-    try:
-        ops.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        with PlainSpy() as spy:
-            state, out = run_main_captured(
-                lambda _: train.run(cfg, steps=spec["steps"], batch=B, seq=L, lr=spec["lr"], ckpt_every=1000,
-                                    ckpt_dir=str(ckpt_dir), seed=spec["seed"], device=dev), None)
-        torch.cuda.synchronize()
-    finally:
-        ckpt_mod.CheckpointManager.save_async = save_async
-    launches = main_launches = ops.launch_counts()
-    routes = {"moe_gmm": dict(moe_gmm.route_launches), "moe_gmm_bwd": dict(moe_gmm_bwd.route_launches),
-              "mamba_scan_bwd": dict(mamba_scan_bwd.route_launches)}
+    # checkpoint (~45 GB with the f32 moments) is counted, not written
     want_main = times(want1, spec["steps"])
     n_moe_calls = want_main["moe_gmm"]
     want_routes = {"moe_gmm": {"fma": 0, "wgmma": n_moe_calls, "swap_ab": 0},
                    "moe_gmm_bwd": {"fma": 0, "mma": 0, "wgmma": want_main["moe_gmm_bwd"]},
                    "mamba_scan_bwd": {"chunked": want_main["mamba_scan_bwd"], "per_step": 0}}
-    losses = step_losses(out)
+    state = checked_train_run(
+        cfg, dev, B, L, spec["steps"], spec["lr"], spec["seed"], want_main,
+        lambda: {"moe_gmm": dict(moe_gmm.route_launches), "moe_gmm_bwd": dict(moe_gmm_bwd.route_launches),
+                 "mamba_scan_bwd": dict(mamba_scan_bwd.route_launches)}, want_routes)
+    main_launches = ops.launch_counts()
     n_params = sum(p.numel() for p in tree_leaves(state["params"]))
-    print(f"  train.run: launches {launches} (want {want_main}); by route {routes}; plain versions called "
-          f"{spy.calls}; saves {saves}; {n_params} params; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    if launches != want_main or routes != want_routes:
-        fail(f"train.run {cfg.name}: launches {launches}, routes {routes}: want {want_main}, {want_routes}")
-    if any(spy.calls.values()):
-        fail(f"train.run {cfg.name}: the plain versions ran on the card path: {spy.calls}")
-    if [s for s, _ in losses] != list(range(spec["steps"])) or not all(np.isfinite(l) for _, l in losses):
-        fail(f"train.run {cfg.name}: step losses {losses}")
-    if int(state["step"]) != spec["steps"] or saves != [spec["steps"]]:
-        fail(f"train.run {cfg.name}: step {int(state['step'])}, saves {saves}")
     del state
-    shutil.rmtree(ckpt_dir, ignore_errors=True)
     torch.cuda.empty_cache()
 
     # 5g-b. make_train_step on one repeated batch: the loss falls; time, memory, shares
@@ -1922,30 +1983,7 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
     data = build_data_pipeline(cfg, B, L, seed=spec["seed"])
     batch = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in next_batch(data, cfg).items()}
     step = make_train_step(model, dev, constant_lr(REPEAT_LR), global_batch=B)
-    mets, step_times = [], []
-    ops.reset_launch_counts()
-    torch.cuda.reset_peak_memory_stats()
-    with PlainSpy() as spy:
-        for _ in range(TRAIN_REPEAT):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, met = step(state, batch)
-            torch.cuda.synchronize()
-            step_times.append(time.perf_counter() - t0)
-            mets.append({k: v.item() for k, v in met.items()})
-    launches, peak = ops.launch_counts(), torch.cuda.max_memory_allocated()
-    for i, m in enumerate(mets):
-        print(f"  repeated batch step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
-              + f" ({step_times[i]:.3f} s)")
-    if launches != times(want1, TRAIN_REPEAT) or any(spy.calls.values()):
-        fail(f"make_train_step {cfg.name}: launches {launches} (want {times(want1, TRAIN_REPEAT)}), plain "
-             f"calls {spy.calls}")
-    if not all(np.isfinite(v) for m in mets for v in m.values()):
-        fail(f"make_train_step {cfg.name}: non-finite metrics {mets}")
-    losses = [m["loss"] for m in mets]
-    if not all(b < a for a, b in zip(losses, losses[1:])):
-        fail(f"make_train_step {cfg.name}: the loss on a repeated batch did not fall at every step: {losses}")
-    step_s = statistics.median(step_times[1:])
+    state, step_s, peak = repeated_batch(cfg.name, step, state, batch, want1)
     print(f"  step time {step_s:.4f} s (median of steps 1-{TRAIN_REPEAT - 1}), {B * L / step_s:.1f} tokens/s, "
           f"peak memory {peak / 2**30:.2f} GiB")
     t, busy, kern, _ = device_profile(lambda: step(state, batch))
@@ -1959,7 +1997,7 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
         opt_s = [wall_s(lambda: adamw_update(state["params"], zeros, state["opt"],
                                              torch.tensor(REPEAT_LR, device=dev))) for _ in range(2)]
     print(f"  adamw_update alone: {min(opt_s) * 1e3:.2f} ms of the step ({n_params} params, f32 moments)")
-    del state, params, step, mets, zeros
+    del state, params, step, zeros
     torch.cuda.empty_cache()
 
     # 5g-c. one step's gradient of every leaf, kernels vs plain versions on the
@@ -1968,7 +2006,7 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
     # both dispatch the same slots and the gradients differ by arithmetic alone
     route = moe_mod.route
 
-    def gradient_gate(gcfg, label, gbatch):
+    def routed_gate(gcfg, label, gbatch):
         gmodel = build_model(gcfg)
         gparams = gmodel.init(spec["seed"], dev)
         chosen: list = []
@@ -1978,21 +2016,6 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
             chosen.append(out[2])
             return out
 
-        def grads_of(kernels, route_fn):
-            leaves = [p.detach().requires_grad_() for p in tree_leaves(gparams)]
-            it = iter(leaves)
-            live = tree_map(lambda _: next(it), gparams)
-            moe_mod.route = route_fn
-            try:
-                loss, met = train_loss(gmodel, live, gbatch, kernels=kernels)
-                grads = torch.autograd.grad(loss, leaves)
-            finally:
-                moe_mod.route = route
-            return loss.item(), met["aux"].item(), grads
-
-        ops.reset_launch_counts()
-        loss_k, aux_k, grads_k = grads_of(None, recording_route)
-        n_k = ops.launch_counts()
         replay = iter(chosen)
 
         def forced_route(p, c, xf):
@@ -2001,37 +2024,29 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
             gate_w = probs.gather(1, experts)
             return probs, gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9), experts
 
-        loss_p, aux_p, grads_p = grads_of(plain, forced_route)
-        n_p = ops.launch_counts()
-        want = per_step(gcfg)
-        if n_k != want or n_p != n_k or next(replay, None) is not None:
-            fail(f"{label} gradient gate: launches {n_k} (want {want}), then {n_p} with the plain versions; "
-                 f"{len(chosen)} routings recorded")
-        names = leaf_names(gparams)
-        rel = []
-        for name, gk, gp in zip(names, grads_k, grads_p):
-            gk, gp = gk.float(), gp.float()
-            if not torch.isfinite(gk).all():
-                fail(f"{label} gradient of {name}: non-finite")
-            rel.append(((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item())
-        worst = sorted(zip(rel, names), reverse=True)[:4]
-        print(f"  {label}: one step's gradient at batch {gbatch['tokens'].shape[0]} x {gbatch['tokens'].shape[1]}, "
-              f"kernels vs plain versions on the kernels' routing: loss {loss_k:.6f} vs {loss_p:.6f}, aux "
-              f"{aux_k:.6f} vs {aux_p:.6f}; relative L2 error per leaf max {max(rel):.4e} (tol {GRAD_REL_TOL}), "
-              f"median {statistics.median(rel):.4e} over {len(rel)} leaves; worst "
-              + "; ".join(f"{n} {r:.3e}" for r, n in worst))
-        if not max(rel) <= GRAD_REL_TOL or not (np.isfinite(loss_k) and np.isfinite(aux_k)):
-            fail(f"{label} gradient gate: relative L2 error {max(rel)} > {GRAD_REL_TOL}, loss {loss_k}, aux {aux_k}")
-        del gparams, grads_k, grads_p
+        def routed(route_fn, kernels):
+            moe_mod.route = route_fn
+            try:
+                return grads_of(gmodel, gparams, gbatch, kernels)
+            finally:
+                moe_mod.route = route
+
+        gradient_gate(f"{label}: one step's gradient at batch {gbatch['tokens'].shape[0]} x "
+                      f"{gbatch['tokens'].shape[1]} (the plain versions on the kernels' routing)",
+                      leaf_names(gparams), lambda: routed(recording_route, None), lambda: routed(forced_route, plain),
+                      per_step(gcfg))
+        if next(replay, None) is not None:
+            fail(f"{label} gradient gate: {len(chosen)} routings recorded, fewer replayed")
+        del gparams
         torch.cuda.empty_cache()
 
-    gradient_gate(cfg, cfg.name, batch)
+    routed_gate(cfg, cfg.name, batch)
     mspec = TRAIN_MIXTRAL
     mcfg = dataclasses.replace(get_config(mspec["arch"]), n_layers=mspec["n_layers"])
     mdata = build_data_pipeline(mcfg, mspec["batch"], mspec["seq"], seed=mspec["seed"])
     mbatch = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev)
               for k, v in next_batch(mdata, mcfg).items()}
-    gradient_gate(mcfg, f"{mcfg.name} ({mcfg.n_layers} layer, window {mcfg.window})", mbatch)
+    routed_gate(mcfg, f"{mcfg.name} ({mcfg.n_layers} layer, window {mcfg.window})", mbatch)
     del batch, mbatch
     torch.cuda.empty_cache()
     print(f"  phase 5g's training and gradient gates: {time.perf_counter() - t_phase:.1f} s")
@@ -2150,7 +2165,8 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
 
 # phase 5h: the three layouts that train since MLA, the encoder-decoder and
 # the vision prefix got their gradient, each at full width and uncut, bf16,
-# remat "block" (their configs'), batch 4 x seq 1024: minicpm3-4b (62 layers,
+# remat "block" (their configs'), batch x seq TRAIN_5H_SHAPE, launch.train.run
+# for TRAIN["steps"] steps at TRAIN's seed and lr, as 5a: minicpm3-4b (62 layers,
 # MLA at Dk 96 / Dv 64; 4.26 B params, ~48 GiB of bf16 params and grads and
 # f32 moments), seamless-m4t-medium (12 encoder layers over 4096 stub frames a
 # sample, 12 decoder layers with cross-attention), internvl2-1b (24 layers,
@@ -2162,11 +2178,11 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
 # the plain versions alike (tools/torch_train_probe.py --plain, seed 0, on an
 # H100): Adam's first steps move every weight by ~lr whatever its gradient;
 # at 1e-5 the loss falls at every step
+TRAIN_5H_SHAPE = (4, 1024)
 TRAIN_5H = [
-    dict(arch="minicpm3-4b", batch=4, seq=1024, steps=3, seed=0, lr=3e-4, repeat_lr=1e-5, grad_layers=(2, 0)),
-    dict(arch="seamless-m4t-medium", batch=4, seq=1024, steps=3, seed=0, lr=3e-4, repeat_lr=REPEAT_LR,
-         grad_layers=(1, 1)),
-    dict(arch="internvl2-1b", batch=4, seq=1024, steps=3, seed=0, lr=3e-4, repeat_lr=REPEAT_LR, grad_layers=(2, 0)),
+    dict(arch="minicpm3-4b", repeat_lr=1e-5, grad_layers=(2, 0)),
+    dict(arch="seamless-m4t-medium", repeat_lr=REPEAT_LR, grad_layers=(1, 1)),
+    dict(arch="internvl2-1b", repeat_lr=REPEAT_LR, grad_layers=(2, 0)),
 ]
 
 
@@ -2195,33 +2211,29 @@ def attention_pairs(Lq: int, Lk: int, causal: bool) -> int:
     return sum(min(q + 1, Lk) for q in range(Lq)) if causal else Lq * Lk
 
 
-def frontend_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile):
+def frontend_training_phase(dev, rand, check, check_grad, time_ms, bound, rows, plain, device_profile):
     """Phase 5h: train minicpm3-4b, seamless-m4t-medium and internvl2-1b at
     full width through ``launch.train.run`` (exact launches by kernel, route
     and input shape; no plain version), then each on a repeated batch (the
     loss falls; step time, tokens/s, MFU, peak memory, kernel shares), one
     step's gradient of every leaf against the plain versions at a reduced
     depth (``GRAD_REL_TOL``), and K1 timed at each of its training shapes."""
-    import shutil
-
     import torch
-    import torch.nn.functional as F
 
-    from repro_torch.checkpoint import checkpoint as ckpt_mod
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import build_data_pipeline, next_batch
     from repro_torch.dist.step import make_train_step
-    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import ops
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.launch import train
-    from repro_torch.models.registry import build_model, train_loss
+    from repro_torch.models.registry import build_model
     from repro_torch.optim import adamw_init, constant_lr
-    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.optim.adamw import tree_leaves
 
     t_phase = time.perf_counter()
+    B, L = TRAIN_5H_SHAPE
     for spec in TRAIN_5H:
         cfg = get_config(spec["arch"])
-        B, L, n_steps = spec["batch"], spec["seq"], spec["steps"]
         if cfg.remat != "block" or cfg.dtype != "bfloat16":
             fail(f"{cfg.name}: remat {cfg.remat!r}, dtype {cfg.dtype}: the counts below assume 'block', bf16")
         calls = attention_calls(cfg, B, L)
@@ -2235,98 +2247,48 @@ def frontend_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, 
               f"seq {L}, remat {cfg.remat!r}; attention calls a step "
               + "; ".join(f"{label} {shape} x{n}" for label, shape, n in calls))
 
-        # 5h-a. launch.train.run, its final checkpoint counted, not written (5a
-        # writes stablelm's); the backward's calls counted by input shapes
-        ckpt_dir = ROOT / "build" / "chip_smoke_ckpt_5h"
-        saves, by_shape = [], {}
-        save_async = ckpt_mod.CheckpointManager.save_async
-        ckpt_mod.CheckpointManager.save_async = lambda self, state, step, meta=None: saves.append(step)
-        ops.reset_launch_counts()
-        kept = dict(ops.KERNELS)
+        # 5h-a. launch.train.run, the backward's calls counted by input shapes
+        n_steps, by_shape = TRAIN["steps"], {}
 
         def counted_bwd(q, k, v, *args, **kwargs):
             key = (tuple(q.shape), tuple(k.shape), tuple(v.shape), kwargs.get("causal", True))
             by_shape[key] = by_shape.get(key, 0) + 1
-            return kept["flash_attention_bwd"](q, k, v, *args, **kwargs)
-
-        ops.KERNELS["flash_attention_bwd"] = counted_bwd
-        try:
-            torch.cuda.reset_peak_memory_stats()
-            with PlainSpy() as spy:
-                state, out = run_main_captured(
-                    lambda _: train.run(cfg, steps=n_steps, batch=B, seq=L, lr=spec["lr"], ckpt_every=1000,
-                                        ckpt_dir=str(ckpt_dir), seed=spec["seed"], device=dev), None)
-            torch.cuda.synchronize()
-        finally:
-            ckpt_mod.CheckpointManager.save_async = save_async
-            ops.KERNELS.update(kept)
-        launches = ops.launch_counts()
-        routes = {"flash_attention": dict(flash_attention.route_launches),
-                  "flash_attention_bwd": dict(flash_attention_bwd.route_launches)}
-        want_main = {k: v * n_steps for k, v in per_step.items()}
-        want_routes = {"flash_attention": {"fma": 0, "mma": want_main["flash_attention"]},
-                       "flash_attention_bwd": {"fma": 0, "mma": 0, "wgmma": want_main["flash_attention_bwd"]}}
+            return flash_attention_bwd(q, k, v, *args, **kwargs)
 
         def shape_key(shape):
             b, lq, lk, h, kvh, dk, dv, causal = shape
             return (b, lq, h, dk), (b, lk, kvh, dk), (b, lk, kvh, dv), causal
 
+        want_main = {k: v * n_steps for k, v in per_step.items()}
+        state = checked_train_run(
+            cfg, dev, B, L, n_steps, TRAIN["lr"], TRAIN["seed"], want_main,
+            lambda: {"flash_attention": dict(flash_attention.route_launches),
+                     "flash_attention_bwd": dict(flash_attention_bwd.route_launches)},
+            {"flash_attention": {"fma": 0, "mma": want_main["flash_attention"]},
+             "flash_attention_bwd": {"fma": 0, "mma": 0, "wgmma": want_main["flash_attention_bwd"]}},
+            spies={"flash_attention_bwd": counted_bwd})
         want_shapes = {shape_key(shape): n * n_steps for _, shape, n in calls}
-        losses = step_losses(out)
+        print(f"  backward calls by input shapes {by_shape}")
+        if by_shape != want_shapes:
+            fail(f"train.run {cfg.name}: backward calls by shapes {by_shape}, want {want_shapes}")
         n_params = sum(p.numel() for p in tree_leaves(state["params"]))
         n_enc = sum(p.numel() for p in tree_leaves(state["params"].get("encoder", {})))
-        print(f"  train.run: launches {launches} (want {want_main}); by route {routes}; backward calls by shapes "
-              f"{by_shape}; plain versions called {spy.calls}; saves {saves}; {n_params} params; peak memory "
-              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        if launches != want_main or routes != want_routes or by_shape != want_shapes:
-            fail(f"train.run {cfg.name}: launches {launches}, routes {routes}, shapes {by_shape}: want {want_main}, "
-                 f"{want_routes}, {want_shapes}")
-        if any(spy.calls.values()):
-            fail(f"train.run {cfg.name}: the plain versions ran on the card path: {spy.calls}")
-        if [s for s, _ in losses] != list(range(n_steps)) or not all(np.isfinite(l) for _, l in losses):
-            fail(f"train.run {cfg.name}: step losses {losses}")
-        if int(state["step"]) != n_steps or saves != [n_steps]:
-            fail(f"train.run {cfg.name}: step {int(state['step'])}, saves {saves}")
         del state
-        shutil.rmtree(ckpt_dir, ignore_errors=True)
         torch.cuda.empty_cache()
 
         # 5h-b. make_train_step on one repeated batch (the data circuit's
         # tokens, the stub frames or prefix run draws at step 0)
         model = build_model(cfg)
-        params = model.init(spec["seed"], dev)
+        params = model.init(TRAIN["seed"], dev)
         state = {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32, device=dev)}
-        data = build_data_pipeline(cfg, B, L, seed=spec["seed"])
+        data = build_data_pipeline(cfg, B, L, seed=TRAIN["seed"])
         batch = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in next_batch(data, cfg).items()}
         if cfg.encoder_layers:
             batch["frames"] = train._stub_embeddings(cfg, B, 0, dev)
         if cfg.frontend == "vision":
             batch["prefix"] = train._stub_embeddings(cfg, B, 0, dev)
         step = make_train_step(model, dev, constant_lr(spec["repeat_lr"]), global_batch=B)
-        mets, step_times = [], []
-        ops.reset_launch_counts()
-        torch.cuda.reset_peak_memory_stats()
-        with PlainSpy() as spy:
-            for _ in range(TRAIN_REPEAT):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, met = step(state, batch)
-                torch.cuda.synchronize()
-                step_times.append(time.perf_counter() - t0)
-                mets.append({k: v.item() for k, v in met.items()})
-        launches, peak = ops.launch_counts(), torch.cuda.max_memory_allocated()
-        for i, m in enumerate(mets):
-            print(f"  repeated batch step {i}: " + ", ".join(f"{k} {v:.6g}" for k, v in m.items())
-                  + f" ({step_times[i]:.3f} s)")
-        want_rep = {k: v * TRAIN_REPEAT for k, v in per_step.items()}
-        if launches != want_rep or any(spy.calls.values()):
-            fail(f"make_train_step {cfg.name}: launches {launches} (want {want_rep}), plain calls {spy.calls}")
-        if not all(np.isfinite(v) for m in mets for v in m.values()):
-            fail(f"make_train_step {cfg.name}: non-finite metrics {mets}")
-        losses = [m["loss"] for m in mets]
-        if not all(b < a for a, b in zip(losses, losses[1:])):
-            fail(f"make_train_step {cfg.name}: the loss on a repeated batch did not fall at every step: {losses}")
-        step_s = statistics.median(step_times[1:])
+        state, step_s, peak = repeated_batch(cfg.name, step, state, batch, per_step)
         positions = B * (L + (cfg.frontend_len if cfg.frontend == "vision" else 0))
         frames = B * cfg.frontend_len if cfg.encoder_layers else 0
         # 6 N a position: the encoder's params see the frames, the rest the decoder's positions
@@ -2345,7 +2307,7 @@ def frontend_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, 
         print(f"  profiled step: wall {t * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms (idle share "
               f"{1 - busy / t:.3f}); device ms (share of busy): " + "; ".join(
                   f"{n} {ms:.2f} ({ms / (busy * 1e3):.3f})" for n, ms in sorted(shares.items(), key=lambda kv: -kv[1])))
-        del state, params, step, mets, model
+        del state, params, step, model
         torch.cuda.empty_cache()
 
         # 5h-c. one step's gradient of every leaf, kernels vs plain versions, at
@@ -2353,57 +2315,33 @@ def frontend_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, 
         n_dec, n_enc_layers = spec["grad_layers"]
         gcfg = dataclasses.replace(cfg, n_layers=n_dec, encoder_layers=n_enc_layers if cfg.encoder_layers else 0)
         gmodel = build_model(gcfg)
-        gparams = gmodel.init(spec["seed"], dev)
+        gparams = gmodel.init(TRAIN["seed"], dev)
         small = {k: v[:GRAD_BATCH] for k, v in batch.items()}
-
-        def grads_of(kernels):
-            leaves = [p.detach().requires_grad_() for p in tree_leaves(gparams)]
-            it = iter(leaves)
-            live = tree_map(lambda _: next(it), gparams)
-            loss, _ = train_loss(gmodel, live, small, kernels=kernels)
-            return loss.item(), torch.autograd.grad(loss, leaves)
-
         gcalls = sum(n for _, _, n in attention_calls(gcfg, GRAD_BATCH, L))
         want1 = dict.fromkeys(ops.KERNELS, 0)
         want1.update(flash_attention=2 * gcalls, flash_attention_bwd=gcalls)
-        ops.reset_launch_counts()
-        loss_k, grads_k = grads_of(None)
-        n_k = ops.launch_counts()
-        loss_p, grads_p = grads_of(plain)
-        n_p = ops.launch_counts()
-        if n_k != want1 or n_p != n_k:
-            fail(f"{cfg.name} gradient gate: launches {n_k} (want {want1}), then {n_p} with the plain versions")
-        names = leaf_names(gparams)
-        rel = []
-        for name, gk, gp in zip(names, grads_k, grads_p):
-            gk, gp = gk.float(), gp.float()
-            if not torch.isfinite(gk).all():
-                fail(f"{cfg.name} gradient of {name}: non-finite")
-            rel.append(((gk - gp).norm() / gp.norm().clamp_min(1e-30)).item())
-        worst = sorted(zip(rel, names), reverse=True)[:4]
         depth = f"{n_dec} layer{'s' * (n_dec > 1)}" + (f" + {n_enc_layers} encoder" if gcfg.encoder_layers else "")
-        print(f"  one step's gradient at batch {GRAD_BATCH}, {depth}, kernels vs plain versions: loss {loss_k:.6f} vs "
-              f"{loss_p:.6f}; relative L2 error per leaf max {max(rel):.4e} (tol {GRAD_REL_TOL}), median "
-              f"{statistics.median(rel):.4e} over {len(rel)} leaves; worst "
-              + "; ".join(f"{n} {r:.3e}" for r, n in worst))
-        if not max(rel) <= GRAD_REL_TOL or not np.isfinite(loss_k):
-            fail(f"{cfg.name} gradient gate: relative L2 error {max(rel)} > {GRAD_REL_TOL}, loss {loss_k}")
-        del gparams, grads_k, grads_p, batch, small, data
+        gradient_gate(f"{cfg.name}: one step's gradient at batch {GRAD_BATCH}, {depth}", leaf_names(gparams),
+                      lambda: grads_of(gmodel, gparams, small, None), lambda: grads_of(gmodel, gparams, small, plain),
+                      want1)
+        del gparams, gmodel, batch, small, data
         torch.cuda.empty_cache()
 
         # 5h-d. K1 at each of the step's attention shapes, timed as phase 5e
-        for label, shape, n in calls:
-            k1_row(f"{cfg.name} training {label}", shape, by_shape.get(shape_key(shape), 0), rand, check_grad,
+        for label, shape, _ in calls:
+            k1_row(f"{cfg.name} training {label}", shape, by_shape.get(shape_key(shape), 0), rand, check, check_grad,
                    time_ms, bound, rows)
     print(f"  phase 5h: {time.perf_counter() - t_phase:.1f} s")
 
 
-def k1_row(label, shape, n_main, rand, check_grad, time_ms, bound, rows):
-    """K1 at one training shape (B, Lq, Lk, H, KVH, Dk, Dv, causal), bf16, on
-    the route it takes, timed as phase 4 (L2 flushed) beside its bound, its
-    plain version and SDPA's backward where SDPA takes the shape; each
-    launch's device time from the profiler (dq, dkdv). ``n_main``: its
-    launches on the main path."""
+def k1_row(label, shape, n_main, rand, check, check_grad, time_ms, bound, rows, with_mma=False):
+    """K1 at one training shape (B, Lq, Lk, H, KVH, Dk, Dv, causal), bf16: the
+    forward's o and lse there against the plain forward's, the backward
+    against the plain backward on the route it takes, timed as phase 4 (L2
+    flushed) beside its bound, its plain version and SDPA's backward where
+    SDPA takes the shape; each launch's device time from the profiler (dq,
+    dkdv). ``with_mma``: also on the mma route, in turns (own, mma, mma,
+    own). ``n_main``: its launches on the main path. Returns its ms."""
     import torch
     import torch.nn.functional as F
 
@@ -2417,7 +2355,11 @@ def k1_row(label, shape, n_main, rand, check_grad, time_ms, bound, rows):
     k, v = rand(B, Lk, KVH, Dk, dtype=bf), rand(B, Lk, KVH, Dv, dtype=bf)
     o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
     name = f"({B}, {Lq} x {Lk}, {H}/{KVH}, {Dk}/{Dv}, {'causal' if causal else 'non-causal'})"
-    want = ref.reference_attention_bwd(q, k, v, o, do, lse, causal=causal)
+    ro, rl = ref.reference_attention(q, k, v, causal=causal, return_lse=True)
+    check(f"flash_attention lse at {label} {name}", lse, rl, torch.float32)
+    check(f"flash_attention o at {label} {name}", o, ro, bf)
+    want = ref.reference_attention_bwd(q, k, v, o, do, rl, causal=causal)
+    del ro, rl
     err = max(check_grad(f"flash_attention_bwd {n} at {label} {name}", g, w, bf)
               for n, g, w in zip(("dq", "dk", "dv"), flash_attention_bwd(q, k, v, o, do, lse, causal=causal), want))
     del want
@@ -2431,7 +2373,12 @@ def k1_row(label, shape, n_main, rand, check_grad, time_ms, bound, rows):
     def call():
         return flash_attention_bwd(q, k, v, o, do, lse, causal=causal)
 
-    own = [time_ms(call, reps=10), time_ms(call, reps=10)]
+    def on_mma():
+        return on_bwd_route("mma", call)
+
+    own = [time_ms(call, reps=10)]
+    mma = [time_ms(on_mma, reps=10), time_ms(on_mma, reps=10)] if with_mma else []
+    own.append(time_ms(call, reps=10))
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2)
     try:  # the yardstick only: a shape SDPA does not take has no library time
@@ -2454,11 +2401,18 @@ def k1_row(label, shape, n_main, rand, check_grad, time_ms, bound, rows):
         library_ms=lib_ms, library=library, dq_ms=split["dq"], dkdv_ms=split["dkdv"],
     ))
     lib = "none" if lib_ms is None else f"{lib_ms:.4f} ms ({ms / lib_ms:.2f}x)"
-    print(f"  flash_attention_bwd at {label} {name}: {route} {own[0]:.4f}, {own[1]:.4f} ms; bound {b_ms:.4f} ms "
-          f"({b_by}; {ms / b_ms:.2f}x); SDPA's backward {lib}; plain {plain_ms:.4f} ms; device time by launch "
-          f"(profiler, mean of the recorded calls of 3, L2 warm): {split}; {n_main} launches on the main path")
+    turns = ""
+    if with_mma:
+        mma_split = launch_split(on_mma, ("dot_do_o", "dq", "dkdv"), k1_part)
+        rows[-1].update(mma_ms=statistics.mean(mma), mma_split_ms=mma_split)
+        turns = (f"; mma {mma[0]:.4f}, {mma[1]:.4f} ms (in turns; {statistics.mean(mma) / ms:.2f}x), device time by "
+                 f"launch {mma_split}")
+    print(f"  flash_attention_bwd at {label} {name}: {route} {own[0]:.4f}, {own[1]:.4f} ms{turns}; bound "
+          f"{b_ms:.4f} ms ({b_by}; {ms / b_ms:.2f}x); SDPA's backward {lib}; plain {plain_ms:.4f} ms; device time by "
+          f"launch (profiler, mean of the recorded calls of 3, L2 warm): {split}; {n_main} launches on the main path")
     del q, k, v, do, o, lse, qt, kt, vt, dot
     torch.cuda.empty_cache()
+    return ms
 
 
 # phase 5f: the eval circuit's frozen batch (rows x seq), made from this seed
@@ -2590,27 +2544,27 @@ def eval_phase(model, state, step, batch, dev, rows, time_ms, bound, rand):
     torch.cuda.empty_cache()
 
 
-def k1_timing(rand, check_grad, time_ms, bound, rows, launches, step_s):
-    """Phase 5e: the forward with lse at stablelm-1.6b's training shape, and
-    K1 there and at qwen2.5-32b's heads (``K1_QWEN``: Dh 128, gq 5), timed as
-    phase 4 (L2 flushed) beside their bounds, their plain versions and SDPA;
-    K1 on its wgmma route and on mma in turns (wgmma, mma, mma, wgmma), and
-    each of its launches' device time from torch.profiler (dq, dkdv, and
-    dot_do_o on mma). ``launches``: the main path's counts by kernel; the
-    qwen2.5 row, a shape the main path does not run, has 0."""
+def k1_timing(rand, check, check_grad, time_ms, bound, rows, launches, step_s):
+    """Phase 5e: the forward with lse at stablelm-1.6b's training shape,
+    checked and timed as phase 4 (L2 flushed) beside its bound, its plain
+    version and SDPA; K1 there and at qwen2.5-32b's heads (``K1_QWEN``: Dh
+    128, gq 5) by ``k1_row``, also on mma in turns. ``launches``: the main
+    path's counts by kernel; the qwen2.5 row, a shape the main path does not
+    run, has 0."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_attention import flash_attention
 
     cfg = get_config(TRAIN["arch"])
     B, L, H, Dh, bf, es = TRAIN["batch"], TRAIN["seq"], cfg.n_heads, cfg.head_dim, torch.bfloat16, 2
     q, k, v = (rand(B, L, H, Dh, dtype=bf) for _ in range(3))
     o, lse = flash_attention(q, k, v, return_lse=True)
     ro, rl = ref.reference_attention(q, k, v, return_lse=True)
-    fwd_err = max((o.float() - ro.float()).abs().max().item(), (lse - rl).abs().max().item())
+    fwd_err = max(check(f"flash_attention lse at {cfg.name} training", lse, rl, torch.float32),
+                  check(f"flash_attention o at {cfg.name} training", o, ro, bf))
     del ro, rl
     pairs = L * (L + 1) // 2  # causal (q, k) pairs
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -2629,60 +2583,12 @@ def k1_timing(rand, check_grad, time_ms, bound, rows, launches, step_s):
     del q, k, v, o, lse, qt, kt, vt
     torch.cuda.empty_cache()
 
-    for label, (B, L, H, KVH, Dh), n_main in (
-            (f"{cfg.name} training", (B, L, H, cfg.n_kv_heads, Dh), launches["flash_attention_bwd"]),
-            ("qwen2.5-32b heads, not on the main path", K1_QWEN, 0)):
-        q, do = rand(B, L, H, Dh, dtype=bf), rand(B, L, H, Dh, dtype=bf)
-        k, v = rand(B, L, KVH, Dh, dtype=bf), rand(B, L, KVH, Dh, dtype=bf)
-        o, lse = flash_attention(q, k, v, return_lse=True)
-        shape = f"({B}, {L}, {H}, {KVH}, {Dh})"
-        want = ref.reference_attention_bwd(q, k, v, o, do, lse)
-        err = max(check_grad(f"flash_attention_bwd {n} at {label} {shape}", g, w, bf)
-                  for n, g, w in zip(("dq", "dk", "dv"), flash_attention_bwd(q, k, v, o, do, lse), want))
-        del want
-        torch.cuda.empty_cache()
-        pairs = L * (L + 1) // 2
-        # q, o, dO and dq; k, v, dk and dv; lse: each read or written once
-        nbytes = 4 * B * L * H * Dh * es + 4 * B * L * KVH * Dh * es + B * H * L * 4
-        b_ms, b_by = bound(nbytes, 10 * B * H * Dh * pairs, "bfloat16")  # Q.K^T, dO.V^T, P^T.dO, dS.K, dS^T.Q
-
-        def call():
-            return flash_attention_bwd(q, k, v, o, do, lse)
-
-        def on_mma():
-            return on_bwd_route("mma", call)
-
-        own = [time_ms(call, reps=10)]
-        mma = [time_ms(on_mma, reps=10), time_ms(on_mma, reps=10)]
-        own.append(time_ms(call, reps=10))
-        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
-        lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=H != KVH)
-        dot = do.transpose(1, 2)
-        lib_ms = time_ms(lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True), reps=10)
-        del lib_out
-        plain_ms = time_ms(lambda: ref.reference_attention_bwd(q, k, v, o, do, lse), reps=3)
-        torch.cuda.empty_cache()
-        split = {"wgmma": launch_split(call, ("dq", "dkdv"), k1_part),
-                 "mma": launch_split(on_mma, ("dot_do_o", "dq", "dkdv"), k1_part)}
-        ms = statistics.mean(own)
-        rows.append(dict(
-            name="flash_attention_bwd", path=f"{label} {shape}, bf16, route wgmma", route="cuda",
-            source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
-            replaces="src/repro/models/attention.py:48 (no Pallas kernel: jax autodiff of blocked_attention)",
-            launches=n_main,
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-            library="scaled_dot_product_attention backward (torch.autograd.grad)",
-            mma_ms=statistics.mean(mma), dq_ms=split["wgmma"]["dq"], dkdv_ms=split["wgmma"]["dkdv"],
-            mma_split_ms=split["mma"],
-        ))
-        print(f"  flash_attention_bwd at {label} {shape}: wgmma {own[0]:.4f}, {own[1]:.4f} ms; mma {mma[0]:.4f}, "
-              f"{mma[1]:.4f} ms (in turns; {statistics.mean(mma) / ms:.2f}x); bound {b_ms:.4f} ms ({b_by}; "
-              f"{ms / b_ms:.2f}x); SDPA's backward {lib_ms:.4f} ms ({ms / lib_ms:.2f}x); device time by launch "
-              f"(profiler, mean of the recorded calls of 3, L2 warm): wgmma {split['wgmma']}, mma {split['mma']}")
-        if label.startswith(cfg.name):
-            print(f"  {cfg.n_layers} a step: {cfg.n_layers * ms:.1f} ms of the {step_s * 1e3:.1f} ms step")
-        del q, k, v, do, o, lse, qt, kt, vt, dot
-        torch.cuda.empty_cache()
+    ms = k1_row(f"{cfg.name} training", (B, L, L, H, cfg.n_kv_heads, Dh, Dh, True), launches["flash_attention_bwd"],
+                rand, check, check_grad, time_ms, bound, rows, with_mma=True)
+    print(f"  {cfg.n_layers} a step: {cfg.n_layers * ms:.1f} ms of the {step_s * 1e3:.1f} ms step")
+    B, L, H, KVH, Dh = K1_QWEN
+    k1_row("qwen2.5-32b heads, not on the main path", (B, L, L, H, KVH, Dh, Dh, True), 0, rand, check, check_grad,
+           time_ms, bound, rows, with_mma=True)
 
 
 def main() -> int:
@@ -3776,11 +3682,11 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5. train stablelm-1.6b at full width ----------------------------------
-    training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, fail)
+    training_phase(dev, rand, check, check_grad, time_ms, bound, rows, plain, device_profile, fail)
     # -- 5g. train jamba-v0.1-52b at full width, 2 layers; mixtral's gated step -
     hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, n_sms, sm_clock_mhz)
     # -- 5h. train minicpm3-4b, seamless-m4t-medium and internvl2-1b at full width
-    frontend_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile)
+    frontend_training_phase(dev, rand, check, check_grad, time_ms, bound, rows, plain, device_profile)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     for r in rows:

@@ -971,11 +971,13 @@ dq_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtens
   bool ok[2];
   int64_t row[2], stat[2];
   float lse2[2], dd[2];
+  int klast[2];  // the row's last visible key: causal and Lk folded into one bound
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i;
     const int h = kvh * gq + r % gq;
     qpos[i] = p_lo + r / gq;
+    klast[i] = causal ? min(qpos[i], Lk - 1) : Lk - 1;
     ok[i] = r < rows && qpos[i] < Lq;
     row[i] = ok[i] ? ((int64_t)b * Lq + qpos[i]) * H + h : 0;
     stat[i] = ok[i] ? ((int64_t)b * H + h) * Lq + qpos[i] : 0;
@@ -1041,7 +1043,9 @@ dq_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtens
     // P = exp2(S scale log2(e) - lse log2(e)), 0 where masked (per element
     // only on tiles that hold a masked pair: causal, window, or keys past Lk,
     // whose K and V rows are TMA's zeros, so that P there is exactly 0 as the
-    // plain version's, whatever the row's lse); dS = P (dP - D)
+    // plain version's, whatever the row's lse); dS = P (dP - D). The test is
+    // one compare against klast: with visible()'s tests and kpos < Lk, dq's
+    // launch took 14-29% longer at the training shapes (tools/torch_bwd_probe.py)
     const int k0 = (kt_begin + i) * TILE;
     const bool edge = k0 + TILE > Lk || (causal && k0 + TILE - 1 > p_lo) ||
                       (window > 0 && k0 <= p_lo + bq - 1 - window);
@@ -1051,7 +1055,7 @@ dq_kernel(__grid_constant__ const CUtensorMap mQ, __grid_constant__ const CUtens
       for (int e = 0; e < 4; ++e) {
         const int r = e >> 1, kpos = k0 + 8 * j + 2 * (lane % 4) + (e & 1);
         float p = exp2_approx(sv[4 * j + e] * scale_log2 - lse2[r]);
-        if (edge && !(kpos < Lk && visible(kpos, qpos[r], causal, window))) p = 0.f;
+        if (edge && (kpos > klast[r] || (window > 0 && kpos <= qpos[r] - window))) p = 0.f;
         sv[4 * j + e] = p;
       }
     wgmma_wait<0>();

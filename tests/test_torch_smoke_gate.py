@@ -1,9 +1,10 @@
 """Phase 3b's gate of ``chip_smoke.py`` (``forced_routing_gate``), on CPU
 tensors: the logits, greedy tokens and router probabilities of a kernels run
 against the plain versions run on the kernels' routing, in bf16 and in f32;
-phase 4's bound for ``mamba_scan`` (``scan_bound``); and phase 3c's count of
+phase 4's bound for ``mamba_scan`` (``scan_bound``); phase 3c's count of
 device-to-host copies (``device_to_host_copies``), which on the CPU can only
-show that work that never leaves its device counts no copy."""
+show that work that never leaves its device counts no copy; and the gradient
+gate of phases 5c, 5g and 5h (``gradient_gate``)."""
 
 import importlib.util
 from pathlib import Path
@@ -196,3 +197,41 @@ def test_device_to_host_copies_none_within_a_device(device):
             y.item(), x.cpu(), x.numpy()
 
     assert chip_smoke.device_to_host_copies(work) == []
+
+
+def _grads(seed, scale=1.0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(8, 4, generator=g) * scale, torch.randn(16, generator=g) * scale]
+
+
+def _gradient_gate(grads_k, grads_p, want=None):
+    from repro_torch.kernels import ops
+
+    return chip_smoke.gradient_gate("test", ["/a", "/b"], lambda: (1.0, {"aux": 0.0}, grads_k),
+                                    lambda: (1.0, {"aux": 0.0}, grads_p), want or ops.launch_counts())
+
+
+def test_gradient_gate_passes_gradients_within_grad_rel_tol():
+    """Phases 5c, 5g and 5h's gate: each leaf's relative L2 error within
+    ``GRAD_REL_TOL`` passes."""
+    grads = _grads(0)
+    noise = _grads(1, scale=0.5 * chip_smoke.GRAD_REL_TOL)
+    _gradient_gate([g + n for g, n in zip(grads, noise)], grads)
+
+
+@pytest.mark.parametrize("fault", ["beyond_tol", "non_finite", "launches"])
+def test_gradient_gate_fails(fault):
+    """A leaf beyond ``GRAD_REL_TOL``, a non-finite gradient, or launches
+    other than the ones wanted fail the gate."""
+    from repro_torch.kernels import ops
+
+    grads = _grads(0)
+    got, want = [g.clone() for g in grads], None
+    if fault == "beyond_tol":
+        got[1] = got[1] * (1 + 2 * chip_smoke.GRAD_REL_TOL)
+    elif fault == "non_finite":
+        got[0][1, 2] = float("nan")
+    else:
+        want = {**ops.launch_counts(), "flash_attention_bwd": 1}
+    with pytest.raises(RuntimeError, match="chip_smoke: test gradient"):
+        _gradient_gate(got, grads, want)

@@ -3,39 +3,34 @@
 few steps of ``make_train_step`` on one repeated batch, and print each step's
 loss, grad norm and time and the peak device memory:
 
-  python3 tools/torch_train_probe.py --arch minicpm3-4b [--layers N] [--batch 4]
-      [--seq 1024] [--steps 5] [--lr 3e-5 ...] [--plain] [--data circuit|random]
+  python3 tools/torch_train_probe.py --arch minicpm3-4b [--lr 3e-5 ...] [--plain]
 
-Each ``--lr`` trains from the same random weights (seed 0). The batch is the
-data circuit's first (``--data circuit``, as ``chip_smoke.py`` phase 5h takes
-it) or uniform random tokens, with the stub frames or prefix that
-``launch.train.run`` draws at step 0. ``--plain`` also runs every lr with the
-attention kernels swapped for their plain versions (``kernels/ref.py``), so
-that a loss curve can be told apart from a kernel's arithmetic.
+Each ``--lr`` trains all the config's layers from the same random weights
+(seed 0) for ``STEPS`` steps on the data circuit's first batch of ``BATCH`` x
+``SEQ`` tokens, as ``chip_smoke.py`` phase 5h takes it, with the stub frames
+or prefix that ``launch.train.run`` draws at step 0. ``--plain`` also runs
+every lr with the attention kernels swapped for their plain versions
+(``kernels/ref.py``), so that a loss curve can be told apart from a kernel's
+arithmetic.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+BATCH, SEQ, STEPS = 4, 1024, 5
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", required=True)
-    ap.add_argument("--layers", type=int, default=0, help="cut the decoder to this many layers (0: uncut)")
-    ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--seq", type=int, default=1024)
-    ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--lr", type=float, nargs="+", default=[3e-5])
     ap.add_argument("--plain", action="store_true")
-    ap.add_argument("--data", choices=("circuit", "random"), default="circuit")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
@@ -56,16 +51,9 @@ def main() -> int:
                          capture_output=True, text=True, check=True).stdout.strip().splitlines()[0])
     dev = torch.device("cuda", 0)
     cfg = get_config(args.arch)
-    if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
-    B, L = args.batch, args.seq
-    if args.data == "circuit":
-        data = build_data_pipeline(cfg, B, L, seed=0)
-        batch = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in next_batch(data, cfg).items()}
-    else:
-        gen = torch.Generator(device=dev).manual_seed(0)
-        tokens = torch.randint(0, cfg.vocab, (B, L), generator=gen, device=dev, dtype=torch.int32)
-        batch = {"tokens": tokens, "labels": tokens}
+    B, L = BATCH, SEQ
+    data = build_data_pipeline(cfg, B, L, seed=0)
+    batch = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in next_batch(data, cfg).items()}
     if cfg.encoder_layers:
         batch["frames"] = _stub_embeddings(cfg, B, 0, dev)
     if cfg.frontend == "vision":
@@ -84,12 +72,12 @@ def main() -> int:
                 state = {"params": params, "opt": adamw_init(params),
                          "step": torch.zeros((), dtype=torch.int32, device=dev)}
                 step = make_train_step(model, dev, constant_lr(lr), global_batch=B)
-                for i in range(args.steps):
+                for i in range(STEPS):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
                     state, met = step(state, batch)
                     torch.cuda.synchronize()
-                    print(f"{cfg.name} ({cfg.n_layers} layers, {args.data} batch {B} x {L}) {versions} lr {lr:g} "
+                    print(f"{cfg.name} ({cfg.n_layers} layers, batch {B} x {L}) {versions} lr {lr:g} "
                           f"step {i}: loss {met['loss'].item():.5f} grad_norm {met['grad_norm'].item():.4f} "
                           f"({time.perf_counter() - t0:.3f} s)", flush=True)
                 print(f"  peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
