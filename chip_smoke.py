@@ -2,6 +2,7 @@
 """Drive the PyTorch port (``src/repro_torch``) on one CUDA card.
 
   python3 chip_smoke.py
+  python3 chip_smoke.py --mesh-only   # phases 1 and 6 alone (no summary line)
 
 Phases, in order; any failure exits non-zero (a disagreement between the
 kernels' and the plain versions' logits is recorded and the later phases run
@@ -199,6 +200,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -2591,6 +2593,454 @@ def k1_timing(rand, check, check_grad, time_ms, bound, rows, launches, step_s):
            time_ms, bound, rows, with_mma=True)
 
 
+# phase 6: the train step on a DeviceMesh. 6a: one rank (NCCL, its own
+# card), make_host_mesh() = (data 1, model 1), stablelm-1.6b at phase 5b's
+# repeated batch: losses and params bit-equal to the device path's. 6b: two
+# ranks sharing the card (gloo: NCCL refuses two ranks on one GPU), spawned,
+# on (data 1, model 2) and (data 2, model 1) with FSDP, stablelm-1.6b uncut
+# and jamba-v0.1-52b at full width cut to its first 2 of 32 layers (as 5g),
+# each on the data circuit's first batch of MESH's batch x seq: every rank's
+# loss at every step, and the params and first moments after the last step,
+# gathered, within GRAD_REL_TOL (phase 5's gradient gate; the first moment is
+# a sum of gradients) of the one-device step's on the same batch, with every
+# kernel launched at the local shapes. 6c: each kernel at those shapes.
+MESH = dict(batch=2, seq=1024, steps=2, seed=0, shapes=((1, 2), (2, 1)), world=2, one_rank_steps=3)
+MESH_TIMEOUT = 900  # s, the spawned ranks' whole run; each collective 600 s
+MESH_KERNELS = ("flash_attention", "flash_attention_bwd", "moe_gmm", "moe_gmm_bwd", "mamba_scan", "mamba_scan_bwd")
+
+
+def mesh_models() -> list:
+    from repro_torch.configs import get_config
+
+    return [get_config(TRAIN["arch"]), dataclasses.replace(get_config(HYBRID["arch"]), n_layers=2)]
+
+
+def mesh_expect(cfg, shape) -> dict:
+    """kernel -> (launches a step, its first input's shape) on one rank of a
+    (data, model) mesh: the model's heads, experts and Mamba channels split
+    over model, the batch rows over data (remat "block": each forward twice
+    a layer, each backward once)."""
+    from repro_torch.models import moe as moe_mod
+
+    data, model = shape
+    B, L = MESH["batch"], MESH["seq"]
+    specs = [cfg.layout[i % len(cfg.layout)] for i in range(cfg.n_layers)]
+    out = {}
+    n = sum(s.mixer == "attention" for s in specs)
+    if n:
+        q = (B // data, L, cfg.n_heads // model, cfg.head_dim)
+        out.update(flash_attention=(2 * n, q), flash_attention_bwd=(n, q))
+    n = sum(s.mixer == "mamba" for s in specs)
+    if n:
+        xc = (B // data, L, cfg.d_inner // model)
+        out.update(mamba_scan=(2 * n, xc), mamba_scan_bwd=(n, xc))
+    n = sum(s.ffn == "moe" for s in specs)
+    if n:
+        C = moe_mod.expert_capacity(B * L, cfg)
+        x = (cfg.n_experts // model, C if data == 1 else min(C, B * L // data), cfg.d_model)
+        out.update(moe_gmm=(2 * n, x), moe_gmm_bwd=(n, x))
+    return out
+
+
+def mesh_batch(cfg, dev) -> dict:
+    import torch
+
+    from repro_torch.data.pipeline import build_data_pipeline, next_batch
+
+    data = build_data_pipeline(cfg, MESH["batch"], MESH["seq"], seed=MESH["seed"])
+    return {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in next_batch(data, cfg).items()}
+
+
+def fresh_train_state(model, seed, dev) -> dict:
+    import torch
+
+    from repro_torch.optim import adamw_init
+
+    params = model.init(seed, dev)
+    return {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def mesh_rank(rank: int, world: int) -> list:
+    """Phase 6b on one of the ranks sharing the card (``dist.spawn
+    .run_ranks``): per model, rank 0 first runs the one-device step alone on
+    the card and keeps its losses, params and first moments on the host; then
+    every rank runs the sharded step on each mesh, its kernels spied for their
+    input shapes (``ops.KERNELS``, zeroed counts, no plain version), and the
+    placed params and moments are gathered leaf by leaf and held against rank
+    0's copies there. An MoE model's sharded runs replay the one-device run's
+    expert choice (each rank its own tokens' rows), as phase 5g's gate
+    replays the kernels run's: near-tied top-2 routings flip between any two
+    bf16 runs. Returns a record per (model, mesh)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.step import gather_full, make_train_step, placed_train_state
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import parallel
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import constant_lr
+    from repro_torch.optim.adamw import tree_leaves
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")  # two ranks share the card
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    B, steps = MESH["batch"], MESH["steps"]
+    route = moe_mod.route
+    out = []
+    for cfg in mesh_models():
+        model = build_model(cfg)
+        batch = mesh_batch(cfg, dev)
+        ref, chosen = None, []
+
+        def recording_route(p, c, xf):
+            probs, gate_w, gate_e = route(p, c, xf)
+            chosen.append(gate_e.cpu())
+            return probs, gate_w, gate_e
+
+        if rank == 0:  # alone on the card: the other rank waits at the barrier
+            step = make_train_step(model, dev, constant_lr(REPEAT_LR), global_batch=B)
+            state = fresh_train_state(model, MESH["seed"], dev)
+            losses = []
+            moe_mod.route = recording_route
+            try:
+                for _ in range(steps):
+                    state, met = step(state, batch)
+                    losses.append(met["loss"].item())
+            finally:
+                moe_mod.route = route
+            ref = {"losses": losses, "params": [t.cpu() for t in tree_leaves(state["params"])],
+                   "m": [t.cpu() for t in tree_leaves(state["opt"]["m"])],
+                   "peak": torch.cuda.max_memory_allocated()}
+            del state, step, met
+            torch.cuda.empty_cache()
+        box = [chosen]
+        dist.broadcast_object_list(box, src=0)  # the expert choice of every MoE call, in call order
+        chosen = box[0]
+        names = leaf_names(model.init(MESH["seed"], "meta"))
+        for shape in MESH["shapes"]:
+            mesh = make_host_mesh(model=shape[1], device="cuda")
+            step, _, shard, _ = make_train_step(model, mesh, constant_lr(REPEAT_LR), global_batch=B)
+            state = placed_train_state(model.init(MESH["seed"], dev), shard, mesh)
+            replay = iter(chosen)
+
+            def forced_route(p, c, xf):
+                probs, _, _ = route(p, c, xf)
+                par, T = parallel(), xf.shape[0]
+                experts = next(replay)[par.dp_rank * T : (par.dp_rank + 1) * T].to(xf.device)
+                gate_w = probs.gather(1, experts)
+                return probs, gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9), experts
+            torch.cuda.empty_cache()
+            placed = torch.cuda.memory_allocated()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            seen: dict = {}
+            ops.reset_launch_counts()  # before the spies stand in for the wrappers, whose counts it zeroes
+            kept = dict(ops.KERNELS)
+            for name in MESH_KERNELS:
+                def spy(*args, _fn=kept[name], _name=name, **kwargs):
+                    seen.setdefault(_name, set()).add(tuple(args[0].shape))
+                    return _fn(*args, **kwargs)
+
+                ops.KERNELS[name] = spy
+            losses, times = [], []
+            moe_mod.route = forced_route
+            try:
+                with PlainSpy() as spy_plain:
+                    for _ in range(steps):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        state, met = step(state, batch)
+                        losses.append(met["loss"].item())
+                        times.append(time.perf_counter() - t0)
+            finally:
+                ops.KERNELS.update(kept)
+                moe_mod.route = route
+            if next(replay, None) is not None:
+                fail(f"phase 6b {cfg.name} {shape}: {len(chosen)} routings recorded, fewer replayed")
+            launches = ops.launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            gaps: dict = {"params": [], "m": []}
+            for part, sub in (("params", state["params"]), ("m", state["opt"]["m"])):
+                for i, t in enumerate(tree_leaves(sub)):
+                    full = gather_full(t)
+                    if rank == 0:  # (|difference|^2, |one device's|^2) of the leaf
+                        want = ref[part][i].to(dev).float()
+                        gaps[part].append(((full.float() - want).norm().item() ** 2, want.norm().item() ** 2))
+                        del want
+                    del full
+            del state, step, met, t, sub
+            torch.cuda.empty_cache()
+            out.append(dict(arch=cfg.name, shape=shape, rank=rank, losses=losses, names=names, routings=len(chosen),
+                            ref_losses=None if ref is None else ref["losses"], times=times, peak=peak,
+                            ref_peak=None if ref is None else ref["peak"], held=torch.cuda.memory_allocated(),
+                            launches=launches, shapes={k: sorted(v) for k, v in seen.items()},
+                            plain=dict(spy_plain.calls), gaps=gaps, backend=str(dist.get_backend()), placed=placed))
+            dist.barrier()
+        del ref
+    return out
+
+
+def mesh_phase(dev, rand, check, check_grad, time_ms, bound, rows, n_sms, sm_clock_mhz):
+    """Phase 6 (see MESH): 6a in this process, 6b on spawned ranks, 6c the
+    kernels at the local shapes."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.sharding import make_rules
+    from repro_torch.dist.spawn import run_ranks
+    from repro_torch.dist.step import make_train_step, place_state
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import constant_lr
+    from repro_torch.optim.adamw import tree_leaves
+
+    t_phase = time.perf_counter()
+    # 6a. one rank: the (1, 1) mesh against the device path, bit for bit
+    cfg = mesh_models()[0]
+    B, L, n = TRAIN["batch"], TRAIN["seq"], MESH["one_rank_steps"]
+    print(f"phase 6a: make_train_step on make_host_mesh() over one NCCL rank, {cfg.name}, batch {B} x {L}, {n} "
+          f"steps of phase 5b's repeated batch")
+    from repro_torch.data.pipeline import build_data_pipeline, next_batch
+
+    model = build_model(cfg)
+    data = build_data_pipeline(cfg, B, L, seed=TRAIN["seed"])
+    batch = {k: torch.from_numpy(np.asarray(v, dtype=np.int32)).to(dev) for k, v in next_batch(data, cfg).items()}
+    step = make_train_step(model, dev, constant_lr(REPEAT_LR), global_batch=B)
+    state = fresh_train_state(model, TRAIN["seed"], dev)
+    want_losses = []
+    for _ in range(n):
+        state, met = step(state, batch)
+        want_losses.append(met["loss"].item())
+    want = [t.cpu() for t in tree_leaves(state["params"])]
+    del state, step
+    torch.cuda.empty_cache()
+    pg_file = ROOT / "build" / "chip_smoke_pg_one"
+    pg_file.parent.mkdir(parents=True, exist_ok=True)
+    pg_file.unlink(missing_ok=True)
+    dist.init_process_group("nccl", init_method=f"file://{pg_file}", rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh()
+        rules = make_rules(cfg, mesh, "train", B)
+        step, _, shard, _ = make_train_step(model, mesh, constant_lr(REPEAT_LR), rules=rules, global_batch=B)
+        state = place_state(fresh_train_state(model, TRAIN["seed"], dev), shard, mesh)
+        ops.reset_launch_counts()
+        losses = []
+        for _ in range(n):
+            state, met = step(state, batch)
+            losses.append(met["loss"].item())
+        launches = ops.launch_counts()
+        same = [torch.equal(t.to_local(), w.to(dev)) for t, w in zip(tree_leaves(state["params"]), want)]
+        print(f"  mesh {tuple(mesh.shape)} {mesh.mesh_dim_names}, backend {dist.get_backend()}: losses {losses}, the "
+              f"device path's {want_losses}; params bit-equal {sum(same)} of {len(same)} leaves; launches {launches}")
+        if losses != want_losses or not all(same):
+            fail(f"phase 6a: the one-rank mesh differs from the device path: losses {losses} vs {want_losses}, "
+                 f"{len(same) - sum(same)} leaves differ")
+        if launches["flash_attention"] != 2 * cfg.n_layers * n or launches["flash_attention_bwd"] != cfg.n_layers * n:
+            fail(f"phase 6a: launches {launches}")
+        del state, step, want
+    finally:
+        dist.destroy_process_group()
+        pg_file.unlink(missing_ok=True)
+    del model, batch, met
+    torch.cuda.empty_cache()
+    print(f"  this process holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB of the card "
+          f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved) while the ranks run")
+
+    # 6b. two ranks sharing the card
+    print(f"phase 6b: {MESH['world']} ranks sharing the card (gloo), spawned; meshes (data, model) "
+          f"{list(MESH['shapes'])}, FSDP over data; batch {MESH['batch']} x {MESH['seq']}, {MESH['steps']} steps at lr "
+          f"{REPEAT_LR}; gloo's collectives on CUDA tensors: all_reduce and the list all_gather "
+          f"(dist.comm.MeshComm.native by the backend's name), reduce-scatter as all_reduce and a slice")
+    t0 = time.perf_counter()
+    ranks = run_ranks(mesh_rank, MESH["world"], str(ROOT / "build" / "chip_smoke_ranks"), backend="gloo",
+                      timeout=MESH_TIMEOUT, pg_timeout=600)
+    print(f"  {MESH['world']} ranks ran in {time.perf_counter() - t0:.1f} s (spawn and build included)")
+    main_launches: dict = {}
+    worst = 0.0
+    for rec0, rec1 in zip(*ranks):
+        arch, shape = rec0["arch"], rec0["shape"]
+        cfg = next(c for c in mesh_models() if c.name == arch)
+        expect = mesh_expect(cfg, shape)
+        leaf_gap = {part: [(d / max(r, 1e-60)) ** 0.5 for d, r in v] for part, v in rec0["gaps"].items()}
+        # the first moments (a sum of gradients) leaf by leaf, as phase 5's
+        # gradient gate; the params as one tree: a zero-initialised leaf
+        # (Mamba's conv_b) holds only Adam's steps, of about lr each, whose
+        # sign flips for an element whose gradient sits at the noise floor
+        gaps = {"m": max(leaf_gap["m"]),
+                "params": (sum(d for d, _ in rec0["gaps"]["params"]) / sum(r for _, r in rec0["gaps"]["params"])) ** 0.5}
+        loss_gap = max(abs(a - b) / abs(b) for rec in (rec0, rec1) for a, b in zip(rec["losses"], rec0["ref_losses"]))
+        worst = max(worst, loss_gap, *gaps.values())
+        top = {part: sorted(zip(v, rec0["names"]), reverse=True)[:3] for part, v in leaf_gap.items()}
+        print(f"  {arch} on (data {shape[0]}, model {shape[1]}): losses by rank {[r['losses'] for r in (rec0, rec1)]}, "
+              f"one device {rec0['ref_losses']} (peak {rec0['ref_peak'] / 2**30:.2f} GiB); largest gaps (tol "
+              f"{GRAD_REL_TOL}): loss {loss_gap:.3e}, first moments {gaps['m']:.3e} (relative L2, the worst leaf), params "
+              f"{gaps['params']:.3e} (relative L2 of the tree); worst leaves "
+              + "; ".join(f"{part} " + ", ".join(f"{n} {g:.3e}" for g, n in top[part]) for part in top)
+              + (f"; on the one-device run's expert choice ({rec0['routings']} MoE calls replayed)"
+                 if rec0["routings"] else ""))
+        for rec in (rec0, rec1):
+            print(f"    rank {rec['rank']} ({rec['backend']}): step s {[round(t, 3) for t in rec['times']]}, peak memory "
+                  f"{rec['peak'] / 2**30:.2f} GiB (the placed state {rec['placed'] / 2**30:.2f}, left after "
+                  f"{rec['held'] / 2**30:.2f}), launches {rec['launches']}, input shapes {rec['shapes']}, plain versions "
+                  f"called {rec['plain']}")
+            want_launches = dict.fromkeys(ops.KERNELS, 0)
+            want_launches.update({k: v[0] * MESH["steps"] for k, v in expect.items()})
+            if rec["launches"] != want_launches or rec["shapes"] != {k: [v[1]] for k, v in expect.items()}:
+                fail(f"phase 6b {arch} {shape} rank {rec['rank']}: launches {rec['launches']} at {rec['shapes']}; "
+                     f"want {want_launches} at {expect}")
+            if any(rec["plain"].values()):
+                fail(f"phase 6b {arch} {shape} rank {rec['rank']}: plain versions called {rec['plain']}")
+        if not (loss_gap <= GRAD_REL_TOL and max(gaps.values()) <= GRAD_REL_TOL):
+            fail(f"phase 6b {arch} {shape}: gaps loss {loss_gap}, {gaps} beyond {GRAD_REL_TOL}")
+        for k, v in expect.items():
+            main_launches[k, v[1]] = rec0["launches"][k]
+    print(f"  phase 6b: the largest gap {worst:.3e} (tol {GRAD_REL_TOL})")
+
+    # 6c. each kernel at the local shapes of (data 1, model 2), against its plain version, timed
+    print("phase 6c: the kernels at the model-2 shards' shapes, against their plain versions, timed as phase 4")
+    mesh_kernel_rows(rand, check, check_grad, time_ms, bound, rows, main_launches, n_sms, sm_clock_mhz)
+    print(f"  phase 6: {time.perf_counter() - t_phase:.1f} s")
+
+
+def mesh_kernel_rows(rand, check, check_grad, time_ms, bound, rows, launches, n_sms, sm_clock_mhz):
+    """Phase 6c: flash_attention (with lse) and K1 at stablelm-1.6b's 16 of
+    32 heads, moe_gmm and K7a at jamba-v0.1-52b's 8 of 16 experts, mamba_scan
+    and K7b at its 4096 of 8192 channels (batch 2 x 1024, model 2), each
+    checked against its plain version and timed as phase 4 beside its bound,
+    its plain version and a library call where there is one; ``launches``:
+    (kernel, shape) -> its launches on one rank in phase 6b."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba_scan import mamba_scan, mamba_scan_bwd
+    from repro_torch.kernels.moe_gmm import moe_gmm, moe_gmm_bwd
+    from repro_torch.models import moe as moe_mod
+
+    bf, es = torch.bfloat16, 2
+    stablelm, jamba = mesh_models()
+    shape = (1, 2)
+    ex_s, ex_j = mesh_expect(stablelm, shape), mesh_expect(jamba, shape)
+    label = "on (data 1, model 2)"
+
+    B, L, H, Dh = ex_s["flash_attention"][1]
+    q, k, v = (rand(B, L, H, Dh, dtype=bf) for _ in range(3))
+    o, lse = flash_attention(q, k, v, return_lse=True)
+    ro, rl = ref.reference_attention(q, k, v, return_lse=True)
+    err = max(check(f"flash_attention lse at {stablelm.name} {label}", lse, rl, torch.float32),
+              check(f"flash_attention o at {stablelm.name} {label}", o, ro, bf))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    b_ms, b_by = bound(4 * B * L * H * Dh * es + B * H * L * 4, 4 * B * H * Dh * (L * (L + 1) // 2), "bfloat16")
+    rows.append(dict(
+        name="flash_attention", path=f"{stablelm.name} training {label} ({B}, {L}, {H}, {Dh}), with lse, route mma",
+        route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:116",
+        launches=launches["flash_attention", (B, L, H, Dh)], max_abs_err=err,
+        ms=time_ms(lambda: flash_attention(q, k, v, return_lse=True), reps=10),
+        plain_ms=time_ms(lambda: ref.reference_attention(q, k, v, return_lse=True), reps=3),
+        bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True), reps=10),
+        library="scaled_dot_product_attention(is_causal=True)",
+    ))
+    del q, k, v, o, lse, ro, rl, qt, kt, vt
+    torch.cuda.empty_cache()
+    k1_row(f"{stablelm.name} training {label}", (B, L, L, H, H, Dh, Dh, True),
+           launches["flash_attention_bwd", (B, L, H, Dh)], rand, check, check_grad, time_ms, bound, rows)
+
+    E, C, D = ex_j["moe_gmm"][1]
+    Fd = jamba.d_ff
+    x, wg, wu, wd = (rand(E, C, D, dtype=bf), rand(E, D, Fd, dtype=bf, scale=D**-0.5),
+                     rand(E, D, Fd, dtype=bf, scale=D**-0.5), rand(E, Fd, D, dtype=bf, scale=Fd**-0.5))
+    dy = rand(E, C, D, dtype=bf, scale=D**-0.5)
+    err = check(f"moe_gmm at {jamba.name} {label} (E{E} C{C})", moe_gmm(x, wg, wu, wd),
+                ref.reference_gmm(x, wg, wu, wd), bf)
+    b_ms, b_by = bound(2 * E * C * D * es + 3 * E * D * Fd * es, 6 * E * C * D * Fd, "bfloat16")
+    rows.append(dict(
+        name="moe_gmm", path=f"{jamba.name} training {label} (E {E}, C {C}, D {D}, F {Fd}), bf16", route="cuda",
+        source="src/repro_torch/kernels/csrc/moe_gmm.cu", replaces="src/repro/kernels/moe_gmm.py:59",
+        launches=launches["moe_gmm", (E, C, D)], max_abs_err=err,
+        ms=time_ms(lambda: moe_gmm(x, wg, wu, wd), reps=10),
+        plain_ms=time_ms(lambda: ref.reference_gmm(x, wg, wu, wd), reps=3), bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd), reps=10),
+        library="3 calls: torch.bmm x3 + F.silu",
+    ))
+    want = ref.reference_gmm_bwd(x, wg, wu, wd, dy)
+    err = max(check_grad(f"moe_gmm_bwd {n} at {jamba.name} {label} (E{E} C{C})", g, w, bf)
+              for n, g, w in zip(("dx", "dwg", "dwu", "dwd"), moe_gmm_bwd(x, wg, wu, wd, dy), want))
+    del want
+    leaves = [t.detach().requires_grad_() for t in (x, wg, wu, wd)]
+    lib_out = torch.bmm(F.silu(torch.bmm(leaves[0], leaves[1])) * torch.bmm(leaves[0], leaves[2]), leaves[3])
+    b_ms, b_by = bound(3 * E * C * D * es + 6 * E * D * Fd * es, 16 * E * C * D * Fd, "bfloat16")
+    rows.append(dict(
+        name="moe_gmm_bwd", path=f"{jamba.name} training {label} (E {E}, C {C}, D {D}, F {Fd}), bf16", route="cuda",
+        source="src/repro_torch/kernels/csrc/moe_gmm.cu",
+        replaces="src/repro/models/moe.py:128 (no Pallas kernel: jax autodiff of the grouped SwiGLU einsums)",
+        launches=launches["moe_gmm_bwd", (E, C, D)], max_abs_err=err,
+        ms=time_ms(lambda: moe_gmm_bwd(x, wg, wu, wd, dy), reps=10),
+        plain_ms=time_ms(lambda: ref.reference_gmm_bwd(x, wg, wu, wd, dy), reps=3), bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.autograd.grad(lib_out, leaves, dy, retain_graph=True), reps=10),
+        library="autograd backward of torch.bmm x3 + F.silu (torch.autograd.grad)",
+    ))
+    del x, wg, wu, wd, dy, leaves, lib_out
+    torch.cuda.empty_cache()
+
+    B, L, Di = ex_j["mamba_scan"][1]
+    N = jamba.ssm_state
+    xc, dt = rand(B, L, Di, dtype=bf), rand(B, L, Di, dtype=torch.float32).abs() * 0.1
+    Bm, Cm = rand(B, L, N, dtype=torch.float32), rand(B, L, N, dtype=torch.float32)
+    a = -rand(Di, N, dtype=torch.float32).abs() - 0.1
+    y, h = mamba_scan(xc, dt, Bm, Cm, a)
+    yr, hr = ref.reference_selective_scan(xc, dt, Bm, Cm, a)
+    err = max(check(f"mamba_scan y at {jamba.name} {label}", y, yr, torch.float32, SCAN_TOL),
+              check(f"mamba_scan h at {jamba.name} {label}", h, hr, torch.float32, SCAN_TOL))
+    # xc (bf16) and dt read once, B and C once, a once; y and h written once
+    n_el = B * L * Di * N
+    b_ms, b_by, _ = scan_bound(n_el, B * L * Di * (es + 4 + 4) + 2 * B * L * N * 4 + Di * N * 4 + B * Di * N * 4,
+                               n_sms, sm_clock_mhz)
+    rows.append(dict(
+        name="mamba_scan", path=f"{jamba.name} training {label} ({B}, {L}, {Di}, {N}), bf16 xc", route="cuda",
+        source="src/repro_torch/kernels/csrc/mamba_scan.cu", replaces="src/repro/kernels/mamba_scan.py:69",
+        launches=launches["mamba_scan", (B, L, Di)], max_abs_err=err,
+        ms=time_ms(lambda: mamba_scan(xc, dt, Bm, Cm, a), reps=10),
+        plain_ms=time_ms(lambda: ref.reference_selective_scan(xc, dt, Bm, Cm, a), reps=2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, library="none",
+    ))
+    del y, h, yr, hr
+    dys = rand(B, L, Di, dtype=torch.float32)
+    want = ref.reference_selective_scan_bwd(xc, dt, Bm, Cm, a, None, dys)
+    got = mamba_scan_bwd(xc, dt, Bm, Cm, a, None, dys)
+    err = max(check_grad(f"mamba_scan_bwd {n} at {jamba.name} {label}", g, w, g.dtype)
+              for n, g, w in zip(("dxc", "ddt", "dB", "dC", "da", "dh0"), got, want) if w is not None)
+    del want, got
+    nbytes = B * L * Di * (es + 4 + 4 + es + 4) + 4 * B * L * N * 4 + 2 * Di * N * 4 + B * Di * N * 4
+    fma_rate, sfu_rate = PEAK_FLOPS["float32"] / 2, SFU_PER_CLOCK * n_sms * sm_clock_mhz * 1e6
+    t_ops = max(SCAN_BWD_FMA_INSTRS * n_el / fma_rate,
+                (SCAN_BWD_FMA_INSTRS + EXP_FMA_INSTRS) * n_el / (fma_rate + EXP_FMA_INSTRS * sfu_rate)) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    rows.append(dict(
+        name="mamba_scan_bwd", path=f"{jamba.name} training {label} ({B}, {L}, {Di}, {N}), bf16 xc", route="cuda",
+        source="src/repro_torch/kernels/csrc/mamba_scan.cu",
+        replaces="src/repro/models/mamba.py:71 (no Pallas kernel: jax autodiff of the chunked selective_scan)",
+        launches=launches["mamba_scan_bwd", (B, L, Di)], max_abs_err=err,
+        ms=time_ms(lambda: mamba_scan_bwd(xc, dt, Bm, Cm, a, None, dys), reps=10),
+        plain_ms=time_ms(lambda: ref.reference_selective_scan_bwd(xc, dt, Bm, Cm, a, None, dys), reps=2),
+        bound_ms=max(t_ops, t_bytes), bound_by="bytes" if t_bytes >= t_ops else "operations",
+        library_ms=None, library="none",
+    ))
+    for r in rows[-6:]:
+        print(f"  {r['name']} at {r['path']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ({r['bound_by']}; "
+              f"{r['ms'] / r['bound_ms']:.2f}x), plain {r['plain_ms']:.4f}, library "
+              f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}, {r['launches']} launches a "
+              f"rank in 6b")
+    del xc, dt, Bm, Cm, a, dys
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -2746,6 +3196,10 @@ def main() -> int:
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
     rows = []
+    if sys.argv[1:] == ["--mesh-only"]:  # phase 6 alone, after phase 1's build (a probe; no summary line)
+        mesh_phase(dev, rand, check, check_grad, time_ms, bound, rows, n_sms, sm_clock_mhz)
+        print(json.dumps({"kernels": rows}))
+        return 0
     # -- 2. each kernel against its plain version ------------------------------
     print("phase 2: kernels vs plain versions on the card")
     jamba = get_config(HYBRID["arch"])
@@ -3687,6 +4141,8 @@ def main() -> int:
     hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, n_sms, sm_clock_mhz)
     # -- 5h. train minicpm3-4b, seamless-m4t-medium and internvl2-1b at full width
     frontend_training_phase(dev, rand, check, check_grad, time_ms, bound, rows, plain, device_profile)
+    # -- 6. the train step on a DeviceMesh: one rank, two ranks sharing the card, the local shapes
+    mesh_phase(dev, rand, check, check_grad, time_ms, bound, rows, n_sms, sm_clock_mhz)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     for r in rows:

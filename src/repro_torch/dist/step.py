@@ -1,73 +1,283 @@
-"""Train and serve step functions on one device.
+"""Train and serve step builders, on one device or on a DeviceMesh.
 
-Port of ``repro.dist.step`` without sharding (that comes with the
-distribution slice, ROADMAP queue 1 item 6). Instead of donating the state,
-as the jitted JAX steps do, the steps update it in place: the train step its
-params, moments and step count under ``torch.no_grad()``; the serve
-functions, under ``torch.inference_mode()``, the caches' K/V.
+Port of ``repro.dist.step``. Instead of donating the state, as the jitted
+JAX steps do, the steps update it in place: the train step its params,
+moments and step count under ``torch.no_grad()``; the serve functions, under
+``torch.inference_mode()``, the caches' K/V.
+
+``make_train_step(model, device, ...)`` is the one-device step. Given a
+``DeviceMesh`` (``repro_torch.launch.mesh``), it is the sharded step, and
+returns it with the state's shapes and placements and the batch's
+placements, as the reference does:
+
+  - the state {params, opt {m, v, count}, step} (and ``compress`` with
+    ``compress_pods``) is a tree of DTensors placed as ``shardings_for`` of
+    the logical axes says (``place_state`` puts a whole state there; every
+    rank computes the same whole state from one seed);
+  - the batch's rows are split over the mesh axes of ``rules["batch"]``
+    (greedy fallback): each rank takes its own rows of the global batch it is
+    given, for each microbatch its part of that microbatch's rows, so that a
+    microbatch holds the rows it holds on one device;
+  - FSDP (``embed`` over ``data``): params, m and v are stored as shards;
+    the step all-gathers the whole parameter tree over ``data`` once a
+    forward (the tensor-parallel shards stay local), inside the graph, so
+    that the backward reduce-scatters each gradient into its shard as soon
+    as it is complete (in the params' dtype, as FSDP reduces by default; the
+    other data axes are summed in f32). Per-layer gathering is a later step
+    (ROADMAP 6b);
+  - each rank's loss is the mean over its rows, and the gradients are
+    averaged over the data axes (pod and data), which is the global mean when
+    the splits are equal, as in the reference; with ``compress_pods`` the pod
+    reduction runs on the int8 payload (``optim.compress.ef_compress``);
+  - the compute runs under ``axis_rules(rules, mesh)``: the model code holds
+    heads, kv heads, mlp, vocab, experts and Mamba channels as the local
+    shards over ``model`` and reduces across ranks itself (see
+    ``models.attention``, ``models.moe``, ``models.mamba``, ``models
+    .transformer``);
+  - the global norm sums every element once (``optim.adamw.global_norm`` of
+    a placed tree), and AdamW updates each rank's shards in place.
+
+Serving on a mesh of more than one rank is ROADMAP item 6b.
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import resolve_device
+from repro_torch.models.common import ITEM_6B, axis_rules, resolve_device
 from repro_torch.models.registry import decode_step, prefill, train_loss
-from repro_torch.optim import adamw_update
-from repro_torch.optim.adamw import tree_leaves, tree_map
+from repro_torch.optim import adamw_update, ef_compress, global_norm
+from repro_torch.optim.adamw import _spec_leaves, tree_leaves, tree_map
+
+from .comm import TP_AXES, comm_for, gather
+from .sharding import make_rules, mesh_shape, placements_for, pspec_for_axes, shardings_for, spec_axes, specs_for
+
+DATA_AXES = ("pod", "data")
 
 
-def make_train_state_specs(model) -> dict:
+def is_mesh(x) -> bool:
+    """Whether ``x`` is a DeviceMesh (as opposed to a device)."""
+    return getattr(x, "mesh_dim_names", None) is not None and hasattr(x, "get_coordinate")
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device this rank's shards live on."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device(mesh.device_type)
+
+
+def param_specs(model):
+    """(meta params, logical-axes tree) of the model: shapes and dtypes, no
+    parameter allocated."""
+    return model.init(0, "meta", with_axes=True)
+
+
+def make_batch_specs(cfg, kind: str, global_batch: int, seq_len: int) -> dict:
+    """A ghost batch (meta tensors) of one input shape: tokens, labels in
+    train, and the stub ``frames`` / ``prefix`` where the model takes them."""
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
+    batch = {"tokens": meta((global_batch, seq_len), torch.int32)}
+    if kind == "train":
+        batch["labels"] = meta((global_batch, seq_len), torch.int32)
+    if cfg.encoder_layers:
+        batch["frames"] = meta((global_batch, cfg.frontend_len, cfg.d_model), cfg.compute_dtype())
+    if cfg.frontend == "vision":
+        batch["prefix"] = meta((global_batch, cfg.frontend_len, cfg.d_model), cfg.compute_dtype())
+    return batch
+
+
+def make_train_state_specs(model, with_axes: bool = False):
     """The train state {params, opt {m, v, count}, step} as meta tensors of
     the right shapes and dtypes (no parameter is allocated): m and v f32
-    mirror the params, count and step are int32 scalars."""
-    params = model.init(0, "meta")
+    mirror the params, count and step are int32 scalars. With ``with_axes``,
+    returns (state, state logical axes): the moments inherit the params'
+    axes, so FSDP shards them as it shards the weights."""
+    params, paxes = param_specs(model)
     f32 = lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta")
     scalar = lambda: torch.empty((), dtype=torch.int32, device="meta")
-    return {
+    state = {
         "params": params,
         "opt": {"m": tree_map(f32, params), "v": tree_map(f32, params), "count": scalar()},
         "step": scalar(),
     }
+    if not with_axes:
+        return state
+    return state, {"params": paxes, "opt": {"m": paxes, "v": paxes, "count": ()}, "step": ()}
+
+
+# ---------------------------------------------------------------------------
+# Placed trees
+# ---------------------------------------------------------------------------
+
+
+def _tree_zip(fn, tree, other):
+    if isinstance(tree, dict):
+        return {k: _tree_zip(fn, tree[k], other[k]) for k in tree}
+    if isinstance(tree, list):
+        return [_tree_zip(fn, t, o) for t, o in zip(tree, other)]
+    return fn(tree, other)
+
+
+def place(t: torch.Tensor, mesh, placements: tuple, device=None):
+    """The DTensor of a whole tensor ``t`` that every rank holds alike: this
+    rank's shard sliced off locally (no communication)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    comm = comm_for(mesh)
+    local = t
+    for d in range(t.dim()):
+        axes = tuple(n for n, pl in zip(comm.names, placements) if isinstance(pl, Shard) and pl.dim == d)
+        if axes:
+            local = comm.shard(local, d, axes)
+    local = local.to(device if device is not None else mesh_device(mesh)).contiguous()
+    return DTensor.from_local(local, mesh, placements, run_check=False)
+
+
+def place_state(state, shardings, mesh, device=None):
+    """``place`` of every leaf of a whole state tree."""
+    return _tree_zip(lambda t, pl: place(t, mesh, pl, device), state, shardings)
+
+
+def placed_train_state(params, state_shard, mesh) -> dict:
+    """A fresh train state on the mesh from whole ``params`` that every rank
+    holds alike: the params sliced into their shards, the AdamW moments made
+    as zero shards and the counters as zeros (never whole: a state's f32
+    moments are 4x its bf16 params)."""
+    from torch.distributed.tensor import DTensor
+
+    placed = place_state(params, state_shard["params"], mesh)
+    zeros = lambda t: DTensor.from_local(torch.zeros(t.to_local().shape, dtype=torch.float32,
+                                                     device=t.to_local().device), mesh, t.placements, run_check=False)
+    dev = mesh_device(mesh)
+    scalar = lambda pl: place(torch.zeros((), dtype=torch.int32, device=dev), mesh, pl)
+    return {"params": placed, "opt": {"m": tree_map(zeros, placed), "v": tree_map(zeros, placed),
+                                      "count": scalar(state_shard["opt"]["count"])},
+            "step": scalar(state_shard["step"])}
+
+
+def gather_full(t) -> torch.Tensor:
+    """The whole tensor of a DTensor (all-gathers over its sharded mesh
+    dimensions; a dimension split over several is gathered over them at
+    once, major first)."""
+    from torch.distributed.tensor import Shard
+
+    comm = comm_for(t.device_mesh)
+    out = t.to_local()
+    for d in range(t.dim()):
+        axes = tuple(n for n, pl in zip(comm.names, t.placements) if isinstance(pl, Shard) and pl.dim == d)
+        if axes:
+            out = comm.all_gather(out, d, axes)
+    return out
+
+
+def gather_state(state):
+    """Every leaf of a placed tree gathered whole (plain tensors)."""
+    return tree_map(gather_full, state)
+
+
+# ---------------------------------------------------------------------------
+# Train step
+# ---------------------------------------------------------------------------
+
+
+def _check_rules(rules: dict) -> None:
+    """The placements the sharded compute implements."""
+    for name, want in (("embed", (None, "data")), ("kv_seq", (None,))):
+        if rules.get(name) not in want:
+            raise NotImplementedError(f"rules[{name!r}] = {rules.get(name)!r}: the train step takes {want}")
+    for name in TP_AXES:
+        if rules.get(name) not in (None, "model"):
+            raise NotImplementedError(f"rules[{name!r}] = {rules.get(name)!r}: tensor parallelism is over 'model'")
+    if not set(spec_axes(rules.get("batch"))) <= set(DATA_AXES):
+        raise NotImplementedError(f"rules['batch'] = {rules.get('batch')!r}: the batch splits over pod and data")
+
+
+def _batch_rows(n_rows: int, micro: int, index: int, dp: int) -> torch.Tensor:
+    """This batch rank's rows: its 1/dp part of each of ``micro`` equal
+    microbatches, microbatch-major."""
+    n = n_rows // micro
+    part = n // dp
+    return torch.cat([torch.arange(i * n + index * part, i * n + (index + 1) * part) for i in range(micro)])
 
 
 def make_train_step(
     model,
-    device,
+    mesh_or_device,
     schedule: Callable,
     *,
+    rules: Optional[dict] = None,
     global_batch: int,
     microbatches: int = 1,
     compress_pods: bool = False,
 ):
-    """Returns ``train_step(state, batch) -> (state, metrics)`` on ``device``.
+    """The train step ``train_step(state, batch) -> (state, metrics)``.
 
-    ``state`` is {"params", "opt": adamw state, "step": int32 scalar}, all on
-    ``device``; the step updates it in place and returns it. ``batch`` holds
-    tokens and labels (B, L) int32, and ``frames`` or ``prefix`` (B, T, D)
-    where the model takes them (``registry.train_loss``). metrics: loss, lr,
-    grad_norm and clip_scale, f32 scalars on the device. ``microbatches > 1``
-    sums f32 gradients over equal splits of the batch (every key's rows) and
-    divides by their number, as the reference does. Raises if ``device`` is
-    CUDA and no card is present."""
+    On a device: the one-device step, returned alone. ``state`` is
+    {"params", "opt": adamw state, "step": int32 scalar}, all on the device;
+    the step updates it in place and returns it. ``batch`` holds tokens and
+    labels (B, L) int32, and ``frames`` or ``prefix`` (B, T, D) where the
+    model takes them (``registry.train_loss``). metrics: loss, lr, grad_norm
+    and clip_scale, f32 scalars on the device. ``microbatches > 1`` sums f32
+    gradients over equal splits of the batch (every key's rows) and divides by
+    their number, as the reference does. ``compress_pods`` needs a pod axis,
+    so on one device it changes nothing, as in the reference on a mesh
+    without pods. Raises if ``device`` is CUDA and no card is present.
+
+    On a DeviceMesh: the sharded step (module docstring), returned as
+    ``(train_step, state_shapes, state_shard, batch_shard)``: the state's
+    meta tensors, its placements tree and the batch's (``tokens``,
+    ``labels``, and ``frames`` / ``prefix`` where the model takes them).
+    ``placed_train_state`` makes a fresh state from whole params.
+    ``rules`` default to ``make_rules(cfg, mesh, "train", global_batch)``.
+    The state is placed (``place_state``); the batch is the global batch,
+    the same on every rank. The loss is averaged over the data axes, equal on
+    every rank; with pod compression, metrics also hold ``compress_ratio``
+    and ``wire_bytes_per_param``."""
+    if not is_mesh(mesh_or_device):
+        return _device_train_step(model, mesh_or_device, schedule, global_batch=global_batch,
+                                  microbatches=microbatches)
+    return _mesh_train_step(model, mesh_or_device, schedule, rules=rules, global_batch=global_batch,
+                            microbatches=microbatches, compress_pods=compress_pods)
+
+
+def _loss_and_grads(model, params, batch, to_compute=None):
+    """(loss, the gradient of each leaf of ``params``); ``to_compute`` maps
+    the leaves to what the model computes with, inside the graph (FSDP's
+    gather, whose backward reduce-scatters)."""
+    leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(leaves if to_compute is None else to_compute(leaves))
+    live = tree_map(lambda _: next(it), params)
+    loss, _ = train_loss(model, live, batch)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+def _accumulate(model, params, batch: dict, microbatches: int, n_rows: int, to_compute=None):
+    """(loss, grads) of ``batch``, f32 gradients summed over equal splits of
+    its ``n_rows`` rows and divided by their number where ``microbatches`` >
+    1, as the reference does."""
+    if microbatches == 1:
+        return _loss_and_grads(model, params, batch, to_compute)
+    n = n_rows // microbatches
+    gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in tree_leaves(params)]
+    lsum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
+    for i in range(microbatches):
+        loss, grads = _loss_and_grads(model, params, {k: v[i * n : (i + 1) * n] for k, v in batch.items()},
+                                      to_compute)
+        for a, g in zip(gsum, grads):
+            a.add_(g.float())
+        lsum = lsum + loss
+        del grads
+    return lsum / microbatches, [a / microbatches for a in gsum]
+
+
+def _device_train_step(model, device, schedule: Callable, *, global_batch: int, microbatches: int):
     dev = resolve_device(device)
-    if compress_pods:
-        raise NotImplementedError(
-            "compress_pods: int8 gradient compression across pods needs sharding "
-            "(ROADMAP.md queue 1, item 6)"
-        )
     if microbatches < 1 or global_batch % microbatches:
         raise ValueError(f"global_batch {global_batch} not divisible by microbatches {microbatches}")
-
-    def loss_and_grads(params, batch):
-        leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-        it = iter(leaves)
-        live = tree_map(lambda _: next(it), params)
-        loss, _ = train_loss(model, live, batch)
-        return loss.detach(), torch.autograd.grad(loss, leaves)
 
     def train_step(state, batch):
         tokens = batch["tokens"]
@@ -76,20 +286,7 @@ def make_train_step(
                              f"{global_batch} on {dev}")
         params = state["params"]
         lr = schedule(state["step"]).to(torch.float32)
-        if microbatches > 1:
-            n = global_batch // microbatches
-            gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in tree_leaves(params)]
-            lsum = torch.zeros((), dtype=torch.float32, device=tokens.device)
-            for i in range(microbatches):
-                loss, grads = loss_and_grads(params, {k: v[i * n : (i + 1) * n] for k, v in batch.items()})
-                for a, g in zip(gsum, grads):
-                    a.add_(g.float())
-                lsum = lsum + loss
-                del grads
-            grads = [a / microbatches for a in gsum]
-            loss = lsum / microbatches
-        else:
-            loss, grads = loss_and_grads(params, batch)
+        loss, grads = _accumulate(model, params, batch, microbatches, global_batch)
         it = iter(grads)
         grads = tree_map(lambda _: next(it), params)
         with torch.no_grad():
@@ -100,14 +297,125 @@ def make_train_step(
     return train_step
 
 
-def make_serve_fns(model, device="cuda", *, max_len: int, global_batch: int):
-    """Returns (prefill_fn, decode_fn):
+def _mesh_train_step(model, mesh, schedule: Callable, *, rules, global_batch: int, microbatches: int,
+                     compress_pods: bool):
+    cfg = model.cfg
+    rules = dict(rules) if rules is not None else make_rules(cfg, mesh, "train", global_batch)
+    _check_rules(rules)
+    sizes = mesh_shape(mesh)
+    comm = comm_for(mesh)
+    dev = mesh_device(mesh)
+    if microbatches < 1 or global_batch % microbatches:
+        raise ValueError(f"global_batch {global_batch} not divisible by microbatches {microbatches}")
+
+    state_shapes, state_axes = make_train_state_specs(model, with_axes=True)
+    n_pods = sizes.get("pod", 1)
+    compress = bool(compress_pods) and n_pods > 1
+    if compress:
+        state_shapes["compress"] = {"residual": tree_map(
+            lambda p: torch.empty(p.shape, dtype=torch.float32, device="meta"), state_shapes["params"])}
+        state_axes["compress"] = {"residual": state_axes["params"]}
+    specs = specs_for(state_axes, state_shapes, rules, mesh)
+    state_shard = shardings_for(state_axes, state_shapes, rules, mesh)
+    pspecs = specs["params"]
+
+    # the batch: split over the axes its spec keeps; the model sees those
+    batch_entry = pspec_for_axes(("batch", None), (global_batch, 1), rules, mesh)[0]
+    batch_axes = spec_axes(batch_entry)
+    dp = comm.size(batch_axes)
+    if (global_batch // microbatches) % dp:
+        raise ValueError(f"a microbatch of {global_batch // microbatches} rows does not split over "
+                         f"{batch_axes} = {dp} ranks")
+    run_rules = dict(rules, batch=batch_entry)
+    tok = placements_for((batch_entry, None), mesh)
+    three = placements_for((batch_entry, None, None), mesh)
+    batch_shard = {"tokens": tok, "labels": tok}
+    if cfg.encoder_layers:
+        batch_shard["frames"] = three
+    if cfg.frontend == "vision":
+        batch_shard["prefix"] = three
+    rows = _batch_rows(global_batch, microbatches, comm.index(batch_axes), dp)
+
+    reduce_axes = tuple(a for a in DATA_AXES if sizes.get(a, 1) > 1 and not (compress and a == "pod"))
+    n_avg = comm.size(tuple(a for a in DATA_AXES if a in sizes))
+    fsdp = [tuple((d, spec_axes(e)) for d, e in enumerate(sp) if set(spec_axes(e)) & set(DATA_AXES))
+            for sp in _spec_leaves(pspecs)]
+
+    def to_compute(leaves: list) -> list:
+        """FSDP: each leaf gathered whole over its data axes, in the graph:
+        the backward reduce-scatters its gradient as soon as it is complete
+        (in the leaf's dtype), so no whole gradient outlives its leaf's."""
+        out = []
+        for leaf, gathers in zip(leaves, fsdp):
+            for d, axes in gathers:
+                leaf = gather(leaf, comm, d, axes)
+            out.append(leaf)
+        return out
+
+    def to_storage(g: torch.Tensor, gathers) -> torch.Tensor:
+        """A shard's gradient, summed over its gathered axes already: summed
+        in f32 over the other data axes, and averaged."""
+        g = g.float()
+        done = {a for _, axes in gathers for a in axes}
+        rest = tuple(a for a in reduce_axes if a not in done)
+        if rest:
+            g = comm.all_reduce(g.contiguous(), rest)
+        return g / (n_avg if not compress else n_avg // n_pods) if n_avg > 1 else g
+
+    def train_step(state, batch):
+        tokens = batch["tokens"]
+        if tokens.shape[0] != global_batch or tokens.device != dev:
+            raise ValueError(f"tokens {tuple(tokens.shape)} on {tokens.device}: want the global batch "
+                             f"{global_batch} on {dev}")
+        local_batch = {k: v.index_select(0, rows.to(v.device)) for k, v in batch.items()} if dp > 1 else batch
+        shards = tree_map(lambda t: t.to_local(), state["params"])
+        lr = schedule(state["step"].to_local()).to(torch.float32)
+        with axis_rules(run_rules, mesh):
+            loss, grads = _accumulate(model, shards, local_batch, microbatches, global_batch // dp, to_compute)
+        with torch.no_grad():
+            grads = list(grads)
+            for i, gs in enumerate(fsdp):  # leaf by leaf, each one's own-dtype gradient freed as it goes
+                grads[i] = to_storage(grads[i], gs)
+            it = iter(grads)
+            grads = tree_map(lambda _: next(it), shards)
+            metrics = {}
+            if compress:
+                grads, cstate, stats = ef_compress(
+                    grads, {"residual": tree_map(lambda t: t.to_local(), state["compress"]["residual"])},
+                    comm.group("pod"), n_pods)
+                for dst, src in zip(tree_leaves(state["compress"]["residual"]), tree_leaves(cstate["residual"])):
+                    dst.to_local().copy_(src)
+                metrics.update(stats)
+            opt = {"m": tree_map(lambda t: t.to_local(), state["opt"]["m"]),
+                   "v": tree_map(lambda t: t.to_local(), state["opt"]["v"]),
+                   "count": state["opt"]["count"].to_local()}
+            gnorm = global_norm(grads, pspecs, comm)
+            om = adamw_update(shards, grads, opt, lr, grad_norm=gnorm)
+            state["step"].to_local().add_(1)
+            loss = comm.all_reduce(loss.clone(), tuple(a for a in DATA_AXES if a in sizes))
+            if n_avg > 1:
+                loss = loss / n_avg
+        metrics.update({"loss": loss, "lr": lr, "grad_norm": om["grad_norm"], "clip_scale": om["clip_scale"]})
+        return state, metrics
+
+    return train_step, state_shapes, state_shard, batch_shard
+
+
+def make_serve_fns(model, device="cuda", *, max_len: int, global_batch: int, rules: Optional[dict] = None):
+    """Returns (prefill_fn, decode_fn) on ``device``, or on the device of a
+    one-rank DeviceMesh (``rules`` are accepted for the reference's
+    signature; one rank places nothing). A mesh of more than one rank raises
+    (ROADMAP item 6b).
       prefill_fn(params, tokens, state, frames=None, prefix=None) -> (logits (B, V), state)
       decode_fn(params, tokens, state) -> (logits (B, V), state)
     for states made by ``init_serve_state(model, global_batch, max_len, device)``.
     Each checks the tokens and every layer's cache (and an encoder's memory)
     against those sizes first. Raises if ``device`` is CUDA and no card is
     present."""
+    if is_mesh(device):
+        if device.size() > 1:
+            raise NotImplementedError(ITEM_6B)
+        device = mesh_device(device)
     dev = resolve_device(device)
     cfg = model.cfg
 

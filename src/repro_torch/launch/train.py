@@ -24,7 +24,16 @@ a vision model's stub ``prefix`` (``cfg.frontend_len`` embeddings of
 the data circuit carries tokens only.
 
 Weights are random, drawn from ``--seed``. The step runs on ``--device``
-(default ``cuda``, which raises without a card).
+(default ``cuda``, which raises without a card). Under ``torchrun`` (or any
+launcher that sets ``WORLD_SIZE``, ``RANK`` and ``MASTER_ADDR``), each rank
+joins the process group (NCCL on cards, each rank on ``LOCAL_RANK``'s; gloo
+on the CPU) and trains the sharded step on ``make_host_mesh(--model)``,
+(world / model, model): every rank draws the same global batch from the data
+circuit and takes its rows, and writes its own shards to
+``<ckpt-dir>/rank_<r>``.
+
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch stablelm-1.6b \\
+      --batch 8 --seq 2048 --steps 20 --model 2
 """
 
 from __future__ import annotations
@@ -43,10 +52,12 @@ from repro_torch.configs import get_config
 from repro_torch.core import ProvenanceRegistry, software_version_of
 from repro_torch.data.pipeline import build_data_pipeline, next_batch
 from repro_torch.dist.ft import FaultToleranceManager, SimulatedFailure
+from repro_torch.dist.step import is_mesh, mesh_device, placed_train_state
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.registry import build_model, train_loss
 from repro_torch.optim import adamw_init, cosine_warmup
+from repro_torch.optim.adamw import tree_leaves, tree_map
 from repro_torch.workspace import MeshExecutor
 
 DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_ckpt")
@@ -73,41 +84,58 @@ def run(
     fail_at_step: int = -1,
     seed: int = 0,
     device="cuda",
+    model_axis: int = 1,
 ):
     """Train ``cfg`` for ``steps`` steps of ``batch`` x ``seq`` tokens from the
     data circuit, with random weights from ``seed``, on ``device``: AdamW
     under a cosine warmup to ``lr``, a checkpoint every ``ckpt_every`` steps
     and after the last, and make-mode recovery from ``fail_at_step``.
-    Prints each step's loss; returns the final train state."""
+    In a process group, on the mesh (world / ``model_axis``, ``model_axis``)
+    (module docstring). Prints each step's loss (rank 0); returns the final
+    train state (placed, on a mesh)."""
     model = build_model(cfg)
     schedule = cosine_warmup(lr, max(2, steps // 10), steps)
 
-    # the executor backend owns the device; the same call targets another
-    # device by swapping the executor, nothing else
-    executor = MeshExecutor(make_host_mesh(device=device), cfg=cfg, mode="train", global_batch=batch)
-    dev = executor.mesh
+    # the executor backend owns the device or mesh; the same call targets
+    # another by swapping the executor, nothing else
+    mesh = make_host_mesh(model=model_axis, device=device)
+    executor = MeshExecutor(mesh, cfg=cfg, mode="train", global_batch=batch)
+    sharded = is_mesh(mesh)
+    dev = mesh_device(mesh) if sharded else mesh
+    rank = torch.distributed.get_rank() if sharded else 0
+    say = print if rank == 0 else (lambda *a, **k: None)
     train_step = executor.train_step(model, schedule, microbatches=microbatches)
+    if sharded:
+        train_step, _, state_shard, _ = train_step
 
     registry = ProvenanceRegistry()
     sw = software_version_of(train_loss)
     registry.register_task("train_step", ["batch"], ["state", "metrics"], sw)
-    ckpt = CheckpointManager(ckpt_dir, software_version=sw)
+    ckpt = CheckpointManager(os.path.join(ckpt_dir, f"rank_{rank}") if sharded else ckpt_dir, software_version=sw)
     data = build_data_pipeline(cfg, batch, seq, seed=seed)
     ft = FaultToleranceManager(n_hosts=1)
 
     def fresh_state():
         params = model.init(seed, dev)
+        if sharded:
+            return placed_train_state(params, state_shard, mesh)
         return {
             "params": params,
             "opt": adamw_init(params),
             "step": torch.zeros((), dtype=torch.int32, device=dev),
         }
 
+    def local(state):
+        return tree_map(lambda t: t.to_local(), state) if sharded else state
+
     def restore():
         last = ckpt.latest_step()
         if resume and last is not None:
-            state, manifest = ckpt.restore(fresh_state())
-            print(f"[restore] step {last} (sw={manifest['software_version']})")
+            state = fresh_state()
+            shards, manifest = ckpt.restore(local(state))
+            for dst, src in zip(tree_leaves(local(state)), tree_leaves(shards)):
+                dst.copy_(src)
+            say(f"[restore] step {last} (sw={manifest['software_version']})")
             return state, last
         return fresh_state(), 0
 
@@ -130,13 +158,13 @@ def run(
             if step == fail_at_step:
                 ckpt.wait()
                 raise SimulatedFailure(host=0, msg=f"injected at step {step}")
-            print(
+            say(
                 f"step {step:5d} loss {loss:.4f} "
                 f"lr {float(metrics['lr']):.2e} gnorm {float(metrics['grad_norm']):.3f} "
                 f"({dt:.2f}s)"
             )
             if (step + 1) % ckpt_every == 0 or step + 1 == steps:
-                ckpt.save_async(state, step + 1, meta={"loss": loss})
+                ckpt.save_async(local(state), step + 1, meta={"loss": loss})
         ckpt.wait()
         return state
 
@@ -151,12 +179,12 @@ def run(
             attempts += 1
             resume = True
             fail_at_step = -1  # replacement host joins; don't re-fail
-            print(f"[ft] {e} -> restart from latest checkpoint (attempt {attempts})")
+            say(f"[ft] {e} -> restart from latest checkpoint (attempt {attempts})")
             if attempts > 3:
                 raise
 
-    print(f"[done] {steps} steps; checkpoints: {[a.meta['step'] for a in ckpt.saved]}")
-    print(f"[provenance] visitor log entries: {len(registry.visitor_log('train_step'))}")
+    say(f"[done] {steps} steps; checkpoints: {[a.meta['step'] for a in ckpt.saved]}")
+    say(f"[provenance] visitor log entries: {len(registry.visitor_log('train_step'))}")
     return state
 
 
@@ -176,10 +204,13 @@ def main(argv=None):
                     help="inject a simulated host failure (tests recovery)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--model", type=int, default=1,
+                    help="ranks on the mesh's model axis (tensor and expert parallelism) in a process group")
     ap.add_argument("--dtype", choices=("bfloat16", "float32"), default=None,
                     help="compute dtype (default: the config's own; --reduced makes it float32)")
     args = ap.parse_args(argv)
 
+    join_process_group(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
@@ -187,7 +218,22 @@ def main(argv=None):
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     return run(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr, microbatches=args.microbatches,
                ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir, resume=args.resume,
-               fail_at_step=args.fail_at_step, seed=args.seed, device=args.device)
+               fail_at_step=args.fail_at_step, seed=args.seed, device=args.device, model_axis=args.model)
+
+
+def join_process_group(device) -> None:
+    """Under a launcher that sets ``WORLD_SIZE`` > 1 (``torchrun``), join its
+    process group: NCCL with this rank on card ``LOCAL_RANK``, or gloo on the
+    CPU. Nothing without one, or when a group is already initialised."""
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
 
 
 if __name__ == "__main__":

@@ -18,6 +18,17 @@ prefill it rebuilds per-head K (nope ‖ shared rope, Dk 96) and V (Dv 64)
 and calls ``flash_attention`` at that pair; its decode is the reference's
 absorbed attention over the latent cache, plain matmuls (the JAX package has
 no kernel there either).
+
+Under axis rules that put ``heads`` over a ``model`` axis of tp > 1
+(``common.tensor_parallel``), training attention is Megatron's: the
+projections are column-parallel over this rank's H/tp heads (the input
+enters through ``to_model``), attention runs on the local heads, and ``wo``
+is row-parallel, its partial output summed by one all-reduce
+(``from_model``). Where ``kv_heads`` stays replicated (KVH not a multiple of
+tp), each rank projects every KV head with the weights entering through
+``to_model`` (their gradient is partial) and keeps those its query heads
+read (``_local_kv``). MLA keeps its latents replicated and splits the heads.
+Serving on such a mesh is not ported (ROADMAP item 6b).
 """
 
 from __future__ import annotations
@@ -28,7 +39,33 @@ import torch
 
 from repro_torch.kernels.ops import kernel_set
 
-from .common import NEG_INF, ArchConfig, ParamBuilder, apply_rope, rms_norm
+from .common import ITEM_6B, NEG_INF, ArchConfig, ParamBuilder, apply_rope, rms_norm, tensor_parallel
+
+
+def heads_parallel():
+    """The tensor-parallel view when attention heads are local shards."""
+    par = tensor_parallel()
+    return par if par is not None and par.sharded("heads") else None
+
+
+def _kv_weights(p: dict, par, names=("wk", "wv", "bk", "bv")) -> dict:
+    """K/V weights for the local heads' use: replicated ones (KVH over no
+    axis) enter through ``to_model``, since each rank's gradient is partial."""
+    if par is None or par.sharded("kv_heads"):
+        return {n: p[n] for n in names if n in p}
+    return {n: par.to_model(p[n]) for n in names if n in p}
+
+
+def _local_kv(par, k: torch.Tensor, v: torch.Tensor, h_loc: int):
+    """From replicated K/V (B, S, KVH, Dh), the KV head of each of this
+    rank's query heads (h // (H / KVH)): the local heads then hold one KV
+    head each (KVH not a multiple of tp means they never hold whole GQA
+    groups)."""
+    if par is None or par.sharded("kv_heads"):
+        return k, v
+    g, h0 = h_loc * par.tp // k.shape[2], par.tp_rank * h_loc
+    idx = torch.arange(h0, h0 + h_loc, device=k.device) // g
+    return k.index_select(2, idx), v.index_select(2, idx)
 
 
 def init_attention(pb: ParamBuilder, cfg: ArchConfig) -> dict:
@@ -40,17 +77,17 @@ def init_attention(pb: ParamBuilder, cfg: ArchConfig) -> dict:
     # which gives attention logits of std ~64 at init: a random model whose
     # full depth amplifies any rounding difference until its outputs decorrelate.
     p = {
-        "wq": pb.dense((d, H, Dh), scale=d**-0.5),
-        "wk": pb.dense((d, KVH, Dh), scale=d**-0.5),
-        "wv": pb.dense((d, KVH, Dh), scale=d**-0.5),
-        "wo": pb.dense((H, Dh, d), scale=(H * Dh) ** -0.5),
+        "wq": pb.dense((d, H, Dh), ("embed", "heads", "head_dim"), scale=d**-0.5),
+        "wk": pb.dense((d, KVH, Dh), ("embed", "kv_heads", "head_dim"), scale=d**-0.5),
+        "wv": pb.dense((d, KVH, Dh), ("embed", "kv_heads", "head_dim"), scale=d**-0.5),
+        "wo": pb.dense((H, Dh, d), ("heads", "head_dim", "embed"), scale=(H * Dh) ** -0.5),
     }
     if cfg.pad_heads:
         p["wo"][cfg.n_heads:] = 0
     if cfg.qkv_bias:
-        p["bq"] = pb.zeros((H, Dh))
-        p["bk"] = pb.zeros((KVH, Dh))
-        p["bv"] = pb.zeros((KVH, Dh))
+        p["bq"] = pb.zeros((H, Dh), ("heads", "head_dim"))
+        p["bk"] = pb.zeros((KVH, Dh), ("kv_heads", "head_dim"))
+        p["bv"] = pb.zeros((KVH, Dh), ("kv_heads", "head_dim"))
     return p
 
 
@@ -60,15 +97,19 @@ def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.reshape(d, -1)).view(B, L, *w.shape[1:])
 
 
-def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Tensor, par=None):
+    kv = _kv_weights(p, par)
+    if par is not None:
+        x = par.to_model(x)
+    q, k, v = _proj(x, p["wq"]), _proj(x, kv["wk"]), _proj(x, kv["wv"])
     if cfg.qkv_bias:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        k = k + kv["bk"]
+        v = v + kv["bv"]
     # RoPE on q/k: every head of a token rotates by that token's position
     q = apply_rope(q, positions[:, :, None], cfg.rope_theta)
     k = apply_rope(k, positions[:, :, None], cfg.rope_theta)
+    k, v = _local_kv(par, k, v, q.shape[2])
     return q, k, v
 
 
@@ -125,23 +166,26 @@ def attention_block(
     through."""
     kernels = kernels or kernel_set()
     B, L, _ = x.shape
+    par = heads_parallel()
+    if par is not None and (cache is not None or L == 1):
+        raise NotImplementedError(ITEM_6B)
     if cross_kv is not None:
-        q = _proj(x, p["wq"])
-        mk, mv = cross_kv
+        q = _proj(x if par is None else par.to_model(x), p["wq"])
+        mk, mv = _local_kv(par, *cross_kv, q.shape[2])
         if L > 1:
             out = attention(q, mk, mv, causal=False, window=0, kernels=kernels)
         else:  # one query: every memory slot is visible (k_pos = q_pos = 0)
             T, i32 = mk.shape[1], dict(dtype=torch.int32, device=x.device)
             out = kernels["flash_decode"](q, mk, mv, torch.zeros((B, T), **i32), torch.zeros((B,), **i32),
                                           torch.full((B,), T, **i32))
-        return _out_proj(p, out), cache
+        return _out_proj(p, out, par), cache
 
-    q, k, v = _project_qkv(p, cfg, x, positions)
+    q, k, v = _project_qkv(p, cfg, x, positions, par)
     window = cfg.window if cfg.attention == "swa" else 0
 
     if cache is None:
         out = attention(q, k, v, causal=True, window=window, kernels=kernels)
-        new_cache = None
+        return _out_proj(p, out, par), None
     elif "pos" in cache:  # SWA ring of S = window slots (reference :248-259)
         idx, ck, cv, kpos = cache["index"], cache["k"], cache["v"], cache["pos"]
         S = ck.shape[1]
@@ -194,16 +238,23 @@ def attention_block(
     return _out_proj(p, out), new_cache
 
 
-def _out_proj(p: dict, out: torch.Tensor) -> torch.Tensor:
-    """einsum('blhk,hkd->bld', out, wo) as one matmul."""
+def _out_proj(p: dict, out: torch.Tensor, par=None) -> torch.Tensor:
+    """einsum('blhk,hkd->bld', out, wo) as one matmul; over local heads, the
+    partial sums all-reduced over ``model``."""
     B, L, H, Dv = out.shape
-    return out.reshape(B, L, H * Dv) @ p["wo"].reshape(H * Dv, -1)
+    y = out.reshape(B, L, H * Dv) @ p["wo"].reshape(H * Dv, -1)
+    return y if par is None else par.from_model(y)
 
 
 def memory_kv(p: dict, memory: torch.Tensor) -> tuple:
     """The encoder memory's cross-attention K and V (B, T, KVH, Dh): no bias,
-    no RoPE (reference ``transformer.py:102-103``)."""
-    return _proj(memory, p["wk"]), _proj(memory, p["wv"])
+    no RoPE (reference ``transformer.py:102-103``); every KV head, or the
+    local ones where ``kv_heads`` is sharded."""
+    par = heads_parallel()
+    kv = _kv_weights(p, par, ("wk", "wv"))
+    if par is not None:
+        memory = par.to_model(memory)
+    return _proj(memory, kv["wk"]), _proj(memory, kv["wv"])
 
 
 def cache_slots(cfg: ArchConfig, max_len: int) -> int:
@@ -238,14 +289,14 @@ def init_mla(pb: ParamBuilder, cfg: ArchConfig) -> dict:
     dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
     # the 3-D weights scaled by their true fan-in, as in init_attention
     p = {
-        "wq_a": pb.dense((d, qr)),
-        "q_norm": pb.ones((qr,)),
-        "wq_b": pb.dense((qr, H, dn + dr), scale=qr**-0.5),
-        "wkv_a": pb.dense((d, kvr + dr)),
-        "kv_norm": pb.ones((kvr,)),
-        "wk_b": pb.dense((kvr, H, dn), scale=kvr**-0.5),
-        "wv_b": pb.dense((kvr, H, dv), scale=kvr**-0.5),
-        "wo": pb.dense((H, dv, d), scale=(H * dv) ** -0.5),
+        "wq_a": pb.dense((d, qr), ("embed", "q_lora")),
+        "q_norm": pb.ones((qr,), ("q_lora",)),
+        "wq_b": pb.dense((qr, H, dn + dr), ("q_lora", "heads", "head_dim"), scale=qr**-0.5),
+        "wkv_a": pb.dense((d, kvr + dr), ("embed", "kv_lora")),
+        "kv_norm": pb.ones((kvr,), ("kv_lora",)),
+        "wk_b": pb.dense((kvr, H, dn), ("kv_lora", "heads", "head_dim"), scale=kvr**-0.5),
+        "wv_b": pb.dense((kvr, H, dv), ("kv_lora", "heads", "head_dim"), scale=kvr**-0.5),
+        "wo": pb.dense((H, dv, d), ("heads", "head_dim", "embed"), scale=(H * dv) ** -0.5),
     }
     if cfg.pad_heads:
         p["wo"][cfg.n_heads:] = 0
@@ -256,7 +307,7 @@ def _mla_kv(p: dict, cfg: ArchConfig, c_kv: torch.Tensor, k_rope: torch.Tensor):
     """Per-head K (B, S, H, nope + rope) and V (B, S, H, v) from the latents
     c_kv (B, S, kvr) and the shared rotary key k_rope (B, S, rope)."""
     B, S, _ = c_kv.shape
-    H = cfg.n_heads_eff
+    H = p["wk_b"].shape[1]  # the local heads under tensor parallelism
     k_nope = _proj(c_kv, p["wk_b"])
     k = torch.cat([k_nope, k_rope[:, :, None].expand(B, S, H, cfg.qk_rope_dim)], dim=-1)
     return k, _proj(c_kv, p["wv_b"])
@@ -274,9 +325,13 @@ def mla_block(
     cache is written in place; its index is a host ``int``."""
     kernels = kernels or kernel_set()
     B, L, _ = x.shape
+    par = heads_parallel()
+    if par is not None and cache is not None:
+        raise NotImplementedError(ITEM_6B)
+    to_heads = (lambda t: t) if par is None else par.to_model  # replicated latents -> local heads
     dn, kvr = cfg.qk_nope_dim, cfg.kv_lora_rank
     cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
-    q = _proj(cq, p["wq_b"])  # (B, L, H, dn + dr)
+    q = _proj(to_heads(cq), p["wq_b"])  # (B, L, H, dn + dr)
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     q_rope = apply_rope(q_rope, positions[:, :, None], cfg.rope_theta)
     ckv_full = x @ p["wkv_a"]  # (B, L, kvr + dr)
@@ -284,9 +339,9 @@ def mla_block(
     k_rope = apply_rope(ckv_full[..., kvr:], positions, cfg.rope_theta)  # (B, L, dr), shared by the heads
 
     if cache is None:
-        k, v = _mla_kv(p, cfg, c_kv, k_rope)
+        k, v = _mla_kv(p, cfg, to_heads(c_kv), to_heads(k_rope))
         out = attention(torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True, window=0, kernels=kernels)
-        return _out_proj(p, out), None
+        return _out_proj(p, out, par), None
 
     idx = cache["index"]
     S = cache["c_kv"].shape[1]

@@ -1,18 +1,28 @@
-"""Shared model substrate: config schema, device choice, RMSNorm, RoPE.
+"""Shared model substrate: config schema, device choice, logical axes and
+the axis-rules context, RMSNorm, RoPE.
 
 Port of ``repro.models.common``. The config schema is a copy (the reference
-module imports jax); ``compute_dtype()`` returns a torch dtype. There are no
-sharding hooks yet: the port runs on one device.
+module imports jax); ``compute_dtype()`` returns a torch dtype.
+``ParamBuilder`` records each parameter's logical axis names ("embed",
+"heads", ...), as the reference's does, so ``Model.init(..., with_axes=True)``
+returns the logical-axes tree beside the params. ``axis_rules(rules, mesh)``
+installs the logical-name -> mesh-axis rules of ``repro_torch.dist.sharding``
+around a call; the model code reads from them (``repro_torch.dist.comm
+.current``) which of its dimensions are local shards and over which process
+group. Without rules nothing changes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
+from typing import Optional
 
 import numpy as np
 import torch
 
 NEG_INF = -2.0e38  # finite mask value, as in the reference kernels
+ITEM_6B = "serving on a mesh of more than one rank is not ported yet (ROADMAP item 6b)"
 
 
 # ---------------------------------------------------------------------------
@@ -148,34 +158,102 @@ def resolve_device(device) -> torch.device:
 
 
 # ---------------------------------------------------------------------------
+# Logical-axis rules context
+# ---------------------------------------------------------------------------
+
+_AXIS_RULES = threading.local()
+
+
+def set_axis_rules(rules: Optional[dict], mesh=None) -> None:
+    """rules: logical axis name -> mesh axis (str / tuple / None)."""
+    _AXIS_RULES.ctx = None if rules is None else (rules, mesh)
+
+
+def get_axis_rules():
+    """(rules, mesh) installed on this thread, or None."""
+    return getattr(_AXIS_RULES, "ctx", None)
+
+
+class axis_rules:
+    """Context manager for logical -> mesh axis rules (and the mesh itself)."""
+
+    def __init__(self, rules: Optional[dict], mesh=None):
+        self.rules, self.mesh = rules, mesh
+
+    def __enter__(self):
+        self.prev = get_axis_rules()
+        set_axis_rules(self.rules, self.mesh)
+        return self
+
+    def __exit__(self, *exc):
+        _AXIS_RULES.ctx = self.prev
+
+
+def parallel():
+    """The installed rules' view on a DeviceMesh
+    (``repro_torch.dist.comm.Parallel``: which dimensions are local shards,
+    over which groups), or None: no rules, or rules without a DeviceMesh."""
+    if get_axis_rules() is None:
+        return None
+    from repro_torch.dist.comm import current
+
+    return current()
+
+
+def tensor_parallel():
+    """``parallel()`` where the model axis has more than one rank, else None."""
+    par = parallel()
+    return par if par is not None and par.tp > 1 else None
+
+
+# ---------------------------------------------------------------------------
 # Param init
 # ---------------------------------------------------------------------------
 
 
 class ParamBuilder:
-    """Draws parameters from one seeded ``torch.Generator`` on ``device``.
+    """Draws parameters from one seeded ``torch.Generator`` on ``device`` and
+    records each one's logical axes (one name or None per dimension), as the
+    reference's ``ParamBuilder`` pairs them; ``axes_of`` reads them back for
+    a tree of the tensors it made.
 
     The stream differs from ``jax.random``'s: parity tests carry JAX weights
     over with ``repro_torch.models.convert.params_from_jax`` instead."""
 
     def __init__(self, generator: torch.Generator, dtype: torch.dtype, device: torch.device):
         self.gen, self.dtype, self.device = generator, dtype, device
+        self._axes: dict = {}  # id(tensor) -> (tensor, axes): the tensor keeps its id taken
 
-    def dense(self, shape: tuple, scale: float | None = None) -> torch.Tensor:
+    def _record(self, t: torch.Tensor, axes: tuple) -> torch.Tensor:
+        if len(axes) != t.dim():
+            raise ValueError(f"axes {axes} for a tensor of shape {tuple(t.shape)}")
+        self._axes[id(t)] = (t, tuple(axes))
+        return t
+
+    def axes_of(self, tree):
+        """The logical-axes tree of a tree of dicts and lists of this
+        builder's tensors."""
+        if isinstance(tree, dict):
+            return {k: self.axes_of(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [self.axes_of(v) for v in tree]
+        return self._axes[id(tree)][1]
+
+    def dense(self, shape: tuple, axes: tuple, scale: float | None = None) -> torch.Tensor:
         fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
         s = scale if scale is not None else fan_in**-0.5
         w = torch.randn(shape, generator=self.gen, dtype=torch.float32, device=self.device)
-        return (w * s).to(self.dtype)
+        return self._record((w * s).to(self.dtype), axes)
 
-    def zeros(self, shape: tuple) -> torch.Tensor:
-        return torch.zeros(shape, dtype=self.dtype, device=self.device)
+    def zeros(self, shape: tuple, axes: tuple) -> torch.Tensor:
+        return self._record(torch.zeros(shape, dtype=self.dtype, device=self.device), axes)
 
-    def ones(self, shape: tuple) -> torch.Tensor:
-        return torch.ones(shape, dtype=self.dtype, device=self.device)
+    def ones(self, shape: tuple, axes: tuple) -> torch.Tensor:
+        return self._record(torch.ones(shape, dtype=self.dtype, device=self.device), axes)
 
-    def const(self, value: np.ndarray, dtype: torch.dtype | None = None) -> torch.Tensor:
+    def const(self, value: np.ndarray, axes: tuple, dtype: torch.dtype | None = None) -> torch.Tensor:
         """``value`` placed as it is (e.g. Mamba's f32 ``a_log``, ``dt_bias``)."""
-        return torch.as_tensor(value, dtype=dtype or self.dtype, device=self.device)
+        return self._record(torch.as_tensor(value, dtype=dtype or self.dtype, device=self.device), axes)
 
 
 # ---------------------------------------------------------------------------

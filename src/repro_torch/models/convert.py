@@ -10,6 +10,7 @@ leaves, whatever a layer holds), and so is the encoder's layer axis
 ``(E, d, f)``, ...) is kept, and so is every leaf's dtype (a bf16 model's
 Mamba ``a_log`` and ``dt_bias`` stay f32).
 With it, both packages compute the same function from the same weights.
+``axes_from_jax`` maps the reference's logical-axes tree the same way.
 """
 
 from __future__ import annotations
@@ -33,29 +34,43 @@ def _map(tree, fn):
     return fn(tree)
 
 
-def params_from_jax(cfg: ArchConfig, params: dict, device="cuda") -> dict:
-    dev = resolve_device(device)
-    extra = set(params) - {"embed", "final_norm", "lm_head", "blocks"} - ({"encoder"} if cfg.encoder_layers else set())
+def _unstack(cfg: ArchConfig, tree: dict, leaf, layer) -> dict:
+    """The port's layout of a reference tree: ``leaf(x)`` of the top-level
+    leaves, ``layer(x, i)`` of each stacked leaf at group (or encoder layer) i."""
+    extra = set(tree) - {"embed", "final_norm", "lm_head", "blocks"} - ({"encoder"} if cfg.encoder_layers else set())
     if extra:
         raise NotImplementedError(f"{cfg.name}: params {sorted(extra)} are not ported yet")
-    out = {
-        "embed": _tensor(params["embed"], dev),
-        "final_norm": _tensor(params["final_norm"], dev),
-    }
+    out = {"embed": leaf(tree["embed"]), "final_norm": leaf(tree["final_norm"])}
     if not cfg.tie_embeddings:
-        out["lm_head"] = _tensor(params["lm_head"], dev)
-    if len(params["blocks"]) != len(cfg.layout):
-        raise ValueError(f"{len(params['blocks'])} block stacks for a layout of {len(cfg.layout)}")
+        out["lm_head"] = leaf(tree["lm_head"])
+    if len(tree["blocks"]) != len(cfg.layout):
+        raise ValueError(f"{len(tree['blocks'])} block stacks for a layout of {len(cfg.layout)}")
     out["layers"] = [
-        _map(params["blocks"][pos], lambda a: _tensor(np.asarray(a)[g], dev))
+        _map(tree["blocks"][pos], lambda a: layer(a, g))
         for g in range(cfg.n_groups)
         for pos in range(len(cfg.layout))
     ]
     if cfg.encoder_layers:
-        enc = params["encoder"]
+        enc = tree["encoder"]
         out["encoder"] = {
-            "layers": [_map(enc["blocks"], lambda a: _tensor(np.asarray(a)[i], dev))
-                       for i in range(cfg.encoder_layers)],
-            "norm": _tensor(enc["norm"], dev),
+            "layers": [_map(enc["blocks"], lambda a: layer(a, i)) for i in range(cfg.encoder_layers)],
+            "norm": leaf(enc["norm"]),
         }
     return out
+
+
+def params_from_jax(cfg: ArchConfig, params: dict, device="cuda") -> dict:
+    dev = resolve_device(device)
+    return _unstack(cfg, params, lambda a: _tensor(a, dev), lambda a, g: _tensor(np.asarray(a)[g], dev))
+
+
+def axes_from_jax(cfg: ArchConfig, axes: dict) -> dict:
+    """The reference's logical-axes tree (``Model.init(key)[1]``) in the
+    port's layout: each stacked leaf loses its leading "layers" axis."""
+
+    def layer(ax, _):
+        if not ax or ax[0] != "layers":
+            raise ValueError(f"stacked axes {ax} do not start with 'layers'")
+        return tuple(ax[1:])
+
+    return _unstack(cfg, axes, tuple, layer)

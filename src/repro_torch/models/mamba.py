@@ -10,6 +10,16 @@ differentiates its chunked scan), the call goes through ``MambaScan``, which
 pairs it with ``kernels["mamba_scan_bwd"]``. Decode is the O(1) single-token
 affine update plus a depthwise-conv window, in plain PyTorch as in the
 reference.
+
+Where the rules shard ``inner`` over a ``model`` axis of tp > 1, a rank
+trains its Di/tp channels: the conv, ``dt_proj``, ``dt_bias``, ``a_log``, the
+scan and ``d_skip`` are per channel. ``in_proj`` (d, 2 Di) is stored as the
+rule says, contiguous over ``inner``, which gives rank 0 of 2 the x half and
+rank 1 the z half; the block all-gathers it whole (its gradient
+reduce-scattered back) and multiplies by its own x and z columns.
+``x_proj`` is row-parallel, one all-reduce before dt, B and C (which enter
+the local channels' products through ``to_model``); ``out_proj`` is
+row-parallel, one all-reduce.
 """
 
 from __future__ import annotations
@@ -22,7 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import kernel_set
 
-from .common import ArchConfig, ParamBuilder
+from .common import ITEM_6B, ArchConfig, ParamBuilder, tensor_parallel
 
 
 def init_mamba(pb: ParamBuilder, cfg: ArchConfig) -> dict:
@@ -35,15 +45,15 @@ def init_mamba(pb: ParamBuilder, cfg: ArchConfig) -> dict:
     ).astype(np.float32)
     dt_bias = dt + np.log1p(-np.exp(-dt))  # inverse softplus
     return {
-        "in_proj": pb.dense((d, 2 * di)),
-        "conv_w": pb.dense((k, di), scale=k**-0.5),
-        "conv_b": pb.zeros((di,)),
-        "x_proj": pb.dense((di, r + 2 * n)),
-        "dt_proj": pb.dense((r, di), scale=r**-0.5),
-        "dt_bias": pb.const(dt_bias, torch.float32),
-        "a_log": pb.const(np.log(a_init), torch.float32),
-        "d_skip": pb.ones((di,)),
-        "out_proj": pb.dense((di, d)),
+        "in_proj": pb.dense((d, 2 * di), ("embed", "inner")),
+        "conv_w": pb.dense((k, di), (None, "inner"), scale=k**-0.5),
+        "conv_b": pb.zeros((di,), ("inner",)),
+        "x_proj": pb.dense((di, r + 2 * n), ("inner", None)),
+        "dt_proj": pb.dense((r, di), (None, "inner"), scale=r**-0.5),
+        "dt_bias": pb.const(dt_bias, ("inner",), torch.float32),
+        "a_log": pb.const(np.log(a_init), ("inner", None), torch.float32),
+        "d_skip": pb.ones((di,), ("inner",)),
+        "out_proj": pb.dense((di, d), ("inner", "embed")),
     }
 
 
@@ -57,10 +67,12 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Ten
     return out + b
 
 
-def _ssm_params(p: dict, cfg: ArchConfig, xc: torch.Tensor):
+def _ssm_params(p: dict, cfg: ArchConfig, xc: torch.Tensor, par=None):
     """xc: (B, L, Di) post-conv activations -> dt (f32), Bmat, Cmat (f32)."""
     r, n = cfg.dt_rank, cfg.ssm_state
     proj = xc @ p["x_proj"]  # (B, L, r + 2n)
+    if par is not None:  # partial sums over the local channels
+        proj = par.to_model(par.from_model(proj))
     dt_in, Bm, Cm = proj[..., :r], proj[..., r : r + n], proj[..., r + n :]
     dt = (dt_in @ p["dt_proj"]).float()
     dt = F.softplus(dt + p["dt_bias"])  # (B, L, Di) f32
@@ -112,12 +124,24 @@ def mamba_block(
     """Returns (y (B, L, D), new_cache); new_cache is None without a cache."""
     kernels = kernels or kernel_set()
     L, K = x.shape[1], cfg.ssm_conv
-    xr, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    par = tensor_parallel()
+    par = par if par is not None and par.sharded("inner") else None
+    if par is None:
+        xr, z = (x @ p["in_proj"]).chunk(2, dim=-1)
+    else:
+        if cache is not None:
+            raise NotImplementedError(ITEM_6B)
+        from repro_torch.dist.comm import gather
+
+        w = gather(p["in_proj"], par.comm, 1, ("model",))  # (d, 2 Di)
+        di = w.shape[1] // 2
+        xr, z = (par.to_model(x) @ torch.cat([par.model_slice(w[:, :di], 1), par.model_slice(w[:, di:], 1)],
+                                             dim=1)).chunk(2, dim=-1)
     a = -torch.exp(p["a_log"])  # (Di, N)
 
     if cache is None:
         xc = F.silu(_causal_conv(xr, p["conv_w"], p["conv_b"]))
-        dt, Bm, Cm = _ssm_params(p, cfg, xc)
+        dt, Bm, Cm = _ssm_params(p, cfg, xc, par)
         y, _ = selective_scan(kernels, xc, dt, Bm, Cm, a, chunk_len=min(256, L))
         new_cache = None
     elif L == 1:
@@ -144,7 +168,8 @@ def mamba_block(
 
     y = y + xcf_skip(xc, p["d_skip"])
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p["out_proj"], new_cache
+    y = y @ p["out_proj"]
+    return (y if par is None else par.from_model(y)), new_cache
 
 
 def xcf_skip(xc: torch.Tensor, d_skip: torch.Tensor) -> torch.Tensor:

@@ -14,7 +14,24 @@ sort-based dispatch:
      step differentiates its einsums, ``repro/models/moe.py:127-131``);
   4. combine: gather each slot's output back, weight, and sum over k.
 
-Group-local dispatch (``moe_groups > 1``) is not ported yet.
+Group-local dispatch (``moe_groups = G > 1``, the reference's ``:98-143``)
+splits the tokens into G groups, each sorted and binned with
+``expert_capacity(T // G)`` (``T % G != 0`` falls back to G = 1); where the
+reference runs einsums for G > 1, the port runs ``moe_gmm`` (and K7a) once
+per group.
+
+On a mesh (``common.parallel``), the dispatch stays the global one the
+reference computes. The batch ranks each hold T/dp consecutive tokens; they
+all-gather their per-(group, expert) slot counts, a rank's slot in a bin
+starts after the earlier ranks' counts, and a token is kept iff that slot
+is below C(T_global / G), so the drops are the one-device step's. A rank
+bins only its own kept tokens (C_loc = min(C, Tg, T) rows a bin; SwiGLU is
+row-wise), and the aux loss's means are sums over the batch ranks. Where the
+rules shard ``experts`` over ``model`` (expert parallelism), a rank runs its
+E/tp bins; where they shard ``mlp`` instead, every expert's F/tp columns.
+Either way the dispatch source and the gate weights enter through
+``to_model`` and the combine is all-reduced over ``model``; the router is
+stored over ``experts`` as the rules say and gathered whole for routing.
 """
 
 from __future__ import annotations
@@ -26,16 +43,16 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import kernel_set
 
-from .common import ArchConfig, ParamBuilder
+from .common import ArchConfig, ParamBuilder, parallel
 
 
 def init_moe(pb: ParamBuilder, cfg: ArchConfig) -> dict:
     d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
     return {
-        "router": pb.dense((d, e), scale=d**-0.5),
-        "w_gate": pb.dense((e, d, f)),
-        "w_up": pb.dense((e, d, f)),
-        "w_down": pb.dense((e, f, d)),
+        "router": pb.dense((d, e), ("embed", "experts"), scale=d**-0.5),
+        "w_gate": pb.dense((e, d, f), ("experts", "embed", "mlp")),
+        "w_up": pb.dense((e, d, f), ("experts", "embed", "mlp")),
+        "w_down": pb.dense((e, f, d), ("experts", "mlp", "embed")),
     }
 
 
@@ -61,23 +78,55 @@ def route(p: dict, cfg: ArchConfig, xf: torch.Tensor):
     return probs, gate_w, gate_e
 
 
-def _dispatch(xf: torch.Tensor, gate_e: torch.Tensor, K: int, E: int, C: int):
-    """xf (T, D), gate_e (T, K) -> (xe (E, C, D), slot_by_flat (T*K,), kept)
-    where slot ``E*C`` is the overflow dump."""
+def _dispatch(xf: torch.Tensor, gate_e: torch.Tensor, K: int, E: int, C: int, G: int, par=None,
+              experts: tuple = (0, None)):
+    """Group-local sort-based dispatch of this rank's tokens.
+
+    xf (T, D) and gate_e (T, K) are the T tokens of batch rank r of dp (T*r
+    onwards in the global order), in groups of Tg = dp*T // G global tokens.
+    Returns (xe (Gl, El, Cl, D), slot_by_flat (T*K,), kept): the bins of the
+    Gl groups this rank's tokens fall in and of experts ``[e0, e1)``, each
+    token-slot's row in ``xe`` viewed as (Gl*El*Cl, D) (the dump row
+    Gl*El*Cl where it was dropped or belongs to another rank's experts), and
+    the number of token-slots kept over all batch ranks. Slots are ordered by
+    a stable sort of (group, expert) over the flattened (t, k), as the
+    reference's per-group sort; a slot is kept iff its place in its bin,
+    after the earlier ranks' slots, is below C."""
     T, D = xf.shape
-    flat_e = gate_e.reshape(-1)
-    sort_idx = torch.argsort(flat_e, stable=True)
-    sorted_e = flat_e[sort_idx]
-    counts = torch.bincount(flat_e, minlength=E)
+    dp, r = (1, 0) if par is None else (par.dp, par.dp_rank)
+    Tg = dp * T // G
+    g_lo, g_hi = (r * T) // Tg, (r * T + T - 1) // Tg
+    Gl = g_hi - g_lo + 1
+    e0, e1 = experts[0], experts[1] if experts[1] is not None else E
+    El = e1 - e0
+    Cl = C if dp == 1 else min(C, Tg, T)
+    dev = xf.device
+    group = (torch.arange(r * T, r * T + T, device=dev) // Tg - g_lo).repeat_interleave(K)  # (T*K,)
+    key = group * E + gate_e.reshape(-1)
+    sort_idx = torch.argsort(key, stable=True)
+    sorted_key = key[sort_idx]
+    counts = torch.bincount(key, minlength=Gl * E)
     starts = torch.cumsum(counts, 0) - counts
-    pos_in_e = torch.arange(T * K, device=xf.device) - starts[sorted_e]
-    keep = pos_in_e < C
-    dest = torch.where(keep, sorted_e * C + pos_in_e, E * C)
-    xbuf = torch.zeros((E * C + 1, D), dtype=xf.dtype, device=xf.device)
+    pos = torch.arange(T * K, device=dev) - starts[sorted_key]  # place among this rank's slots in the bin
+    if dp > 1:
+        every = torch.zeros((G * E,), dtype=counts.dtype, device=dev)
+        every[g_lo * E : (g_hi + 1) * E] = counts
+        every = par.batch_gather(every)  # (dp, G*E)
+        before = every[:r].sum(0)[g_lo * E : (g_hi + 1) * E]
+        keep = before[sorted_key] + pos < C
+        kept = torch.minimum(every.sum(0), torch.full((), C, device=dev)).sum()
+    else:
+        keep = pos < C
+        kept = keep.sum()
+    g, e = sorted_key // E, sorted_key % E
+    mine = keep & (e >= e0) & (e < e1)
+    dump = Gl * El * Cl
+    dest = torch.where(mine, (g * El + e - e0) * Cl + pos, dump)
+    xbuf = torch.zeros((dump + 1, D), dtype=xf.dtype, device=dev)
     xbuf[dest] = xf[sort_idx // K]  # kept slots are distinct; the dump row is discarded
     slot_by_flat = torch.empty_like(dest)
     slot_by_flat[sort_idx] = dest
-    return xbuf[: E * C].view(E, C, D), slot_by_flat, keep.sum()
+    return xbuf[:dump].view(Gl, El, Cl, D), slot_by_flat, kept
 
 
 class MoeGmm(torch.autograd.Function):
@@ -116,47 +165,76 @@ def moe_ffn(
     x: torch.Tensor,  # (B, L, D)
     kernels: Optional[dict] = None,
 ):
-    """Returns (y (B, L, D), {"aux_loss", "dropped_frac"}), both f32 scalars."""
-    if cfg.moe_groups > 1:
-        raise NotImplementedError(
-            "group-local MoE dispatch (moe_groups > 1) is not ported yet "
-            "(see ROADMAP.md queue 1, Distribution)"
-        )
+    """Returns (y (B, L, D), {"aux_loss", "dropped_frac"}), both f32 scalars,
+    of the whole batch on a mesh."""
     kernels = kernels or kernel_set()
+    par = parallel()
+    dp = 1 if par is None else par.dp
+    tp = par if par is not None and par.tp > 1 and (par.sharded("experts") or par.sharded("mlp")) else None
     B, L, D = x.shape
     E, K = cfg.n_experts, cfg.top_k
     T = B * L
-    C = expert_capacity(T, cfg)
+    T_all = T * dp
+    G = max(1, cfg.moe_groups)
+    if T_all % G:
+        G = 1
+    C = expert_capacity(T_all // G, cfg)
     xf = x.reshape(T, D)
 
-    probs, gate_w, gate_e = route(p, cfg, xf)
+    router = p["router"]
+    if par is not None and par.tp > 1 and router.shape[1] != E:  # stored over experts
+        from repro_torch.dist.comm import gather
+
+        router = gather(router, par.comm, 1, ("model",), grads="same")
+    probs, gate_w, gate_e = route({"router": router}, cfg, xf)
     # Switch aux loss: E * sum_e (top-1 token fraction_e * mean prob_e)
     onehot = F.one_hot(gate_e[:, 0], E).float()
-    aux_loss = E * torch.mean(probs.mean(0) * onehot.mean(0))
+    if dp > 1:
+        prob_mean = par.batch_sum(probs.sum(0)) / T_all
+        frac = par.comm.all_reduce(onehot.sum(0), par.batch) / T_all
+        aux_loss = E * torch.mean(prob_mean * frac)
+    else:
+        aux_loss = E * torch.mean(probs.mean(0) * onehot.mean(0))
 
-    xe, slot_by_flat, kept = _dispatch(xf, gate_e, K, E, C)
-    h = grouped_swiglu(xe, p["w_gate"], p["w_up"], p["w_down"], kernels)  # (E, C, D)
+    experts = (0, None)
+    if tp is not None:
+        xf, gate_w = tp.to_model(xf), tp.to_model(gate_w)
+        if tp.sharded("experts"):
+            e_loc = p["w_gate"].shape[0]
+            experts = (tp.tp_rank * e_loc, (tp.tp_rank + 1) * e_loc)
+    xe, slot_by_flat, kept = _dispatch(xf, gate_e, K, E, C, G, par, experts)
+    hs = [grouped_swiglu(xg, p["w_gate"], p["w_up"], p["w_down"], kernels) for xg in xe]  # one launch a group
+    h = hs[0] if len(hs) == 1 else torch.stack(hs)
 
-    ybuf = torch.cat([h.reshape(E * C, D), h.new_zeros((1, D))])
+    ybuf = torch.cat([h.reshape(-1, D), h.new_zeros((1, D))])
     y = ybuf[slot_by_flat].view(T, K, D)
     y = (y * gate_w[..., None].to(y.dtype)).sum(dim=1)
-    dropped = T * K - kept
+    if tp is not None:
+        y = tp.from_model(y)
+    dropped = T_all * K - kept
     return y.view(B, L, D).to(x.dtype), {
         "aux_loss": aux_loss,
-        "dropped_frac": dropped.float() / (T * K),
+        "dropped_frac": dropped.float() / (T_all * K),
     }
 
 
 def init_dense_ffn(pb: ParamBuilder, cfg: ArchConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     return {
-        "w_gate": pb.dense((d, f)),
-        "w_up": pb.dense((d, f)),
-        "w_down": pb.dense((f, d)),
+        "w_gate": pb.dense((d, f), ("embed", "mlp")),
+        "w_up": pb.dense((d, f), ("embed", "mlp")),
+        "w_down": pb.dense((f, d), ("mlp", "embed")),
     }
 
 
 def dense_ffn(p: dict, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU; column-parallel ``w_gate`` / ``w_up`` and row-parallel
+    ``w_down`` with one all-reduce where the rules shard ``mlp``."""
+    par = parallel()
+    tp = par if par is not None and par.tp > 1 and par.sharded("mlp") else None
+    if tp is not None:
+        x = tp.to_model(x)
     g = x @ p["w_gate"]
     u = x @ p["w_up"]
-    return (F.silu(g) * u) @ p["w_down"]
+    y = (F.silu(g) * u) @ p["w_down"]
+    return y if tp is None else tp.from_model(y)

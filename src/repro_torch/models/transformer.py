@@ -44,7 +44,18 @@ from repro_torch.kernels.ops import kernel_set
 from . import attention as attn
 from . import mamba as mb
 from . import moe as moe_mod
-from .common import ArchConfig, LayerSpec, ParamBuilder, apply_rope, grad_cast, resolve_device, rms_norm
+from .common import (
+    ArchConfig,
+    LayerSpec,
+    ParamBuilder,
+    apply_rope,
+    axis_rules,
+    get_axis_rules,
+    grad_cast,
+    resolve_device,
+    rms_norm,
+    tensor_parallel,
+)
 
 
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -55,16 +66,16 @@ def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
 def init_layer(pb: ParamBuilder, cfg: ArchConfig, spec: LayerSpec, cross: bool = False) -> dict:
     if spec.mixer not in ("attention", "mamba") or spec.ffn not in ("dense", "moe", "none"):
         raise ValueError(f"{cfg.name}: unknown layer spec {spec}")
-    p: dict = {"ln1": pb.ones((cfg.d_model,))}
+    p: dict = {"ln1": pb.ones((cfg.d_model,), ("embed",))}
     if spec.mixer == "mamba":
         p["mixer"] = mb.init_mamba(pb, cfg)
     else:
         p["mixer"] = attn.init_mla(pb, cfg) if cfg.attention == "mla" else attn.init_attention(pb, cfg)
     if cross:
-        p["ln_cross"] = pb.ones((cfg.d_model,))
+        p["ln_cross"] = pb.ones((cfg.d_model,), ("embed",))
         p["cross"] = attn.init_attention(pb, cfg)
     if spec.ffn != "none":
-        p["ln2"] = pb.ones((cfg.d_model,))
+        p["ln2"] = pb.ones((cfg.d_model,), ("embed",))
         p["ffn"] = moe_mod.init_moe(pb, cfg) if spec.ffn == "moe" else moe_mod.init_dense_ffn(pb, cfg)
     return p
 
@@ -116,9 +127,13 @@ class Model:
 
     cfg: ArchConfig
 
-    def init(self, seed: int, device="cuda") -> dict:
+    def init(self, seed: int, device="cuda", with_axes: bool = False):
         """Random params drawn from a ``torch.Generator`` seeded with ``seed``
-        on ``device``; on the ``meta`` device, their shapes and dtypes alone."""
+        on ``device``; on the ``meta`` device, their shapes and dtypes alone.
+        With ``with_axes``, returns (params, axes): the logical-axes tree of
+        the same layout, each leaf one name or None per dimension (the
+        reference's ``init`` tree, unstacked as ``convert.axes_from_jax``
+        does)."""
         cfg = self.cfg
         dev = resolve_device(device)
         gen = None
@@ -127,11 +142,11 @@ class Model:
             gen.manual_seed(seed)
         pb = ParamBuilder(gen, cfg.compute_dtype(), dev)
         params: dict = {
-            "embed": pb.dense((cfg.vocab, cfg.d_model), scale=1.0),
-            "final_norm": pb.ones((cfg.d_model,)),
+            "embed": pb.dense((cfg.vocab, cfg.d_model), ("vocab", "embed"), scale=1.0),
+            "final_norm": pb.ones((cfg.d_model,), ("embed",)),
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = pb.dense((cfg.d_model, cfg.vocab))
+            params["lm_head"] = pb.dense((cfg.d_model, cfg.vocab), ("embed", "vocab"))
         params["layers"] = [
             init_layer(pb, cfg, cfg.layout[i % len(cfg.layout)], cfg.cross_attention)
             for i in range(cfg.n_layers)
@@ -142,9 +157,9 @@ class Model:
             enc_cfg = dataclasses.replace(cfg, attention="full", cross_attention=False)
             params["encoder"] = {
                 "layers": [init_layer(pb, enc_cfg, enc_spec) for _ in range(cfg.encoder_layers)],
-                "norm": pb.ones((cfg.d_model,)),
+                "norm": pb.ones((cfg.d_model,), ("embed",)),
             }
-        return params
+        return (params, pb.axes_of(params)) if with_axes else params
 
     def encode(self, params: dict, frames: torch.Tensor, kernels: Optional[dict] = None) -> torch.Tensor:
         """frames (B, T, D) stub frontend embeddings -> (B, T, D) memory:
@@ -165,10 +180,15 @@ class Model:
         cfg = self.cfg
         h = _rms(x, p["ln1"], cfg.norm_eps)
         m = p["mixer"]
+        par = attn.heads_parallel()
+        kv = attn._kv_weights(m, par, ("wk", "wv"))
+        if par is not None:
+            h = par.to_model(h)
         q = apply_rope(attn._proj(h, m["wq"]), positions[:, :, None], cfg.rope_theta)
-        k = apply_rope(attn._proj(h, m["wk"]), positions[:, :, None], cfg.rope_theta)
-        o = attn.attention(q, k, attn._proj(h, m["wv"]), causal=False, window=0, kernels=kernels)
-        x = x + attn._out_proj(m, o)
+        k = apply_rope(attn._proj(h, kv["wk"]), positions[:, :, None], cfg.rope_theta)
+        k, v = attn._local_kv(par, k, attn._proj(h, kv["wv"]), q.shape[2])
+        o = attn.attention(q, k, v, causal=False, window=0, kernels=kernels)
+        x = x + attn._out_proj(m, o, par)
         return x + moe_mod.dense_ffn(p["ffn"], _rms(x, p["ln2"], cfg.norm_eps))
 
     def memory_kv(self, params: dict, memory: torch.Tensor) -> list:
@@ -218,7 +238,17 @@ class Model:
         return x, aux
 
     def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens]  # (B, L, D)
+        """(B, L, D) rows of the embedding; vocab-parallel where the rules
+        shard ``vocab``: ids outside this rank's rows give zeros, and one
+        all-reduce over ``model`` sums the ranks' rows."""
+        par = _vocab_parallel()
+        if par is None:
+            return params["embed"][tokens]  # (B, L, D)
+        w = params["embed"]
+        ids = tokens - par.tp_rank * w.shape[0]
+        mine = (ids >= 0) & (ids < w.shape[0])
+        x = torch.where(mine[..., None], w[ids.clamp(0, w.shape[0] - 1)], torch.zeros((), dtype=w.dtype, device=w.device))
+        return par.from_model(x)
 
     def logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -234,10 +264,17 @@ class Model:
         chunk: int = 512,
     ) -> torch.Tensor:
         """Token-mean cross-entropy in f32 over L-chunks of ``chunk``, labels
-        of -1 ignored; one chunk's (B, chunk, V) logits at a time."""
+        of -1 ignored; one chunk's (B, chunk, V) logits at a time. Where the
+        rules shard ``vocab``, each rank holds V/tp columns of the head (of
+        the tied embedding's rows) and the loss is vocab-parallel: the max,
+        the sum of exponentials and the target's logit are each all-reduced
+        over ``model``."""
         cfg = self.cfg
         x = _rms(x, params["final_norm"], cfg.norm_eps)
         w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+        par = _vocab_parallel()
+        if par is not None:
+            x = par.to_model(x)
         L = x.shape[1]
         chunk = min(chunk, L)
         tot = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -245,8 +282,11 @@ class Model:
         for s in range(0, L, chunk):
             lc = labels[:, s : s + chunk]
             logits = (x[:, s : s + chunk] @ w).float()
-            lse = torch.logsumexp(logits, dim=-1)
-            gold = logits.gather(-1, lc.clamp(min=0)[..., None].long())[..., 0]
+            if par is None:
+                lse = torch.logsumexp(logits, dim=-1)
+                gold = logits.gather(-1, lc.clamp(min=0)[..., None].long())[..., 0]
+            else:
+                lse, gold = _vocab_parallel_lse_gold(par, logits, lc)
             mask = (lc != -1).float()
             tot = tot + ((lse - gold) * mask).sum()
             cnt = cnt + mask.sum()
@@ -271,11 +311,42 @@ class Model:
         return caches
 
 
+def _vocab_parallel():
+    """The tensor-parallel view when the vocabulary is sharded over ``model``."""
+    par = tensor_parallel()
+    return par if par is not None and par.sharded("vocab") else None
+
+
+def _vocab_parallel_lse_gold(par, logits: torch.Tensor, labels: torch.Tensor):
+    """log-sum-exp and target logit of (B, l, V/tp) local f32 logits: the
+    max (no gradient: the lse does not depend on it), the sum of
+    exponentials and the target's logit (0 on the ranks not holding it) each
+    all-reduced over ``model``."""
+    v_loc = logits.shape[-1]
+    m = par.comm.all_reduce(logits.detach().amax(dim=-1), ("model",), op="max")
+    se = par.from_model(torch.exp(logits - m[..., None]).sum(dim=-1))
+    ids = labels.clamp(min=0).long() - par.tp_rank * v_loc
+    mine = (ids >= 0) & (ids < v_loc)
+    gold = logits.gather(-1, ids.clamp(0, v_loc - 1)[..., None])[..., 0]
+    gold = par.from_model(torch.where(mine, gold, torch.zeros((), device=logits.device)))
+    return m + torch.log(se), gold
+
+
 def _remat(cfg: ArchConfig, fn, *args):
-    """fn(*args), under the config's remat where a gradient is being taken."""
+    """fn(*args), under the config's remat where a gradient is being taken.
+    The recompute runs in the backward pass, on autograd's thread for CUDA
+    tensors, so the axis rules installed now are installed around it too."""
     if not torch.is_grad_enabled() or cfg.remat == "none":
         return fn(*args)
     ctx = {"full": None, "block": _save_matmuls}[cfg.remat]
+    rules = get_axis_rules()
+    if rules is not None:
+        inner = fn
+
+        def fn(*a):
+            with axis_rules(*rules):
+                return inner(*a)
+
     return checkpoint(fn, *args, use_reentrant=False, **({} if ctx is None else {"context_fn": ctx}))
 
 

@@ -48,9 +48,52 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, in f32."""
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+def global_norm(tree, specs=None, comm=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf, in f32. Over a placed tree
+    (``specs``: each leaf's spec, ``repro_torch.dist.sharding``; ``comm``:
+    the mesh's ``MeshComm``), each leaf is this rank's shard: the squares are
+    summed over the local shards of the leaves sharded over the same mesh
+    axes, each such sum all-reduced over exactly those axes (never over an
+    axis the leaf is replicated on), so every element counts once and the
+    norm is equal on every rank."""
+    if specs is None:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in tree_leaves(tree)))
+    from repro_torch.dist.sharding import spec_axes
+
+    parts: dict = {}
+    for x, spec in zip(tree_leaves(tree), _spec_leaves(specs)):
+        axes = tuple(sorted({a for e in spec for a in spec_axes(e)}))
+        parts.setdefault(axes, []).append(x)
+    total = 0
+    for axes, xs in parts.items():
+        s = sum(torch.sum(torch.square(x.float())) for x in xs)
+        total = total + (comm.all_reduce(s, axes) if axes else s)
+    return torch.sqrt(total)
+
+
+def _spec_leaves(specs) -> list:
+    """The spec tuples of a spec tree, in ``tree_leaves``' order."""
+    if isinstance(specs, dict):
+        return [leaf for k in sorted(specs) for leaf in _spec_leaves(specs[k])]
+    if isinstance(specs, list):
+        return [leaf for t in specs for leaf in _spec_leaves(t)]
+    return [specs]
+
+
+PIECE = 1 << 26  # elements of a leaf updated at a time: bounds the f32 temporaries of the update
+
+
+def _pieces(*ts: torch.Tensor):
+    """(p, g, m, v) of one leaf, whole, or as flat pieces of PIECE elements
+    where the leaf is larger and all four are contiguous. The update is
+    elementwise, so its values do not depend on the pieces."""
+    n = ts[0].numel()
+    if n <= PIECE or not all(t.is_contiguous() for t in ts):
+        yield ts
+        return
+    flat = [t.view(-1) for t in ts]
+    for i in range(0, n, PIECE):
+        yield tuple(f[i : i + PIECE] for f in flat)
 
 
 def adamw_init(params) -> dict:
@@ -72,23 +115,27 @@ def adamw_update(
     eps: float = 1e-8,
     weight_decay: float = 0.1,
     clip_norm: float = 1.0,
+    grad_norm: torch.Tensor | None = None,
 ) -> dict:
     """Updates params, ``state["m"]``, ``state["v"]`` and ``state["count"]``
     in place; returns the metrics ``grad_norm`` and ``clip_scale`` (f32
-    scalars on the params' device)."""
-    gnorm = global_norm(grads)
+    scalars on the params' device). ``grad_norm``, where given, is the
+    gradients' global norm (of a placed tree, whose leaves are shards)."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
     count = state["count"] + 1
     c1 = 1.0 - b1 ** count.float()
     c2 = 1.0 - b2 ** count.float()
-    for (p, stacked), g, m, v in zip(_leaves_with_depth(params), tree_leaves(grads), tree_leaves(state["m"]),
-                                     tree_leaves(state["v"])):
-        g = g.float() * scale
-        m.copy_(b1 * m + (1 - b1) * g)
-        v.copy_(b2 * v + (1 - b2) * g * g)
-        step = (m / c1) / (torch.sqrt(v / c2) + eps)
-        if p.dim() + stacked >= 2:
-            step = step + weight_decay * p.float()
-        p.copy_((p.float() - lr * step).to(p.dtype))
+    for (leaf, stacked), grad, mom1, mom2 in zip(_leaves_with_depth(params), tree_leaves(grads),
+                                                 tree_leaves(state["m"]), tree_leaves(state["v"])):
+        decay = leaf.dim() + stacked >= 2
+        for p, g, m, v in _pieces(leaf, grad, mom1, mom2):
+            g = g.float() * scale
+            m.copy_(b1 * m + (1 - b1) * g)
+            v.copy_(b2 * v + (1 - b2) * g * g)
+            step = (m / c1) / (torch.sqrt(v / c2) + eps)
+            if decay:
+                step = step + weight_decay * p.float()
+            p.copy_((p.float() - lr * step).to(p.dtype))
     state["count"].copy_(count)
     return {"grad_norm": gnorm, "clip_scale": scale}

@@ -399,19 +399,22 @@ class AdaptiveExecutor(InlineExecutor):
 
 
 class MeshExecutor(InlineExecutor):
-    """Execute the circuit against one torch device (``repro.workspace.executors``).
+    """Execute the circuit against a DeviceMesh or one torch device
+    (``repro.workspace.executors``).
 
-    The reference binds a JAX mesh and installs its axis rules around every
-    engine call; the port binds one device (``repro_torch.launch.mesh
-    .make_host_mesh``) and makes it the current CUDA device around every
-    engine call, so task code that allocates on "cuda" lands on it. Model-step
-    tasks get their implementations from the dist layer (``train_step`` /
-    ``serve_fns``). The circuit, its provenance and the trigger modes are
+    As the reference binds a mesh, the port binds a
+    ``torch.distributed.device_mesh.DeviceMesh`` (``repro_torch.launch.mesh
+    .make_host_mesh`` over the process group), or, with no process group,
+    the one device a step runs on. Logical-axis ``rules`` (or the rules
+    ``make_rules`` derives from ``cfg``, ``mode`` and ``global_batch``) are
+    installed around every engine call (``models.common.axis_rules``); on a
+    CUDA device, that device is the current one there too, so task code that
+    allocates on "cuda" lands on it. Model-step tasks get their
+    implementations from the dist layer (``train_step`` / ``serve_fns``),
+    with these rules. The circuit, its provenance and the trigger modes are
     untouched. Wave execution is serial (inherited), or, with
     ``inner=ConcurrentExecutor(...)``, fanned across threads; multi-task
-    waves then run on pool threads outside the device context. Logical-axis
-    rules and meshes of several devices wait for sharding (ROADMAP.md queue
-    1, item 6)."""
+    waves then run on pool threads outside the rules and device context."""
 
     def __init__(
         self,
@@ -424,12 +427,19 @@ class MeshExecutor(InlineExecutor):
         inner: Optional[InlineExecutor] = None,
     ) -> None:
         super().__init__()
+        from repro_torch.dist.step import is_mesh
         from repro_torch.launch.mesh import make_host_mesh
 
-        if rules is not None:
-            raise NotImplementedError("logical-axis rules need sharding (ROADMAP queue 1 item 6: distribution)")
-        # cfg, as in the reference, would derive the sharding rules (item 6)
-        self.mesh = make_host_mesh() if mesh is None else make_host_mesh(device=mesh)
+        if mesh is None:
+            mesh = make_host_mesh()
+        elif not is_mesh(mesh):
+            mesh = make_host_mesh(device=mesh)
+        self.mesh = mesh
+        if rules is None and cfg is not None:
+            from repro_torch.dist.sharding import make_rules
+
+            rules = make_rules(cfg, mesh if is_mesh(mesh) else _OneDevice, mode, global_batch)
+        self.rules = rules
         self.mode = mode
         self.global_batch = global_batch
         self.inner = inner
@@ -439,7 +449,14 @@ class MeshExecutor(InlineExecutor):
 
         import torch
 
-        return torch.cuda.device(self.mesh) if self.mesh.type == "cuda" else contextlib.nullcontext()
+        from repro_torch.models.common import axis_rules
+
+        stack = contextlib.ExitStack()
+        if self.rules:
+            stack.enter_context(axis_rules(self.rules, self.mesh))
+        if isinstance(self.mesh, torch.device) and self.mesh.type == "cuda":
+            stack.enter_context(torch.cuda.device(self.mesh))
+        return stack
 
     def push(self, manager, task: str, payloads: dict, region: str) -> dict:
         with self._ctx():
@@ -460,23 +477,38 @@ class MeshExecutor(InlineExecutor):
 
     # -- dist-layer step builders (model tasks) -----------------------------
     def train_step(self, model, schedule, **kwargs):
-        """``train_step(state, batch) -> (state, metrics)`` on this
-        executor's device (``repro_torch.dist.step.make_train_step``)."""
+        """``repro_torch.dist.step.make_train_step`` on this executor's mesh
+        (the step, with its state and batch placements) or device (the step
+        alone), with its rules."""
         from repro_torch.dist.step import make_train_step
 
         kwargs.setdefault("global_batch", self.global_batch)
+        if self.rules is not None:
+            kwargs.setdefault("rules", self.rules)
         return make_train_step(model, self.mesh, schedule, **kwargs)
 
     def serve_fns(self, model, **kwargs):
-        """(prefill_fn, decode_fn) on this executor's device."""
+        """(prefill_fn, decode_fn) on this executor's device (a mesh of one
+        rank; more is ROADMAP item 6b)."""
         from repro_torch.dist.step import make_serve_fns
 
         kwargs.setdefault("global_batch", self.global_batch)
+        if self.rules is not None:
+            kwargs.setdefault("rules", self.rules)
         return make_serve_fns(model, self.mesh, **kwargs)
+
+    def _mesh_view(self) -> dict:
+        import torch
+
+        if isinstance(self.mesh, torch.device):
+            return {"device": str(self.mesh)}
+        from repro_torch.dist.sharding import mesh_shape
+
+        return mesh_shape(self.mesh)
 
     def stats(self) -> dict:
         out = super().stats()
-        out["mesh"] = {"device": str(self.mesh)}
+        out["mesh"] = self._mesh_view()
         out["mode"] = self.mode
         if self.inner is not None:
             out["inner"] = self.inner.stats()
@@ -484,7 +516,13 @@ class MeshExecutor(InlineExecutor):
 
     def __repr__(self) -> str:
         inner = f", inner={self.inner!r}" if self.inner is not None else ""
-        return f"MeshExecutor(device={str(self.mesh)!r}, mode={self.mode!r}{inner})"
+        return f"MeshExecutor(mesh={self._mesh_view()}, mode={self.mode!r}{inner})"
+
+
+class _OneDevice:
+    """The mesh of one device, for deriving rules: every axis of size 1."""
+
+    shape = {"data": 1, "model": 1}
 
 
 EXECUTOR_CHOICES = (

@@ -371,11 +371,9 @@ def test_object_tier_keeps_requires_grad(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# options of the durable and extended engine run as the reference runs them;
-# the one that waits for a later slice raises, naming its ROADMAP item
+# options of the durable and extended engine run as the reference runs them
 # ---------------------------------------------------------------------------
 
-ITEM_6 = "queue 1 item 6"
 TIME_KEYS = {"created_at", "timestamp", "produced_at", "compacted_at"}
 
 
@@ -537,12 +535,49 @@ def test_ported_options_match_reference(name, tmp_path, monkeypatch, fresh_uids)
     assert out["port"] == out["ref"]
 
 
-@pytest.mark.parametrize("make, item", [
-    (lambda: torch_ws.MeshExecutor(rules={"batch": "data"}), ITEM_6),
-], ids=["mesh"])
-def test_unported_options_raise_naming_roadmap_item(make, item):
-    with pytest.raises(NotImplementedError, match=item):
-        make()
+def _mesh_rules_run(W):
+    """A circuit on MeshExecutor(rules=...) and on MeshExecutor(cfg=...):
+    its task reads the rules installed around the engine call."""
+    if W is jax_ws:
+        from repro.configs import get_config
+        from repro.launch.mesh import make_host_mesh
+        from repro.models.common import get_axis_rules
+
+        mesh = make_host_mesh()
+    else:
+        from repro_torch.configs import get_config
+        from repro_torch.launch.mesh import make_host_mesh
+        from repro_torch.models.common import get_axis_rules
+
+        mesh = make_host_mesh(device="cpu")
+    seen = []
+
+    def f(x):
+        rules = get_axis_rules()[0]
+        seen.append(dict(rules))
+        return {"y": x * 2 + len(rules)}
+
+    out = []
+    for kw in ({"rules": {"batch": "data"}}, {"cfg": get_config("stablelm-1.6b"), "global_batch": 8}):
+        ws = W.Workspace("m", executor=W.MeshExecutor(mesh, **kw))
+        t = ws.task(f, name="f", inputs=["x"], outputs=["y"])
+        ws.push(t, x=20)
+        ws.push(t, x=20)  # a memo hit: the task does not run again
+        out.append(fingerprint(ws))
+    return out, seen
+
+
+def test_mesh_executor_installs_its_rules_around_engine_calls(fresh_uids):
+    """MeshExecutor(rules=...) and MeshExecutor(cfg=...) (rules through
+    make_rules) install the rules around each engine call in both packages:
+    the tasks see equal rules, and the circuits fingerprint alike."""
+    out = {}
+    for label, W in (("ref", jax_ws), ("port", torch_ws)):
+        fresh_uids()
+        out[label] = _mesh_rules_run(W)
+    assert out["port"] == out["ref"]
+    assert out["port"][1][0] == {"batch": "data"} and out["port"][1][1]["embed"] == "data"
+    assert len(out["port"][1]) == 2
 
 
 @contextlib.contextmanager

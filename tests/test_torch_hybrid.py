@@ -127,11 +127,35 @@ def test_moe_ffn_parity_with_overflowing_bins(jax_gmm):
     assert float(aux["dropped_frac"]) == float(auxj["dropped_frac"])
 
 
-def test_moe_groups_raise():
-    cfg = dataclasses.replace(get_config("phi3.5-moe-42b").reduced(), moe_groups=2)
-    p = {n: _t(a) for n, a in _moe_params(cfg, np.random.RandomState(2)).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        moe.moe_ffn(p, cfg, torch.zeros(2, 4, cfg.d_model))
+@pytest.mark.parametrize("groups", [2, 3, 4])
+def test_moe_groups_match_reference(groups):
+    """Group-local dispatch (``moe_groups``; test_levers.py's cases) against
+    the reference's ``moe_ffn``: G groups of T / G tokens, each sorted and
+    binned with ``expert_capacity(T / G)``, ``moe_gmm`` once a group where
+    the reference runs einsums; 64 tokens do not split in 3 groups, which
+    falls back to one. Generous capacity keeps every token; moe_exact_tokens
+    8 and capacity factor 0.5 make the group bins overflow."""
+    from repro_torch.kernels.ops import kernel_set
+
+    calls = []
+    kernels = dict(kernel_set())
+    gmm = kernels["moe_gmm"]
+    kernels["moe_gmm"] = lambda *a: calls.append(a[0].shape) or gmm(*a)
+    for over in ({"capacity_factor": 8.0}, {"moe_exact_tokens": 8, "capacity_factor": 0.5}):
+        cfg = dataclasses.replace(get_config("mixtral-8x7b").reduced(), moe_groups=groups, **over)
+        jcfg = dataclasses.replace(jax_get_config("mixtral-8x7b").reduced(), moe_groups=groups, **over)
+        rng = np.random.RandomState(2)
+        p = _moe_params(cfg, rng)
+        x = rng.randn(4, 16, cfg.d_model).astype(np.float32)
+        calls.clear()
+        y, aux = moe.moe_ffn({n: _t(a) for n, a in p.items()}, cfg, _t(x), kernels=kernels)
+        yj, auxj = jax_moe.moe_ffn({n: jnp.asarray(a) for n, a in p.items()}, jcfg, jnp.asarray(x))
+        g = groups if 64 % groups == 0 else 1
+        assert calls == [(cfg.n_experts, moe.expert_capacity(64 // g, cfg), cfg.d_model)] * g
+        _close(y, yj, GMM_TOL)
+        _close(aux["aux_loss"], auxj["aux_loss"])
+        assert float(aux["dropped_frac"]) == float(auxj["dropped_frac"])
+        assert (float(aux["dropped_frac"]) > 0) == ("moe_exact_tokens" in over)
 
 
 def _mamba_params(cfg, rng) -> dict:

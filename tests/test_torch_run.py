@@ -11,6 +11,8 @@ from the same carried-over weights.
 import itertools
 import os
 import re
+import subprocess
+import sys
 import threading
 
 import jax
@@ -179,10 +181,18 @@ def test_mesh_executor_binds_one_device_and_builds_steps():
     assert int(state["step"]) == 1 and torch.isfinite(met["loss"])
     prefill_fn, _ = ex.serve_fns(model, max_len=16)
     assert callable(prefill_fn)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    # the meshes of several devices are ported: a model axis needs a process
+    # group of its ranks, and the production mesh builds on the fake backend
+    with pytest.raises(ValueError, match="process group"):
         make_host_mesh(model=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(RuntimeError, match="fake=True"):
         make_production_mesh()
+    code = ("from repro_torch.launch.mesh import make_production_mesh\n"
+            "m = make_production_mesh(fake=True)\n"
+            "print(tuple(m.shape), m.mesh_dim_names)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(p for p in sys.path if p))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120, env=env)
+    assert out.returncode == 0 and out.stdout.split("\n")[-2] == "(16, 16) ('data', 'model')", out.stderr[-2000:]
 
 
 def test_fault_tolerance_manager_is_the_reference_s():

@@ -35,7 +35,7 @@ from repro_torch.dist.step import make_train_state_specs, make_train_step
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import registry
 from repro_torch.models.convert import params_from_jax
-from repro_torch.optim import adamw_init, adamw_update, cosine_warmup
+from repro_torch.optim import adamw_init, adamw_update, constant_lr, cosine_warmup
 from repro_torch.optim.adamw import tree_leaves, tree_map
 
 ARCHS = ["stablelm-1.6b", "internlm2-20b", "qwen2.5-32b"]
@@ -352,8 +352,10 @@ def test_cosine_warmup_matches_jax():
 
 def test_prefix_inputs_and_pod_compression_raise():
     """A prefix given to a config without a frontend is ignored, as the
-    reference ignores it (``repro/models/registry.py:46``); pod compression
-    still raises (item 6)."""
+    reference ignores it (``repro/models/registry.py:46``). Pod compression
+    no longer raises: on one device, which has no pod axis, it changes
+    nothing, as the reference's on a mesh without pods (the compressed pod
+    reduction itself: tests/test_torch_dist.py, test_torch_compress.py)."""
     m, params, jm, jparams = _models("stablelm-1.6b")
     batch = _batch(m.cfg, batch=2)
     with_prefix = dict(batch, prefix=np.random.RandomState(1).randn(2, 4, m.cfg.d_model).astype(np.float32))
@@ -362,8 +364,14 @@ def test_prefix_inputs_and_pod_compression_raise():
     assert loss.item() == registry.train_loss(m, params, t(batch))[0].item()
     jloss, _, _ = _jax_loss_and_grads(jm, jparams, with_prefix)
     np.testing.assert_allclose(loss.item(), jloss, **LOSS_TOL)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        make_train_step(m, "cpu", cosine_warmup(1e-3, 1, 4), global_batch=2, compress_pods=True)
+    states = []
+    for compress in (False, True):
+        p = tree_map(lambda x: x.clone(), params)
+        state = {"params": p, "opt": adamw_init(p), "step": torch.zeros((), dtype=torch.int32)}
+        step = make_train_step(m, "cpu", constant_lr(1e-3), global_batch=2, compress_pods=compress)
+        states.append(step(state, t(batch))[0])
+    assert "compress" not in states[1]
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(states[0]), tree_leaves(states[1])))
 
 
 def test_train_state_specs_mirror_the_params():
