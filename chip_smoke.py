@@ -850,6 +850,52 @@ def k7_checks(rand, check_grad, gmm_inputs, scan_inputs, gmm_cases, scan_cases):
             torch.cuda.empty_cache()
 
 
+def decode_lse_checks(rand, check, decode_positions):
+    """flash_decode with its log-sum-exp (``return_lse``, f32 and q's-dtype
+    outputs) against the plain version at every DECODE_CASES case, in f32 and
+    bf16; each case cut into 4 slices of its slots (positions kept, written
+    counts clamped, so some slices are empty or masked) whose partials,
+    merged by ``dist.comm.combine_partials``, equal the whole-cache call; and
+    a row with no written slot, which gives 0 and an lse of NEG_INF exactly."""
+    import torch
+
+    from repro_torch.dist.comm import combine_partials
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.models.common import NEG_INF
+
+    f32 = torch.float32
+    for dtype in (f32, torch.bfloat16):
+        for B, S, H, KVH, Dh, window, nv, qp, slots in DECODE_CASES:
+            q, k, v = rand(B, 1, H, Dh, dtype=dtype), rand(B, S, KVH, Dh, dtype=dtype), rand(B, S, KVH, Dh, dtype=dtype)
+            kpos, qpos, nval = decode_positions(B, S, nv, qp, slots)
+            name = f"flash_decode with lse {dtype} B{B} S{S} H{H}/{KVH} Dh{Dh} window={window} n_valid={nv} slots={slots}"
+            o, lse = flash_decode(q, k, v, kpos, qpos, nval, window=window, return_lse=True, out_dtype=f32)
+            ro, rl = ref.reference_decode(q, k, v, kpos, qpos, nval, window=window, return_lse=True, out_dtype=f32)
+            check(name + " o", o, ro, dtype)
+            check(name + " lse", lse, rl, dtype)
+            o_own, _ = flash_decode(q, k, v, kpos, qpos, nval, window=window, return_lse=True)
+            if o_own.dtype != dtype or not torch.equal(o_own, flash_decode(q, k, v, kpos, qpos, nval, window=window)):
+                fail(f"{name}: the output in q's dtype differs from the call without lse")
+            part = S // 4
+            outs, lses = [], []
+            for r in range(4):
+                cut = slice(r * part, (r + 1) * part if r < 3 else S)
+                n_r = (nval - r * part).clamp(0, cut.stop - cut.start).to(torch.int32)
+                a, b = flash_decode(q, k[:, cut].contiguous(), v[:, cut].contiguous(), kpos[:, cut].contiguous(), qpos,
+                                    n_r, window=window, return_lse=True, out_dtype=f32)
+                outs.append(a)
+                lses.append(b)
+            check(name + ", 4 slices merged", combine_partials(torch.stack(outs), torch.stack(lses)), o, dtype)
+    q, k = rand(2, 1, 8, 64, dtype=torch.bfloat16), rand(2, 64, 2, 64, dtype=torch.bfloat16)
+    i32 = dict(dtype=torch.int32, device=q.device)
+    o, lse = flash_decode(q, k, k, torch.arange(64, **i32).expand(2, 64).contiguous(), torch.full((2,), 63, **i32),
+                          torch.tensor([0, 64], **i32), return_lse=True, out_dtype=f32)
+    if not (torch.equal(o[0], torch.zeros_like(o[0])) and bool((lse[0] == NEG_INF).all()) and bool(lse[1].gt(-1e30).all())):
+        fail(f"flash_decode: a row with no written slot gave |o| {o[0].abs().max().item()}, lse {lse[0].tolist()}")
+    print("  flash_decode with lse: a row with no written slot gives 0 and NEG_INF")
+
+
 def leaf_names(tree, prefix=""):
     if isinstance(tree, dict):
         return [n for k in sorted(tree) for n in leaf_names(tree[k], f"{prefix}/{k}")]
@@ -3041,6 +3087,387 @@ def mesh_kernel_rows(rand, check, check_grad, time_ms, bound, rows, launches, n_
     torch.cuda.empty_cache()
 
 
+# phase 6d: serving on a DeviceMesh (gloo ranks spawned from this script,
+# sharing the card), each run against the same serve on one device (rank 0
+# alone on the card first): prefill and SERVE_MESH_GEN - 1 decode steps, the
+# mesh teacher-forced with the one-device greedy tokens, its logits gathered
+# (``dist.step.gather_full``); an MoE run replays the one-device run's expert
+# choice, as phase 3b's gate replays the kernels run's.
+#   (i) heads, KV heads, vocab and MLP split; (ii) the flash-decoding fallback
+#   over data (global batch 1: 2048 slots a rank); (iii) experts and Mamba
+#   channels split (phase 3b's cut); (iv) the fallback over model (2 KV heads
+#   on 4 ranks, heads and vocab replicated, 394 slots a rank).
+SERVE_MESH = [
+    dict(run="i", arch="stablelm-1.6b", batch=4, prompt_len=512, shape=(1, 2), seed=0),
+    dict(run="ii", arch="stablelm-1.6b", batch=1, prompt_len=4056, shape=(2, 1), seed=0),
+    dict(run="iii", arch="jamba-v0.1-52b", n_layers=8, batch=4, prompt_len=512, shape=(1, 2), seed=0),
+    dict(run="iv", arch="internvl2-1b", batch=4, prompt_len=512, shape=(1, 4), seed=0),
+]
+SERVE_MESH_GEN = 32
+SERVE_MESH_KERNELS = ("flash_attention", "flash_decode", "moe_gmm", "mamba_scan")
+
+
+def serve_mesh_config(spec):
+    from repro_torch.configs import get_config
+
+    full = get_config(spec["arch"])
+    return dataclasses.replace(full, n_layers=spec.get("n_layers", full.n_layers))
+
+
+def serve_mesh_expect(cfg, spec) -> dict:
+    """kernel -> {its first input's shape: launches} on one rank of a run:
+    per attention layer flash_attention once (prefill, over the prompt's own
+    K/V where the slots are split, its local query heads) and flash_decode a
+    decode step (every query head where the KV heads are replicated over
+    ``model``); per MoE layer moe_gmm a step at E/tp local bins; per Mamba
+    layer mamba_scan once at Di/tp channels."""
+    from repro_torch.models import moe as moe_mod
+
+    data, tp = spec["shape"]
+    B, gen = spec["batch"], SERVE_MESH_GEN
+    L = spec["prompt_len"] + (cfg.frontend_len if cfg.frontend == "vision" else 0)
+    b = B // data if B % data == 0 and B >= data else B
+    specs = [cfg.layout[i % len(cfg.layout)] for i in range(cfg.n_layers)]
+    h_loc = cfg.n_heads // tp if cfg.n_heads % tp == 0 else cfg.n_heads
+    h_dec = cfg.n_heads if cfg.n_kv_heads % tp else h_loc
+    out = {}
+    n = sum(s.mixer == "attention" for s in specs)
+    if n:
+        out["flash_attention"] = {(b, L, h_loc, cfg.head_dim): n}
+        out["flash_decode"] = {(b, 1, h_dec, cfg.head_dim): n * (gen - 1)}
+    n = sum(s.ffn == "moe" for s in specs)
+    if n:
+        e = cfg.n_experts // tp if cfg.n_experts % tp == 0 else cfg.n_experts
+        c_pre, c_dec = moe_mod.expert_capacity(B * L, cfg), moe_mod.expert_capacity(B, cfg)
+        out["moe_gmm"] = {(e, c_pre, cfg.d_model): n, (e, c_dec, cfg.d_model): n * (gen - 1)}
+    n = sum(s.mixer == "mamba" for s in specs)
+    if n:
+        out["mamba_scan"] = {(b, L, cfg.d_inner // tp): n}
+    return out
+
+
+def serve_mesh_rank(rank: int, world: int) -> list:
+    """Phase 6d on one of the ranks sharing the card: for each run of this
+    world size, rank 0 serves alone on one device (its logits, greedy tokens,
+    router choices and probabilities kept), then every rank serves on the mesh
+    through ``make_serve_fns`` with the params placed by
+    ``place_serve_params`` (the ranks init and place in turns: a whole jamba
+    cut to 8 layers and its shard would not fit twice beside each other) and
+    this rank's cache shards (``init_serve_state(..., mesh)``), its kernels
+    spied for their input shapes, no plain version called. Returns a record a
+    run."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dist.step import gather_full, make_serve_fns, place_serve_params
+    from repro_torch.kernels import ops
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.common import parallel
+    from repro_torch.models.registry import build_model, init_serve_state
+
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")  # the ranks share the card
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    gen = SERVE_MESH_GEN
+    route = moe_mod.route
+    out = []
+
+    def served(prefill_fn, decode_fn, params, state, prompts, frames, prefix, forced=None, gather=lambda t: t):
+        """Logits (B, gen, V) f32 of a prefill and gen - 1 decode steps (fed
+        the greedy tokens, or ``forced``); (prefill s, decode s) beside."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg, state = prefill_fn(params, prompts, state, frames, prefix)
+        steps = [gather(lg).float()]
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for t in range(gen - 1):
+            tok = steps[-1].argmax(-1)[:, None] if forced is None else forced[:, t : t + 1]
+            lg, state = decode_fn(params, tok, state)
+            steps.append(gather(lg).float())
+        torch.cuda.synchronize()
+        return torch.stack(steps, dim=1), (t1 - t0, time.perf_counter() - t1)
+
+    for spec in SERVE_MESH:
+        if spec["shape"][0] * spec["shape"][1] != world:
+            continue
+        cfg = serve_mesh_config(spec)
+        model = build_model(cfg)
+        B = spec["batch"]
+        max_len = serve.serve_max_len(cfg, spec["prompt_len"], gen)
+        prompts = serve.make_prompts(cfg.vocab, B, spec["prompt_len"], spec["seed"] + 1, dev)
+        frames, prefix = serve.make_frontend(cfg, B, spec["seed"], dev)
+        chosen, probs = [], []
+
+        def recording_route(p, c, xf):
+            pr, gate_w, gate_e = route(p, c, xf)
+            chosen.append(gate_e.cpu())
+            probs.append(pr.cpu())
+            return pr, gate_w, gate_e
+
+        ref = None
+        if rank == 0:  # alone on the card: the other ranks wait at the broadcast
+            torch.cuda.reset_peak_memory_stats()
+            params = model.init(spec["seed"], dev)
+            fns = make_serve_fns(model, dev, max_len=max_len, global_batch=B)
+            moe_mod.route = recording_route
+            try:
+                with torch.inference_mode():
+                    logits, times = served(*fns, params, init_serve_state(model, B, max_len, dev), prompts, frames,
+                                           prefix)
+            finally:
+                moe_mod.route = route
+            ref = {"logits": logits, "times": times, "peak": torch.cuda.max_memory_allocated(),
+                   "probs": list(probs)}
+            del params, fns
+            torch.cuda.empty_cache()
+        box = [None if ref is None else ref["logits"].argmax(-1).cpu(), list(chosen)]
+        dist.broadcast_object_list(box, src=0)  # the greedy tokens and every MoE call's expert choice
+        forced, chosen = box[0].to(dev), box[1]
+        probs.clear()
+
+        mesh = make_host_mesh(model=spec["shape"][1], device="cuda")
+        prefill_fn, decode_fn, _, shards = make_serve_fns(model, mesh, max_len=max_len, global_batch=B)
+        params = None
+        for r in range(world):  # in turns: each rank's whole init is freed before the next one's
+            if r == rank:
+                params = place_serve_params(model.init(spec["seed"], dev), shards, mesh)
+                torch.cuda.empty_cache()
+            dist.barrier()
+        state = init_serve_state(model, B, max_len, mesh)
+        replay = iter(chosen)
+
+        def forced_route(p, c, xf):
+            pr, _, _ = route(p, c, xf)
+            probs.append(pr.cpu())
+            par, T = parallel(), xf.shape[0]
+            experts = next(replay)[par.dp_rank * T : (par.dp_rank + 1) * T].to(xf.device)
+            gate_w = pr.gather(1, experts)
+            return pr, gate_w / gate_w.sum(-1, keepdim=True).clamp_min(1e-9), experts
+
+        placed = torch.cuda.memory_allocated()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        seen: dict = {}
+        ops.reset_launch_counts()  # before the spies stand in for the wrappers, whose counts it zeroes
+        kept = dict(ops.KERNELS)
+        for name in SERVE_MESH_KERNELS:
+            def spy(*args, _fn=kept[name], _name=name, **kwargs):
+                per = seen.setdefault(_name, {})
+                per[tuple(args[0].shape)] = per.get(tuple(args[0].shape), 0) + 1
+                return _fn(*args, **kwargs)
+
+            ops.KERNELS[name] = spy
+        moe_mod.route = forced_route
+        try:
+            with PlainSpy() as spy_plain:
+                logits, times = served(prefill_fn, decode_fn, params, state, prompts, frames, prefix, forced,
+                                       gather_full)
+        finally:
+            ops.KERNELS.update(kept)
+            moe_mod.route = route
+        if chosen and next(replay, None) is not None:
+            fail(f"phase 6d ({spec['run']}): {len(chosen)} routings recorded, fewer replayed")
+        rec = dict(run=spec["run"], arch=cfg.name, shape=spec["shape"], rank=rank, times=times,
+                   peak=torch.cuda.max_memory_allocated(), placed=placed, launches=ops.launch_counts(),
+                   shapes={k: dict(v) for k, v in seen.items()}, plain=dict(spy_plain.calls),
+                   backend=str(dist.get_backend()), routings=len(chosen),
+                   split=[c.get("split") for c in state["caches"] if "split" in c][:1],
+                   cache_shapes=sorted({(k, tuple(c[k].shape)) for c in state["caches"] for k in ("k", "h", "c_kv")
+                                        if k in c}))
+        if rank == 0:
+            one = ref["logits"]
+            # the gate: logits and greedy tokens; the router probabilities of
+            # the two runs (on one routing) are printed beside
+            failures, st = logit_comparison(one, logits, LOGIT_TOL[cfg.dtype])
+            dprob = max(((a - b).abs().max().item() for a, b in zip(ref["probs"], probs)), default=None)
+            rec.update(failures=failures, diff=st["diff"], agree=st["agree"], ties=st["ties"], n=st["n"],
+                       dprob=dprob, ref_times=ref["times"], ref_peak=ref["peak"],
+                       finite=bool(torch.isfinite(logits).all()), vocab=logits.shape[-1])
+        del params, state, logits, prefill_fn, decode_fn, shards
+        ref = None
+        torch.cuda.empty_cache()
+        dist.barrier()
+        out.append(rec)
+    return out
+
+
+def serve_mesh_phase(rand, check, time_ms, bound, rows, n_sms, sm_clock_mhz):
+    """Phase 6d (see SERVE_MESH): the runs on spawned ranks, then flash_decode
+    with its log-sum-exp, moe_gmm and mamba_scan at the runs' local shapes."""
+    import torch
+
+    from repro_torch.dist.spawn import run_ranks
+
+    t_phase = time.perf_counter()
+    print(f"phase 6d: serving on a mesh, gloo ranks sharing the card, spawned; {SERVE_MESH_GEN} tokens, bf16, each "
+          f"run against the same serve on one device (logits within {LOGIT_TOL['bfloat16']}, greedy tokens equal "
+          f"or tied within error)")
+    records = []
+    for world in sorted({s["shape"][0] * s["shape"][1] for s in SERVE_MESH}):
+        t0 = time.perf_counter()
+        ranks = run_ranks(serve_mesh_rank, world, str(ROOT / "build" / f"chip_smoke_serve_ranks_{world}"),
+                          backend="gloo", timeout=MESH_TIMEOUT, pg_timeout=600)
+        print(f"  {world} ranks ran in {time.perf_counter() - t0:.1f} s (spawn included)")
+        records.extend(zip(*ranks))
+    launches: dict = {}
+    worst = 0.0
+    for recs in records:
+        rec0 = recs[0]
+        spec = next(s for s in SERVE_MESH if s["run"] == rec0["run"])
+        cfg = serve_mesh_config(spec)
+        expect = serve_mesh_expect(cfg, spec)
+        worst = max(worst, rec0["diff"])
+        p_s, d_s = rec0["ref_times"]
+        print(f"  ({spec['run']}) {cfg.name} ({cfg.n_layers} layers) on (data {spec['shape'][0]}, model "
+              f"{spec['shape'][1]}), batch {spec['batch']}, prompt {spec['prompt_len']}"
+              + (f" after a prefix of {cfg.frontend_len}" if cfg.frontend == "vision" else "")
+              + f": max |logit diff| {rec0['diff']:.4e} (tol {LOGIT_TOL[cfg.dtype]}); greedy tokens agree "
+              f"{rec0['agree']}/{rec0['n']}, ties within error {rec0['ties']}"
+              + (f"; on the one-device run's expert choice ({rec0['routings']} MoE calls replayed), max |router "
+                 f"prob diff| {rec0['dprob']:.4e} (printed; phase 3b's kernels vs plain bound {ROUTER_PROB_TOL:.4e})"
+                 if rec0["routings"] else "")
+              + f"; one device: prefill {p_s:.3f} s, decode {spec['batch'] * (SERVE_MESH_GEN - 1) / d_s:.1f} tok/s, "
+              f"peak {rec0['ref_peak'] / 2**30:.2f} GiB")
+        for rec in recs:
+            p_s, d_s = rec["times"]
+            print(f"    rank {rec['rank']} ({rec['backend']}): prefill {p_s:.3f} s, decode "
+                  f"{spec['batch'] * (SERVE_MESH_GEN - 1) / d_s:.1f} tok/s (logits gathered each step), peak "
+                  f"{rec['peak'] / 2**30:.2f} GiB (placed {rec['placed'] / 2**30:.2f}); cache shards "
+                  f"{rec['cache_shapes']}, split {rec['split']}; launches by input shape {rec['shapes']}; plain "
+                  f"versions called {rec['plain']}")
+            want = dict.fromkeys(rec["launches"], 0)
+            want.update({k: sum(v.values()) for k, v in expect.items()})
+            if rec["launches"] != want or rec["shapes"] != expect:
+                fail(f"phase 6d ({spec['run']}) rank {rec['rank']}: launches {rec['launches']} at {rec['shapes']}; "
+                     f"want {want} at {expect}")
+            if any(rec["plain"].values()):
+                fail(f"phase 6d ({spec['run']}) rank {rec['rank']}: plain versions called {rec['plain']}")
+        if rec0["failures"] or not rec0["finite"]:
+            fail(f"phase 6d ({spec['run']}) {cfg.name}: {'; '.join(rec0['failures']) or 'non-finite logits'}")
+        for name, per in expect.items():
+            for shape, n in per.items():
+                launches[spec["run"], name, shape] = n
+    print(f"  phase 6d: the largest logit gap {worst:.4e} (tol {LOGIT_TOL['bfloat16']})")
+    serve_mesh_kernel_rows(rand, check, time_ms, bound, rows, launches, n_sms, sm_clock_mhz)
+    print(f"  phase 6d: {time.perf_counter() - t_phase:.1f} s")
+
+
+def serve_mesh_kernel_rows(rand, check, time_ms, bound, rows, launches, n_sms, sm_clock_mhz):
+    """Phase 6d's kernel rows, timed as phase 4 (L2 flushed): flash_decode with
+    its log-sum-exp (f32 partials) at each run's local decode shape, on the
+    slice of a mid-generation step that holds the newest slot, against its
+    plain version (out and lse), beside the same call without lse (phase 4's
+    kernel) and SDPA over the slice; moe_gmm at (iii)'s 8 of 16 experts
+    (decode, C 4) and mamba_scan at its 4096 of 8192 channels. ``launches``:
+    (run, kernel, first input's shape) -> launches a rank in the run."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_decode import flash_decode, split_for
+    from repro_torch.kernels.mamba_scan import mamba_scan
+    from repro_torch.kernels.moe_gmm import moe_gmm
+    from repro_torch.launch import serve
+    from repro_torch.models import moe as moe_mod
+
+    bf, es, dev = torch.bfloat16, 2, torch.device("cuda", 0)
+    for spec in SERVE_MESH:
+        cfg = serve_mesh_config(spec)
+        data, tp = spec["shape"]
+        B = spec["batch"]
+        (qshape, n_launch), = serve_mesh_expect(cfg, spec)["flash_decode"].items()
+        S = serve.serve_max_len(cfg, spec["prompt_len"], SERVE_MESH_GEN)
+        n = data if B % data else 1  # the slots over data at batch 1
+        n *= tp if cfg.n_kv_heads % tp else 1
+        kvh = cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else cfg.n_kv_heads
+        S_loc, r = S // n, n - 1
+        written = spec["prompt_len"] + (cfg.frontend_len if cfg.frontend == "vision" else 0) + N_CHECK * 2
+        r = min(r, (written - 1) // S_loc)  # the slice holding the newest slot
+        nv = min(written - r * S_loc, S_loc)
+        Bq, _, H, Dh = qshape
+        q, k, v = rand(Bq, 1, H, Dh, dtype=bf), rand(Bq, S_loc, kvh, Dh, dtype=bf), rand(Bq, S_loc, kvh, Dh, dtype=bf)
+        i32 = dict(dtype=torch.int32, device=dev)
+        kpos = (r * S_loc + torch.arange(S_loc, **i32)).expand(Bq, S_loc).contiguous()
+        qpos, nval = torch.full((Bq,), written - 1, **i32), torch.full((Bq,), nv, **i32)
+        call = lambda: flash_decode(q, k, v, kpos, qpos, nval, return_lse=True, out_dtype=torch.float32)  # noqa: E731
+        plain = lambda: ref.reference_decode(q, k, v, kpos, qpos, nval, return_lse=True,  # noqa: E731
+                                             out_dtype=torch.float32)
+        (o, lse), (ro, rl) = call(), plain()
+        label = f"{cfg.name} ({spec['run']}) decode slice {r} of {n}, (data {data}, model {tp})"
+        err = max(check(f"flash_decode o with lse at {label}", o, ro, bf),
+                  check(f"flash_decode lse at {label}", lse, rl, torch.float32, TOL["bfloat16"]))
+        # K, V of the written slots and their positions read once; q read, o (f32) and lse written once
+        nbytes = 2 * Bq * nv * kvh * Dh * es + Bq * nv * 4 + Bq * H * Dh * (es + 4) + Bq * H * 4 + 2 * Bq * 4
+        b_ms, b_by = bound(nbytes, 4 * Bq * H * Dh * nv, "bfloat16")
+        ok = (torch.arange(S_loc, device=dev)[None] < nval[:, None]) & (kpos <= qpos[:, None])
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        gqa = dict(enable_gqa=True) if H != kvh else {}
+        no_lse = time_ms(lambda: flash_decode(q, k, v, kpos, qpos, nval))
+        rows.append(dict(
+            name="flash_decode", path=f"{label}: q {qshape}, {S_loc} slots ({nv} written), with lse, f32 out",
+            route="cuda", source="src/repro_torch/kernels/csrc/flash_decode.cu",
+            replaces="src/repro/kernels/flash_decode.py:89", launches=n_launch, max_abs_err=err,
+            ms=time_ms(call), plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok[:, None, None], **gqa)),
+            library="scaled_dot_product_attention(boolean mask; no lse)", no_lse_ms=no_lse, n_split=split_for(q, k),
+        ))
+        print(f"  flash_decode at {label}: {rows[-1]['ms']:.4f} ms with lse, {no_lse:.4f} ms without (the same "
+              f"inputs), bound {b_ms:.4f} ({b_by}), plain {rows[-1]['plain_ms']:.4f}, SDPA {rows[-1]['library_ms']:.4f}"
+              f", n_split {rows[-1]['n_split']}, {n_launch} launches a rank")
+        del q, k, v, o, lse, ro, rl, qt, kt, vt
+
+    spec = next(s for s in SERVE_MESH if s["run"] == "iii")
+    jamba = serve_mesh_config(spec)
+    ex = serve_mesh_expect(jamba, spec)
+    (E, C, D), n_dec = min(ex["moe_gmm"].items(), key=lambda kv: kv[0][1])
+    Fd = jamba.d_ff
+    x, wg, wu, wd = (rand(E, C, D, dtype=bf), rand(E, D, Fd, dtype=bf, scale=D**-0.5),
+                     rand(E, D, Fd, dtype=bf, scale=D**-0.5), rand(E, Fd, D, dtype=bf, scale=Fd**-0.5))
+    label = f"{jamba.name} (iii) decode on (data 1, model 2)"
+    err = check(f"moe_gmm at {label} (E{E} C{C})", moe_gmm(x, wg, wu, wd), ref.reference_gmm(x, wg, wu, wd), bf)
+    b_ms, b_by = bound(2 * E * C * D * es + 3 * E * D * Fd * es, 6 * E * C * D * Fd, "bfloat16")
+    rows.append(dict(
+        name="moe_gmm", path=f"{label} (E {E} of {jamba.n_experts}, C {C}, D {D}, F {Fd}), bf16", route="cuda",
+        source="src/repro_torch/kernels/csrc/moe_gmm.cu", replaces="src/repro/kernels/moe_gmm.py:59",
+        launches=n_dec, max_abs_err=err, ms=time_ms(lambda: moe_gmm(x, wg, wu, wd)),
+        plain_ms=time_ms(lambda: ref.reference_gmm(x, wg, wu, wd), reps=10), bound_ms=b_ms, bound_by=b_by,
+        library_ms=time_ms(lambda: torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)),
+        library="3 calls: torch.bmm x3 + F.silu",
+    ))
+    del x, wg, wu, wd
+    (Bs, Ls, Di), n_scan = next(iter(ex["mamba_scan"].items()))
+    N = jamba.ssm_state
+    xc, dt = rand(Bs, Ls, Di, dtype=bf), rand(Bs, Ls, Di, dtype=torch.float32).abs() * 0.1
+    Bm, Cm = rand(Bs, Ls, N, dtype=torch.float32), rand(Bs, Ls, N, dtype=torch.float32)
+    a = -rand(Di, N, dtype=torch.float32).abs() - 0.1
+    y, h = mamba_scan(xc, dt, Bm, Cm, a)
+    yr, hr = ref.reference_selective_scan(xc, dt, Bm, Cm, a)
+    label = f"{jamba.name} (iii) prefill on (data 1, model 2)"
+    err = max(check(f"mamba_scan y at {label}", y, yr, torch.float32, SCAN_TOL),
+              check(f"mamba_scan h at {label}", h, hr, torch.float32, SCAN_TOL))
+    n_el = Bs * Ls * Di * N
+    b_ms, b_by, _ = scan_bound(n_el, Bs * Ls * Di * (es + 4 + 4) + 2 * Bs * Ls * N * 4 + Di * N * 4 + Bs * Di * N * 4,
+                               n_sms, sm_clock_mhz)
+    rows.append(dict(
+        name="mamba_scan", path=f"{label} ({Bs}, {Ls}, {Di} of {jamba.d_inner}, {N}), bf16 xc", route="cuda",
+        source="src/repro_torch/kernels/csrc/mamba_scan.cu", replaces="src/repro/kernels/mamba_scan.py:69",
+        launches=n_scan, max_abs_err=err, ms=time_ms(lambda: mamba_scan(xc, dt, Bm, Cm, a), reps=10),
+        plain_ms=time_ms(lambda: ref.reference_selective_scan(xc, dt, Bm, Cm, a), reps=2),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None, library="none",
+    ))
+    for r in rows[-2:]:
+        print(f"  {r['name']} at {r['path']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ({r['bound_by']}; "
+              f"{r['ms'] / r['bound_ms']:.2f}x), plain {r['plain_ms']:.4f}, library "
+              f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}, {r['launches']} launches a "
+              f"rank in 6d")
+    del xc, dt, Bm, Cm, a, y, h, yr, hr
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3196,8 +3623,9 @@ def main() -> int:
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
     rows = []
-    if sys.argv[1:] == ["--mesh-only"]:  # phase 6 alone, after phase 1's build (a probe; no summary line)
+    if sys.argv[1:] == ["--mesh-only"]:  # phases 6 and 6d alone, after phase 1's build (a probe; no summary line)
         mesh_phase(dev, rand, check, check_grad, time_ms, bound, rows, n_sms, sm_clock_mhz)
+        serve_mesh_phase(rand, check, time_ms, bound, rows, n_sms, sm_clock_mhz)
         print(json.dumps({"kernels": rows}))
         return 0
     # -- 2. each kernel against its plain version ------------------------------
@@ -3255,6 +3683,9 @@ def main() -> int:
             check(name + " y", y, yr, torch.float32, SCAN_TOL)
             check(name + " h", h, hr, torch.float32, SCAN_TOL)
         torch.cuda.empty_cache()
+    # flash_decode's log-sum-exp (serving with the cache's slots split): each
+    # case, its slices merged, and a row with no written slot
+    decode_lse_checks(rand, check, decode_positions)
     # K1: the forward's log-sum-exp on both routes, then the backward on each
     # of its bf16 routes against its plain version, and bit-equal when run twice
     k1_checks(rand, check, check_grad)
@@ -4143,6 +4574,8 @@ def main() -> int:
     frontend_training_phase(dev, rand, check, check_grad, time_ms, bound, rows, plain, device_profile)
     # -- 6. the train step on a DeviceMesh: one rank, two ranks sharing the card, the local shapes
     mesh_phase(dev, rand, check, check_grad, time_ms, bound, rows, n_sms, sm_clock_mhz)
+    # -- 6d. serving on a DeviceMesh: ranks sharing the card, against one device
+    serve_mesh_phase(rand, check, time_ms, bound, rows, n_sms, sm_clock_mhz)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     for r in rows:

@@ -5,9 +5,10 @@ tolerance, and elastic resharding.
   - :mod:`repro_torch.dist.sharding`: logical axis name -> mesh axis rules
     per (arch, mode), specs with divisibility fallbacks, DTensor placements.
   - :mod:`repro_torch.dist.step`: ``make_train_step`` / ``make_serve_fns``,
-    and placing a state on a mesh.
-  - :mod:`repro_torch.dist.comm`: a mesh's process groups, its collectives
-    and the tensor-parallel autograd functions the model code uses.
+    and placing a train or serve state on a mesh.
+  - :mod:`repro_torch.dist.comm`: a mesh's process groups, its collectives,
+    the tensor-parallel autograd functions the model code uses, and the
+    flash-decoding merge of partial attention across ranks.
   - :mod:`repro_torch.dist.ft`: heartbeat-based fault tolerance.
   - :mod:`repro_torch.dist.elastic`: reshard a train state onto a new mesh.
   - :mod:`repro_torch.dist.spawn`: run a function on N spawned ranks.
@@ -22,6 +23,8 @@ from .step import (
     make_train_state_specs,
     make_train_step,
     param_specs,
+    place_serve_params,
+    placed_serve_state,
 )
 
 __all__ = [
@@ -29,5 +32,5 @@ __all__ = [
     "FaultToleranceManager", "SimulatedFailure",
     "cache_logical_axes", "make_rules", "pspec_for_axes", "shardings_for",
     "make_batch_specs", "make_serve_fns", "make_train_state_specs",
-    "make_train_step", "param_specs",
+    "make_train_step", "param_specs", "place_serve_params", "placed_serve_state",
 ]

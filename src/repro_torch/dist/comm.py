@@ -26,6 +26,13 @@ batch ranks whose losses the step averages), ``gather`` all-gathers forward
 and reduce-scatters back, or only slices back (``grads="same"``) where every
 rank's gradient of the gathered tensor is the same.
 
+``merge_attention`` is the flash-decoding merge one level above the kernel's:
+the ranks that hold disjoint slices of a cache's slots (``kv_seq``) each
+compute a partial attention and its log-sum-exp (``flash_decode(...,
+return_lse=True)``), gather them all in one list all-gather, and combine them
+with ``combine_partials``, the same arithmetic on every rank, so the ranks'
+results are bit-equal.
+
 ``current()`` is the model code's view of the installed axis rules
 (``models.common.axis_rules``): None without rules or without a DeviceMesh,
 else a ``Parallel`` that says which logical axes are local shards over
@@ -174,6 +181,31 @@ def comm_for(mesh) -> MeshComm:
         hit = (mesh, MeshComm(mesh))
         _COMMS[id(mesh)] = hit
     return hit[1]
+
+
+def combine_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """The merge of n partial attentions over disjoint slices of the slots:
+    outs (n, B, L, H, Dh) and lses (n, B, H) -> sum_r w_r out_r / sum_r w_r
+    with w_r = exp(lse_r - max_r lse_r), in f32 (f64 for f64 inputs). A slice
+    with no live slot (lse NEG_INF) weighs 0 beside a live one, as
+    ``flash_decode``'s own block merge weighs an empty chunk."""
+    acc = torch.promote_types(outs.dtype, torch.float32)
+    lses = lses.to(acc)
+    w = torch.exp(lses - lses.amax(0))[:, :, None, :, None]  # (n, B, 1, H, 1)
+    return (w * outs.to(acc)).sum(0) / w.sum(0)
+
+
+def merge_attention(out: torch.Tensor, lse: torch.Tensor, comm: MeshComm, dims) -> torch.Tensor:
+    """This rank's partial attention out (B, L, H, Dh) and its log-sum-exp
+    lse (B, H), merged with the partials of the group of ``dims``: one
+    all-gather of both (f32, packed), then ``combine_partials``."""
+    n = comm.size(dims)
+    if n == 1:
+        return out.float()
+    packed = torch.cat([out.float().reshape(-1), lse.float().reshape(-1)])
+    every = comm.all_gather(packed[None], 0, dims)  # (n, packed)
+    outs = every[:, : out.numel()].reshape((n,) + tuple(out.shape))
+    return combine_partials(outs, every[:, out.numel():].reshape((n,) + tuple(lse.shape)))
 
 
 # ---------------------------------------------------------------------------

@@ -83,6 +83,29 @@ def spec_axes(entry) -> tuple:
     return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
 
 
+def in_mesh_order(spec: tuple, mesh) -> tuple:
+    """``spec`` with each dimension's mesh axes in the mesh's order (major
+    first), the order in which ``placements_for`` cuts a dimension split over
+    several axes. The serve rules' ``kv_seq`` lists ``model`` before the data
+    axes; a cache's slots are cut in the mesh's order."""
+    names = list(getattr(mesh, "mesh_dim_names", None) or mesh_shape(mesh))
+    out = []
+    for entry in spec:
+        axes = sorted(spec_axes(entry), key=names.index)
+        out.append(None if not axes else (axes[0] if len(axes) == 1 else tuple(axes)))
+    return tuple(out)
+
+
+def local_shape(shape: tuple, spec: tuple, mesh) -> tuple:
+    """The shape of one rank's shard of a tensor of ``shape`` placed by
+    ``spec`` (each dimension divided by the ranks of its mesh axes)."""
+    sizes = mesh_shape(mesh)
+    return tuple(d // _axis_size(sizes, spec_axes(e)) for d, e in zip(shape, spec))
+
+
+LOGITS_AXES = ("batch", "vocab")  # the serve fns' logits (B, V), as the reference places them
+
+
 def placements_for(spec: tuple, mesh) -> tuple:
     """DTensor placements of a spec: per mesh dimension, ``Shard(d)`` for the
     tensor dimension d that names it, else ``Replicate()``. A dimension over

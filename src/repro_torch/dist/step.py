@@ -24,7 +24,7 @@ placements, as the reference does:
     that the backward reduce-scatters each gradient into its shard as soon
     as it is complete (in the params' dtype, as FSDP reduces by default; the
     other data axes are summed in f32). Per-layer gathering is a later step
-    (ROADMAP 6b);
+    (ROADMAP 6c);
   - each rank's loss is the mean over its rows, and the gradients are
     averaged over the data axes (pod and data), which is the global mean when
     the splits are equal, as in the reference; with ``compress_pods`` the pod
@@ -37,7 +37,19 @@ placements, as the reference does:
   - the global norm sums every element once (``optim.adamw.global_norm`` of
     a placed tree), and AdamW updates each rank's shards in place.
 
-Serving on a mesh of more than one rank is ROADMAP item 6b.
+``make_serve_fns(model, device, ...)`` are the one-device serve functions.
+Given a DeviceMesh, they serve on it and come back with the state's shapes
+and placements, as the reference's do: the serve rules (no FSDP; where the
+KV heads do not divide ``model`` or the global batch does not fill the data
+axes, the caches' slots go over ``kv_seq``, the flash-decoding fallback);
+params placed as DTensors (``place_serve_params``: Mamba's ``in_proj`` as
+its (d, 2, Di) view, so a rank keeps its own x and z columns and no call
+gathers the weight); a state of this rank's cache shards alone
+(``placed_serve_state``, also ``registry.init_serve_state`` given the mesh);
+the global tokens on every rank, each taking its rows; the model code's
+tensor-, expert- and channel-parallel branches and its placed-cache
+attention (``models.attention``) under ``axis_rules(rules, mesh)``; logits
+back as a DTensor placed by ("batch", "vocab").
 """
 
 from __future__ import annotations
@@ -47,13 +59,25 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import ITEM_6B, axis_rules, resolve_device
+from repro_torch.models.common import axis_rules, resolve_device
 from repro_torch.models.registry import decode_step, prefill, train_loss
 from repro_torch.optim import adamw_update, ef_compress, global_norm
 from repro_torch.optim.adamw import _spec_leaves, tree_leaves, tree_map
 
 from .comm import TP_AXES, comm_for, gather
-from .sharding import make_rules, mesh_shape, placements_for, pspec_for_axes, shardings_for, spec_axes, specs_for
+from .sharding import (
+    LOGITS_AXES,
+    cache_logical_axes,
+    in_mesh_order,
+    local_shape,
+    make_rules,
+    mesh_shape,
+    placements_for,
+    pspec_for_axes,
+    shardings_for,
+    spec_axes,
+    specs_for,
+)
 
 DATA_AXES = ("pod", "data")
 
@@ -124,7 +148,9 @@ def _tree_zip(fn, tree, other):
 
 def place(t: torch.Tensor, mesh, placements: tuple, device=None):
     """The DTensor of a whole tensor ``t`` that every rank holds alike: this
-    rank's shard sliced off locally (no communication)."""
+    rank's shard sliced off locally (no communication), in storage of its
+    own, so that the whole tensor is freed once its holder drops it (a slice
+    of the leading dimension is a contiguous view of the whole)."""
     from torch.distributed.tensor import DTensor, Shard
 
     comm = comm_for(mesh)
@@ -133,7 +159,8 @@ def place(t: torch.Tensor, mesh, placements: tuple, device=None):
         axes = tuple(n for n, pl in zip(comm.names, placements) if isinstance(pl, Shard) and pl.dim == d)
         if axes:
             local = comm.shard(local, d, axes)
-    local = local.to(device if device is not None else mesh_device(mesh)).contiguous()
+    local = local.to(device if device is not None else mesh_device(mesh))
+    local = local.clone(memory_format=torch.contiguous_format) if local.numel() < t.numel() else local.contiguous()
     return DTensor.from_local(local, mesh, placements, run_check=False)
 
 
@@ -401,21 +428,219 @@ def _mesh_train_step(model, mesh, schedule: Callable, *, rules, global_batch: in
     return train_step, state_shapes, state_shard, batch_shard
 
 
+def serve_params(tree):
+    """The serve view of a params tree (or of its logical axes): Mamba's
+    ``in_proj`` (d, 2 Di) as (d, 2, Di), axes ("embed", None, "inner"), so
+    that its shard over ``inner`` is a rank's own x and z columns
+    ``[x_r | z_r]`` (``models.mamba``); every other leaf as it is. A view: no
+    copy."""
+    if isinstance(tree, dict):
+        out = {}
+        for k, v in tree.items():
+            if k == "in_proj" and isinstance(v, tuple) and len(v) == 2:
+                out[k] = (v[0], None, v[1])
+            elif k == "in_proj" and hasattr(v, "dim") and v.dim() == 2:
+                out[k] = v.view(v.shape[0], 2, v.shape[1] // 2)
+            else:
+                out[k] = serve_params(v)
+        return out
+    if isinstance(tree, list):
+        return [serve_params(v) for v in tree]
+    return tree
+
+
+def place_serve_params(params, shards, mesh):
+    """Whole ``params`` that every rank holds alike, placed for serving: a tree
+    of DTensors of ``serve_params``' view by ``shards["params"]`` of
+    ``make_serve_fns`` (each rank slices its shards; no communication)."""
+    return place_state(serve_params(params), shards["params"], mesh)
+
+
+def _check_serve_rules(rules: dict) -> None:
+    """The placements the sharded serve implements."""
+    if rules.get("embed") is not None:
+        raise NotImplementedError(f"rules['embed'] = {rules['embed']!r}: the serve fns take no FSDP")
+    for name in TP_AXES:
+        if rules.get(name) not in (None, "model"):
+            raise NotImplementedError(f"rules[{name!r}] = {rules.get(name)!r}: tensor parallelism is over 'model'")
+    if not set(spec_axes(rules.get("batch"))) <= set(DATA_AXES):
+        raise NotImplementedError(f"rules['batch'] = {rules.get('batch')!r}: the batch splits over pod and data")
+    if not set(spec_axes(rules.get("kv_seq"))) <= {"model", *DATA_AXES}:
+        raise NotImplementedError(f"rules['kv_seq'] = {rules.get('kv_seq')!r}: the slots split over model and data")
+
+
+class _ServePlan:
+    """Where a serve state lives on a mesh: the rules the model code runs
+    under (the batch entry as its spec keeps it), this rank's rows of the
+    global batch, and each cache leaf's spec (its slots cut in the mesh's
+    order)."""
+
+    def __init__(self, model, mesh, global_batch: int, max_len: int, rules: Optional[dict]):
+        cfg = model.cfg
+        rules = dict(rules) if rules is not None else make_rules(cfg, mesh, "serve", global_batch)
+        _check_serve_rules(rules)
+        self.mesh, self.comm = mesh, comm_for(mesh)
+        entry = pspec_for_axes(("batch", None), (global_batch, 1), rules, mesh)[0]
+        self.batch_axes = spec_axes(entry)
+        self.rules = dict(rules, batch=entry)
+        dp = self.comm.size(self.batch_axes)
+        self.rows = global_batch // dp
+        self.row0 = self.comm.index(self.batch_axes) * self.rows
+        self.dp = dp
+        self.caches = model.init_cache(global_batch, max_len, "meta")
+        self.cache_specs = [
+            {k: in_mesh_order(pspec_for_axes(ax, tuple(c[k].shape), self.rules, mesh), mesh)
+             for k, ax in axes.items() if k != "index"}
+            for axes, c in zip(cache_logical_axes(cfg, max_len), self.caches)
+        ]
+
+    def split(self, specs: dict):
+        """The cache's ``split`` entry: (this rank's index, the mesh axes) of
+        its slots' dimension, or None where its slots are whole."""
+        axes = spec_axes(specs.get("k", specs.get("c_kv", (None, None)))[1])
+        return (self.comm.index(axes), axes) if axes else None
+
+    def local_caches(self, device) -> list:
+        """Each layer's cache, this rank's shards alone (zeros; a ring's
+        positions -1), index 0."""
+        out = []
+        for c, specs in zip(self.caches, self.cache_specs):
+            local = {}
+            for k, t in c.items():
+                if k == "index":
+                    local[k] = 0
+                    continue
+                shape = local_shape(tuple(t.shape), specs[k], self.mesh)
+                fill = -1 if k == "pos" else 0
+                local[k] = torch.full(shape, fill, dtype=t.dtype, device=device)
+            split = self.split(specs)
+            if split is not None:
+                local["split"] = split
+            out.append(local)
+        return out
+
+    def take_rows(self, t):
+        return t if t is None or self.dp == 1 else t[self.row0 : self.row0 + self.rows]
+
+
+def placed_serve_state(model, global_batch: int, max_len: int, mesh, rules: Optional[dict] = None) -> dict:
+    """The serve state on a mesh: each rank allocates only its own shard of
+    every cache (batch rows over the data axes, KV heads or Mamba channels
+    over ``model``, slices of the slots over ``kv_seq``), never the whole
+    cache; ``t`` and each cache's ``index`` are host ints, the same on every
+    rank. ``rules`` default to the serve rules of ``global_batch``."""
+    plan = _ServePlan(model, mesh, global_batch, max_len, rules)
+    return {"caches": plan.local_caches(mesh_device(mesh)), "t": 0}
+
+
 def make_serve_fns(model, device="cuda", *, max_len: int, global_batch: int, rules: Optional[dict] = None):
-    """Returns (prefill_fn, decode_fn) on ``device``, or on the device of a
-    one-rank DeviceMesh (``rules`` are accepted for the reference's
-    signature; one rank places nothing). A mesh of more than one rank raises
-    (ROADMAP item 6b).
-      prefill_fn(params, tokens, state, frames=None, prefix=None) -> (logits (B, V), state)
-      decode_fn(params, tokens, state) -> (logits (B, V), state)
-    for states made by ``init_serve_state(model, global_batch, max_len, device)``.
+    """The serve functions
+      prefill_fn(params, tokens, state, frames=None, prefix=None) -> (logits, state)
+      decode_fn(params, tokens, state) -> (logits, state)
     Each checks the tokens and every layer's cache (and an encoder's memory)
-    against those sizes first. Raises if ``device`` is CUDA and no card is
-    present."""
-    if is_mesh(device):
-        if device.size() > 1:
-            raise NotImplementedError(ITEM_6B)
-        device = mesh_device(device)
+    against the sizes first. Raises if the device is CUDA and no card is
+    present.
+
+    On a device (``device``): (prefill_fn, decode_fn), for states made by
+    ``init_serve_state(model, global_batch, max_len, device)``; logits (B, V).
+
+    On a DeviceMesh (``device``): ``(prefill_fn, decode_fn, state_shapes, shards)``, as the
+    reference returns them. ``rules`` default to ``make_rules(cfg, mesh,
+    "serve", global_batch)`` (no FSDP; the flash-decoding fallback puts the
+    caches' slots over ``kv_seq``). ``state_shapes``: the global state as meta
+    tensors; ``shards``: {"params": placements of ``serve_params``' view,
+    "state": {"caches": placements, "t": ()}}. The params are the tree
+    ``place_serve_params(params, shards, mesh)`` makes (DTensors; each call
+    takes their local shards); the state is ``init_serve_state(model,
+    global_batch, max_len, mesh)``'s, this rank's shards; the tokens (and
+    frames, prefix) the global ones, the same on every rank, of which each
+    rank takes its own rows. Logits come back as a DTensor placed by
+    ("batch", "vocab") (``gather_full`` makes the global (B, V) on every
+    rank). Everything runs under ``axis_rules(rules, mesh)``."""
+    if not is_mesh(device):
+        return _device_serve_fns(model, device, max_len=max_len, global_batch=global_batch)
+    return _mesh_serve_fns(model, device, max_len=max_len, global_batch=global_batch, rules=rules)
+
+
+def _local_params(params):
+    from torch.distributed.tensor import DTensor
+
+    return tree_map(lambda t: t.to_local() if isinstance(t, DTensor) else t, params)
+
+
+def _mesh_serve_fns(model, mesh, *, max_len: int, global_batch: int, rules: Optional[dict]):
+    from torch.distributed.tensor import DTensor
+
+    cfg = model.cfg
+    plan = _ServePlan(model, mesh, global_batch, max_len, rules)
+    run_rules, dev = plan.rules, mesh_device(mesh)
+    pmeta, paxes = param_specs(model)
+    param_shard = shardings_for(serve_params(paxes), serve_params(pmeta), run_rules, mesh)
+    cache_shard = [{k: placements_for(sp, mesh) for k, sp in specs.items()} for specs in plan.cache_specs]
+    state_shapes = {"caches": plan.caches, "t": 0}
+    shards = {"params": param_shard, "state": {"caches": cache_shard, "t": ()}}
+    logits_pl = placements_for(pspec_for_axes(LOGITS_AXES, (global_batch, cfg.vocab), run_rules, mesh), mesh)
+    kv_spec = pspec_for_axes(("batch", None, "kv_heads", "head_dim"),
+                             (global_batch, cfg.frontend_len, cfg.n_kv_heads, cfg.head_dim), run_rules, mesh)
+    memory_kv_shape = local_shape((global_batch, cfg.frontend_len, cfg.n_kv_heads, cfg.head_dim), kv_spec, mesh)
+
+    def _want(name: str, a: torch.Tensor, shape: tuple) -> None:
+        if tuple(a.shape) != tuple(shape) or a.device.type != dev.type:
+            raise ValueError(f"{name} {tuple(a.shape)} on {a.device}: want this rank's {tuple(shape)} on {dev}")
+
+    def _check(tokens, state, frames=None, prefix=None) -> None:
+        if tokens.device.type != dev.type or tokens.shape[0] != global_batch:
+            raise ValueError(f"tokens {tuple(tokens.shape)} on {tokens.device}: want the global batch "
+                             f"{global_batch} on {dev}")
+        caches = state["caches"]
+        if len(caches) != cfg.n_layers:
+            raise ValueError(f"{len(caches)} caches for {cfg.n_layers} layers")
+        for i, (c, meta, specs) in enumerate(zip(caches, plan.caches, plan.cache_specs)):
+            for k, t in meta.items():
+                if k != "index":
+                    _want(f"layer {i} cache {k}", c[k], local_shape(tuple(t.shape), specs[k], mesh))
+            if c.get("split") != plan.split(specs):
+                raise ValueError(f"layer {i} cache split {c.get('split')}: want {plan.split(specs)}")
+        T, d = cfg.frontend_len, cfg.d_model
+        for name, a in (("frames", frames), ("prefix", prefix)):
+            if a is not None:
+                _want(name, a, (global_batch, T, d))
+        if "memory" in state:
+            _want("memory", state["memory"], (plan.rows, T, d))
+            if len(state["memory_kv"]) != cfg.n_layers:
+                raise ValueError(f"{len(state['memory_kv'])} memory K/V pairs for {cfg.n_layers} layers")
+            for i, kv in enumerate(state["memory_kv"]):
+                for n, a in zip("kv", kv):
+                    _want(f"layer {i} memory {n}", a, memory_kv_shape)
+
+    def _placed(logits: torch.Tensor):
+        return DTensor.from_local(logits.contiguous(), mesh, logits_pl, run_check=False)
+
+    @torch.inference_mode()
+    def prefill_fn(params, tokens, state, frames=None, prefix=None):
+        if cfg.encoder_layers and frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder prefills with frames")
+        _check(tokens, state, frames, prefix)
+        local = _local_params(params)
+        with axis_rules(run_rules, mesh):
+            logits, new_state = prefill(model, local, plan.take_rows(tokens), state, frames=plan.take_rows(frames),
+                                        prefix=plan.take_rows(prefix))
+        return _placed(logits), new_state
+
+    @torch.inference_mode()
+    def decode_fn(params, tokens, state):
+        if cfg.encoder_layers and "memory" not in state:
+            raise ValueError(f"{cfg.name}: decode needs the encoder memory that prefill keeps")
+        _check(tokens, state)
+        local = _local_params(params)
+        with axis_rules(run_rules, mesh):
+            logits, new_state = decode_step(model, local, plan.take_rows(tokens), state)
+        return _placed(logits), new_state
+
+    return prefill_fn, decode_fn, state_shapes, shards
+
+
+def _device_serve_fns(model, device, *, max_len: int, global_batch: int):
     dev = resolve_device(device)
     cfg = model.cfg
 

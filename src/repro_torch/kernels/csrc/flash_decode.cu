@@ -4,7 +4,12 @@
 // (body _decode_kernel). q (B, 1, H, Dh); k, v (B, S, KVH, Dh); k_pos (B, S),
 // q_pos (B,), n_valid (B,) int32; optional window. Slot s of batch row b is
 // attended iff s < n_valid[b], k_pos[b, s] <= q_pos[b] and, with a window,
-// k_pos[b, s] > q_pos[b] - window. Output in q's dtype; softmax state in f32.
+// k_pos[b, s] > q_pos[b] - window. Output in q's dtype (or f32 on request);
+// softmax state in f32. With an lse pointer, also each row's log-sum-exp of
+// its scaled, masked scores (B, H) in f32: M + log(L) of the cluster's final
+// merge, NEG_INF for a row with no written slot (whose output is 0). That is
+// what a flash-decoding merge across devices needs: each device's partial
+// output over its slice of the slots, weighed by exp(lse - max lse).
 //
 // What bounds it on this card: bytes. At the serving shapes (stablelm-1.6b,
 // B 4, 32 KV heads, Dh 64, ~528 valid slots, bf16) it must read ~17 MB of
@@ -46,7 +51,9 @@
 // masked by position publishes m = NEG_INF with l = its slot count, which
 // weighs 0 beside a live chunk and 1 when every chunk is masked, as the
 // single pass over all slots would. In bf16, P is rounded to v's dtype before
-// P.V, as the Pallas kernel does.
+// P.V, as the Pallas kernel does. The lse of a chunk set that is all masked is
+// NEG_INF + log(count), which rounds to NEG_INF in f32: beside a live slice it
+// weighs exp(NEG_INF - M) = 0, as the block merge weighs a masked chunk.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -78,12 +85,13 @@ __device__ __forceinline__ void widen(const uint4& raw, float (&f)[8], __nv_bflo
   }
 }
 
-// G: query heads per KV head rounded up to a power of two (gq <= G).
-template <typename T, int DH, int G>
+// G: query heads per KV head rounded up to a power of two (gq <= G); TO: the
+// output's type (T, or float for partials that are merged later).
+template <typename T, int DH, int G, typename TO>
 __global__ void __launch_bounds__(THREADS)
 flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const int* __restrict__ k_pos, const int* __restrict__ q_pos,
-                    const int* __restrict__ n_valid, T* __restrict__ o,
+                    const int* __restrict__ n_valid, TO* __restrict__ o, float* __restrict__ lse,
                     int S, int H, int KVH, int window, float scale, int n_split) {
   constexpr int VEC = 16 / sizeof(T);  // elements per 16-byte load
   constexpr int LPS = DH / VEC;        // lanes per slot
@@ -265,16 +273,17 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       L = fmaf(cluster.map_shared_rank(&blk_l[0], r)[g], c, L);
       A = fmaf(cluster.map_shared_rank(&blk_acc[0][0], r)[g * DH + d], c, A);
     }
-    o[((int64_t)b * H + kvh * gq + g) * DH + d] = from_f<T>(A / fmaxf(L, 1e-37f));
+    o[((int64_t)b * H + kvh * gq + g) * DH + d] = from_f<TO>(A / fmaxf(L, 1e-37f));
+    if (lse != nullptr && d == 0) lse[(int64_t)b * H + kvh * gq + g] = L > 0.f ? M + logf(L) : NEG_INF;
   }
   cluster.sync();  // no block leaves while another may still read its shared memory
 }
 
-template <typename T, int DH, int G>
+template <typename T, int DH, int G, typename TO>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* kp, const int* qp,
-                   const int* nv, void* o, int B, int S, int H, int KVH, int window, float scale,
-                   int n_split, cudaStream_t stream) {
-  auto kern = flash_decode_kernel<T, DH, G>;
+                   const int* nv, void* o, float* lse, int B, int S, int H, int KVH, int window,
+                   float scale, int n_split, cudaStream_t stream) {
+  auto kern = flash_decode_kernel<T, DH, G, TO>;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(B * KVH * n_split);
   cfg.blockDim = dim3(THREADS);
@@ -288,25 +297,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* kp, c
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, kern, static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), kp,
-      qp, nv, static_cast<T*>(o), S, H, KVH, window, scale, n_split);
+      qp, nv, static_cast<TO*>(o), lse, S, H, KVH, window, scale, n_split);
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
 template <typename T, int DH, int G>
 cudaError_t resident(int* blocks) {
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_decode_kernel<T, DH, G>, THREADS, 0);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_decode_kernel<T, DH, G, T>, THREADS, 0);
 }
 
-// one entry per (dtype, head dim, G): launch, or with blocks != null report
-// how many blocks of that kernel an SM holds
-template <typename T, int DH>
+// one entry per (dtype, head dim, G, output type): launch, or with blocks !=
+// null report how many blocks of that kernel an SM holds (the f32-output
+// kernel has the same registers and shared memory)
+template <typename T, int DH, typename TO>
 cudaError_t dispatch_g(const void* q, const void* k, const void* v, const int* kp,
-                       const int* qp, const int* nv, void* o, int B, int S, int H, int KVH,
-                       int window, float scale, int n_split, int* blocks, cudaStream_t s) {
+                       const int* qp, const int* nv, void* o, float* lse, int B, int S, int H,
+                       int KVH, int window, float scale, int n_split, int* blocks, cudaStream_t s) {
   const int gq = H / KVH;
 #define FD_CASE(GG)                                                                            \
   return blocks ? resident<T, DH, GG>(blocks)                                                  \
-                : launch<T, DH, GG>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, n_split, s)
+                : launch<T, DH, GG, TO>(q, k, v, kp, qp, nv, o, lse, B, S, H, KVH, window,     \
+                                        scale, n_split, s)
   if (gq <= 1) FD_CASE(1);
   if (gq <= 2) FD_CASE(2);
   if (gq <= 4) FD_CASE(4);
@@ -314,27 +325,33 @@ cudaError_t dispatch_g(const void* q, const void* k, const void* v, const int* k
 #undef FD_CASE
 }
 
-template <typename T>
+template <typename T, typename TO>
 cudaError_t dispatch_dh(const void* q, const void* k, const void* v, const int* kp,
-                        const int* qp, const int* nv, void* o, int B, int S, int H, int KVH,
-                        int Dh, int window, float scale, int n_split, int* blocks, cudaStream_t s) {
+                        const int* qp, const int* nv, void* o, float* lse, int B, int S, int H,
+                        int KVH, int Dh, int window, float scale, int n_split, int* blocks,
+                        cudaStream_t s) {
+#define FD_DH(DD) \
+  dispatch_g<T, DD, TO>(q, k, v, kp, qp, nv, o, lse, B, S, H, KVH, window, scale, n_split, blocks, s)
   switch (Dh) {
-    case 16: return dispatch_g<T, 16>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, n_split, blocks, s);
-    case 32: return dispatch_g<T, 32>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, n_split, blocks, s);
-    case 64: return dispatch_g<T, 64>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, n_split, blocks, s);
-    case 128: return dispatch_g<T, 128>(q, k, v, kp, qp, nv, o, B, S, H, KVH, window, scale, n_split, blocks, s);
+    case 16: return FD_DH(16);
+    case 32: return FD_DH(32);
+    case 64: return FD_DH(64);
+    case 128: return FD_DH(128);
     default: return cudaErrorInvalidValue;
   }
+#undef FD_DH
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; n_split: blocks per (batch, KV head), in
-// one cluster (1..8). Returns the launch's cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; out_f32: o is float32 (else q's dtype);
+// lse: a (B, H) float32 buffer for each row's log-sum-exp, or null; n_split:
+// blocks per (batch, KV head), in one cluster (1..8). Returns the launch's
+// cudaError_t.
 extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, const void* k_pos,
-                                const void* q_pos, const void* n_valid, void* o, int dtype,
-                                int B, int S, int H, int KVH, int Dh, int window, float scale,
-                                int n_split, void* stream) {
+                                const void* q_pos, const void* n_valid, void* o, void* lse,
+                                int dtype, int out_f32, int B, int S, int H, int KVH, int Dh,
+                                int window, float scale, int n_split, void* stream) {
   if (B <= 0 || S <= 0 || KVH <= 0 || H % KVH != 0 || H / KVH > MAX_G)
     return (int)cudaErrorInvalidValue;
   if (n_split < 1 || n_split > MAX_SPLIT) return (int)cudaErrorInvalidValue;
@@ -343,12 +360,16 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, con
   const int* qp = static_cast<const int*>(q_pos);
   const int* nv = static_cast<const int*>(n_valid);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   if (dtype == 0)
-    return (int)dispatch_dh<float>(q, k, v, kp, qp, nv, o, B, S, H, KVH, Dh, window, scale,
-                                   n_split, nullptr, s);
+    return (int)dispatch_dh<float, float>(q, k, v, kp, qp, nv, o, l, B, S, H, KVH, Dh, window,
+                                          scale, n_split, nullptr, s);
+  if (dtype == 1 && out_f32)
+    return (int)dispatch_dh<__nv_bfloat16, float>(q, k, v, kp, qp, nv, o, l, B, S, H, KVH, Dh,
+                                                  window, scale, n_split, nullptr, s);
   if (dtype == 1)
-    return (int)dispatch_dh<__nv_bfloat16>(q, k, v, kp, qp, nv, o, B, S, H, KVH, Dh, window,
-                                           scale, n_split, nullptr, s);
+    return (int)dispatch_dh<__nv_bfloat16, __nv_bfloat16>(q, k, v, kp, qp, nv, o, l, B, S, H, KVH,
+                                                          Dh, window, scale, n_split, nullptr, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -357,10 +378,12 @@ extern "C" int flash_decode_fwd(const void* q, const void* k, const void* v, con
 extern "C" int flash_decode_blocks_per_sm(int dtype, int Dh, int gq, int* blocks) {
   if (gq < 1 || gq > MAX_G) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return (int)dispatch_dh<float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1,
-                                   1, gq, 1, Dh, 0, 1.f, 1, blocks, nullptr);
+    return (int)dispatch_dh<float, float>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                                          nullptr, nullptr, 1, 1, gq, 1, Dh, 0, 1.f, 1, blocks,
+                                          nullptr);
   if (dtype == 1)
-    return (int)dispatch_dh<__nv_bfloat16>(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
-                                           nullptr, 1, 1, gq, 1, Dh, 0, 1.f, 1, blocks, nullptr);
+    return (int)dispatch_dh<__nv_bfloat16, __nv_bfloat16>(nullptr, nullptr, nullptr, nullptr,
+                                                          nullptr, nullptr, nullptr, nullptr, 1, 1,
+                                                          gq, 1, Dh, 0, 1.f, 1, blocks, nullptr);
   return (int)cudaErrorInvalidValue;
 }

@@ -11,7 +11,12 @@ slice of the output, all in one launch. Masking is by position,
 as in ``repro.models.attention._cached_attention``: slot ``s`` of batch row
 ``b`` is attended iff ``s < n_valid[b]``, ``k_pos[b, s] <= q_pos[b]`` and,
 with a window, ``k_pos[b, s] > q_pos[b] - window``. The kernel reads no
-slot at or past ``n_valid``.
+slot at or past ``n_valid``. With ``return_lse`` it also writes each row's
+log-sum-exp of its scaled, masked scores (B, H) in f32, and may write its
+output in f32 (``out_dtype``): the partial attention of one slice of a cache
+whose slots are split across devices, which ``dist.comm.merge_attention``
+combines (serving with ``kv_seq`` sharded). A row with no written slot gives
+0 and an lse of NEG_INF.
 
 For tensors on the CPU or the meta device the wrapper computes the plain version
 (``ref.reference_decode``); for CUDA tensors it launches the kernel or raises.
@@ -40,7 +45,7 @@ def _fn():
     lib = build.load("flash_decode")
     fn = lib.flash_decode_fwd
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -107,12 +112,18 @@ def flash_decode(
     n_valid: torch.Tensor,  # (B,) int32 number of written slots
     *,
     window: int = 0,
-) -> torch.Tensor:
-    """Returns (B, 1, H, Dh) in q's dtype. The blocks per batch row and KV
-    head are ``split_for``'s choice for the card."""
+    return_lse: bool = False,
+    out_dtype=None,
+):
+    """Returns (B, 1, H, Dh) in ``out_dtype`` (q's dtype, or float32), and
+    with ``return_lse`` also the rows' log-sum-exp (B, H) f32. The blocks per
+    batch row and KV head are ``split_for``'s choice for the card."""
     _check_inputs(q, k, v, k_pos, q_pos, n_valid, window)
+    if out_dtype not in (None, q.dtype, torch.float32):
+        raise TypeError(f"flash_decode: out_dtype {out_dtype}: want q's dtype or float32")
     if q.device.type in PLAIN_DEVICES:
-        return reference_decode(q, k, v, k_pos, q_pos, n_valid, window=window)
+        return reference_decode(q, k, v, k_pos, q_pos, n_valid, window=window, return_lse=return_lse,
+                                out_dtype=out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     if not all(t.is_contiguous() for t in (q, k, v, k_pos, q_pos, n_valid)):
@@ -122,18 +133,20 @@ def flash_decode(
     B, _, H, Dh = q.shape
     S, KVH = k.shape[1], k.shape[2]
     n_split = split_for(q, k)
-    out = torch.empty_like(q)
+    out_f32 = out_dtype == torch.float32
+    out = torch.empty(q.shape, dtype=torch.float32 if out_f32 else q.dtype, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if return_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _fn()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), k_pos.data_ptr(), q_pos.data_ptr(),
-            n_valid.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], B, S, H, KVH, Dh, int(window), Dh**-0.5, n_split, stream,
+            n_valid.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
+            _DTYPES[q.dtype], int(out_f32), B, S, H, KVH, Dh, int(window), Dh**-0.5, n_split, stream,
         )
     if rc != 0:
         raise RuntimeError(f"flash_decode kernel launch failed: cudaError_t {rc}")
     flash_decode.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 _splits: dict = {}  # (device, dtype, q's shape, k's shape) -> n_split

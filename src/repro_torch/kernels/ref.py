@@ -119,7 +119,14 @@ def reference_decode(
     n_valid: torch.Tensor,  # (B,)
     *,
     window: int = 0,
-) -> torch.Tensor:
+    return_lse: bool = False,
+    out_dtype=None,
+):
+    """One query token against a cache: (B, 1, H, Dh) in ``out_dtype`` (q's
+    dtype by default). A row with no written slot (``n_valid`` <= 0) gives 0,
+    as the kernel does. With ``return_lse`` also each row's log-sum-exp of its
+    scaled, masked scores (B, H) in f32 (f64 for f64 inputs), NEG_INF for a
+    row with no written slot: the partial a flash-decoding merge weighs."""
     B, _, H, Dh = q.shape
     S, KVH = k.shape[1], k.shape[2]
     qg = q.reshape(B, 1, KVH, H // KVH, Dh)
@@ -127,7 +134,15 @@ def reference_decode(
     ok = (k_pos <= q_pos[:, None]) & (slot < n_valid[:, None])
     if window > 0:
         ok &= k_pos > (q_pos[:, None] - window)
-    return _gqa_softmax_v(qg, k, v, ok[:, None, None, None, :], q.shape, q.dtype)
+    s = _gqa_scores(qg, k, ok[:, None, None, None, :])  # (B, KVH, gq, 1, S)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, dim=-1), v.to(s.dtype)).reshape(q.shape)
+    empty = (n_valid <= 0).to(q.device)
+    o = torch.where(empty[:, None, None, None], torch.zeros((), dtype=o.dtype, device=o.device), o)
+    o = o.to(out_dtype or q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1).reshape(B, H)
+    return o, torch.where(empty[:, None], torch.full((), NEG_INF, dtype=lse.dtype, device=lse.device), lse)
 
 
 def split_decode_reference(
@@ -140,18 +155,22 @@ def split_decode_reference(
     *,
     window: int = 0,
     n_split: int = 1,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Plain model of ``flash_decode``'s split and merge, for the tests: the
     n = min(n_valid, S) written slots of a batch row are cut into ``n_split``
     contiguous chunks of ceil(n / n_split) slots. Each chunk's softmax state
     stands alone: m its max score (NEG_INF where every slot is masked, and for
     an empty chunk), l = sum exp(s - m) and acc = sum p v with p rounded to v's
     dtype (l = 0, acc = 0 for an empty chunk). The states merge with weights
-    exp(m_j - M), M the largest m_j, with no special case."""
+    exp(m_j - M), M the largest m_j, with no special case. With
+    ``return_lse``, also the kernel's log-sum-exp M + log(L) (B, H) in f32,
+    NEG_INF where L = 0 (no written slot)."""
     B, _, H, Dh = q.shape
     S, KVH = k.shape[1], k.shape[2]
     qg = q.reshape(B, KVH, H // KVH, Dh).float()
     out = torch.empty(qg.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty(qg.shape[:3], dtype=torch.float32, device=q.device)
     for b in range(B):
         n = max(0, min(int(n_valid[b]), S))
         chunk = -(-n // n_split)
@@ -175,7 +194,9 @@ def split_decode_reference(
         L = (w * torch.stack(ls)).sum(0)
         A = (w[..., None] * torch.stack(accs)).sum(0)
         out[b] = A / L.clamp_min(1e-37)[..., None]
-    return out.reshape(q.shape).to(q.dtype)
+        lse[b] = torch.where(L > 0, m.amax(0) + torch.log(L), torch.full((), NEG_INF, device=L.device))
+    out = out.reshape(q.shape).to(q.dtype)
+    return (out, lse.reshape(B, H)) if return_lse else out
 
 
 _U32 = 0xFFFFFFFF

@@ -14,10 +14,15 @@ it first starts torch's fake backend in this one process (a world of 256 or
 planned for a mesh that does not exist. A process group the caller already
 set up is never replaced.
 
+``join_process_group(device)`` joins the process group of a launcher that
+starts several processes (``torchrun``), as the train and serve drivers do.
+
 Functions, not module constants: importing this module starts nothing.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 import torch.distributed as dist
@@ -30,6 +35,19 @@ def _device_type(device) -> str:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"a mesh of {dev.type} devices")
     return dev.type
+
+
+def join_process_group(device) -> None:
+    """Under a launcher that sets ``WORLD_SIZE`` > 1 (``torchrun``), join its
+    process group: NCCL with this rank on card ``LOCAL_RANK``, or gloo on the
+    CPU. Nothing without one, or when a group is already initialised."""
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return
+    if torch.device(device).type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+        dist.init_process_group("nccl")
+    else:
+        dist.init_process_group("gloo")
 
 
 def make_host_mesh(model: int = 1, device="cuda"):

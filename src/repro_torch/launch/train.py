@@ -53,7 +53,7 @@ from repro_torch.core import ProvenanceRegistry, software_version_of
 from repro_torch.data.pipeline import build_data_pipeline, next_batch
 from repro_torch.dist.ft import FaultToleranceManager, SimulatedFailure
 from repro_torch.dist.step import is_mesh, mesh_device, placed_train_state
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import join_process_group, make_host_mesh
 from repro_torch.models.common import ArchConfig
 from repro_torch.models.registry import build_model, train_loss
 from repro_torch.optim import adamw_init, cosine_warmup
@@ -219,21 +219,6 @@ def main(argv=None):
     return run(cfg, steps=args.steps, batch=args.batch, seq=args.seq, lr=args.lr, microbatches=args.microbatches,
                ckpt_every=args.ckpt_every, ckpt_dir=args.ckpt_dir, resume=args.resume,
                fail_at_step=args.fail_at_step, seed=args.seed, device=args.device, model_axis=args.model)
-
-
-def join_process_group(device) -> None:
-    """Under a launcher that sets ``WORLD_SIZE`` > 1 (``torchrun``), join its
-    process group: NCCL with this rank on card ``LOCAL_RANK``, or gloo on the
-    CPU. Nothing without one, or when a group is already initialised."""
-    import torch.distributed as dist
-
-    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
-        return
-    if torch.device(device).type == "cuda":
-        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
-        dist.init_process_group("nccl")
-    else:
-        dist.init_process_group("gloo")
 
 
 if __name__ == "__main__":

@@ -28,7 +28,25 @@ is row-parallel, its partial output summed by one all-reduce
 tp), each rank projects every KV head with the weights entering through
 ``to_model`` (their gradient is partial) and keeps those its query heads
 read (``_local_kv``). MLA keeps its latents replicated and splits the heads.
-Serving on such a mesh is not ported (ROADMAP item 6b).
+
+Serving on a mesh (``dist.step.make_serve_fns``): each rank's cache holds its
+shard of the serve rules' placement. Where ``kv_heads`` is sharded, a rank's
+cache holds its KV heads, prefill and decode run the kernels on the local
+heads, and ``wo`` is row-parallel, as in training. Where the cache's slots
+are split (``kv_seq``: KV heads that do not divide the model axis, or a batch
+that does not fill the data axes; the cache's ``split`` entry holds this
+rank's index along the split and its mesh axes), each rank keeps the slots
+``[r S/n, (r+1) S/n)`` of every KV head: prefill attends over the prompt's
+own K/V (slots past the prompt are causally dead in a fresh cache) and writes
+its own slots; decode writes the new slot on the rank that owns it, runs
+``flash_decode(..., return_lse=True)`` for every query head over its slice
+(its local written count ``clamp(total - r S/n, 0, S/n)``, the slots' global
+positions; the query heads gathered over ``model`` first where the heads are
+local shards) and merges the ranks' partials by their log-sum-exp
+(``dist.comm.merge_attention``), each in f32, rounded once. A ring's slot
+``idx % S`` belongs to the rank that holds it; its ``pos`` is split with it.
+MLA's absorbed decode computes the same partial (max, sum of exponentials)
+over its slice of the latents and merges it the same way.
 """
 
 from __future__ import annotations
@@ -39,7 +57,7 @@ import torch
 
 from repro_torch.kernels.ops import kernel_set
 
-from .common import ITEM_6B, NEG_INF, ArchConfig, ParamBuilder, apply_rope, rms_norm, tensor_parallel
+from .common import NEG_INF, ArchConfig, ParamBuilder, apply_rope, parallel, rms_norm, tensor_parallel
 
 
 def heads_parallel():
@@ -109,8 +127,7 @@ def _project_qkv(p: dict, cfg: ArchConfig, x: torch.Tensor, positions: torch.Ten
     # RoPE on q/k: every head of a token rotates by that token's position
     q = apply_rope(q, positions[:, :, None], cfg.rope_theta)
     k = apply_rope(k, positions[:, :, None], cfg.rope_theta)
-    k, v = _local_kv(par, k, v, q.shape[2])
-    return q, k, v
+    return q, k, v  # k, v: the KV heads this rank holds (all where kv_heads is replicated)
 
 
 class FlashAttention(torch.autograd.Function):
@@ -167,8 +184,6 @@ def attention_block(
     kernels = kernels or kernel_set()
     B, L, _ = x.shape
     par = heads_parallel()
-    if par is not None and (cache is not None or L == 1):
-        raise NotImplementedError(ITEM_6B)
     if cross_kv is not None:
         q = _proj(x if par is None else par.to_model(x), p["wq"])
         mk, mv = _local_kv(par, *cross_kv, q.shape[2])
@@ -184,9 +199,12 @@ def attention_block(
     window = cfg.window if cfg.attention == "swa" else 0
 
     if cache is None:
+        k, v = _local_kv(par, k, v, q.shape[2])
         out = attention(q, k, v, causal=True, window=window, kernels=kernels)
         return _out_proj(p, out, par), None
-    elif "pos" in cache:  # SWA ring of S = window slots (reference :248-259)
+    if "split" in cache or (par is not None and not par.sharded("kv_heads")):
+        return _placed_cache_attention(p, q, k, v, positions, cache, par, window, kernels)
+    if "pos" in cache:  # SWA ring of S = window slots (reference :248-259)
         idx, ck, cv, kpos = cache["index"], cache["k"], cache["v"], cache["pos"]
         S = ck.shape[1]
         if L > 1:
@@ -235,7 +253,75 @@ def attention_block(
             n_valid = torch.full((B,), total, dtype=torch.int32, device=dev)
             out = kernels["flash_decode"](q, ck, cv, k_pos, q_pos, n_valid, window=window)
         new_cache = {"k": ck, "v": cv, "index": total}
-    return _out_proj(p, out), new_cache
+    return _out_proj(p, out, par), new_cache
+
+
+def _split_of(cache: dict):
+    """(r, axes, n, merge): this rank's index along the split of the cache's
+    slots, the split's mesh axes, their rank count, and the merge of this
+    rank's partial attention (out, lse) with the others'; (0, (), 1, None)
+    for slots that are not split."""
+    if "split" not in cache:
+        return 0, (), 1, None
+    from repro_torch.dist.comm import merge_attention
+
+    r, axes = cache["split"]
+    comm = parallel().comm
+    return r, axes, comm.size(axes), lambda out, lse: merge_attention(out, lse, comm, axes)
+
+
+def _placed_cache_attention(p, q, k, v, positions, cache: dict, par, window: int, kernels: dict):
+    """Self-attention against a cache placed on a mesh whose KV heads are
+    replicated or whose slots are split (module docstring). q holds this
+    rank's query heads; k, v (B, L, KVH, Dh) every KV head this rank's cache
+    holds."""
+    B, L = q.shape[:2]
+    ck, cv, kpos = cache["k"], cache["v"], cache.get("pos")
+    S_loc = ck.shape[1]
+    r, _, n, merge = _split_of(cache)
+    base, S, idx = r * S_loc, n * S_loc, cache["index"]
+    if L > 1:
+        if idx != 0:
+            raise ValueError(f"prefill must start from an empty cache, not index {idx}")
+        if L > S:
+            raise ValueError(f"prefill of {L} tokens into {'a ring of ' if kpos is not None else ''}{S} slots")
+        hi = min(base + S_loc, L)  # this rank's slots that the prompt fills
+        if hi > base:
+            ck[:, : hi - base] = k[:, base:hi]
+            cv[:, : hi - base] = v[:, base:hi]
+            if kpos is not None:
+                kpos[:, : hi - base] = positions[:, base:hi]
+        kq, vq = _local_kv(par, k, v, q.shape[2])
+        out = kernels["flash_attention"](q, kq, vq, causal=True, window=window)
+    else:
+        if kpos is None and idx + 1 > S:
+            raise ValueError(f"KV cache full: {idx} + 1 tokens > {S} slots")
+        slot = idx % S if kpos is not None else idx
+        written = min(idx + 1, S)  # slots written after this step, from slot 0 on
+        if base <= slot < base + S_loc:
+            ck[:, slot - base] = k[:, 0]
+            cv[:, slot - base] = v[:, 0]
+            if kpos is not None:
+                kpos[:, slot - base] = positions[:, 0]
+        i32 = dict(dtype=torch.int32, device=q.device)
+        k_pos = kpos if kpos is not None else (base + torch.arange(S_loc, **i32)).expand(B, S_loc).contiguous()
+        n_valid = torch.full((B,), max(0, min(written - base, S_loc)), **i32)
+        gathered = par is not None and not par.sharded("kv_heads")  # every query head attends here
+        qd = par.comm.all_gather(q, 2, ("model",)) if gathered else q
+        o, lse = kernels["flash_decode"](qd, ck, cv, k_pos, positions[:, 0].to(torch.int32), n_valid,
+                                         window=window, return_lse=True, out_dtype=torch.float32)
+        if merge is not None:
+            o = merge(o, lse)
+        if gathered:
+            h = q.shape[2]
+            o = o[:, :, par.tp_rank * h : (par.tp_rank + 1) * h]
+        out = o.to(q.dtype)
+    new_cache = {"k": ck, "v": cv, "index": idx + L}
+    if kpos is not None:
+        new_cache["pos"] = kpos
+    if "split" in cache:
+        new_cache["split"] = cache["split"]
+    return _out_proj(p, out, par), new_cache
 
 
 def _out_proj(p: dict, out: torch.Tensor, par=None) -> torch.Tensor:
@@ -326,8 +412,6 @@ def mla_block(
     kernels = kernels or kernel_set()
     B, L, _ = x.shape
     par = heads_parallel()
-    if par is not None and cache is not None:
-        raise NotImplementedError(ITEM_6B)
     to_heads = (lambda t: t) if par is None else par.to_model  # replicated latents -> local heads
     dn, kvr = cfg.qk_nope_dim, cfg.kv_lora_rank
     cq = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps)
@@ -344,36 +428,59 @@ def mla_block(
         return _out_proj(p, out, par), None
 
     idx = cache["index"]
-    S = cache["c_kv"].shape[1]
-    if idx + L > S:
-        raise ValueError(f"latent cache full: {idx} + {L} tokens > {S} slots")
-    cache["c_kv"][:, idx : idx + L] = c_kv
-    cache["k_rope"][:, idx : idx + L] = k_rope
+    c_all, r_all = cache["c_kv"], cache["k_rope"]
+    S_loc = c_all.shape[1]
+    r, axes, n, merge = _split_of(cache)
+    base = r * S_loc
+    if idx + L > n * S_loc:
+        raise ValueError(f"latent cache full: {idx} + {L} tokens > {n * S_loc} slots")
+    lo, hi = max(idx, base), min(idx + L, base + S_loc)  # this rank's slots of the new tokens
+    if hi > lo:
+        c_all[:, lo - base : hi - base] = c_kv[:, lo - idx : hi - idx]
+        r_all[:, lo - base : hi - base] = k_rope[:, lo - idx : hi - idx]
     total = idx + L
-    new_cache = {"c_kv": cache["c_kv"], "k_rope": cache["k_rope"], "index": total}
+    new_cache = {"c_kv": c_all, "k_rope": r_all, "index": total}
+    if "split" in cache:
+        new_cache["split"] = cache["split"]
 
     if L > 1:
         # prefill: per-head K/V rebuilt from every latent slot, causal over
-        # them (slots >= L are causally dead for a fresh cache)
+        # them (slots >= L are causally dead for a fresh cache); a rank that
+        # holds a slice of the slots rebuilds them from the prompt's own latents
         if idx != 0:
             raise ValueError(f"prefill must start from an empty cache, not index {idx}")
-        k, v = _mla_kv(p, cfg, cache["c_kv"], cache["k_rope"])
+        k, v = _mla_kv(p, cfg, c_kv, k_rope) if merge is not None else _mla_kv(p, cfg, c_all, r_all)
         out = kernels["flash_attention"](torch.cat([q_nope, q_rope], dim=-1), k, v, causal=True, window=0)
-        return _out_proj(p, out), new_cache
+        return _out_proj(p, out, par), new_cache
 
     # decode: absorbed attention over the latent cache, in f32 as the
     # reference's preferred_element_type: q_nope^T (W_kb c) = (q_nope W_kb)^T c
-    c_all, r_all = cache["c_kv"], cache["k_rope"]
     q_lat = torch.einsum("blhk,rhk->blhr", q_nope, p["wk_b"])  # (B, L, H, kvr)
+    gathered = par is not None and "model" in axes  # every head attends to this rank's slice
+    if gathered:
+        q_lat, q_rope = (par.comm.all_gather(t, 2, ("model",)) for t in (q_lat, q_rope))
     s = (torch.einsum("blhr,bsr->bhls", q_lat.float(), c_all.float())
          + torch.einsum("blhk,bsk->bhls", q_rope.float(), r_all.float())) * (dn + cfg.qk_rope_dim) ** -0.5
-    slot = torch.arange(S, device=x.device)
+    slot = base + torch.arange(S_loc, device=x.device)
     ok = (slot[None, None, :] <= positions[:, :, None]) & (slot < total)[None, None, :]  # (B, L, S)
     s = torch.where(ok[:, None], s, torch.full((), NEG_INF, device=x.device))
-    pw = torch.softmax(s, dim=-1)
-    o_lat = torch.einsum("bhls,bsr->blhr", pw, c_all.float()).to(x.dtype)
-    o = torch.einsum("blhr,rhk->blhk", o_lat, p["wv_b"])  # (B, L, H, dv)
-    return _out_proj(p, o), new_cache
+    if merge is None:
+        pw = torch.softmax(s, dim=-1)
+        o_lat = torch.einsum("bhls,bsr->blhr", pw, c_all.float())
+    else:  # this slice's partial softmax, merged over the split by its log-sum-exp
+        m = s.amax(-1, keepdim=True)
+        pw = torch.exp(s - m)
+        l_sum = pw.sum(-1)  # (B, H, L)
+        live = ok.any(-1)[:, None]  # (B, 1, L)
+        o_lat = torch.einsum("bhls,bsr->blhr", pw, c_all.float()) / l_sum.transpose(1, 2)[..., None]
+        o_lat = torch.where(live.transpose(1, 2)[..., None], o_lat, torch.zeros((), device=x.device))
+        lse = torch.where(live, m[..., 0] + torch.log(l_sum), torch.full((), NEG_INF, device=x.device))
+        o_lat = merge(o_lat, lse[:, :, 0])
+    if gathered:
+        h = p["wk_b"].shape[1]
+        o_lat = o_lat[:, :, par.tp_rank * h : (par.tp_rank + 1) * h]
+    o = torch.einsum("blhr,rhk->blhk", o_lat.to(x.dtype), p["wv_b"])  # (B, L, H, dv)
+    return _out_proj(p, o, par), new_cache
 
 
 def init_mla_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> dict:

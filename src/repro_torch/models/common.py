@@ -22,7 +22,6 @@ import numpy as np
 import torch
 
 NEG_INF = -2.0e38  # finite mask value, as in the reference kernels
-ITEM_6B = "serving on a mesh of more than one rank is not ported yet (ROADMAP item 6b)"
 
 
 # ---------------------------------------------------------------------------

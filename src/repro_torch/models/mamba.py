@@ -20,6 +20,13 @@ reduce-scattered back) and multiplies by its own x and z columns.
 ``x_proj`` is row-parallel, one all-reduce before dt, B and C (which enter
 the local channels' products through ``to_model``); ``out_proj`` is
 row-parallel, one all-reduce.
+
+Serving (no gradient) keeps ``in_proj`` as its (d, 2, Di) view, whose shard
+over ``inner`` is this rank's x and z columns ``[x_r | z_r]``
+(``dist.step.serve_params`` makes the view; placed, each rank holds its
+columns once, and no call gathers the weight). The decode and
+prefill-into-state branches then run on the local channels, with the cached
+(h, conv window) of those channels and ``x_proj`` row-parallel.
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import kernel_set
 
-from .common import ITEM_6B, ArchConfig, ParamBuilder, tensor_parallel
+from .common import ArchConfig, ParamBuilder, tensor_parallel
 
 
 def init_mamba(pb: ParamBuilder, cfg: ArchConfig) -> dict:
@@ -126,11 +133,12 @@ def mamba_block(
     L, K = x.shape[1], cfg.ssm_conv
     par = tensor_parallel()
     par = par if par is not None and par.sharded("inner") else None
-    if par is None:
+    if p["in_proj"].dim() == 3:  # the serve view (d, 2, Di): this rank's [x_r | z_r]
+        w = p["in_proj"]
+        xr, z = ((x if par is None else par.to_model(x)) @ w.reshape(w.shape[0], -1)).chunk(2, dim=-1)
+    elif par is None:
         xr, z = (x @ p["in_proj"]).chunk(2, dim=-1)
     else:
-        if cache is not None:
-            raise NotImplementedError(ITEM_6B)
         from repro_torch.dist.comm import gather
 
         w = gather(p["in_proj"], par.comm, 1, ("model",))  # (d, 2 Di)
@@ -148,7 +156,7 @@ def mamba_block(
         # decode: single-token affine update
         conv_win = torch.cat([cache["conv"], xr], dim=1)  # (B, K, Di)
         xc = F.silu(torch.einsum("bkd,kd->bd", conv_win, p["conv_w"]) + p["conv_b"])[:, None]
-        dt, Bm, Cm = _ssm_params(p, cfg, xc)
+        dt, Bm, Cm = _ssm_params(p, cfg, xc, par)
         h = torch.exp(dt[:, 0, :, None] * a) * cache["h"] + (dt[:, 0] * xc[:, 0].float())[
             ..., None
         ] * Bm[:, 0, None, :]
@@ -162,7 +170,7 @@ def mamba_block(
         for k in range(K):
             acc = acc + p["conv_w"][k] * conv_in[:, k : k + L]
         xc = F.silu(acc + p["conv_b"])
-        dt, Bm, Cm = _ssm_params(p, cfg, xc)
+        dt, Bm, Cm = _ssm_params(p, cfg, xc, par)
         y, h_final = selective_scan(kernels, xc, dt, Bm, Cm, a, cache["h"], chunk_len=min(256, L))
         new_cache = {"h": h_final, "conv": conv_in[:, -(K - 1) :]}
 

@@ -70,7 +70,15 @@ def train_loss(
     return loss, {"ce": ce, "aux": aux}
 
 
-def init_serve_state(model: Model, batch: int, max_len: int, device="cuda") -> dict:
+def init_serve_state(model: Model, batch: int, max_len: int, device="cuda", rules: Optional[dict] = None) -> dict:
+    """{"caches": one per layer, "t": 0} on ``device``. On a DeviceMesh, this
+    rank's shards of the caches of the global ``batch``, placed by the serve
+    rules (``rules``, default ``make_rules(cfg, mesh, "serve", batch)``;
+    ``repro_torch.dist.step.placed_serve_state``)."""
+    if getattr(device, "mesh_dim_names", None) is not None:
+        from repro_torch.dist.step import placed_serve_state
+
+        return placed_serve_state(model, batch, max_len, device, rules)
     return {"caches": model.init_cache(batch, max_len, device), "t": 0}
 
 

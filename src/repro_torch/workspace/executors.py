@@ -488,12 +488,15 @@ class MeshExecutor(InlineExecutor):
         return make_train_step(model, self.mesh, schedule, **kwargs)
 
     def serve_fns(self, model, **kwargs):
-        """(prefill_fn, decode_fn) on this executor's device (a mesh of one
-        rank; more is ROADMAP item 6b)."""
+        """``repro_torch.dist.step.make_serve_fns`` on this executor's mesh
+        (the serve fns with the state's shapes and placements) or device (the
+        pair alone), with its rules where its mode is "serve" (a train
+        executor's rules shard ``embed`` for FSDP, which serving does not
+        take: the serve rules of the global batch then)."""
         from repro_torch.dist.step import make_serve_fns
 
         kwargs.setdefault("global_batch", self.global_batch)
-        if self.rules is not None:
+        if self.rules is not None and self.mode == "serve":
             kwargs.setdefault("rules", self.rules)
         return make_serve_fns(model, self.mesh, **kwargs)
 

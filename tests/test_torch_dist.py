@@ -497,30 +497,53 @@ def _remat_thread_case(mesh):
     return len(out["grads"])
 
 
-def _serve_refusals(mesh):
-    """Serving on a mesh of more than one rank raises, naming item 6b: the
-    serve fns, and a cached attention call under the rules."""
+def _serve_on_mesh(mesh):
+    """Serving on the resharded (data 2, model 2) mesh against one device: the
+    serve fns (prefill and two decode steps fed the one-device greedy tokens,
+    the logits gathered), and one cached attention call under the serve rules
+    (a decode step into this rank's shard of a cache: its rows and KV heads)."""
+    from repro_torch.dist.comm import comm_for
     from repro_torch.dist.sharding import make_rules
-    from repro_torch.dist.step import make_serve_fns
+    from repro_torch.dist.step import gather_full, make_serve_fns, place_serve_params
     from repro_torch.models import attention
     from repro_torch.models.common import axis_rules
-    from repro_torch.models.registry import build_model
+    from repro_torch.models.registry import build_model, init_serve_state
+    from repro_torch.optim.adamw import tree_map
 
     cfg = get_config("stablelm-1.6b").reduced()
-    out = []
-    try:
-        make_serve_fns(build_model(cfg), mesh, max_len=16, global_batch=B)
-    except NotImplementedError as e:
-        out.append(str(e))
-    p = build_model(cfg).init(0, "cpu")["layers"][0]["mixer"]
-    cache = attention.init_attention_cache(cfg, B, 16, torch.float32, torch.device("cpu"))
+    model = build_model(cfg)
+    params = model.init(0, "cpu")
+    tokens = torch.randint(0, cfg.vocab, (B, 8), generator=torch.Generator().manual_seed(2))
+    prefill_fn, decode_fn = make_serve_fns(model, "cpu", max_len=16, global_batch=B)
+    lg, state = prefill_fn(params, tokens, init_serve_state(model, B, 16, "cpu"))
+    one = [lg]
+    for _ in range(2):
+        lg, state = decode_fn(params, one[-1].argmax(-1)[:, None], state)
+        one.append(lg)
+    prefill_fn, decode_fn, _, shards = make_serve_fns(model, mesh, max_len=16, global_batch=B)
+    placed = place_serve_params(params, shards, mesh)
+    lg, state = prefill_fn(placed, tokens, init_serve_state(model, B, 16, mesh))
+    got = [gather_full(lg)]
+    for t in range(2):
+        lg, state = decode_fn(placed, one[t].argmax(-1)[:, None], state)
+        got.append(gather_full(lg))
+    fns = max(float((a - b).abs().max()) for a, b in zip(got, one))
+    same = all(torch.equal(a.argmax(-1), b.argmax(-1)) for a, b in zip(got, one))
+
+    p = params["layers"][0]["mixer"]
+    x = torch.randn(B, 1, cfg.d_model, generator=torch.Generator().manual_seed(3))
+    positions = torch.zeros(B, 1, dtype=torch.long)
+    want, _ = attention.attention_block(p, cfg, x, positions,
+                                        attention.init_attention_cache(cfg, B, 16, torch.float32,
+                                                                       torch.device("cpu")))
+    local = tree_map(lambda t: t.to_local(), placed["layers"][0]["mixer"])
+    cache = init_serve_state(model, B, 16, mesh)["caches"][0]
+    rows = B // 2
+    r0 = comm_for(mesh).index("data") * rows
     with axis_rules(make_rules(cfg, mesh, "serve", B), mesh):
-        try:
-            attention.attention_block(p, cfg, torch.zeros(B, 1, cfg.d_model), torch.zeros(B, 1, dtype=torch.long),
-                                      cache)
-        except NotImplementedError as e:
-            out.append(str(e))
-    return out
+        y, new = attention.attention_block(local, cfg, x[r0 : r0 + rows], positions[r0 : r0 + rows], cache)
+    return {"fns": fns, "tokens": same, "attention": float((y - want[r0 : r0 + rows]).abs().max()),
+            "cache": tuple(new["k"].shape), "index": new["index"]}
 
 
 def _reshard_ranks(rank, world, workdir):
@@ -555,7 +578,7 @@ def _reshard_ranks(rank, world, workdir):
     out["pieces"] = _pieces_case(meshes[1])
     out["launch_train"] = _launch_train_case(workdir)
     out["remat_thread"] = _remat_thread_case(meshes[1])
-    out["serve_6b"] = _serve_refusals(meshes[1])
+    out["serve_6b"] = _serve_on_mesh(meshes[1])
     # (1, 4): 2 KV heads on a model axis of 4 stay replicated, each rank's
     # one query head reading its own; heads, vocab and experts split
     for name, arch in (("kv_repl_tp4", "internlm2-20b"), ("moe_tp4", "mixtral-8x7b")):
@@ -629,9 +652,12 @@ def test_launch_train_runs_on_a_mesh_and_recovers(resharded):
         assert res["diff"] <= 2 * 2 * LR * 1e-2, res  # two meshes of one run: f32 sums in other orders
 
 
-def test_serving_on_a_mesh_raises_naming_item_6b(resharded):
+def test_serving_on_a_resharded_mesh_matches_one_device(resharded):
     for out in resharded:
-        assert len(out["serve_6b"]) == 2 and all("item 6b" in m for m in out["serve_6b"]), out["serve_6b"]
+        res = out["serve_6b"]
+        assert res["fns"] <= 1e-4 and res["tokens"], res  # tests/test_torch_serve.py's f32 logit tolerance
+        assert res["attention"] <= 1e-5, res
+        assert res["cache"] == (B // 2, 16, 2, 16) and res["index"] == 1, res  # its rows and 2 of 4 KV heads
 
 
 def test_gloo_cuda_collectives_match_native(resharded):
