@@ -853,7 +853,7 @@ def k7_checks(rand, check_grad, gmm_inputs, scan_inputs, gmm_cases, scan_cases):
 def decode_lse_checks(rand, check, decode_positions):
     """flash_decode with its log-sum-exp (``return_lse``, f32 and q's-dtype
     outputs) against the plain version at every DECODE_CASES case, in f32 and
-    bf16; each case cut into 4 slices of its slots (positions kept, written
+    bf16 (the lse at f32's tolerance in both); each case cut into 4 slices of its slots (positions kept, written
     counts clamped, so some slices are empty or masked) whose partials,
     merged by ``dist.comm.combine_partials``, equal the whole-cache call; and
     a row with no written slot, which gives 0 and an lse of NEG_INF exactly."""
@@ -873,7 +873,7 @@ def decode_lse_checks(rand, check, decode_positions):
             o, lse = flash_decode(q, k, v, kpos, qpos, nval, window=window, return_lse=True, out_dtype=f32)
             ro, rl = ref.reference_decode(q, k, v, kpos, qpos, nval, window=window, return_lse=True, out_dtype=f32)
             check(name + " o", o, ro, dtype)
-            check(name + " lse", lse, rl, dtype)
+            check(name + " lse", lse, rl, f32)  # f32 computed in f32 on both sides
             o_own, _ = flash_decode(q, k, v, kpos, qpos, nval, window=window, return_lse=True)
             if o_own.dtype != dtype or not torch.equal(o_own, flash_decode(q, k, v, kpos, qpos, nval, window=window)):
                 fail(f"{name}: the output in q's dtype differs from the call without lse")
@@ -3115,34 +3115,43 @@ def serve_mesh_config(spec):
 
 
 def serve_mesh_expect(cfg, spec) -> dict:
-    """kernel -> {its first input's shape: launches} on one rank of a run:
-    per attention layer flash_attention once (prefill, over the prompt's own
-    K/V where the slots are split, its local query heads) and flash_decode a
-    decode step (every query head where the KV heads are replicated over
-    ``model``); per MoE layer moe_gmm a step at E/tp local bins; per Mamba
-    layer mamba_scan once at Di/tp channels."""
+    """kernel -> {(its first input's shape, its second's): launches} on one
+    rank of a run: per attention layer flash_attention once (prefill: the
+    local query heads over the whole local cache, or over the prompt's own
+    K/V where the slots are split; no ring among the runs) and flash_decode a
+    decode step (over this rank's slots; every query head where the KV heads
+    are replicated over ``model``); per MoE layer moe_gmm a step at E/tp
+    local bins; per Mamba layer mamba_scan once at Di/tp channels."""
+    from repro_torch.launch import serve
     from repro_torch.models import moe as moe_mod
 
     data, tp = spec["shape"]
     B, gen = spec["batch"], SERVE_MESH_GEN
     L = spec["prompt_len"] + (cfg.frontend_len if cfg.frontend == "vision" else 0)
-    b = B // data if B % data == 0 and B >= data else B
+    over_data = B % data != 0 or B < data  # the batch cannot fill the data axis: the slots split over it
+    b = B if over_data else B // data
+    n = (data if over_data else 1) * (tp if cfg.n_kv_heads % tp else 1)  # the slots' split
+    S = serve.serve_max_len(cfg, spec["prompt_len"], gen)
     specs = [cfg.layout[i % len(cfg.layout)] for i in range(cfg.n_layers)]
     h_loc = cfg.n_heads // tp if cfg.n_heads % tp == 0 else cfg.n_heads
     h_dec = cfg.n_heads if cfg.n_kv_heads % tp else h_loc
-    out = {}
-    n = sum(s.mixer == "attention" for s in specs)
-    if n:
-        out["flash_attention"] = {(b, L, h_loc, cfg.head_dim): n}
-        out["flash_decode"] = {(b, 1, h_dec, cfg.head_dim): n * (gen - 1)}
-    n = sum(s.ffn == "moe" for s in specs)
-    if n:
-        e = cfg.n_experts // tp if cfg.n_experts % tp == 0 else cfg.n_experts
+    kvh = cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else cfg.n_kv_heads
+    # at prefill, local query heads over replicated KV heads read one KV head each
+    kv_pre = h_loc if cfg.n_heads % tp == 0 and cfg.n_kv_heads % tp else kvh
+    Dh, out = cfg.head_dim, {}
+    n_calls = sum(s.mixer == "attention" for s in specs)
+    if n_calls:
+        out["flash_attention"] = {((b, L, h_loc, Dh), (b, L if n > 1 else S, kv_pre, Dh)): n_calls}
+        out["flash_decode"] = {((b, 1, h_dec, Dh), (b, S // n, kvh, Dh)): n_calls * (gen - 1)}
+    n_calls = sum(s.ffn == "moe" for s in specs)
+    if n_calls:
+        e, f = (cfg.n_experts // tp, cfg.d_ff) if cfg.n_experts % tp == 0 else (cfg.n_experts, cfg.d_ff // tp)
         c_pre, c_dec = moe_mod.expert_capacity(B * L, cfg), moe_mod.expert_capacity(B, cfg)
-        out["moe_gmm"] = {(e, c_pre, cfg.d_model): n, (e, c_dec, cfg.d_model): n * (gen - 1)}
-    n = sum(s.mixer == "mamba" for s in specs)
-    if n:
-        out["mamba_scan"] = {(b, L, cfg.d_inner // tp): n}
+        out["moe_gmm"] = {((e, c_pre, cfg.d_model), (e, cfg.d_model, f)): n_calls,
+                          ((e, c_dec, cfg.d_model), (e, cfg.d_model, f)): n_calls * (gen - 1)}
+    n_calls = sum(s.mixer == "mamba" for s in specs)
+    if n_calls:
+        out["mamba_scan"] = {((b, L, cfg.d_inner // tp),) * 2: n_calls}
     return out
 
 
@@ -3154,7 +3163,7 @@ def serve_mesh_rank(rank: int, world: int) -> list:
     ``place_serve_params`` (the ranks init and place in turns: a whole jamba
     cut to 8 layers and its shard would not fit twice beside each other) and
     this rank's cache shards (``init_serve_state(..., mesh)``), its kernels
-    spied for their input shapes, no plain version called. Returns a record a
+    spied for their first two inputs' shapes, no plain version called. Returns a record a
     run."""
     import torch
     import torch.distributed as dist
@@ -3256,8 +3265,8 @@ def serve_mesh_rank(rank: int, world: int) -> list:
         kept = dict(ops.KERNELS)
         for name in SERVE_MESH_KERNELS:
             def spy(*args, _fn=kept[name], _name=name, **kwargs):
-                per = seen.setdefault(_name, {})
-                per[tuple(args[0].shape)] = per.get(tuple(args[0].shape), 0) + 1
+                per, key = seen.setdefault(_name, {}), (tuple(args[0].shape), tuple(args[1].shape))
+                per[key] = per.get(key, 0) + 1
                 return _fn(*args, **kwargs)
 
             ops.KERNELS[name] = spy
@@ -3296,8 +3305,8 @@ def serve_mesh_rank(rank: int, world: int) -> list:
 
 
 def serve_mesh_phase(rand, check, time_ms, bound, rows, n_sms, sm_clock_mhz):
-    """Phase 6d (see SERVE_MESH): the runs on spawned ranks, then flash_decode
-    with its log-sum-exp, moe_gmm and mamba_scan at the runs' local shapes."""
+    """Phase 6d (see SERVE_MESH): the runs on spawned ranks, then each kernel
+    of their path at the runs' local shapes (``serve_mesh_kernel_rows``)."""
     import torch
 
     from repro_torch.dist.spawn import run_ranks
@@ -3313,7 +3322,6 @@ def serve_mesh_phase(rand, check, time_ms, bound, rows, n_sms, sm_clock_mhz):
                           backend="gloo", timeout=MESH_TIMEOUT, pg_timeout=600)
         print(f"  {world} ranks ran in {time.perf_counter() - t0:.1f} s (spawn included)")
         records.extend(zip(*ranks))
-    launches: dict = {}
     worst = 0.0
     for recs in records:
         rec0 = recs[0]
@@ -3348,107 +3356,126 @@ def serve_mesh_phase(rand, check, time_ms, bound, rows, n_sms, sm_clock_mhz):
                 fail(f"phase 6d ({spec['run']}) rank {rec['rank']}: plain versions called {rec['plain']}")
         if rec0["failures"] or not rec0["finite"]:
             fail(f"phase 6d ({spec['run']}) {cfg.name}: {'; '.join(rec0['failures']) or 'non-finite logits'}")
-        for name, per in expect.items():
-            for shape, n in per.items():
-                launches[spec["run"], name, shape] = n
     print(f"  phase 6d: the largest logit gap {worst:.4e} (tol {LOGIT_TOL['bfloat16']})")
-    serve_mesh_kernel_rows(rand, check, time_ms, bound, rows, launches, n_sms, sm_clock_mhz)
+    serve_mesh_kernel_rows(rand, check, time_ms, bound, rows, n_sms, sm_clock_mhz)
     print(f"  phase 6d: {time.perf_counter() - t_phase:.1f} s")
 
 
-def serve_mesh_kernel_rows(rand, check, time_ms, bound, rows, launches, n_sms, sm_clock_mhz):
-    """Phase 6d's kernel rows, timed as phase 4 (L2 flushed): flash_decode with
-    its log-sum-exp (f32 partials) at each run's local decode shape, on the
-    slice of a mid-generation step that holds the newest slot, against its
-    plain version (out and lse), beside the same call without lse (phase 4's
-    kernel) and SDPA over the slice; moe_gmm at (iii)'s 8 of 16 experts
-    (decode, C 4) and mamba_scan at its 4096 of 8192 channels. ``launches``:
-    (run, kernel, first input's shape) -> launches a rank in the run."""
+def serve_mesh_kernel_rows(rand, check, time_ms, bound, rows, n_sms, sm_clock_mhz):
+    """Phase 6d's kernel rows at each run's local shapes (``serve_mesh_expect``),
+    each against its plain version and timed as phase 4 (L2 flushed), with
+    the launches a rank of the run: flash_attention at the prefill (SDPA
+    beside); flash_decode at a mid-generation step on the slice that holds the
+    newest slot, called as the run calls it: with its log-sum-exp and an f32
+    output where the slots are split (lse held at f32's tolerance; the same
+    call without lse timed beside), else without (SDPA over the slots beside);
+    moe_gmm at (iii)'s prefill and decode bins (8 of 16 experts, every slot
+    live) and mamba_scan at its 4096 of 8192 channels."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import flash_decode, split_for
     from repro_torch.kernels.mamba_scan import mamba_scan
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.launch import serve
-    from repro_torch.models import moe as moe_mod
 
-    bf, es, dev = torch.bfloat16, 2, torch.device("cuda", 0)
+    bf, f32, es, dev = torch.bfloat16, torch.float32, 2, torch.device("cuda", 0)
+    i32 = dict(dtype=torch.int32, device=dev)
     for spec in SERVE_MESH:
         cfg = serve_mesh_config(spec)
+        ex = serve_mesh_expect(cfg, spec)
         data, tp = spec["shape"]
-        B = spec["batch"]
-        (qshape, n_launch), = serve_mesh_expect(cfg, spec)["flash_decode"].items()
-        S = serve.serve_max_len(cfg, spec["prompt_len"], SERVE_MESH_GEN)
-        n = data if B % data else 1  # the slots over data at batch 1
-        n *= tp if cfg.n_kv_heads % tp else 1
-        kvh = cfg.n_kv_heads // tp if cfg.n_kv_heads % tp == 0 else cfg.n_kv_heads
-        S_loc, r = S // n, n - 1
+        on = f"{cfg.name} ({spec['run']}) on (data {data}, model {tp})"
+
+        ((qs, ks), n_pre), = ex["flash_attention"].items()
+        (B, Lq, H, Dh), (_, Lk, KVH, _) = qs, ks
+        q, k, v = rand(*qs, dtype=bf), rand(*ks, dtype=bf), rand(*ks, dtype=bf)
+        pairs = Lq * (Lq + 1) // 2  # causal (q, k) pairs, Lq <= Lk; slots past Lq are dead
+        b_ms, b_by = bound(2 * B * Lq * H * Dh * es + 2 * B * Lq * KVH * Dh * es, 4 * B * H * Dh * pairs, "bfloat16")
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        gqa = dict(enable_gqa=True) if H != KVH else {}
+        err = check(f"flash_attention at {on} prefill", flash_attention(q, k, v), ref.reference_attention(q, k, v), bf)
+        rows.append(dict(
+            name="flash_attention", path=f"{on} prefill: q {qs} over {Lk} slots of {KVH} KV heads, route mma",
+            route="cuda", source="src/repro_torch/kernels/csrc/flash_attention.cu",
+            replaces="src/repro/kernels/flash_attention.py:116", launches=n_pre, max_abs_err=err,
+            ms=time_ms(lambda: flash_attention(q, k, v), reps=10),
+            plain_ms=time_ms(lambda: ref.reference_attention(q, k, v), reps=3), bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa), reps=10),
+            library="scaled_dot_product_attention(is_causal=True)",
+        ))
+        del q, k, v, qt, kt, vt
+        torch.cuda.empty_cache()
+
+        ((qs, ks), n_dec), = ex["flash_decode"].items()
+        (B, _, H, Dh), (_, S_loc, KVH, _) = qs, ks
+        n = serve.serve_max_len(cfg, spec["prompt_len"], SERVE_MESH_GEN) // S_loc
         written = spec["prompt_len"] + (cfg.frontend_len if cfg.frontend == "vision" else 0) + N_CHECK * 2
-        r = min(r, (written - 1) // S_loc)  # the slice holding the newest slot
+        r = min(n - 1, (written - 1) // S_loc)  # the slice holding the newest slot
         nv = min(written - r * S_loc, S_loc)
-        Bq, _, H, Dh = qshape
-        q, k, v = rand(Bq, 1, H, Dh, dtype=bf), rand(Bq, S_loc, kvh, Dh, dtype=bf), rand(Bq, S_loc, kvh, Dh, dtype=bf)
-        i32 = dict(dtype=torch.int32, device=dev)
-        kpos = (r * S_loc + torch.arange(S_loc, **i32)).expand(Bq, S_loc).contiguous()
-        qpos, nval = torch.full((Bq,), written - 1, **i32), torch.full((Bq,), nv, **i32)
-        call = lambda: flash_decode(q, k, v, kpos, qpos, nval, return_lse=True, out_dtype=torch.float32)  # noqa: E731
-        plain = lambda: ref.reference_decode(q, k, v, kpos, qpos, nval, return_lse=True,  # noqa: E731
-                                             out_dtype=torch.float32)
-        (o, lse), (ro, rl) = call(), plain()
-        label = f"{cfg.name} ({spec['run']}) decode slice {r} of {n}, (data {data}, model {tp})"
-        err = max(check(f"flash_decode o with lse at {label}", o, ro, bf),
-                  check(f"flash_decode lse at {label}", lse, rl, torch.float32, TOL["bfloat16"]))
-        # K, V of the written slots and their positions read once; q read, o (f32) and lse written once
-        nbytes = 2 * Bq * nv * kvh * Dh * es + Bq * nv * 4 + Bq * H * Dh * (es + 4) + Bq * H * 4 + 2 * Bq * 4
-        b_ms, b_by = bound(nbytes, 4 * Bq * H * Dh * nv, "bfloat16")
+        q, k, v = rand(*qs, dtype=bf), rand(*ks, dtype=bf), rand(*ks, dtype=bf)
+        kpos = (r * S_loc + torch.arange(S_loc, **i32)).expand(B, S_loc).contiguous()
+        qpos, nval = torch.full((B,), written - 1, **i32), torch.full((B,), nv, **i32)
+        lse_out = dict(return_lse=True, out_dtype=f32) if n > 1 else {}  # as the run calls it
+        call = lambda: flash_decode(q, k, v, kpos, qpos, nval, **lse_out)  # noqa: E731
+        plain = lambda: ref.reference_decode(q, k, v, kpos, qpos, nval, **lse_out)  # noqa: E731
+        label = f"{on} decode, slice {r} of {n}"
+        if n > 1:
+            (o, lse), (ro, rl) = call(), plain()
+            err = max(check(f"flash_decode o with lse at {label}", o, ro, bf),
+                      check(f"flash_decode lse at {label}", lse, rl, f32))
+        else:
+            err = check(f"flash_decode at {label}", call(), plain(), bf)
+        # K, V of the written slots and their positions read once; q read, o (and lse) written once
+        o_bytes = B * H * Dh * (4 if n > 1 else es) + (B * H * 4 if n > 1 else 0)
+        nbytes = 2 * B * nv * KVH * Dh * es + B * nv * 4 + B * H * Dh * es + o_bytes + 2 * B * 4
+        b_ms, b_by = bound(nbytes, 4 * B * H * Dh * nv, "bfloat16")
         ok = (torch.arange(S_loc, device=dev)[None] < nval[:, None]) & (kpos <= qpos[:, None])
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        gqa = dict(enable_gqa=True) if H != kvh else {}
-        no_lse = time_ms(lambda: flash_decode(q, k, v, kpos, qpos, nval))
+        gqa = dict(enable_gqa=True) if H != KVH else {}
         rows.append(dict(
-            name="flash_decode", path=f"{label}: q {qshape}, {S_loc} slots ({nv} written), with lse, f32 out",
-            route="cuda", source="src/repro_torch/kernels/csrc/flash_decode.cu",
-            replaces="src/repro/kernels/flash_decode.py:89", launches=n_launch, max_abs_err=err,
+            name="flash_decode", path=f"{label}: q {qs}, {S_loc} slots ({nv} written)"
+            + (", with lse, f32 out" if n > 1 else ""), route="cuda", source="src/repro_torch/kernels/csrc/flash_decode.cu",
+            replaces="src/repro/kernels/flash_decode.py:89", launches=n_dec, max_abs_err=err,
             ms=time_ms(call), plain_ms=time_ms(plain), bound_ms=b_ms, bound_by=b_by,
             library_ms=time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok[:, None, None], **gqa)),
-            library="scaled_dot_product_attention(boolean mask; no lse)", no_lse_ms=no_lse, n_split=split_for(q, k),
+            library="scaled_dot_product_attention(boolean mask; no lse)", n_split=split_for(q, k),
         ))
-        print(f"  flash_decode at {label}: {rows[-1]['ms']:.4f} ms with lse, {no_lse:.4f} ms without (the same "
-              f"inputs), bound {b_ms:.4f} ({b_by}), plain {rows[-1]['plain_ms']:.4f}, SDPA {rows[-1]['library_ms']:.4f}"
-              f", n_split {rows[-1]['n_split']}, {n_launch} launches a rank")
-        del q, k, v, o, lse, ro, rl, qt, kt, vt
+        if n > 1:
+            rows[-1]["no_lse_ms"] = time_ms(lambda: flash_decode(q, k, v, kpos, qpos, nval))
+        del q, k, v, qt, kt, vt
 
     spec = next(s for s in SERVE_MESH if s["run"] == "iii")
     jamba = serve_mesh_config(spec)
     ex = serve_mesh_expect(jamba, spec)
-    (E, C, D), n_dec = min(ex["moe_gmm"].items(), key=lambda kv: kv[0][1])
-    Fd = jamba.d_ff
-    x, wg, wu, wd = (rand(E, C, D, dtype=bf), rand(E, D, Fd, dtype=bf, scale=D**-0.5),
-                     rand(E, D, Fd, dtype=bf, scale=D**-0.5), rand(E, Fd, D, dtype=bf, scale=Fd**-0.5))
-    label = f"{jamba.name} (iii) decode on (data 1, model 2)"
-    err = check(f"moe_gmm at {label} (E{E} C{C})", moe_gmm(x, wg, wu, wd), ref.reference_gmm(x, wg, wu, wd), bf)
-    b_ms, b_by = bound(2 * E * C * D * es + 3 * E * D * Fd * es, 6 * E * C * D * Fd, "bfloat16")
-    rows.append(dict(
-        name="moe_gmm", path=f"{label} (E {E} of {jamba.n_experts}, C {C}, D {D}, F {Fd}), bf16", route="cuda",
-        source="src/repro_torch/kernels/csrc/moe_gmm.cu", replaces="src/repro/kernels/moe_gmm.py:59",
-        launches=n_dec, max_abs_err=err, ms=time_ms(lambda: moe_gmm(x, wg, wu, wd)),
-        plain_ms=time_ms(lambda: ref.reference_gmm(x, wg, wu, wd), reps=10), bound_ms=b_ms, bound_by=b_by,
-        library_ms=time_ms(lambda: torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd)),
-        library="3 calls: torch.bmm x3 + F.silu",
-    ))
-    del x, wg, wu, wd
-    (Bs, Ls, Di), n_scan = next(iter(ex["mamba_scan"].items()))
+    by_c = sorted(ex["moe_gmm"].items(), key=lambda kv: -kv[0][0][1])  # the prefill's bins, then decode's
+    for phase, (((E, C, D), (_, _, Fd)), n_gmm) in zip(("prefill", "decode"), by_c):
+        x, wg, wu, wd = (rand(E, C, D, dtype=bf), rand(E, D, Fd, dtype=bf, scale=D**-0.5),
+                         rand(E, D, Fd, dtype=bf, scale=D**-0.5), rand(E, Fd, D, dtype=bf, scale=Fd**-0.5))
+        label = f"{jamba.name} (iii) {phase} on (data 1, model 2)"
+        err = check(f"moe_gmm at {label} (E{E} C{C})", moe_gmm(x, wg, wu, wd), ref.reference_gmm(x, wg, wu, wd), bf)
+        b_ms, b_by = bound(2 * E * C * D * es + 3 * E * D * Fd * es, 6 * E * C * D * Fd, "bfloat16")
+        rows.append(dict(
+            name="moe_gmm", path=f"{label} (E {E} of {jamba.n_experts}, C {C}, D {D}, F {Fd}), bf16", route="cuda",
+            source="src/repro_torch/kernels/csrc/moe_gmm.cu", replaces="src/repro/kernels/moe_gmm.py:59",
+            launches=n_gmm, max_abs_err=err, ms=time_ms(lambda: moe_gmm(x, wg, wu, wd), reps=10),
+            plain_ms=time_ms(lambda: ref.reference_gmm(x, wg, wu, wd), reps=3), bound_ms=b_ms, bound_by=b_by,
+            library_ms=time_ms(lambda: torch.bmm(F.silu(torch.bmm(x, wg)) * torch.bmm(x, wu), wd), reps=10),
+            library="3 calls: torch.bmm x3 + F.silu",
+        ))
+        del x, wg, wu, wd
+    ((Bs, Ls, Di), _), n_scan = next(iter(ex["mamba_scan"].items()))
     N = jamba.ssm_state
-    xc, dt = rand(Bs, Ls, Di, dtype=bf), rand(Bs, Ls, Di, dtype=torch.float32).abs() * 0.1
-    Bm, Cm = rand(Bs, Ls, N, dtype=torch.float32), rand(Bs, Ls, N, dtype=torch.float32)
-    a = -rand(Di, N, dtype=torch.float32).abs() - 0.1
+    xc, dt = rand(Bs, Ls, Di, dtype=bf), rand(Bs, Ls, Di, dtype=f32).abs() * 0.1
+    Bm, Cm = rand(Bs, Ls, N, dtype=f32), rand(Bs, Ls, N, dtype=f32)
+    a = -rand(Di, N, dtype=f32).abs() - 0.1
     y, h = mamba_scan(xc, dt, Bm, Cm, a)
     yr, hr = ref.reference_selective_scan(xc, dt, Bm, Cm, a)
     label = f"{jamba.name} (iii) prefill on (data 1, model 2)"
-    err = max(check(f"mamba_scan y at {label}", y, yr, torch.float32, SCAN_TOL),
-              check(f"mamba_scan h at {label}", h, hr, torch.float32, SCAN_TOL))
+    err = max(check(f"mamba_scan y at {label}", y, yr, f32, SCAN_TOL),
+              check(f"mamba_scan h at {label}", h, hr, f32, SCAN_TOL))
     n_el = Bs * Ls * Di * N
     b_ms, b_by, _ = scan_bound(n_el, Bs * Ls * Di * (es + 4 + 4) + 2 * Bs * Ls * N * 4 + Di * N * 4 + Bs * Di * N * 4,
                                n_sms, sm_clock_mhz)
@@ -3459,11 +3486,12 @@ def serve_mesh_kernel_rows(rand, check, time_ms, bound, rows, launches, n_sms, s
         plain_ms=time_ms(lambda: ref.reference_selective_scan(xc, dt, Bm, Cm, a), reps=2),
         bound_ms=b_ms, bound_by=b_by, library_ms=None, library="none",
     ))
-    for r in rows[-2:]:
-        print(f"  {r['name']} at {r['path']}: {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ({r['bound_by']}; "
+    for r in rows[-(2 * len(SERVE_MESH) + 3):]:
+        lse = f", without lse {r['no_lse_ms']:.4f} (the same inputs)" if "no_lse_ms" in r else ""
+        print(f"  {r['name']} at {r['path']}: {r['ms']:.4f} ms{lse}, bound {r['bound_ms']:.4f} ({r['bound_by']}; "
               f"{r['ms'] / r['bound_ms']:.2f}x), plain {r['plain_ms']:.4f}, library "
               f"{'none' if r['library_ms'] is None else format(r['library_ms'], '.4f')}, {r['launches']} launches a "
-              f"rank in 6d")
+              f"rank in 6d" + (f", n_split {r['n_split']}" if "n_split" in r else ""))
     del xc, dt, Bm, Cm, a, y, h, yr, hr
     torch.cuda.empty_cache()
 

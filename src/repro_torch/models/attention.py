@@ -30,7 +30,9 @@ tp), each rank projects every KV head with the weights entering through
 read (``_local_kv``). MLA keeps its latents replicated and splits the heads.
 
 Serving on a mesh (``dist.step.make_serve_fns``): each rank's cache holds its
-shard of the serve rules' placement. Where ``kv_heads`` is sharded, a rank's
+shard of the serve rules' placement, and one path (``_cached_attention``)
+serves it and a one-device cache alike (the latter is one slice, r = 0 of
+n = 1, nothing gathered or merged). Where ``kv_heads`` is sharded, a rank's
 cache holds its KV heads, prefill and decode run the kernels on the local
 heads, and ``wo`` is row-parallel, as in training. Where the cache's slots
 are split (``kv_seq``: KV heads that do not divide the model axis, or a batch
@@ -202,58 +204,7 @@ def attention_block(
         k, v = _local_kv(par, k, v, q.shape[2])
         out = attention(q, k, v, causal=True, window=window, kernels=kernels)
         return _out_proj(p, out, par), None
-    if "split" in cache or (par is not None and not par.sharded("kv_heads")):
-        return _placed_cache_attention(p, q, k, v, positions, cache, par, window, kernels)
-    if "pos" in cache:  # SWA ring of S = window slots (reference :248-259)
-        idx, ck, cv, kpos = cache["index"], cache["k"], cache["v"], cache["pos"]
-        S = ck.shape[1]
-        if L > 1:
-            # Prefill starts at index 0 with L <= S: slots 0..L-1 then hold
-            # positions 0..L-1, so attention over the prompt's own K/V under
-            # the window is what the reference's ring attention computes. With
-            # L > S the reference scatters to repeated slots in one update
-            # (writes in no defined order, early keys lost before they are
-            # read) and has no answer to match.
-            if idx != 0:
-                raise ValueError(f"prefill must start from an empty cache, not index {idx}")
-            if L > S:
-                raise ValueError(f"prefill of {L} tokens into a ring of {S} slots")
-            ck[:, :L] = k
-            cv[:, :L] = v
-            kpos[:, :L] = positions
-            out = kernels["flash_attention"](q, k, v, causal=True, window=window)
-        else:
-            slot = idx % S
-            ck[:, slot] = k[:, 0]
-            cv[:, slot] = v[:, 0]
-            kpos[:, slot] = positions[:, 0]
-            n_valid = torch.full((B,), min(idx + 1, S), dtype=torch.int32, device=x.device)
-            out = kernels["flash_decode"](q, ck, cv, kpos, positions[:, 0].to(torch.int32), n_valid,
-                                          window=window)
-        new_cache = {"k": ck, "v": cv, "pos": kpos, "index": idx + L}
-    else:
-        idx = cache["index"]
-        ck, cv = cache["k"], cache["v"]
-        S = ck.shape[1]
-        if idx + L > S:
-            raise ValueError(f"KV cache full: {idx} + {L} tokens > {S} slots")
-        ck[:, idx : idx + L] = k
-        cv[:, idx : idx + L] = v
-        total = idx + L
-        if L > 1:
-            # prefill over the whole cache: slots >= L are causally dead only
-            # for a fresh cache, so prefill starts at index 0, as in JAX
-            if idx != 0:
-                raise ValueError(f"prefill must start from an empty cache, not index {idx}")
-            out = kernels["flash_attention"](q, ck, cv, causal=True, window=window)
-        else:
-            dev = x.device
-            k_pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S).contiguous()
-            q_pos = positions[:, 0].to(torch.int32)
-            n_valid = torch.full((B,), total, dtype=torch.int32, device=dev)
-            out = kernels["flash_decode"](q, ck, cv, k_pos, q_pos, n_valid, window=window)
-        new_cache = {"k": ck, "v": cv, "index": total}
-    return _out_proj(p, out, par), new_cache
+    return _cached_attention(p, q, k, v, positions, cache, par, window, kernels)
 
 
 def _split_of(cache: dict):
@@ -270,11 +221,14 @@ def _split_of(cache: dict):
     return r, axes, comm.size(axes), lambda out, lse: merge_attention(out, lse, comm, axes)
 
 
-def _placed_cache_attention(p, q, k, v, positions, cache: dict, par, window: int, kernels: dict):
-    """Self-attention against a cache placed on a mesh whose KV heads are
-    replicated or whose slots are split (module docstring). q holds this
-    rank's query heads; k, v (B, L, KVH, Dh) every KV head this rank's cache
-    holds."""
+def _cached_attention(p, q, k, v, positions, cache: dict, par, window: int, kernels: dict):
+    """Self-attention against a cache (reference ``:232-306``): a cache of
+    its own slots (n = 1), or a shard of one placed on a mesh, whose KV heads
+    may be replicated over ``model`` or whose slots may be split (module
+    docstring). q holds this rank's query heads; k, v (B, L, KVH, Dh) every
+    KV head this rank's cache holds. Prefill starts at index 0 with L <= S
+    (with L > S the reference's ring scatters to repeated slots in one
+    update, in no defined order, and has no answer to match)."""
     B, L = q.shape[:2]
     ck, cv, kpos = cache["k"], cache["v"], cache.get("pos")
     S_loc = ck.shape[1]
@@ -291,7 +245,10 @@ def _placed_cache_attention(p, q, k, v, positions, cache: dict, par, window: int
             cv[:, : hi - base] = v[:, base:hi]
             if kpos is not None:
                 kpos[:, : hi - base] = positions[:, base:hi]
-        kq, vq = _local_kv(par, k, v, q.shape[2])
+        # over the whole cache where this rank holds it (slots >= L are
+        # causally dead in a fresh cache), else over the prompt's own K/V
+        kq, vq = (ck, cv) if n == 1 and kpos is None else (k, v)
+        kq, vq = _local_kv(par, kq, vq, q.shape[2])
         out = kernels["flash_attention"](q, kq, vq, causal=True, window=window)
     else:
         if kpos is None and idx + 1 > S:
@@ -308,10 +265,11 @@ def _placed_cache_attention(p, q, k, v, positions, cache: dict, par, window: int
         n_valid = torch.full((B,), max(0, min(written - base, S_loc)), **i32)
         gathered = par is not None and not par.sharded("kv_heads")  # every query head attends here
         qd = par.comm.all_gather(q, 2, ("model",)) if gathered else q
-        o, lse = kernels["flash_decode"](qd, ck, cv, k_pos, positions[:, 0].to(torch.int32), n_valid,
-                                         window=window, return_lse=True, out_dtype=torch.float32)
-        if merge is not None:
-            o = merge(o, lse)
+        args = (qd, ck, cv, k_pos, positions[:, 0].to(torch.int32), n_valid)
+        if merge is None:
+            o = kernels["flash_decode"](*args, window=window)
+        else:  # this slice's f32 partial, merged over the split by its log-sum-exp: rounded once
+            o = merge(*kernels["flash_decode"](*args, window=window, return_lse=True, out_dtype=torch.float32))
         if gathered:
             h = q.shape[2]
             o = o[:, :, par.tp_rank * h : (par.tp_rank + 1) * h]

@@ -15,7 +15,9 @@ reduced config: prefill and decode steps (teacher-forced with the one-device
 run's greedy tokens) on (data 1, model 2), (data 2, model 1) at global
 batch 2 and at batch 1 (the slots over ``data``), (data 1, model 4) (the
 slots over ``model`` for the six GQA families, whose 2 KV heads do not divide
-4) and (pod 2, data 1, model 2). The gathered logits must equal the port's
+4), (pod 2, data 1, model 2) and (data 2, model 2) at global batch 1 with
+one KV head (the slots over ``data`` and ``model`` together, cut in the
+mesh's order). The gathered logits must equal the port's
 one-device serve within ``tests/test_torch_serve.py``'s f32 tolerance, the
 greedy tokens must be the same, and every rank's cache shard must have the
 local shape ``pspec_for_axes`` gives. The reduced mixtral (window 64) takes a
@@ -28,6 +30,7 @@ reference: the tests that need them import them.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import time
 
@@ -47,7 +50,10 @@ PROMPT, STEPS, MAX_LEN = 12, 6, 32  # 32 slots: 8 a rank over 4, so the last sli
 RING = dict(prompt=48, steps=20, max_len=76)  # mixtral's ring of 64 slots wraps at the 17th step
 # (mesh shape, global batch): one spawn each
 MESHES = {"1x2": ((1, 2), 4), "2x1": ((2, 1), 2), "2x1-b1": ((2, 1), 1), "1x4": ((1, 4), 4),
-          "2x1x2": ((2, 1, 2), 4)}
+          "2x1x2": ((2, 1, 2), 4), "2x2-b1": ((2, 2), 1)}
+# meshes served with another KV head count: one KV head meets 2 model ranks
+# at batch 1, so the serve rules put the slots over model and data together
+KV_HEADS = {"2x2-b1": 1}
 JAX_ARCHS = ("stablelm-1.6b", "jamba-v0.1-52b")
 
 
@@ -161,8 +167,10 @@ def _mesh(world: int, shape: tuple):
     return DeviceMesh("cpu", torch.arange(world).reshape(shape), mesh_dim_names=names)
 
 
-def _plan(arch: str, ring: bool):
+def _plan(arch: str, ring: bool, kv_heads=None):
     cfg = get_config(arch).reduced()
+    if kv_heads:
+        cfg = dataclasses.replace(cfg, n_kv_heads=kv_heads)
     prompt, steps, max_len = (RING["prompt"], RING["steps"], RING["max_len"]) if ring else (PROMPT, STEPS, MAX_LEN)
     if cfg.frontend == "vision":
         max_len += cfg.frontend_len
@@ -211,7 +219,7 @@ def _local_shapes_ok(cfg, mesh, batch: int, max_len: int, state) -> list:
     return bad
 
 
-def _serve_ranks(rank, world, shape, batch, archs, jax_params):
+def _serve_ranks(rank, world, shape, batch, kv_heads, archs, jax_params):
     """One rank of a spawned mesh: each architecture served on one device and
     on the mesh, the mesh teacher-forced with the one-device greedy tokens."""
     from repro_torch.dist.step import gather_full, make_serve_fns, place_serve_params
@@ -222,22 +230,24 @@ def _serve_ranks(rank, world, shape, batch, archs, jax_params):
     for arch in archs:
         t0 = time.time()
         ring = arch == "mixtral-8x7b" and (batch == 1 or shape[-1] == 4)
-        cfg, prompt, steps, max_len = _plan(arch, ring)
+        cfg, prompt, steps, max_len = _plan(arch, ring, kv_heads)
         model = build_model(cfg)
         params = model.init(0, "cpu")
         tokens, frames, prefix = _inputs(cfg, batch, prompt)
         fns = make_serve_fns(model, "cpu", max_len=max_len, global_batch=batch)
-        one, _ = _serve(*fns, params, init_serve_state(model, batch, max_len, "cpu"), tokens, frames, prefix, steps)
+        one, one_state = _serve(*fns, params, init_serve_state(model, batch, max_len, "cpu"), tokens, frames, prefix,
+                                steps)
         forced = one.argmax(-1)[:, :steps]
         prefill_fn, decode_fn, shapes, shards = make_serve_fns(model, mesh, max_len=max_len, global_batch=batch)
         placed = place_serve_params(params, shards, mesh)
         state = init_serve_state(model, batch, max_len, mesh)
         bad_shapes = _local_shapes_ok(cfg, mesh, batch, max_len, state)
         got, state = _serve(prefill_fn, decode_fn, placed, state, tokens, frames, prefix, steps, forced, gather_full)
+        cache_gap = _cache_gap(state, one_state, shards, mesh)
         res = {"diff": float((got - one).abs().max()), "scale": float(one.abs().max()),
                "close": bool(torch.allclose(got, one, **LOGIT_TOL)), "tokens": bool(torch.equal(got.argmax(-1),
                                                                                                one.argmax(-1))),
-               "bad_shapes": bad_shapes, "t": state["t"], "want_t": prompt + steps + (cfg.frontend_len if prefix
+               "bad_shapes": bad_shapes, "cache_gap": cache_gap, "t": state["t"], "want_t": prompt + steps + (cfg.frontend_len if prefix
                                                                                      is not None else 0),
                "split": [c.get("split") for c in state["caches"]], "seconds": time.time() - t0}
         if ring:
@@ -254,6 +264,22 @@ def _serve_ranks(rank, world, shape, batch, archs, jax_params):
                         tokens[:, :PROMPT], None, None, steps, tokens[:, PROMPT:], gather_full)
         out["jax", arch] = got
     return out
+
+
+def _cache_gap(state, one_state, shards, mesh) -> float:
+    """The largest gap between the mesh's caches, each put together from the
+    ranks' shards by its placements (slots split over several axes cut in
+    the mesh's order), and the one-device run's caches."""
+    from torch.distributed.tensor import DTensor
+
+    gap = 0.0
+    for local, whole, placements in zip(state["caches"], one_state["caches"], shards["state"]["caches"]):
+        for key, pl in placements.items():
+            full = DTensor.from_local(local[key], mesh, pl, run_check=False).full_tensor()
+            if full.shape != whole[key].shape:
+                return float("inf")
+            gap = max(gap, float((full.double() - whole[key].double()).abs().max()))
+    return gap
 
 
 def _entry_points(mesh) -> dict:
@@ -302,7 +328,7 @@ def _spawned(mesh_id: str, workdir: str):
     shape, batch = MESHES[mesh_id]
     world = int(np.prod(shape))
     jax_params = _jax_case()[0] if mesh_id == "1x2" else None
-    return run_ranks(_serve_ranks, world, workdir, shape, batch, ARCHS, jax_params, timeout=120)
+    return run_ranks(_serve_ranks, world, workdir, shape, batch, KV_HEADS.get(mesh_id), ARCHS, jax_params, timeout=120)
 
 
 @functools.lru_cache(maxsize=None)
@@ -350,25 +376,32 @@ def test_sharded_serve_matches_one_device(spawned, mesh_id, arch):
         assert res["close"], f"rank {rank}: max |logit diff| {res['diff']} (logits up to {res['scale']})"
         assert res["tokens"], f"rank {rank}: greedy tokens differ"
         assert res["bad_shapes"] == [], f"rank {rank}: cache shards of another shape {res['bad_shapes']}"
+        # the shards, put together by their placements, are the one-device caches
+        assert res["cache_gap"] <= LOGIT_TOL["atol"], f"rank {rank}: caches differ by {res['cache_gap']}"
         assert res["t"] == res["want_t"]
 
 
 def test_flash_decoding_fallback_splits_the_slots(spawned):
     """Which caches split their slots, over which axes: the slots go over
-    ``data`` at batch 1 and over ``model`` where 2 KV heads meet 4 ranks; a
-    ring wraps on both."""
+    ``data`` at batch 1, over ``model`` where 2 KV heads meet 4 ranks, and
+    over both (in the mesh's order) where 1 KV head meets 2 ranks at batch
+    1; a ring wraps on all three."""
     gqa = {"internlm2-20b", "internvl2-1b", "jamba-v0.1-52b", "mixtral-8x7b", "phi3.5-moe-42b", "qwen2.5-32b"}
-    for mesh_id, axes, archs in (("2x1-b1", ("data",), set(ARCHS) - {"falcon-mamba-7b"}), ("1x4", ("model",), gqa),
-                                 ("1x2", None, set()), ("2x1x2", None, set())):
+    attending = set(ARCHS) - {"falcon-mamba-7b"}
+    for mesh_id, axes, archs in (("2x1-b1", ("data",), attending), ("1x4", ("model",), gqa),
+                                 ("2x2-b1", ("data", "model"), attending), ("1x2", None, set()),
+                                 ("2x1x2", None, set())):
+        shape = MESHES[mesh_id][0]
+        sizes = dict(zip(("data", "model") if len(shape) == 2 else ("pod", "data", "model"), shape))
         for rank, out in enumerate(spawned(mesh_id)):
             for arch in ARCHS:
                 splits = {s for s in out[arch]["split"] if s is not None}
                 if arch in archs:
-                    n = MESHES[mesh_id][0][-1] if axes == ("model",) else 2
+                    n = int(np.prod([sizes[a] for a in axes]))
                     assert splits == {(rank % n, axes)}, (mesh_id, arch, splits)
                 else:
                     assert splits == set(), (mesh_id, arch, splits)
-            if mesh_id in ("2x1-b1", "1x4"):
+            if mesh_id in ("2x1-b1", "1x4", "2x2-b1"):
                 assert out["mixtral-8x7b"]["index"] == RING["prompt"] + RING["steps"] > 64  # past the wrap
 
 
