@@ -192,6 +192,16 @@ on, so that their numbers are still printed):
      the repeated batch (``repeated_batch``), 5c, 5g and 5h the gradient
      gate (``gradient_gate``), 5g and 5h the checked ``launch.train.run``
      (``checked_train_run``), 5e and 5h K1's row (``k1_row``).
+  8. the roofline and the multi-pod dry-run: (a) ``python -m
+     repro_torch.launch.dryrun`` for DRYRUN_CELLS, each in a subprocess of
+     its own (all at once: the fake process-group backend must not share a
+     process with another group), every record checked as the reference's
+     integration test checks its own; (b) the steps phases 3, 5 and 5g timed
+     on this card, priced with ``roofline.H100_SXM`` at one device (counted
+     on meta tensors, kernel regions credited at their kernels' IO): fails
+     where a measured time is below its bound, the larger of its compute,
+     memory and collective terms (counted work the card beat: an
+     over-count).
 The last line is ``{"ok": true, "device": {...}}``. The compiler's reports
 (registers, spills) go to ``build/repro_torch_kernels/nvcc_report.txt``.
 """
@@ -202,6 +212,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1680,7 +1691,8 @@ def hub_phase(dev, card, wall, time_ms, rows, device_profile):
 
 
 def training_phase(dev, rand, check, check_grad, time_ms, bound, rows, plain, device_profile, fail):
-    """Phase 5: the training run of stablelm-1.6b at full width, and K1 timed."""
+    """Phase 5: the training run of stablelm-1.6b at full width, and K1 timed.
+    Returns the repeated batch's median step seconds (5b)."""
     import shutil
 
     import torch
@@ -1860,6 +1872,7 @@ def training_phase(dev, rand, check, check_grad, time_ms, bound, rows, plain, de
 
     # 5e. K1 and the forward (with lse) at the training shape, timed as phase 4
     k1_timing(rand, check, check_grad, time_ms, bound, rows, main_launches, step_s)
+    return step_s
 
 
 # phase 5g: jamba-v0.1-52b trained at full width, cut to its first 2 of 32
@@ -1953,7 +1966,8 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
     step time, tokens/s, peak memory, each kernel's share of a profiled
     step); one step's gradient of every leaf against the plain versions on
     the kernels run's routing (``GRAD_REL_TOL``), for jamba and for mixtral
-    (1 layer); K7a and K7b timed at jamba's training shapes."""
+    (1 layer); K7a and K7b timed at jamba's training shapes. Returns the
+    repeated batch's median step seconds."""
     import torch
     import torch.nn.functional as F
 
@@ -2209,6 +2223,7 @@ def hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, de
         fail(f"mamba_scan_bwd: {design} {ms:.4f} ms is not faster than per_step {statistics.mean(old):.4f} ms")
     del xc, dt, Bm, Cm, a, dys
     torch.cuda.empty_cache()
+    return step_s
 
 
 # phase 5h: the three layouts that train since MLA, the encoder-decoder and
@@ -3496,6 +3511,133 @@ def serve_mesh_kernel_rows(rand, check, time_ms, bound, rows, n_sms, sm_clock_mh
     torch.cuda.empty_cache()
 
 
+# phase 8a: the dry-run's cells (arch, shape, two pods); the last is a skip row
+DRYRUN_CELLS = [("stablelm-1.6b", "train_4k", False), ("stablelm-1.6b", "train_4k", True),
+                ("stablelm-1.6b", "decode_32k", False), ("stablelm-1.6b", "decode_32k", True),
+                ("jamba-v0.1-52b", "prefill_32k", False), ("internlm2-20b", "long_500k", False)]
+DRYRUN_TIMEOUT_S = 300
+
+
+def dryrun_records(out_dir: Path) -> None:
+    """Phase 8a: the dry-run CLI for every DRYRUN_CELLS cell, in subprocesses
+    started together (CPU only: the ranks are meta tensors), each checked as
+    tests/test_dryrun_integration.py checks the reference's record."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, pods in DRYRUN_CELLS:
+        argv = [sys.executable, "-W", "ignore", "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape,
+                "--out", str(out_dir)] + (["--multipod"] if pods else [])
+        procs.append(((arch, shape, pods), time.perf_counter(),
+                      subprocess.Popen(argv, env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                       text=True)))
+    failures = []
+    try:
+        for (arch, shape, pods), t0, proc in procs:
+            out, err = proc.communicate(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - t0)))
+            wall = time.perf_counter() - t0
+            mesh = "pod2x16x16" if pods else "pod16x16"
+            name = f"{arch} x {shape} ({mesh})"
+            path = out_dir / mesh / f"{arch}__{shape}.json"
+            if proc.returncode != 0 or not path.exists():
+                failures.append(f"{name}: rc {proc.returncode}: {err[-1500:]}")
+                continue
+            rec = json.loads(path.read_text())
+            if "skip" in rec:
+                print(f"  {name}: [SKIP] {rec['skip']} ({wall:.1f} s)")
+                if "[SKIP]" not in out:
+                    failures.append(f"{name}: a skip row without [SKIP] in its output")
+                continue
+            bad = [k for k, ok in (
+                ("n_devices", rec["n_devices"] == (512 if pods else 256)), ("t_memory", rec["t_memory"] > 0),
+                ("bottleneck", rec["bottleneck"] in ("compute", "memory", "collective")),
+                ("memory_analysis", rec["memory_analysis"] is not None),
+                ("state_gb_per_device", rec["state_gb_per_device"] < 80.0),
+                ("collectives", rec["collectives"]["total_weighted"] >= 0),
+                ("[OK]", f"[OK] {arch} x {shape}" in out)) if not ok]
+            print(f"  {name}: compute {rec['t_compute'] * 1e3:.4f} ms, memory {rec['t_memory'] * 1e3:.4f} ms "
+                  f"(raw {rec['t_memory_raw'] * 1e3:.4f}), collective {rec['t_collective'] * 1e3:.4f} ms -> "
+                  f"{rec['bottleneck']}-bound; state {rec['state_gb_per_device']:.4f} GB, peak "
+                  f"{rec['per_device_peak_memory'] / 1e9:.4f} GB a device; counted in {rec['compile_seconds']:.2f} s, "
+                  f"{wall:.1f} s in all")
+            if bad:
+                failures.append(f"{name}: record fails {bad}")
+    finally:
+        for _, _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failures:
+        fail("phase 8a: " + "; ".join(failures))
+
+
+def priced_steps(measured: dict) -> None:
+    """Phase 8b: the steps phases 5, 5g and 3 timed on this card, counted on
+    meta tensors at one device and priced with ``H100_SXM``: no measured time
+    may be below its bound."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.step import make_batch_specs, make_serve_fns, make_train_step
+    from repro_torch.models.registry import build_model
+    from repro_torch.optim import adamw_init, constant_lr
+    from repro_torch.roofline import H100_SXM, OpCounter, analyze
+
+    meta = lambda shape, dtype: torch.empty(shape, dtype=dtype, device="meta")
+
+    def train_run(cfg, B, L):
+        model = build_model(cfg)
+        params = model.init(0, "meta")
+        state = {"params": params, "opt": adamw_init(params), "step": meta((), torch.int32)}
+        batch = make_batch_specs(cfg, "train", B, L)
+        step = make_train_step(model, "meta", constant_lr(REPEAT_LR), global_batch=B)
+        return (lambda: step(state, batch)), (state, batch)
+
+    def decode_run(cfg, B, max_len, index):
+        model = build_model(cfg)
+        params = model.init(0, "meta")
+        _, decode_fn = make_serve_fns(model, "meta", max_len=max_len, global_batch=B)
+        state = {"caches": model.init_cache(B, max_len, "meta"), "t": index}
+        for c in state["caches"]:
+            c["index"] = index
+        tokens = meta((B, 1), torch.int32)
+        return (lambda: decode_fn(params, tokens, state)), (params, state, tokens)
+
+    hcfg = dataclasses.replace(get_config(TRAIN_HYBRID["arch"]), n_layers=TRAIN_HYBRID["n_layers"])
+    serve_max_len = SERVE["prompt_len"] + SERVE["gen"] + 8
+    serve_index = SERVE["prompt_len"] + N_STEADY // 2  # the middle of the timed decode steps
+    steps = [
+        ("phase 5: stablelm-1.6b train step, 8 x 2048", get_config(TRAIN["arch"]), "train", TRAIN["batch"],
+         TRAIN["seq"], lambda c: train_run(c, TRAIN["batch"], TRAIN["seq"]), measured["train_step_s"]),
+        (f"phase 5g: jamba-v0.1-52b train step, {hcfg.n_layers} layers, 4 x 1024", hcfg, "train",
+         TRAIN_HYBRID["batch"], TRAIN_HYBRID["seq"],
+         lambda c: train_run(c, TRAIN_HYBRID["batch"], TRAIN_HYBRID["seq"]), measured["hybrid_step_s"]),
+        (f"phase 3: stablelm-1.6b decode step, batch {SERVE['batch']}, cache at {serve_index}",
+         get_config(SERVE["arch"]), "decode", SERVE["batch"], serve_index,
+         lambda c: decode_run(c, SERVE["batch"], serve_max_len, serve_index), measured["decode_step_s"]),
+    ]
+    failures = []
+    for label, cfg, kind, B, L, make, measured_s in steps:
+        run, args = make(cfg)
+        t0 = time.perf_counter()
+        with OpCounter(args=args) as counter:
+            run()
+        count_s = time.perf_counter() - t0
+        costs = counter.costs()
+        rep = analyze(costs, arch=cfg.name, shape=label, mesh_name="one device", n_devices=1, kind=kind, cfg=cfg,
+                      seq_len=L, global_batch=B, hw=H100_SXM, mesh_shape={}, rules={})
+        bound = max(rep.t_compute, rep.t_memory, rep.t_collective)
+        print(f"  {label}: compute {rep.t_compute * 1e3:.4f} ms ({costs['dot_flops'] / 1e12:.4f} TFLOP in matrix "
+              f"products, {costs['other_flops'] / 1e12:.4f} other), memory {rep.t_memory * 1e3:.4f} ms (raw "
+              f"{rep.t_memory_raw * 1e3:.4f}), collective {rep.t_collective * 1e3:.4f} ms; bound "
+              f"{bound * 1e3:.4f} ms ({rep.bottleneck}); measured {measured_s * 1e3:.4f} ms, "
+              f"{measured_s / bound:.4f}x the bound; counted peak {costs['peak_bytes'] / 2**30:.2f} GiB "
+              f"({count_s:.1f} s, {costs['n_ops']} ops)")
+        if measured_s < bound:
+            failures.append(f"{label}: measured {measured_s * 1e3:.4f} ms < bound {bound * 1e3:.4f} ms")
+    if failures:
+        fail("phase 8b: the counter over-counts: " + "; ".join(failures))
+
+
 def main() -> int:
     import torch
 
@@ -4067,7 +4209,8 @@ def main() -> int:
     def steady_and_profiled(cfg, spec, prompts, max_len, frontend=(None, None)):
         """Warm serve times and the device's busy share (not part of the counted
         run: the launch counts are final). Returns {"prefill_s", "decode_tok_s",
-        "prefill_idle", "decode_idle"}."""
+        "decode_step_s" (the mean of N_STEADY warm steps), "prefill_idle",
+        "decode_idle"}."""
         model = build_model(cfg)
         params = model.init(spec["seed"], dev)
         frames, prefix = frontend
@@ -4087,7 +4230,8 @@ def main() -> int:
             for _ in range(2):  # the second pass is warm
                 prefill_s, decode_s = wall(run_prefill), wall(run_decode)
             step_ms = decode_s / N_STEADY * 1e3
-            out.update(prefill_s=prefill_s, decode_tok_s=spec["batch"] * N_STEADY / decode_s)
+            out.update(prefill_s=prefill_s, decode_tok_s=spec["batch"] * N_STEADY / decode_s,
+                       decode_step_s=decode_s / N_STEADY)
             print(f"  {cfg.name} steady: prefill {spec['batch']}x{prefill_tokens(cfg, spec)} {prefill_s * 1e3:.2f} ms; "
                   f"decode {step_ms:.2f} ms/step ({out['decode_tok_s']:.1f} tok/s)")
             for name, fn in (("prefill", run_prefill), ("decode", run_decode)):
@@ -4116,7 +4260,7 @@ def main() -> int:
     max_len = SERVE["prompt_len"] + SERVE["gen"] + 8
     prompts = serve.make_prompts(cfg.vocab, SERVE["batch"], SERVE["prompt_len"], SERVE["seed"] + 1, dev)
     compare_with_plain(cfg, SERVE, prompts, tokens, max_len)
-    steady_and_profiled(cfg, SERVE, prompts, max_len)
+    measured = {"decode_step_s": steady_and_profiled(cfg, SERVE, prompts, max_len)["decode_step_s"]}
     torch.cuda.empty_cache()
 
     # -- 3b. serve jamba-v0.1-52b at full width, one layout period deep ---------
@@ -4595,15 +4739,27 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 5. train stablelm-1.6b at full width ----------------------------------
-    training_phase(dev, rand, check, check_grad, time_ms, bound, rows, plain, device_profile, fail)
+    measured["train_step_s"] = training_phase(dev, rand, check, check_grad, time_ms, bound, rows, plain,
+                                              device_profile, fail)
     # -- 5g. train jamba-v0.1-52b at full width, 2 layers; mixtral's gated step -
-    hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain, device_profile, n_sms, sm_clock_mhz)
+    measured["hybrid_step_s"] = hybrid_training_phase(dev, rand, check_grad, time_ms, bound, rows, plain,
+                                                      device_profile, n_sms, sm_clock_mhz)
     # -- 5h. train minicpm3-4b, seamless-m4t-medium and internvl2-1b at full width
     frontend_training_phase(dev, rand, check, check_grad, time_ms, bound, rows, plain, device_profile)
     # -- 6. the train step on a DeviceMesh: one rank, two ranks sharing the card, the local shapes
     mesh_phase(dev, rand, check, check_grad, time_ms, bound, rows, n_sms, sm_clock_mhz)
     # -- 6d. serving on a DeviceMesh: ranks sharing the card, against one device
     serve_mesh_phase(rand, check, time_ms, bound, rows, n_sms, sm_clock_mhz)
+    # -- 8. the roofline and the multi-pod dry-run --------------------------------
+    t8 = time.perf_counter()
+    print("phase 8a: the multi-pod dry-run on a fake DeviceMesh over meta tensors, priced for the H100")
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    dryrun_records(out_dir)
+    shutil.rmtree(out_dir, ignore_errors=True)
+    print(f"phase 8b: steps timed on this card against their roofline bound ({smi[0]})")
+    priced_steps(measured)
+    print(f"phase 8: {time.perf_counter() - t8:.1f} s")
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     for r in rows:

@@ -57,6 +57,7 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.models import attention as attn
 from repro_torch.models.common import axis_rules, resolve_device
@@ -88,7 +89,11 @@ def is_mesh(x) -> bool:
 
 
 def mesh_device(mesh) -> torch.device:
-    """The device this rank's shards live on."""
+    """The device this rank's shards live on: ``meta`` on torch's fake
+    backend (a planned mesh of ranks that do not exist: shapes, no bytes),
+    else the mesh's own."""
+    if dist.is_initialized() and str(dist.get_backend()) == "fake":
+        return torch.device("meta")
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)

@@ -32,7 +32,9 @@ its longest causal q-tiles first), ``"mma"`` (``mma.sync``) for bf16 at
 For tensors on the CPU or the meta device (``ref.PLAIN_DEVICES``) each
 wrapper computes the plain version
 (``ref.reference_attention``, ``ref.reference_attention_bwd``); for CUDA
-tensors it launches its kernel or raises. ``flash_attention.launches`` counts
+tensors it launches its kernel or raises. The plain version runs inside
+``models.common.cost_scope(SCOPE)``, the region the roofline prices as the
+kernel's IO. ``flash_attention.launches`` counts
 forward launches, ``flash_attention.route_launches`` the same launches by
 route; ``flash_attention_bwd.launches`` counts backward calls (each one call
 of the C entry, which launches two kernels on ``"wgmma"`` and three on the
@@ -45,8 +47,12 @@ import ctypes
 
 import torch
 
+from repro_torch.models.common import cost_scope
+
 from . import build
 from .ref import PLAIN_DEVICES, reference_attention, reference_attention_bwd
+
+SCOPE = "pallas_flash_attention"  # the roofline's region of every attention kernel
 
 # the (Dk, Dv) pairs both kernels are built for (the forward's FA_DISPATCH, the
 # backward's BWD_PAIRS): Dk = Dv, and MLA's (96, 64)
@@ -130,7 +136,8 @@ def flash_attention(
         raise RuntimeError("flash_attention drops the gradient: differentiate through "
                            "repro_torch.models.attention.FlashAttention")
     if q.device.type in PLAIN_DEVICES:
-        return reference_attention(q, k, v, causal=causal, window=window, return_lse=return_lse)
+        with cost_scope(SCOPE):
+            return reference_attention(q, k, v, causal=causal, window=window, return_lse=return_lse)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
@@ -187,7 +194,8 @@ def flash_attention_bwd(
     if window > 0 and Lq >= k.shape[1] + window:
         raise ValueError(f"window {window} leaves rows of Lq {Lq} with none of Lk {k.shape[1]} keys")
     if q.device.type in PLAIN_DEVICES:
-        return reference_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
+        with cost_scope(SCOPE):
+            return reference_attention_bwd(q, k, v, o, do, lse, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: unsupported device {q.device}")
     # contiguous, and 16-byte aligned for the tensor-core routes' copies (cp.async, TMA)

@@ -19,7 +19,8 @@ combines (serving with ``kv_seq`` sharded). A row with no written slot gives
 0 and an lse of NEG_INF.
 
 For tensors on the CPU or the meta device the wrapper computes the plain version
-(``ref.reference_decode``); for CUDA tensors it launches the kernel or raises.
+(``ref.reference_decode``, inside ``cost_scope`` as the attention kernels' region);
+for CUDA tensors it launches the kernel or raises.
 ``flash_decode.launches`` counts kernel launches.
 """
 
@@ -30,7 +31,10 @@ import functools
 
 import torch
 
+from repro_torch.models.common import cost_scope
+
 from . import build
+from .flash_attention import SCOPE
 from .ref import PLAIN_DEVICES, reference_decode
 
 HEAD_DIMS = (16, 32, 64, 128)
@@ -122,8 +126,9 @@ def flash_decode(
     if out_dtype not in (None, q.dtype, torch.float32):
         raise TypeError(f"flash_decode: out_dtype {out_dtype}: want q's dtype or float32")
     if q.device.type in PLAIN_DEVICES:
-        return reference_decode(q, k, v, k_pos, q_pos, n_valid, window=window, return_lse=return_lse,
-                                out_dtype=out_dtype)
+        with cost_scope(SCOPE):
+            return reference_decode(q, k, v, k_pos, q_pos, n_valid, window=window, return_lse=return_lse,
+                                    out_dtype=out_dtype)
     if q.device.type != "cuda":
         raise ValueError(f"flash_decode: unsupported device {q.device}")
     if not all(t.is_contiguous() for t in (q, k, v, k_pos, q_pos, n_valid)):

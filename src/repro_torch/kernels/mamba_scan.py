@@ -41,9 +41,11 @@ reachable only as the baseline ``chip_smoke.py`` times beside the chunked one
 
 For tensors on the CPU or the meta device each wrapper computes its plain
 version (``ref.reference_selective_scan``, ``ref.reference_selective_scan_bwd``,
-segment by segment where the scan is cut); for CUDA tensors it launches its
-kernel or raises. ``mamba_scan.launches`` counts forward kernel launches,
-``mamba_scan_bwd.launches`` backward calls (each one call of the C entry), and
+segment by segment where the scan is cut; on the meta device their loops
+walk one step that stands for all L, ``ref._walk``; inside
+``models.common.cost_scope(SCOPE)``, the roofline's region); for CUDA tensors it
+launches its kernel or raises. ``mamba_scan.launches`` counts forward kernel
+launches, ``mamba_scan_bwd.launches`` backward calls (each one call of the C entry), and
 ``mamba_scan_bwd.route_launches`` the same calls by design. The
 bare ``mamba_scan`` refuses inputs that require a gradient: a gradient goes
 through ``repro_torch.models.mamba.MambaScan``, which pairs it with
@@ -57,8 +59,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models.common import cost_scope
+
 from . import build
 from .ref import PLAIN_DEVICES, reference_selective_scan, reference_selective_scan_bwd
+
+SCOPE = "pallas_mamba_scan"  # the roofline's region of the kernel
 
 STATE_SIZES = (4, 8, 16, 32)  # N states per thread, in registers
 MAX_AHEAD = 16  # the kernel computes step offsets t * Di up to t = L + 16
@@ -161,14 +167,15 @@ def mamba_scan(
     B, L, Di = xc.shape
     seg = segment_len(Di)
     if xc.device.type in PLAIN_DEVICES:
-        if L <= seg:
-            return reference_selective_scan(xc, dt, Bm, Cm, a, h0)
-        ys, h = [], h0
-        for s in range(0, L, seg):
-            y, h = reference_selective_scan(xc[:, s : s + seg], dt[:, s : s + seg], Bm[:, s : s + seg],
-                                            Cm[:, s : s + seg], a, h)
-            ys.append(y)
-        return torch.cat(ys, dim=1), h
+        with cost_scope(SCOPE):
+            if L <= seg:
+                return reference_selective_scan(xc, dt, Bm, Cm, a, h0)
+            ys, h = [], h0
+            for s in range(0, L, seg):
+                y, h = reference_selective_scan(xc[:, s : s + seg], dt[:, s : s + seg], Bm[:, s : s + seg],
+                                                Cm[:, s : s + seg], a, h)
+                ys.append(y)
+            return torch.cat(ys, dim=1), h
     if xc.device.type != "cuda":
         raise ValueError(f"mamba_scan: unsupported device {xc.device}")
     if not all(t.is_contiguous() for t in (xc, dt, Bm, Cm, a, h0) if t is not None):
@@ -244,9 +251,10 @@ def mamba_scan_bwd(
         raise ValueError(f"dh_final {tuple(dh_final.shape)} {dh_final.dtype}: want {(B, Di, N)} float32")
     seg = segment_len(Di)
     if xc.device.type in PLAIN_DEVICES:
-        if L <= seg:
-            return reference_selective_scan_bwd(xc, dt, Bm, Cm, a, h0, dy, dh_final)
-        return _plain_bwd_segments(xc, dt, Bm, Cm, a, h0, dy, dh_final, seg)
+        with cost_scope(SCOPE):
+            if L <= seg:
+                return reference_selective_scan_bwd(xc, dt, Bm, Cm, a, h0, dy, dh_final)
+            return _plain_bwd_segments(xc, dt, Bm, Cm, a, h0, dy, dh_final, seg)
     if xc.device.type != "cuda":
         raise ValueError(f"mamba_scan_bwd: unsupported device {xc.device}")
     ins = [None if t is None else t.contiguous() for t in (xc, dt, Bm, Cm, a, h0, dy, dh_final)]

@@ -39,7 +39,8 @@ no longer chosen: it stays reachable only as the baseline ``chip_smoke.py``
 times beside ``"wgmma"``.
 
 For tensors on the CPU or the meta device each wrapper computes its plain
-version (``ref.reference_gmm``, ``ref.reference_gmm_bwd``); for CUDA tensors
+version (``ref.reference_gmm``, ``ref.reference_gmm_bwd``, inside
+``models.common.cost_scope(SCOPE)``, the roofline's region); for CUDA tensors
 it launches the chosen route or raises, never another route.
 ``moe_gmm.launches`` counts calls that launched the kernel (one per call),
 ``moe_gmm.route_launches`` the same calls by route; ``moe_gmm_bwd.launches``
@@ -55,8 +56,12 @@ import ctypes
 
 import torch
 
+from repro_torch.models.common import cost_scope
+
 from . import build
 from .ref import PLAIN_DEVICES, reference_gmm, reference_gmm_bwd
+
+SCOPE = "pallas_moe_gmm"  # the roofline's region of the kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 ROUTES = {"fma": 0, "wgmma": 1, "swap_ab": 2}  # as the .cu's Route enum
@@ -126,7 +131,8 @@ def moe_gmm(
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w_gate, w_up, w_down)):
         raise RuntimeError("moe_gmm drops the gradient: differentiate through repro_torch.models.moe.MoeGmm")
     if x.device.type in PLAIN_DEVICES:
-        return reference_gmm(x, w_gate, w_up, w_down)
+        with cost_scope(SCOPE):
+            return reference_gmm(x, w_gate, w_up, w_down)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm: unsupported device {x.device}")
     if not all(t.is_contiguous() for t in (x, w_gate, w_up, w_down)):
@@ -166,7 +172,8 @@ def moe_gmm_bwd(
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError(f"dy {tuple(dy.shape)} {dy.dtype} on {dy.device}: want x's {tuple(x.shape)} {x.dtype}")
     if x.device.type in PLAIN_DEVICES:
-        return reference_gmm_bwd(x, w_gate, w_up, w_down, dy)
+        with cost_scope(SCOPE):
+            return reference_gmm_bwd(x, w_gate, w_up, w_down, dy)
     if x.device.type != "cuda":
         raise ValueError(f"moe_gmm_bwd: unsupported device {x.device}")
     # contiguous, and 16-byte aligned for the tensor-core routes' copies (TMA, cp.async)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import NEG_INF
+from repro_torch.models.common import NEG_INF, cost_repeat
 
 
 # Devices whose tensors the kernel wrappers hand to these plain versions: the
@@ -303,6 +303,19 @@ def reference_gmm_bwd(
     return dx.to(x.dtype), dwg.to(w_gate.dtype), dwu.to(w_up.dtype), dwd.to(w_down.dtype)
 
 
+def _walk(L: int, device: torch.device, reverse: bool = False):
+    """The steps a plain scan walks: all L of them, in order or reversed; on
+    the meta device (a ghost run: shapes, no values) step 0 alone, which
+    stands for all L (``cost_repeat``): the roofline's counter charges its
+    ops L times, as the reference's cost walk charges a loop body times its
+    trip count, and no ghost run walks a loop of 32,768 steps."""
+    if device.type != "meta":
+        yield from (reversed(range(L)) if reverse else range(L))
+        return
+    with cost_repeat(L):
+        yield 0
+
+
 def reference_selective_scan(
     xc: torch.Tensor,  # (B, L, Di)
     dt: torch.Tensor,  # (B, L, Di) f32 (post-softplus)
@@ -312,17 +325,18 @@ def reference_selective_scan(
     h0: torch.Tensor | None = None,  # (B, Di, N) f32
 ):
     """Direct sequential scan over time, in f32 (f64 for f64 inputs).
-    Returns (y (B, L, Di), h_final (B, Di, N))."""
+    Returns (y (B, L, Di), h_final (B, Di, N)). On meta tensors the loop is
+    not walked (``_walk``)."""
     B, L, Di = xc.shape
     N = a.shape[1]
     acc = _acc(dt.dtype)
     h = torch.zeros((B, Di, N), dtype=acc, device=xc.device) if h0 is None else h0.to(acc)
     xcf = xc.to(acc)
-    ys = []
-    for t in range(L):
+    y = torch.empty((B, L, Di), dtype=acc, device=xc.device)
+    for t in _walk(L, xc.device):
         h = torch.exp(dt[:, t, :, None] * a) * h + (dt[:, t] * xcf[:, t])[..., None] * Bm[:, t, None, :]
-        ys.append(torch.einsum("bin,bn->bi", h, Cm[:, t]))
-    return torch.stack(ys, dim=1), h
+        y[:, t] = torch.einsum("bin,bn->bi", h, Cm[:, t])
+    return y, h
 
 
 def reference_selective_scan_bwd(
@@ -352,7 +366,7 @@ def reference_selective_scan_bwd(
     xcf = xc.to(acc)
     h = torch.zeros((B, Di, N), dtype=acc, device=xc.device) if h0 is None else h0.to(acc)
     hs, decays = [h], []
-    for t in range(L):
+    for t in _walk(L, xc.device):
         decay = torch.exp(dt[:, t, :, None] * a)
         h = decay * h + (dt[:, t] * xcf[:, t])[..., None] * Bm[:, t, None, :]
         hs.append(h)
@@ -361,7 +375,7 @@ def reference_selective_scan_bwd(
     dxc = torch.empty((B, L, Di), dtype=acc, device=xc.device)
     ddt, dB, dC = torch.empty_like(dxc), torch.empty_like(Bm, dtype=acc), torch.empty_like(Cm, dtype=acc)
     da = torch.zeros_like(a, dtype=acc)
-    for t in reversed(range(L)):
+    for t in _walk(L, xc.device, reverse=True):
         g = Cm[:, t, None, :] * dy[:, t, :, None] + carry  # (B, Di, N)
         prev, decay = hs[t], decays[t]
         dC[:, t] = torch.einsum("bi,bin->bn", dy[:, t], hs[t + 1])

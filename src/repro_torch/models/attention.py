@@ -227,8 +227,7 @@ def _cached_attention(p, q, k, v, positions, cache: dict, par, window: int, kern
     may be replicated over ``model`` or whose slots may be split (module
     docstring). q holds this rank's query heads; k, v (B, L, KVH, Dh) every
     KV head this rank's cache holds. Prefill starts at index 0 with L <= S
-    (with L > S the reference's ring scatters to repeated slots in one
-    update, in no defined order, and has no answer to match)."""
+    (``prefill_refusal``)."""
     B, L = q.shape[:2]
     ck, cv, kpos = cache["k"], cache["v"], cache.get("pos")
     S_loc = ck.shape[1]
@@ -237,8 +236,9 @@ def _cached_attention(p, q, k, v, positions, cache: dict, par, window: int, kern
     if L > 1:
         if idx != 0:
             raise ValueError(f"prefill must start from an empty cache, not index {idx}")
-        if L > S:
-            raise ValueError(f"prefill of {L} tokens into {'a ring of ' if kpos is not None else ''}{S} slots")
+        refused = prefill_refusal(L, S, ring=kpos is not None)
+        if refused:
+            raise ValueError(refused)
         hi = min(base + S_loc, L)  # this rank's slots that the prompt fills
         if hi > base:
             ck[:, : hi - base] = k[:, base:hi]
@@ -306,6 +306,22 @@ def cache_slots(cfg: ArchConfig, max_len: int) -> int:
     return min(max_len, cfg.window) if (cfg.attention == "swa" and cfg.window) else max_len
 
 
+def is_ring(cfg: ArchConfig, max_len: int) -> bool:
+    """Whether an attention layer's cache of ``max_len`` is a ring: a SWA
+    config's, whose slots reach its window."""
+    return bool(cfg.attention == "swa" and cfg.window and cache_slots(cfg, max_len) == cfg.window)
+
+
+def prefill_refusal(n_tokens: int, slots: int, ring: bool) -> Optional[str]:
+    """Why ``_cached_attention`` refuses a prefill of ``n_tokens`` into a
+    fresh cache of ``slots``, or None: a prompt longer than the cache (into a
+    ring, the reference's scatter writes repeated slots in one update, in no
+    defined order, and has no answer to match)."""
+    if n_tokens > slots:
+        return f"prefill of {n_tokens} tokens into {'a ring of ' if ring else ''}{slots} slots"
+    return None
+
+
 def init_attention_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, device) -> dict:
     """K/V (B, S, KVH, Dh) zeros and index 0; a SWA config whose S reaches
     its window is a ring, with each slot's position (B, S) int32, -1 until
@@ -317,7 +333,7 @@ def init_attention_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, devic
         "v": torch.zeros(shape, dtype=dtype, device=device),
         "index": 0,
     }
-    if cfg.attention == "swa" and cfg.window and S == cfg.window:
+    if is_ring(cfg, max_len):
         cache["pos"] = torch.full((batch, S), -1, dtype=torch.int32, device=device)
     return cache
 

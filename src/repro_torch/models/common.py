@@ -9,11 +9,17 @@ returns the logical-axes tree beside the params. ``axis_rules(rules, mesh)``
 installs the logical-name -> mesh-axis rules of ``repro_torch.dist.sharding``
 around a call; the model code reads from them (``repro_torch.dist.comm
 .current``) which of its dimensions are local shards and over which process
-group. Without rules nothing changes.
+group. Without rules nothing changes. ``cost_scope(name)`` marks a
+region that runs as one hand-written kernel (the reference's
+``jax.named_scope("pallas_*")``), and ``cost_repeat(n)`` a region that
+stands for n runs of itself; both are context variables that
+``repro_torch.roofline.op_costs`` reads, and neither launches anything.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import threading
 from typing import Optional
@@ -114,8 +120,77 @@ class ArchConfig:
             raise ValueError(f"{self.name}: layout len {len(self.layout)} !| n_layers {self.n_layers}")
         return self.n_layers // len(self.layout)
 
+    def layer_specs(self) -> list:
+        """The LayerSpec of each of the n_layers layers (layer i has the
+        layout's i % len(layout)); a config cut in depth holds a prefix of its
+        layout's periods."""
+        return [self.layout[i % len(self.layout)] for i in range(self.n_layers)]
+
+    @property
+    def sub_quadratic(self) -> bool:
+        """Eligible for long_500k: SSM-dominated (pure or hybrid) or bounded
+        attention window. Pure full-attention archs are skipped per the
+        assignment."""
+        if any(s.mixer == "mamba" for s in self.layout):
+            return True  # ssm / hybrid
+        return self.attention == "swa" and self.window > 0
+
     def compute_dtype(self) -> torch.dtype:
         return torch.bfloat16 if self.dtype == "bfloat16" else torch.float32
+
+    def n_params(self) -> int:
+        """Analytic parameter count (for 6ND MODEL_FLOPS): the reference's,
+        summed over ``layer_specs()`` (the layout times its groups for a whole
+        config), so that a config cut in depth counts the layers it holds."""
+        d, dh = self.d_model, self.head_dim
+        total = self.vocab * d  # embed
+        if not self.tie_embeddings:
+            total += self.vocab * d
+        for spec in self.layer_specs():
+            p = 0
+            if spec.mixer == "attention":
+                if self.attention == "mla":
+                    qr = self.q_lora_rank or d
+                    p += d * qr + qr * self.n_heads * (self.qk_nope_dim + self.qk_rope_dim)
+                    p += d * (self.kv_lora_rank + self.qk_rope_dim)
+                    p += self.kv_lora_rank * self.n_heads * (self.qk_nope_dim + self.v_head_dim)
+                    p += self.n_heads * self.v_head_dim * d
+                else:
+                    p += d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh
+                    p += self.n_heads * dh * d
+            elif spec.mixer == "mamba":
+                di, N = self.d_inner, self.ssm_state
+                p += d * 2 * di + di * self.ssm_conv
+                p += di * (self.dt_rank + 2 * N) + self.dt_rank * di
+                p += di * N + di + di * d
+            if spec.ffn == "dense":
+                p += 3 * d * self.d_ff  # SwiGLU
+            elif spec.ffn == "moe":
+                p += d * self.n_experts  # router
+                p += self.n_experts * 3 * d * self.d_ff
+            p += 2 * d  # two norms
+            total += p
+        if self.encoder_layers:
+            enc = self.encoder_layers * (
+                d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh
+                + self.n_heads * dh * d + 3 * d * self.d_ff + 2 * d
+            )
+            # decoder cross-attention adds one attention block per layer
+            cross = self.n_layers * (
+                d * self.n_heads * dh + 2 * d * self.n_kv_heads * dh
+                + self.n_heads * dh * d + d
+            )
+            total += enc + cross
+        return int(total)
+
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if self.n_experts == 0:
+            return self.n_params()
+        d = self.d_model
+        moe_layers = sum(1 for s in self.layer_specs() if s.ffn == "moe")
+        inactive = moe_layers * (self.n_experts - self.top_k) * 3 * d * self.d_ff
+        return int(self.n_params() - inactive)
 
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU smoke tests."""
@@ -203,6 +278,45 @@ def tensor_parallel():
     """``parallel()`` where the model axis has more than one rank, else None."""
     par = parallel()
     return par if par is not None and par.tp > 1 else None
+
+
+# ---------------------------------------------------------------------------
+# Cost scopes (read by repro_torch.roofline.op_costs)
+# ---------------------------------------------------------------------------
+
+_COST_SCOPE = contextvars.ContextVar("cost_scope", default=None)
+_COST_REPEAT = contextvars.ContextVar("cost_repeat", default=1)
+
+
+@contextlib.contextmanager
+def cost_scope(name: str):
+    """Mark the ops inside as one kernel's region ("pallas_flash_attention",
+    "pallas_moe_gmm", "pallas_mamba_scan"), whose traffic the roofline
+    prices as that kernel's IO. The innermost scope names the region."""
+    token = _COST_SCOPE.set(name)
+    try:
+        yield
+    finally:
+        _COST_SCOPE.reset(token)
+
+
+def current_cost_scope() -> Optional[str]:
+    return _COST_SCOPE.get()
+
+
+@contextlib.contextmanager
+def cost_repeat(n: int):
+    """The ops inside stand for ``n`` runs of themselves (one step of a loop
+    over n steps that a ghost run does not walk); nested repeats multiply."""
+    token = _COST_REPEAT.set(_COST_REPEAT.get() * n)
+    try:
+        yield
+    finally:
+        _COST_REPEAT.reset(token)
+
+
+def current_cost_repeat() -> int:
+    return _COST_REPEAT.get()
 
 
 # ---------------------------------------------------------------------------

@@ -78,6 +78,13 @@ def route(p: dict, cfg: ArchConfig, xf: torch.Tensor):
     return probs, gate_w, gate_e
 
 
+def bin_counts(key: torch.Tensor, n: int) -> torch.Tensor:
+    """``torch.bincount(key, minlength=n)`` for keys in [0, n), as a
+    static-shape op: bincount's output size depends on the data (no meta
+    kernel; a host sync on a card)."""
+    return torch.zeros((n,), dtype=torch.int64, device=key.device).index_add_(0, key, torch.ones_like(key))
+
+
 def _dispatch(xf: torch.Tensor, gate_e: torch.Tensor, K: int, E: int, C: int, G: int, par=None,
               experts: tuple = (0, None)):
     """Group-local sort-based dispatch of this rank's tokens.
@@ -105,7 +112,7 @@ def _dispatch(xf: torch.Tensor, gate_e: torch.Tensor, K: int, E: int, C: int, G:
     key = group * E + gate_e.reshape(-1)
     sort_idx = torch.argsort(key, stable=True)
     sorted_key = key[sort_idx]
-    counts = torch.bincount(key, minlength=Gl * E)
+    counts = bin_counts(key, Gl * E)
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(T * K, device=dev) - starts[sorted_key]  # place among this rank's slots in the bin
     if dp > 1:

@@ -28,13 +28,32 @@ def test_no_module_imports_jax_or_repro():
     assert "repro_torch.kernels.flash_decode" in names and "repro_torch.launch.serve" in names
     assert {"repro_torch.launch.train", "repro_torch.checkpoint.checkpoint", "repro_torch.optim.adamw",
             "repro_torch.data.pipeline", "repro_torch.dist.ft", "repro_torch.launch.mesh",
-            "repro_torch.tenancy.hub", "repro_torch.tenancy.memo"} <= set(names)
+            "repro_torch.tenancy.hub", "repro_torch.tenancy.memo", "repro_torch.launch.dryrun",
+            "repro_torch.roofline", "repro_torch.roofline.model", "repro_torch.roofline.op_costs",
+            "repro_torch.roofline.kernel_credit"} <= set(names)
     code = (
         "import importlib, sys\n"
         f"for n in {names!r}: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "print('ok', len(sys.modules))\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=SRC, capture_output=True, text=True,
+                       timeout=120, env=dict(os.environ, PYTHONPATH=str(SRC)))
+    assert r.returncode == 0 and r.stdout.startswith("ok"), r.stdout + r.stderr
+
+
+def test_importing_the_dry_run_starts_nothing():
+    """The reference's dry-run sets XLA_FLAGS when imported; the port's
+    sets no environment variable and starts no process group (the fake
+    backend starts when a cell runs)."""
+    code = (
+        "import os, torch.distributed as dist\n"
+        "before = dict(os.environ)\n"
+        "import repro_torch.launch.dryrun, repro_torch.roofline\n"
+        "assert dict(os.environ) == before, set(os.environ.items()) ^ set(before.items())\n"
+        "assert not dist.is_initialized()\n"
+        "print('ok')\n"
     )
     r = subprocess.run([sys.executable, "-c", code], cwd=SRC, capture_output=True, text=True,
                        timeout=120, env=dict(os.environ, PYTHONPATH=str(SRC)))
