@@ -3,6 +3,7 @@
 
   python3 chip_smoke.py
   python3 chip_smoke.py --mesh-only   # phases 1 and 6 alone (no summary line)
+  python3 chip_smoke.py --examples-only   # phases 1 and 9 alone (no summary line)
 
 Phases, in order; any failure exits non-zero (a disagreement between the
 kernels' and the plain versions' logits is recorded and the later phases run
@@ -201,7 +202,17 @@ on, so that their numbers are still printed):
      on meta tensors, kernel regions credited at their kernels' IO): fails
      where a measured time is below its bound, the larger of its compute,
      memory and collective terms (counted work the card beat: an
-     over-count).
+     over-count);
+  9. the port's four examples (``examples/torch_*.py``) on the card, in this
+     process through their ``main(argv)``: each one's wall time and launches
+     by kernel and route; twin_pipelines must launch flash_attention, its
+     backward and flash_decode, train_lm (128M params, f32) flash_attention
+     and its backward, every attention launch on its f32 ``fma`` route, and
+     no plain version may run; then each of those kernels on every input
+     the examples gave it (their first call of each shape and options)
+     against its plain version, timed beside its bound and SDPA
+     (``examples_kernel_rows``). (The walkthroughs stay off the card: they
+     never touch the device, and the runtime one forks workers.)
 The last line is ``{"ok": true, "device": {...}}``. The compiler's reports
 (registers, spills) go to ``build/repro_torch_kernels/nvcc_report.txt``.
 """
@@ -2721,6 +2732,30 @@ def fresh_train_state(model, seed, dev) -> dict:
     return {"params": params, "opt": adamw_init(params), "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
+def fsdp_gather_bound(cfg, params) -> int:
+    """The most FSDP may hold gathered at once a rank under remat "block"
+    (phase 6b's runs): the leaves outside the trunk and the largest unit of
+    the trunk (``dist.step.fsdp_units``), each leaf's bytes gathered over the
+    data axes its placements split it on."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.dist.step import fsdp_units
+    from repro_torch.optim.adamw import tree_leaves
+
+    def gathered(tree) -> int:
+        n = 0
+        for t in tree_leaves(tree):
+            mesh, k = t.device_mesh, 1
+            for name, pl in zip(mesh.mesh_dim_names, t.placements):
+                if isinstance(pl, Shard) and name in ("pod", "data"):
+                    k *= mesh.size(mesh.mesh_dim_names.index(name))
+            n += t.to_local().nbytes * k if k > 1 else 0
+        return n
+
+    outside, units = fsdp_units(cfg, params)
+    return gathered(outside) + max(gathered(u) for u in units)
+
+
 def mesh_rank(rank: int, world: int) -> list:
     """Phase 6b on one of the ranks sharing the card (``dist.spawn
     .run_ranks``): per model, rank 0 first runs the one-device step alone on
@@ -2735,6 +2770,7 @@ def mesh_rank(rank: int, world: int) -> list:
     import torch
     import torch.distributed as dist
 
+    from repro_torch.dist.comm import track_gathers
     from repro_torch.dist.step import gather_full, make_train_step, placed_train_state
     from repro_torch.kernels import ops
     from repro_torch.launch.mesh import make_host_mesh
@@ -2809,7 +2845,7 @@ def mesh_rank(rank: int, world: int) -> list:
             losses, times = [], []
             moe_mod.route = forced_route
             try:
-                with PlainSpy() as spy_plain:
+                with PlainSpy() as spy_plain, track_gathers(("pod", "data")) as gathered:
                     for _ in range(steps):
                         torch.cuda.synchronize()
                         t0 = time.perf_counter()
@@ -2823,6 +2859,7 @@ def mesh_rank(rank: int, world: int) -> list:
                 fail(f"phase 6b {cfg.name} {shape}: {len(chosen)} routings recorded, fewer replayed")
             launches = ops.launch_counts()
             peak = torch.cuda.max_memory_allocated()
+            gathered_bound = fsdp_gather_bound(cfg, state["params"])
             gaps: dict = {"params": [], "m": []}
             for part, sub in (("params", state["params"]), ("m", state["opt"]["m"])):
                 for i, t in enumerate(tree_leaves(sub)):
@@ -2836,6 +2873,7 @@ def mesh_rank(rank: int, world: int) -> list:
             torch.cuda.empty_cache()
             out.append(dict(arch=cfg.name, shape=shape, rank=rank, losses=losses, names=names, routings=len(chosen),
                             ref_losses=None if ref is None else ref["losses"], times=times, peak=peak,
+                            gathered=gathered.peak, gathered_bound=gathered_bound,
                             ref_peak=None if ref is None else ref["peak"], held=torch.cuda.memory_allocated(),
                             launches=launches, shapes={k: sorted(v) for k, v in seen.items()},
                             plain=dict(spy_plain.calls), gaps=gaps, backend=str(dist.get_backend()), placed=placed))
@@ -2946,8 +2984,12 @@ def mesh_phase(dev, rand, check, check_grad, time_ms, bound, rows, n_sms, sm_clo
         for rec in (rec0, rec1):
             print(f"    rank {rec['rank']} ({rec['backend']}): step s {[round(t, 3) for t in rec['times']]}, peak memory "
                   f"{rec['peak'] / 2**30:.2f} GiB (the placed state {rec['placed'] / 2**30:.2f}, left after "
-                  f"{rec['held'] / 2**30:.2f}), launches {rec['launches']}, input shapes {rec['shapes']}, plain versions "
-                  f"called {rec['plain']}")
+                  f"{rec['held'] / 2**30:.2f}; FSDP's gathered weights at most {rec['gathered'] / 2**30:.3f} GiB live "
+                  f"at once, bound {rec['gathered_bound'] / 2**30:.3f}: outside the trunk and one layout period), "
+                  f"launches {rec['launches']}, input shapes {rec['shapes']}, plain versions called {rec['plain']}")
+            if rec["gathered"] > rec["gathered_bound"]:
+                fail(f"phase 6b {arch} {shape} rank {rec['rank']}: {rec['gathered']} B gathered at once, more than "
+                     f"the trunk's one period and the leaves outside it ({rec['gathered_bound']} B)")
             want_launches = dict.fromkeys(ops.KERNELS, 0)
             want_launches.update({k: v[0] * MESH["steps"] for k, v in expect.items()})
             if rec["launches"] != want_launches or rec["shapes"] != {k: [v[1]] for k, v in expect.items()}:
@@ -3638,6 +3680,177 @@ def priced_steps(measured: dict) -> None:
         fail("phase 8b: the counter over-counts: " + "; ".join(failures))
 
 
+# phase 9: the port's examples (examples/torch_*.py) on the card, in this
+# process through main(argv): (example, extra arguments, the kernels it must
+# launch; every attention launch of the f32 models on the fma routes)
+EXAMPLES = [
+    ("torch_quickstart", [], ()),
+    ("torch_wireframe_audit", [], ()),
+    ("torch_twin_pipelines", [], ("flash_attention", "flash_attention_bwd", "flash_decode")),
+    ("torch_train_lm", ["--ckpt-dir", str(ROOT / "build" / "chip_smoke_examples_ckpt")],
+     ("flash_attention", "flash_attention_bwd")),
+]
+
+
+# phase 9's kernels, recorded at every input the examples give them, and the
+# plain version (``kernels.ref``) each is held against there
+EXAMPLE_KERNELS = {"flash_attention": "reference_attention", "flash_attention_bwd": "reference_attention_bwd",
+                   "flash_decode": "reference_decode"}
+
+
+def examples_phase(check, check_grad, time_ms, bound, rows) -> None:
+    """Phase 9: each example's main(["--device", "cuda", ...]), its wall
+    time, its launches by kernel and route; fails if a plain version ran
+    (every tensor of these runs is on the card, or meta in the ghost run),
+    if an expected kernel did not launch, or if an attention launch missed
+    its f32 route. Spies on ``ops.KERNELS`` count the launches by input
+    (shapes and options) and keep each input's first call; then each kernel
+    is held against its plain version on those inputs (``examples_kernel_rows``)."""
+    import importlib.util
+
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+
+    t_phase = time.perf_counter()
+    recorded: dict = {}  # (example, kernel, shapes, options) -> [launches, the first call's (args, kwargs)]
+    for name, argv, want in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(f"example_{name}", ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        print(f"phase 9: examples/{name}.py on the card")
+        ops.reset_launch_counts()  # before the spies stand in for the wrappers, whose counts it zeroes
+        kept = dict(ops.KERNELS)
+        for kname in EXAMPLE_KERNELS:
+            def spy(*args, _fn=kept[kname], _k=kname, **kwargs):
+                key = (name, _k, tuple(tuple(a.shape) for a in args), tuple(sorted(kwargs.items(), key=str)))
+                rec = recorded.setdefault(key, [0, None])
+                rec[0] += 1
+                if rec[1] is None:
+                    rec[1] = ([a.detach().clone() for a in args], dict(kwargs))
+                return _fn(*args, **kwargs)
+
+            ops.KERNELS[kname] = spy
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with PlainSpy() as spy_plain:
+                run_main_captured(mod.main, ["--device", "cuda", *argv])
+        finally:
+            ops.KERNELS.update(kept)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {k: v for k, v in ops.launch_counts().items() if v}
+        routes = {k: {r: n for r, n in fn.route_launches.items() if n}
+                  for k, fn in (("flash_attention", flash_attention), ("flash_attention_bwd", flash_attention_bwd))
+                  if k in launches}
+        by_input = {k: sum(n for (ex, kk, _, _), (n, _) in recorded.items() if ex == name and kk == k)
+                    for k in EXAMPLE_KERNELS}
+        print(f"  {name}: {wall_s:.2f} s; launches {launches}; attention by route {routes}; plain versions called "
+              f"{spy_plain.calls}")
+        if any(spy_plain.calls.values()):
+            fail(f"phase 9 {name}: the plain versions ran on the card path: {spy_plain.calls}")
+        if [k for k in want if not launches.get(k)]:
+            fail(f"phase 9 {name}: launches {launches}, want every one of {want}")
+        if any(set(r) != {"fma"} for r in routes.values()):
+            fail(f"phase 9 {name}: f32 attention off its fma routes: {routes}")
+        if any(by_input[k] != launches.get(k, 0) for k in EXAMPLE_KERNELS):
+            fail(f"phase 9 {name}: the spies saw {by_input}, the wrappers counted {launches}")
+    shutil.rmtree(ROOT / "build" / "chip_smoke_examples_ckpt", ignore_errors=True)
+    examples_kernel_rows(recorded, check, check_grad, time_ms, bound, rows)
+    print(f"  phase 9: {time.perf_counter() - t_phase:.1f} s")
+
+
+def examples_kernel_rows(recorded, check, check_grad, time_ms, bound, rows) -> None:
+    """Phase 9's kernel rows: each kernel of the examples' path on each input
+    it was given there (the first call of each shape and options), against
+    its plain version (``TOL``; the backward ``BWD_TOL``) and timed as phase
+    4 (L2 flushed) beside its bound and SDPA (forward, backward through
+    ``torch.autograd.grad``, or over the written slots with a boolean mask),
+    with its launches in the example's run. The bound counts the (query,
+    key) pairs the mask keeps and, in decode, the slots written."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+
+    sources = {"flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:116"),
+               "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                       "src/repro/models/attention.py:48 (no Pallas kernel: jax autodiff of "
+                                       "blocked_attention)"),
+               "flash_decode": ("src/repro_torch/kernels/csrc/flash_decode.cu",
+                                "src/repro/kernels/flash_decode.py:89")}
+    for (example, kname, shapes, opts), (n_main, (args, kw)) in recorded.items():
+        kernel, plain = ops.KERNELS[kname], getattr(ref, EXAMPLE_KERNELS[kname])
+        q, k, v = args[:3]
+        dtype = str(q.dtype).split(".")[-1]
+        es = q.element_size()
+        B, Lq, H, Dk = q.shape
+        Lk, KVH, Dv = k.shape[1], k.shape[2], v.shape[3]
+        gqa = dict(enable_gqa=True) if H != KVH else {}
+        label = f"examples/{example}.py {kname} at {list(shapes)}{' ' + str(dict(opts)) if opts else ''}"
+        call = lambda: kernel(*args, **kw)  # noqa: E731
+        want = plain(*args, **kw)
+        got = call()
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if kname == "flash_decode":
+            kpos, qpos, nval = args[3:6]
+            ok = (torch.arange(Lk, device=q.device)[None] < nval[:, None]) & (kpos <= qpos[:, None])
+            if kw.get("window", 0) > 0:
+                ok &= kpos > qpos[:, None] - kw["window"]
+            written, visible = int(nval.clamp(0, Lk).sum()), int(ok.sum())
+            if kw.get("return_lse"):
+                err = max(check(f"{label} o", got[0], want[0], got[0].dtype),
+                          check(f"{label} lse", got[1], want[1], torch.float32))
+            else:
+                err = check(label, got, want, got.dtype)
+            out_es = torch.empty((), dtype=kw.get("out_dtype") or q.dtype).element_size()
+            # K, V of the written slots and their positions read once; q read, o (and lse) written once
+            nbytes = (2 * written * KVH * Dk * es + written * 4 + B * H * Dk * es + B * H * Dk * out_es
+                      + (B * H * 4 if kw.get("return_lse") else 0) + 2 * B * 4)
+            b_ms, b_by = bound(nbytes, 4 * H * Dk * visible, dtype)
+            lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=ok[:, None, None], **gqa)  # noqa: E731
+            library = "scaled_dot_product_attention(boolean mask)"
+        else:
+            mask = ref._attention_mask(Lq, Lk, kw.get("causal", True), kw.get("window", 0), q.device)
+            pairs = int(mask.sum())
+            if kname == "flash_attention":
+                if kw.get("return_lse"):
+                    err = max(check(f"{label} o", got[0], want[0], q.dtype),
+                              check(f"{label} lse", got[1], want[1], torch.float32))
+                else:
+                    err = check(label, got, want, q.dtype)
+                nbytes = (B * Lq * H * (Dk + Dv) + B * Lk * KVH * (Dk + Dv)) * es + (
+                    B * H * Lq * 4 if kw.get("return_lse") else 0)
+                b_ms, b_by = bound(nbytes, 2 * B * H * pairs * (Dk + Dv), dtype)
+                lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa)  # noqa: E731
+                library = "scaled_dot_product_attention(boolean mask)"
+            else:
+                err = max(check_grad(f"{label} {n}", g, w, q.dtype) for n, g, w in zip(("dq", "dk", "dv"), got, want))
+                # q, dq, o and dO; k, dk, v and dv; lse: each read or written once. The five
+                # products Q.K^T, dO.V^T, P^T.dO, dS.K, dS^T.Q: 6 Dk + 4 Dv FLOP a visible pair
+                nbytes = B * Lq * H * (2 * Dk + 2 * Dv) * es + B * Lk * KVH * (2 * Dk + 2 * Dv) * es + B * H * Lq * 4
+                b_ms, b_by = bound(nbytes, B * H * pairs * (6 * Dk + 4 * Dv), dtype)
+                qt, kt, vt = (x.detach().requires_grad_() for x in (qt, kt, vt))
+                lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, **gqa)
+                dot = args[4].transpose(1, 2)
+                lib = lambda: torch.autograd.grad(lib_out, (qt, kt, vt), dot, retain_graph=True)  # noqa: E731
+                library = "scaled_dot_product_attention(boolean mask) backward (torch.autograd.grad)"
+        del got, want
+        source, replaces = sources[kname]
+        rows.append(dict(
+            name=kname, path=f"{label}, {dtype}", route="cuda", source=source, replaces=replaces, launches=n_main,
+            max_abs_err=err, ms=time_ms(call, reps=10), plain_ms=time_ms(lambda: plain(*args, **kw), reps=3),
+            bound_ms=b_ms, bound_by=b_by, library_ms=time_ms(lib, reps=10), library=library,
+        ))
+        r = rows[-1]
+        print(f"  {label}: {r['ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}; {r['ms'] / b_ms:.2f}x), plain "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms; {n_main} launches in the example")
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -3796,6 +4009,10 @@ def main() -> int:
     if sys.argv[1:] == ["--mesh-only"]:  # phases 6 and 6d alone, after phase 1's build (a probe; no summary line)
         mesh_phase(dev, rand, check, check_grad, time_ms, bound, rows, n_sms, sm_clock_mhz)
         serve_mesh_phase(rand, check, time_ms, bound, rows, n_sms, sm_clock_mhz)
+        print(json.dumps({"kernels": rows}))
+        return 0
+    if sys.argv[1:] == ["--examples-only"]:  # phase 9 alone, after phase 1's build (a probe; no summary line)
+        examples_phase(check, check_grad, time_ms, bound, rows)
         print(json.dumps({"kernels": rows}))
         return 0
     # -- 2. each kernel against its plain version ------------------------------
@@ -4760,6 +4977,8 @@ def main() -> int:
     print(f"phase 8b: steps timed on this card against their roofline bound ({smi[0]})")
     priced_steps(measured)
     print(f"phase 8: {time.perf_counter() - t8:.1f} s")
+    # -- 9. the port's examples on the card ----------------------------------------
+    examples_phase(check, check_grad, time_ms, bound, rows)
 
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s in all, the build included")
     for r in rows:

@@ -24,7 +24,9 @@ gradient through (the exit of a row-parallel product; every rank then holds
 the same loss), ``all_reduce_sum`` all-reduces both ways (a sum over the
 batch ranks whose losses the step averages), ``gather`` all-gathers forward
 and reduce-scatters back, or only slices back (``grads="same"``) where every
-rank's gradient of the gathered tensor is the same.
+rank's gradient of the gathered tensor is the same. ``track_gathers()``
+counts the bytes of ``gather``'s outputs alive at once (FSDP's gathered
+weights), for the tests and the card's smoke run.
 
 ``merge_attention`` is the flash-decoding merge one level above the kernel's:
 the ranks that hold disjoint slices of a cache's slots (``kv_seq``) each
@@ -41,9 +43,11 @@ else a ``Parallel`` that says which logical axes are local shards over
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
+import weakref
 from datetime import timedelta
 from typing import Optional
 
@@ -276,7 +280,49 @@ def gather(x: torch.Tensor, comm: MeshComm, dim: int, dims, grads: str = "sum") 
     every rank holds the whole, equal gradient)."""
     if comm.size(dims) == 1:
         return x
-    return _Gather.apply(x, comm, dim, dims, grads == "same")
+    out = _Gather.apply(x, comm, dim, dims, grads == "same")
+    for track in _TRACKS:
+        if track.axes is None or set(comm._key(dims)) & set(track.axes):
+            track.add(out)
+    return out
+
+
+_TRACKS: list = []  # the open track_gathers() counts
+
+
+class GatherTrack:
+    """The outputs of ``gather`` made while it is open (over any of the mesh
+    axes ``axes``; every one where None): their number (``count``) and the
+    bytes of those alive at once (``live``; ``peak``, the most), each freed
+    when its storage goes (a weakref finalizer), on whatever thread that
+    happens."""
+
+    def __init__(self, axes=None):
+        self.axes = axes
+        self.count = self.live = self.peak = 0
+
+    def add(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        nb = st.nbytes()
+        self.count += 1
+        self.live += nb
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(st, self._free, nb)
+
+    def _free(self, nb: int) -> None:
+        self.live -= nb
+
+
+@contextlib.contextmanager
+def track_gathers(axes=None):
+    """A ``GatherTrack`` of the gathers over ``axes`` made inside (a
+    recompute's too): ``("pod", "data")`` for FSDP's."""
+    track = GatherTrack(axes)
+    _TRACKS.append(track)
+    try:
+        yield track
+    finally:
+        _TRACKS.remove(track)
 
 
 # ---------------------------------------------------------------------------
@@ -358,5 +404,4 @@ def current() -> Optional[Parallel]:
     ctx = get_axis_rules()
     if ctx is None:
         return None
-    rules, mesh = ctx
-    return parallel_of(rules, mesh)
+    return parallel_of(ctx[0], ctx[1])

@@ -18,13 +18,19 @@ placements, as the reference does:
     (greedy fallback): each rank takes its own rows of the global batch it is
     given, for each microbatch its part of that microbatch's rows, so that a
     microbatch holds the rows it holds on one device;
-  - FSDP (``embed`` over ``data``): params, m and v are stored as shards;
-    the step all-gathers the whole parameter tree over ``data`` once a
-    forward (the tensor-parallel shards stay local), inside the graph, so
-    that the backward reduce-scatters each gradient into its shard as soon
-    as it is complete (in the params' dtype, as FSDP reduces by default; the
-    other data axes are summed in f32). Per-layer gathering is a later step
-    (ROADMAP 6c);
+  - FSDP (``embed`` over ``data``): params, m and v are stored as shards,
+    and a forward all-gathers each leaf over ``data`` (the tensor-parallel
+    shards stay local) inside the graph, so that the backward
+    reduce-scatters each gradient into its shard as soon as it is complete
+    (in the params' dtype, as FSDP reduces by default; the other data axes
+    are summed in f32). The leaves outside the trunk (``embed``,
+    ``lm_head``, ``final_norm``, the encoder's ``norm``) are gathered before
+    the model runs; the trunk's reach the model as shards, and each layout
+    period (each encoder layer) gathers its own inside its checkpointed
+    function (``models.common.gather_params``, through the rules context),
+    as the reference's scan gathers each group's slice in its body. Under
+    remat ``block`` and ``full`` a rank so holds one period's weights
+    gathered at a time, and the recompute gathers them again;
   - each rank's loss is the mean over its rows, and the gradients are
     averaged over the data axes (pod and data), which is the global mean when
     the splits are equal, as in the reference; with ``compress_pods`` the pod
@@ -60,7 +66,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.models import attention as attn
-from repro_torch.models.common import axis_rules, resolve_device
+from repro_torch.models.common import axis_rules, get_axis_rules, resolve_device
 from repro_torch.models.registry import decode_step, prefill, train_loss
 from repro_torch.optim import adamw_update, ef_compress, global_norm
 from repro_torch.optim.adamw import _spec_leaves, tree_leaves, tree_map
@@ -81,6 +87,9 @@ from .sharding import (
 )
 
 DATA_AXES = ("pod", "data")
+# the params the model gathers itself under FSDP, a layout period (an
+# encoder layer) at a time (``models.transformer``)
+TRUNK = (("layers",), ("encoder", "layers"))
 
 
 def is_mesh(x) -> bool:
@@ -141,6 +150,33 @@ def make_train_state_specs(model, with_axes: bool = False):
 # ---------------------------------------------------------------------------
 # Placed trees
 # ---------------------------------------------------------------------------
+
+
+def _outside_trunk(fn, tree: dict, path: tuple = ()) -> dict:
+    """``tree`` with ``fn(subtree)`` in place of each subtree outside
+    ``TRUNK``: a leaf, or a list that is not a trunk."""
+    if path in TRUNK:
+        return tree
+    if isinstance(tree, dict):
+        return {k: _outside_trunk(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(tree)
+
+
+def fsdp_units(cfg, params: dict) -> tuple:
+    """What FSDP gathers of ``params`` (a params tree of a model of ``cfg``)
+    and when: (the tree of the leaves outside ``TRUNK``, gathered before the
+    model runs; the list of the trunk's units, each gathered inside the
+    model, one at a time: each layout period of ``layers``, each encoder
+    layer)."""
+    def outside(tree, path=()):
+        if not isinstance(tree, dict):
+            return tree
+        return {k: outside(v, path + (k,)) for k, v in tree.items() if path + (k,) not in TRUNK}
+
+    period = len(cfg.layout)
+    units = [params["layers"][g : g + period] for g in range(0, len(params["layers"]), period)]
+    units += [[p] for p in params.get("encoder", {}).get("layers", [])]
+    return outside(params), units
 
 
 def _tree_zip(fn, tree, other):
@@ -276,29 +312,36 @@ def make_train_step(
                             microbatches=microbatches, compress_pods=compress_pods)
 
 
-def _loss_and_grads(model, params, batch, to_compute=None):
-    """(loss, the gradient of each leaf of ``params``); ``to_compute`` maps
-    the leaves to what the model computes with, inside the graph (FSDP's
-    gather, whose backward reduce-scatters)."""
+def _loss_and_grads(model, params, batch, fsdp=None):
+    """(loss, the gradient of each leaf of ``params``); ``fsdp`` maps the
+    leaves to FSDP's gather of a tree of them, inside the graph, whose
+    backward reduce-scatters: the step applies it to the leaves outside the
+    trunk, and installs it beside the axis rules for the model's periods
+    (``models.common.gather_params``)."""
     leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
-    it = iter(leaves if to_compute is None else to_compute(leaves))
+    it = iter(leaves)
     live = tree_map(lambda _: next(it), params)
-    loss, _ = train_loss(model, live, batch)
+    if fsdp is None:
+        loss, _ = train_loss(model, live, batch)
+    else:
+        gather_tree = fsdp(leaves)
+        with axis_rules(*get_axis_rules()[:2], gather_tree):
+            loss, _ = train_loss(model, _outside_trunk(gather_tree, live), batch)
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
-def _accumulate(model, params, batch: dict, microbatches: int, n_rows: int, to_compute=None):
+def _accumulate(model, params, batch: dict, microbatches: int, n_rows: int, fsdp=None):
     """(loss, grads) of ``batch``, f32 gradients summed over equal splits of
     its ``n_rows`` rows and divided by their number where ``microbatches`` >
     1, as the reference does."""
     if microbatches == 1:
-        return _loss_and_grads(model, params, batch, to_compute)
+        return _loss_and_grads(model, params, batch, fsdp)
     n = n_rows // microbatches
     gsum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device) for p in tree_leaves(params)]
     lsum = torch.zeros((), dtype=torch.float32, device=batch["tokens"].device)
     for i in range(microbatches):
         loss, grads = _loss_and_grads(model, params, {k: v[i * n : (i + 1) * n] for k, v in batch.items()},
-                                      to_compute)
+                                      fsdp)
         for a, g in zip(gsum, grads):
             a.add_(g.float())
         lsum = lsum + loss
@@ -370,25 +413,30 @@ def _mesh_train_step(model, mesh, schedule: Callable, *, rules, global_batch: in
 
     reduce_axes = tuple(a for a in DATA_AXES if sizes.get(a, 1) > 1 and not (compress and a == "pod"))
     n_avg = comm.size(tuple(a for a in DATA_AXES if a in sizes))
-    fsdp = [tuple((d, spec_axes(e)) for d, e in enumerate(sp) if set(spec_axes(e)) & set(DATA_AXES))
-            for sp in _spec_leaves(pspecs)]
+    # each leaf's FSDP gathers: (dim, data axes) of the dims split over them
+    gathers = [tuple((d, spec_axes(e)) for d, e in enumerate(sp) if set(spec_axes(e)) & set(DATA_AXES))
+               for sp in _spec_leaves(pspecs)]
 
-    def to_compute(leaves: list) -> list:
-        """FSDP: each leaf gathered whole over its data axes, in the graph:
-        the backward reduce-scatters its gradient as soon as it is complete
-        (in the leaf's dtype), so no whole gradient outlives its leaf's."""
-        out = []
-        for leaf, gathers in zip(leaves, fsdp):
-            for d, axes in gathers:
-                leaf = gather(leaf, comm, d, axes)
-            out.append(leaf)
-        return out
+    def gather_leaf(leaf: torch.Tensor, gs) -> torch.Tensor:
+        for d, axes in gs:
+            leaf = gather(leaf, comm, d, axes)
+        return leaf
 
-    def to_storage(g: torch.Tensor, gathers) -> torch.Tensor:
+    def fsdp(leaves: list):
+        """FSDP's gather of a tree of this forward's ``leaves``: each leaf
+        gathered whole over its data axes, in the graph, so that the backward
+        reduce-scatters its gradient as soon as it is complete (in the leaf's
+        dtype) and no whole gradient outlives its leaf's. A leaf is found by
+        identity: the model's periods hand it their own leaves, and their
+        recompute (a checkpoint's) the same objects."""
+        by_id = {id(leaf): gs for leaf, gs in zip(leaves, gathers)}
+        return lambda tree: tree_map(lambda t: gather_leaf(t, by_id[id(t)]), tree)
+
+    def to_storage(g: torch.Tensor, gs) -> torch.Tensor:
         """A shard's gradient, summed over its gathered axes already: summed
         in f32 over the other data axes, and averaged."""
         g = g.float()
-        done = {a for _, axes in gathers for a in axes}
+        done = {a for _, axes in gs for a in axes}
         rest = tuple(a for a in reduce_axes if a not in done)
         if rest:
             g = comm.all_reduce(g.contiguous(), rest)
@@ -403,10 +451,10 @@ def _mesh_train_step(model, mesh, schedule: Callable, *, rules, global_batch: in
         shards = tree_map(lambda t: t.to_local(), state["params"])
         lr = schedule(state["step"].to_local()).to(torch.float32)
         with axis_rules(run_rules, mesh):
-            loss, grads = _accumulate(model, shards, local_batch, microbatches, global_batch // dp, to_compute)
+            loss, grads = _accumulate(model, shards, local_batch, microbatches, global_batch // dp, fsdp)
         with torch.no_grad():
             grads = list(grads)
-            for i, gs in enumerate(fsdp):  # leaf by leaf, each one's own-dtype gradient freed as it goes
+            for i, gs in enumerate(gathers):  # leaf by leaf, each one's own-dtype gradient freed as it goes
                 grads[i] = to_storage(grads[i], gs)
             it = iter(grads)
             grads = tree_map(lambda _: next(it), shards)

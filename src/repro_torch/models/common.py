@@ -9,7 +9,8 @@ returns the logical-axes tree beside the params. ``axis_rules(rules, mesh)``
 installs the logical-name -> mesh-axis rules of ``repro_torch.dist.sharding``
 around a call; the model code reads from them (``repro_torch.dist.comm
 .current``) which of its dimensions are local shards and over which process
-group. Without rules nothing changes. ``cost_scope(name)`` marks a
+group, and reaches FSDP's gather through them (``gather_params``). Without
+rules nothing changes. ``cost_scope(name)`` marks a
 region that runs as one hand-written kernel (the reference's
 ``jax.named_scope("pallas_*")``), and ``cost_repeat(n)`` a region that
 stands for n runs of itself; both are context variables that
@@ -238,29 +239,44 @@ def resolve_device(device) -> torch.device:
 _AXIS_RULES = threading.local()
 
 
-def set_axis_rules(rules: Optional[dict], mesh=None) -> None:
-    """rules: logical axis name -> mesh axis (str / tuple / None)."""
-    _AXIS_RULES.ctx = None if rules is None else (rules, mesh)
+def set_axis_rules(rules: Optional[dict], mesh=None, gather=None) -> None:
+    """rules: logical axis name -> mesh axis (str / tuple / None); ``gather``:
+    FSDP's gather of the step that runs under them (``gather_params``)."""
+    _AXIS_RULES.ctx = None if rules is None else (rules, mesh, gather)
 
 
 def get_axis_rules():
-    """(rules, mesh) installed on this thread, or None."""
+    """(rules, mesh, gather) installed on this thread, or None."""
     return getattr(_AXIS_RULES, "ctx", None)
 
 
 class axis_rules:
-    """Context manager for logical -> mesh axis rules (and the mesh itself)."""
+    """Context manager for logical -> mesh axis rules (and the mesh itself,
+    and the FSDP gather of a sharded train step)."""
 
-    def __init__(self, rules: Optional[dict], mesh=None):
-        self.rules, self.mesh = rules, mesh
+    def __init__(self, rules: Optional[dict], mesh=None, gather=None):
+        self.rules, self.mesh, self.gather = rules, mesh, gather
 
     def __enter__(self):
         self.prev = get_axis_rules()
-        set_axis_rules(self.rules, self.mesh)
+        set_axis_rules(self.rules, self.mesh, self.gather)
         return self
 
     def __exit__(self, *exc):
         _AXIS_RULES.ctx = self.prev
+
+
+def gather_params(tree):
+    """``tree``, a subtree of the params a sharded train step was given,
+    with each leaf gathered whole over the data axes FSDP splits it on,
+    where the step installed its gather (``repro_torch.dist.step``); else
+    ``tree`` itself. The model calls it inside each checkpointed layout
+    period, so that a period's gathered weights live only in its forward and
+    its recompute."""
+    ctx = get_axis_rules()
+    if ctx is None or ctx[2] is None:
+        return tree
+    return ctx[2](tree)
 
 
 def parallel():

@@ -20,7 +20,12 @@ scan body: ``full`` keeps only the period's input
 (``torch.utils.checkpoint``), ``block`` also keeps the outputs of the plain
 matrix products (``aten.mm``, the reference's
 ``dots_with_no_batch_dims_saveable``), ``none`` keeps everything. Under
-either remat the attention forward runs again in the backward pass.
+either remat the attention forward runs again in the backward pass. Under a
+sharded step's FSDP (``dist.step``) the trunk's weights arrive as shards and
+each period (each encoder layer) gathers its own inside the checkpointed
+function (``common.gather_params``): under ``block`` and ``full`` the
+gathered weights live only in that period's forward and in its recompute,
+which gathers them again, as the reference's scan body does.
 ``encode`` applies it to each encoder layer, and a training trunk takes the
 encoder's ``memory`` itself, so that each decoder layer projects its
 cross-attention K and V inside its checkpointed period, as the reference's
@@ -50,6 +55,7 @@ from .common import (
     ParamBuilder,
     apply_rope,
     axis_rules,
+    gather_params,
     get_axis_rules,
     grad_cast,
     resolve_device,
@@ -177,7 +183,9 @@ class Model:
         return _rms(x, params["encoder"]["norm"], cfg.norm_eps)
 
     def _encoder_layer(self, p: dict, x, positions, kernels):
+        """One encoder layer; its weights gathered here under FSDP."""
         cfg = self.cfg
+        p = gather_params(p)
         h = _rms(x, p["ln1"], cfg.norm_eps)
         m = p["mixer"]
         par = attn.heads_parallel()
@@ -231,7 +239,10 @@ class Model:
         return x, aux, (new_caches if caches is not None else None)
 
     def _period(self, layers: list, x, aux, positions, kernels, memory=None):
-        """One layout period without caches: the reference's scan body."""
+        """One layout period without caches: the reference's scan body. Under
+        FSDP its weights are gathered here, as the reference's scan gathers
+        each group's slice in its body."""
+        layers = gather_params(layers)
         for spec, p in zip(self.cfg.layout, layers):
             x, _, a = apply_layer(p, self.cfg, spec, x, positions, None, kernels, memory=memory)
             aux = aux + a
@@ -335,7 +346,8 @@ def _vocab_parallel_lse_gold(par, logits: torch.Tensor, labels: torch.Tensor):
 def _remat(cfg: ArchConfig, fn, *args):
     """fn(*args), under the config's remat where a gradient is being taken.
     The recompute runs in the backward pass, on autograd's thread for CUDA
-    tensors, so the axis rules installed now are installed around it too."""
+    tensors, so the axis rules installed now (and FSDP's gather with them)
+    are installed around it too: it gathers its weights again."""
     if not torch.is_grad_enabled() or cfg.remat == "none":
         return fn(*args)
     ctx = {"full": None, "block": _save_matmuls}[cfg.remat]

@@ -233,6 +233,7 @@ CASES = [(a, a, {}, {}) for a in ARCHS] + [
     ("jamba-remat_block", "jamba-v0.1-52b", dict(n_layers=8, remat="block"), {}),
     ("seamless-remat_full", "seamless-m4t-medium", dict(remat="full"), {}),
     ("jamba-micro2", "jamba-v0.1-52b", dict(n_layers=8), dict(microbatches=2)),
+    ("stablelm-remat_block4", "stablelm-1.6b", dict(n_layers=4, remat="block"), {}),
 ]
 SPAWN_MESHES = {"2x2": (2, 2), "2x1x2": (2, 1, 2)}
 
@@ -307,6 +308,7 @@ def _moe_dispatch_check(cfg, mesh, rules, seed=3):
 def _train_ranks(rank, world, shape, cases):
     """One rank of a spawned mesh: each case's two sharded steps beside the
     one-device steps, with what the tests compare."""
+    from repro_torch.dist.comm import track_gathers
     from repro_torch.dist.sharding import make_rules
     from repro_torch.dist.step import gather_state, make_train_step, place_state
     from repro_torch.launch.mesh import make_host_mesh
@@ -330,11 +332,13 @@ def _train_ranks(rank, world, shape, cases):
         one = make_train_step(model, "cpu", cosine_warmup(LR, 1, 4), global_batch=B, **opts)
         step, _, shard, _ = make_train_step(model, mesh, cosine_warmup(LR, 1, 4), global_batch=B, **opts)
         s1, s2 = _fresh(model), place_state(_fresh(model), shard, mesh)
-        mets = []
+        mets, tracks = [], []
         for b in batches:
             s1, m1 = one(s1, b)
-            s2, m2 = step(s2, b)
+            with track_gathers(("pod", "data")) as track:
+                s2, m2 = step(s2, b)
             mets.append({k: (float(m1[k]), float(m2[k])) for k in ("loss", "lr", "grad_norm", "clip_scale")})
+            tracks.append({"count": track.count, "peak": track.peak, "live": track.live})
         full = gather_state(s2)
         far = {}
         for i, (got, want, m) in enumerate(zip(tree_leaves(full["params"]), tree_leaves(s1["params"]),
@@ -342,13 +346,40 @@ def _train_ranks(rank, world, shape, cases):
             n = _far_elements(got, want, m)
             if n:
                 far[i] = n
-        res = {"metrics": mets, "far": far, "step": int(full["step"]), "seconds": time.time() - t0}
+        res = {"metrics": mets, "far": far, "step": int(full["step"]), "seconds": time.time() - t0,
+               "gathers": tracks, "fsdp": _fsdp_budget(cfg, s2["params"])}
         if cfg.n_experts:
             res["moe"] = _moe_dispatch_check(cfg, mesh, make_rules(cfg, mesh, "train", B))
         out[name] = res
     if len(shape) == 3:
         out["compress"] = _compress_case(mesh)
     return out
+
+
+def _fsdp_budget(cfg, params) -> dict:
+    """What FSDP gathers of a placed params tree (``dist.step.fsdp_units``):
+    the gathered bytes and number of the leaves outside the trunk, of the
+    trunk, and of its largest unit (a layout period or an encoder layer). A
+    leaf is gathered over the data axes its placements split it on."""
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.dist.step import fsdp_units
+    from repro_torch.optim.adamw import tree_leaves
+
+    def gathered(tree):
+        n_bytes = n = 0
+        for t in tree_leaves(tree):
+            k = 1
+            for name, pl in zip(t.device_mesh.mesh_dim_names, t.placements):
+                if isinstance(pl, Shard) and name in ("pod", "data"):
+                    k *= t.device_mesh.size(t.device_mesh.mesh_dim_names.index(name))
+            if k > 1:
+                n_bytes, n = n_bytes + t.to_local().nbytes * k, n + 1
+        return n_bytes, n
+
+    outside, units = fsdp_units(cfg, params)
+    trunk = [gathered(u) for u in units]
+    return {"outside": gathered(outside), "trunk": tuple(map(sum, zip(*trunk))), "period": max(trunk)}
 
 
 def _compress_case(mesh):
@@ -419,6 +450,25 @@ def test_sharded_train_step_matches_one_device(spawned, mesh_id, case):
             assert moe["dropped"][1] == moe["dropped"][0], moe
             if "drops" in case:
                 assert moe["dropped"][0] > 0.1, moe
+
+
+@pytest.mark.parametrize("case", ["stablelm-remat_block4", "seamless-remat_full", "jamba-remat_block"])
+def test_fsdp_gathers_one_layout_period_at_a_time(spawned, case):
+    """FSDP on (data 2, model 2) under remat block or full: the gathered
+    weights alive at once never exceed one layout period's (or encoder
+    layer's) plus the leaves outside the trunk, and every trunk leaf is
+    gathered twice a step, in the forward and again in the recompute (so no
+    product kept its gathered weight)."""
+    for rank, out in enumerate(spawned("2x2")):
+        res = out[case]
+        (outside, n_outside), (trunk, n_trunk), (period, _) = (res["fsdp"][k] for k in ("outside", "trunk", "period"))
+        assert n_trunk > 0 and n_outside > 0, res["fsdp"]
+        for track in res["gathers"]:
+            assert track["peak"] <= outside + period, (rank, track, res["fsdp"])
+            assert track["count"] == n_outside + 2 * n_trunk, (rank, track, res["fsdp"])
+            assert track["live"] == 0, (rank, track)  # nothing gathered outlives the step
+        if case == "stablelm-remat_block4":  # four periods: the whole trunk was never gathered at once
+            assert outside + period < outside + trunk and max(t["peak"] for t in res["gathers"]) == outside + period
 
 
 def test_pod_compression_in_the_sharded_step(spawned):

@@ -65,6 +65,65 @@ def test_dryrun_cell_counts_and_records(shape, multipod, tmp_path):
         assert "all-reduce" in kinds
 
 
+# one rank of a (data 4, model 2) mesh on the fake backend: a reduced
+# stablelm of 4 layers takes a train step on meta tensors under each remat,
+# counted; prints the all-gather and reduce-scatter bytes over data and what
+# FSDP gathers (each leaf's shard bytes times the data axis it is split over)
+_FSDP_COUNT = """
+import dataclasses, json, torch, torch.distributed as dist
+from torch.testing._internal.distributed.fake_pg import FakeStore
+from torch.distributed.device_mesh import DeviceMesh
+from torch.distributed.tensor import Shard
+dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=8)
+mesh = DeviceMesh("cpu", torch.arange(8).reshape(4, 2), mesh_dim_names=("data", "model"))
+from repro_torch.configs import get_config
+from repro_torch.dist.step import fsdp_units, make_batch_specs, make_train_step, param_specs, placed_train_state
+from repro_torch.models.registry import build_model
+from repro_torch.optim import constant_lr
+from repro_torch.optim.adamw import tree_leaves
+from repro_torch.roofline import OpCounter
+
+def gathered(tree):
+    return sum(t.to_local().nbytes * 4 for t in tree_leaves(tree)
+               if any(isinstance(pl, Shard) and n == "data" for n, pl in zip(mesh.mesh_dim_names, t.placements)))
+
+out = {}
+for remat in ("block", "full", "none"):
+    cfg = dataclasses.replace(get_config("stablelm-1.6b").reduced(), n_layers=4, remat=remat)
+    model = build_model(cfg)
+    step, _, shard, _ = make_train_step(model, mesh, constant_lr(1e-3), global_batch=8)
+    state = placed_train_state(param_specs(model)[0], shard, mesh)
+    batch = make_batch_specs(cfg, "train", 8, 16)
+    with OpCounter(args=(state, batch)) as counter:
+        step(state, batch)
+    outside, units = fsdp_units(cfg, state["params"])
+    out[remat] = {
+        "all_gather": sum(b for k, b, n in counter.collective_ops if k == "all-gather" and n == 4),
+        "reduce_scatter": sum(b for k, b, n in counter.collective_ops if k == "reduce-scatter" and n == 4),
+        "trunk": gathered(units), "outside": gathered(outside),
+        "peak": counter.costs()["peak_bytes"]}
+print(json.dumps(out))
+"""
+
+
+def test_dryrun_counts_the_recompute_gathers():
+    """FSDP on a fake mesh with data 4: under remat block and full the
+    counted all-gather bytes over data are the leaves outside the trunk once
+    and the trunk twice (the forward's gathers and the recompute's, which
+    the counter sees on the backward's thread); under remat none, the trunk
+    once. Each gradient is reduce-scattered once, whatever the remat."""
+    r = subprocess.run([sys.executable, "-W", "ignore", "-c", _FSDP_COUNT], capture_output=True, text=True,
+                       timeout=150, env=_env(), cwd=REPO)
+    assert r.returncode == 0, r.stderr[-2000:]
+    out = json.loads(r.stdout.strip().splitlines()[-1])
+    for remat, times in (("block", 2), ("full", 2), ("none", 1)):
+        c = out[remat]
+        assert c["trunk"] > 0 and c["outside"] > 0, c
+        assert c["all_gather"] == c["outside"] + times * c["trunk"], (remat, c)
+        assert c["reduce_scatter"] * 4 == c["outside"] + c["trunk"], (remat, c)
+    assert out["block"]["peak"] < out["none"]["peak"], out
+
+
 def test_dryrun_skip_rows_recorded(tmp_path):
     """The reference's skip row, and the port's own: a prefill longer than
     mixtral's ring of 4096 slots, on either mesh."""

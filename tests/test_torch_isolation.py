@@ -1,9 +1,10 @@
-"""The port stands alone: no module of ``repro_torch`` loads jax, ``repro`` or
-``ml_dtypes``, and its entry points never fall back to the CPU when CUDA is
-asked for."""
+"""The port stands alone: no module of ``repro_torch`` nor any of its
+examples (``examples/torch_*.py``) loads jax, ``repro`` or ``ml_dtypes``, and
+its entry points never fall back to the CPU when CUDA is asked for."""
 
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -73,3 +74,28 @@ def test_cuda_entry_points_raise_without_cuda(monkeypatch):
         train.main(["--reduced", "--device", "cuda"])
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         MeshExecutor()
+
+
+EXAMPLES = ["torch_quickstart", "torch_wireframe_audit", "torch_twin_pipelines", "torch_train_lm"]
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_port_examples_import_neither_jax_nor_repro(name):
+    """Each port example loads (with everything its main reaches: the
+    launch drivers, the workspace, the models) without jax or ``repro``."""
+    path = SRC.parent / "examples" / f"{name}.py"
+    code = (
+        "import importlib.util, sys\n"
+        f"spec = importlib.util.spec_from_file_location('example', {str(path)!r})\n"
+        "mod = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(mod)\n"
+        "assert callable(mod.main)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=SRC, capture_output=True, text=True,
+                       timeout=120, env=dict(os.environ, PYTHONPATH=str(SRC)))
+    assert r.returncode == 0 and r.stdout.startswith("ok"), r.stdout + r.stderr
+    source = path.read_text()
+    assert not re.search(r"^\s*(from|import)\s+(jax|repro)\b", source, re.M), name
