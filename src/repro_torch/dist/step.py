@@ -68,6 +68,7 @@ import torch.distributed as dist
 from repro_torch.models import attention as attn
 from repro_torch.models.common import axis_rules, get_axis_rules, resolve_device
 from repro_torch.models.registry import decode_step, prefill, train_loss
+from repro_torch.obs import span
 from repro_torch.optim import adamw_update, ef_compress, global_norm
 from repro_torch.optim.adamw import _spec_leaves, tree_leaves, tree_map
 
@@ -592,7 +593,9 @@ def make_serve_fns(model, device="cuda", *, max_len: int, global_batch: int, rul
       decode_fn(params, tokens, state) -> (logits, state)
     Each checks the tokens and every layer's cache (and an encoder's memory)
     against the sizes first. Raises if the device is CUDA and no card is
-    present.
+    present. Under ``torch.profiler`` each runs inside the span
+    ``serve.prefill`` or ``serve.decode``, its check inside ``serve.check``
+    (``repro_torch.obs``).
 
     On a device (``device``): (prefill_fn, decode_fn), for states made by
     ``init_serve_state(model, global_batch, max_len, device)``; logits (B, V).
@@ -671,24 +674,28 @@ def _mesh_serve_fns(model, mesh, *, max_len: int, global_batch: int, rules: Opti
 
     @torch.inference_mode()
     def prefill_fn(params, tokens, state, frames=None, prefix=None):
-        if cfg.encoder_layers and frames is None:
-            raise ValueError(f"{cfg.name}: an encoder-decoder prefills with frames")
-        _check(tokens, state, frames, prefix)
-        local = _local_params(params)
-        with axis_rules(run_rules, mesh):
-            logits, new_state = prefill(model, local, plan.take_rows(tokens), state, frames=plan.take_rows(frames),
-                                        prefix=plan.take_rows(prefix))
-        return _placed(logits), new_state
+        with span("serve.prefill", phase="prefill"):
+            if cfg.encoder_layers and frames is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder prefills with frames")
+            with span("serve.check"):
+                _check(tokens, state, frames, prefix)
+            local = _local_params(params)
+            with axis_rules(run_rules, mesh):
+                logits, new_state = prefill(model, local, plan.take_rows(tokens), state,
+                                            frames=plan.take_rows(frames), prefix=plan.take_rows(prefix))
+            return _placed(logits), new_state
 
     @torch.inference_mode()
     def decode_fn(params, tokens, state):
-        if cfg.encoder_layers and "memory" not in state:
-            raise ValueError(f"{cfg.name}: decode needs the encoder memory that prefill keeps")
-        _check(tokens, state)
-        local = _local_params(params)
-        with axis_rules(run_rules, mesh):
-            logits, new_state = decode_step(model, local, plan.take_rows(tokens), state)
-        return _placed(logits), new_state
+        with span("serve.decode", phase="decode"):
+            if cfg.encoder_layers and "memory" not in state:
+                raise ValueError(f"{cfg.name}: decode needs the encoder memory that prefill keeps")
+            with span("serve.check"):
+                _check(tokens, state)
+            local = _local_params(params)
+            with axis_rules(run_rules, mesh):
+                logits, new_state = decode_step(model, local, plan.take_rows(tokens), state)
+            return _placed(logits), new_state
 
     return prefill_fn, decode_fn, state_shapes, shards
 
@@ -737,14 +744,18 @@ def _device_serve_fns(model, device, *, max_len: int, global_batch: int):
 
     @torch.inference_mode()
     def prefill_fn(params, tokens, state, frames=None, prefix=None):
-        _check(tokens, state, frames, prefix)
-        return prefill(model, params, tokens, state, frames=frames, prefix=prefix)
+        with span("serve.prefill", phase="prefill"):
+            with span("serve.check"):
+                _check(tokens, state, frames, prefix)
+            return prefill(model, params, tokens, state, frames=frames, prefix=prefix)
 
     @torch.inference_mode()
     def decode_fn(params, tokens, state):
-        if cfg.encoder_layers and "memory" not in state:
-            raise ValueError(f"{cfg.name}: decode needs the encoder memory that prefill keeps")
-        _check(tokens, state)
-        return decode_step(model, params, tokens, state)
+        with span("serve.decode", phase="decode"):
+            if cfg.encoder_layers and "memory" not in state:
+                raise ValueError(f"{cfg.name}: decode needs the encoder memory that prefill keeps")
+            with span("serve.check"):
+                _check(tokens, state)
+            return decode_step(model, params, tokens, state)
 
     return prefill_fn, decode_fn

@@ -48,6 +48,7 @@ import ctypes
 import torch
 
 from repro_torch.models.common import cost_scope
+from repro_torch.obs import spanned
 
 from . import build
 from .ref import PLAIN_DEVICES, reference_attention, reference_attention_bwd
@@ -114,6 +115,7 @@ def _check_inputs(q, k, v, window: int):
         raise ValueError(f"window {window} < 0")
 
 
+@spanned("kernel.flash_attention")
 def flash_attention(
     q: torch.Tensor,  # (B, Lq, H, Dk)
     k: torch.Tensor,  # (B, Lk, KVH, Dk)
@@ -165,6 +167,7 @@ flash_attention.launches = 0
 flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
 
 
+@spanned("kernel.flash_attention_bwd")
 def flash_attention_bwd(
     q: torch.Tensor,  # (B, Lq, H, Dk)
     k: torch.Tensor,  # (B, Lk, KVH, Dk)

@@ -32,6 +32,7 @@ import functools
 import torch
 
 from repro_torch.models.common import cost_scope
+from repro_torch.obs import spanned
 
 from . import build
 from .flash_attention import SCOPE
@@ -107,6 +108,7 @@ def _check_inputs(q, k, v, k_pos, q_pos, n_valid, window: int):
         raise ValueError(f"window {window} < 0")
 
 
+@spanned("kernel.flash_decode")
 def flash_decode(
     q: torch.Tensor,  # (B, 1, H, Dh) the new token's queries
     k: torch.Tensor,  # (B, S, KVH, Dh) cache keys

@@ -35,6 +35,7 @@ import ctypes
 import torch
 
 from repro_torch.core.hashing import TREE_BLOCK_WORDS
+from repro_torch.obs import spanned
 
 from . import build
 from .ref import reference_hash_tree_bytes
@@ -92,6 +93,7 @@ def _check(u8s) -> torch.device:
     return device
 
 
+@spanned("kernel.hash_tree")
 def hash_tree_states(u8s: list) -> torch.Tensor:
     """Tree states ``(h1, h2, h3)`` of each 1-D uint8 tensor of ``u8s`` (all on
     one device), as a (k, 3) int32 tensor of uint32 bits on that device."""

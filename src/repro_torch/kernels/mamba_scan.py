@@ -60,6 +60,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models.common import cost_scope
+from repro_torch.obs import spanned
 
 from . import build
 from .ref import PLAIN_DEVICES, reference_selective_scan, reference_selective_scan_bwd
@@ -146,6 +147,7 @@ def segment_len(Di: int) -> int:
     return steps
 
 
+@spanned("kernel.mamba_scan")
 def mamba_scan(
     xc: torch.Tensor,  # (B, L, Di) post-conv activations
     dt: torch.Tensor,  # (B, L, Di) f32, post-softplus
@@ -228,6 +230,7 @@ def _plain_bwd_segments(xc, dt, Bm, Cm, a, h0, dy, dh_final, seg):
     return dxc, ddt, dB, dC, da, carry
 
 
+@spanned("kernel.mamba_scan_bwd")
 def mamba_scan_bwd(
     xc: torch.Tensor,  # (B, L, Di)
     dt: torch.Tensor,  # (B, L, Di) f32

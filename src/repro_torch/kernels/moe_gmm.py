@@ -57,6 +57,7 @@ import ctypes
 import torch
 
 from repro_torch.models.common import cost_scope
+from repro_torch.obs import spanned
 
 from . import build
 from .ref import PLAIN_DEVICES, reference_gmm, reference_gmm_bwd
@@ -116,6 +117,7 @@ def _check_inputs(x, w_gate, w_up, w_down):
                         "want one of float32, bfloat16, all alike")
 
 
+@spanned("kernel.moe_gmm")
 def moe_gmm(
     x: torch.Tensor,  # (E, C, D) per-expert token bins
     w_gate: torch.Tensor,  # (E, D, F)
@@ -159,6 +161,7 @@ moe_gmm.launches = 0
 moe_gmm.route_launches = dict.fromkeys(ROUTES, 0)
 
 
+@spanned("kernel.moe_gmm_bwd")
 def moe_gmm_bwd(
     x: torch.Tensor,  # (E, C, D)
     w_gate: torch.Tensor,  # (E, D, F)

@@ -7,7 +7,9 @@ tensors. A caller may hand the trunk another dict, e.g. the plain versions
 of ``ref`` on the card, to hold the kernels against them. ``KERNELS`` also
 holds ``hash_tree``, which the engine's content hashing launches
 (``repro_torch.core.hashing``), not the models; the launch counters cover
-all eight. The three backward kernels that training runs have no Pallas
+all eight. Under ``torch.profiler`` each wrapper's call runs inside the
+host span ``kernel.<name>`` (``repro_torch.obs``), its checks, route choice
+and launch included. The three backward kernels that training runs have no Pallas
 counterpart (the JAX train step differentiates jnp code):
 ``flash_attention_bwd`` (K1), ``moe_gmm_bwd`` (K7a) and ``mamba_scan_bwd``
 (K7b), each paired with its forward in a ``torch.autograd.Function`` of

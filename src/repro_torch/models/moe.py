@@ -42,6 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import kernel_set
+from repro_torch.obs import span
 
 from .common import ArchConfig, ParamBuilder, parallel
 
@@ -188,38 +189,43 @@ def moe_ffn(
     C = expert_capacity(T_all // G, cfg)
     xf = x.reshape(T, D)
 
-    router = p["router"]
-    if par is not None and par.tp > 1 and router.shape[1] != E:  # stored over experts
-        from repro_torch.dist.comm import gather
+    with span("moe.route"):
+        router = p["router"]
+        if par is not None and par.tp > 1 and router.shape[1] != E:  # stored over experts
+            from repro_torch.dist.comm import gather
 
-        router = gather(router, par.comm, 1, ("model",), grads="same")
-    probs, gate_w, gate_e = route({"router": router}, cfg, xf)
-    # Switch aux loss: E * sum_e (top-1 token fraction_e * mean prob_e)
-    onehot = F.one_hot(gate_e[:, 0], E).float()
-    if dp > 1:
-        prob_mean = par.batch_sum(probs.sum(0)) / T_all
-        frac = par.comm.all_reduce(onehot.sum(0), par.batch) / T_all
-        aux_loss = E * torch.mean(prob_mean * frac)
-    else:
-        aux_loss = E * torch.mean(probs.mean(0) * onehot.mean(0))
+            router = gather(router, par.comm, 1, ("model",), grads="same")
+        probs, gate_w, gate_e = route({"router": router}, cfg, xf)
+        # Switch aux loss: E * sum_e (top-1 token fraction_e * mean prob_e)
+        onehot = F.one_hot(gate_e[:, 0], E).float()
+        if dp > 1:
+            prob_mean = par.batch_sum(probs.sum(0)) / T_all
+            frac = par.comm.all_reduce(onehot.sum(0), par.batch) / T_all
+            aux_loss = E * torch.mean(prob_mean * frac)
+        else:
+            aux_loss = E * torch.mean(probs.mean(0) * onehot.mean(0))
 
-    experts = (0, None)
-    if tp is not None:
-        xf, gate_w = tp.to_model(xf), tp.to_model(gate_w)
-        if tp.sharded("experts"):
-            e_loc = p["w_gate"].shape[0]
-            experts = (tp.tp_rank * e_loc, (tp.tp_rank + 1) * e_loc)
-    xe, slot_by_flat, kept = _dispatch(xf, gate_e, K, E, C, G, par, experts)
-    hs = [grouped_swiglu(xg, p["w_gate"], p["w_up"], p["w_down"], kernels) for xg in xe]  # one launch a group
-    h = hs[0] if len(hs) == 1 else torch.stack(hs)
+    with span("moe.dispatch"):
+        experts = (0, None)
+        if tp is not None:
+            xf, gate_w = tp.to_model(xf), tp.to_model(gate_w)
+            if tp.sharded("experts"):
+                e_loc = p["w_gate"].shape[0]
+                experts = (tp.tp_rank * e_loc, (tp.tp_rank + 1) * e_loc)
+        xe, slot_by_flat, kept = _dispatch(xf, gate_e, K, E, C, G, par, experts)
+    with span("moe.experts"):
+        hs = [grouped_swiglu(xg, p["w_gate"], p["w_up"], p["w_down"], kernels) for xg in xe]  # one launch a group
+        h = hs[0] if len(hs) == 1 else torch.stack(hs)
 
-    ybuf = torch.cat([h.reshape(-1, D), h.new_zeros((1, D))])
-    y = ybuf[slot_by_flat].view(T, K, D)
-    y = (y * gate_w[..., None].to(y.dtype)).sum(dim=1)
-    if tp is not None:
-        y = tp.from_model(y)
+    with span("moe.combine"):
+        ybuf = torch.cat([h.reshape(-1, D), h.new_zeros((1, D))])
+        y = ybuf[slot_by_flat].view(T, K, D)
+        y = (y * gate_w[..., None].to(y.dtype)).sum(dim=1)
+        if tp is not None:
+            y = tp.from_model(y)
+        y = y.view(B, L, D).to(x.dtype)
     dropped = T_all * K - kept
-    return y.view(B, L, D).to(x.dtype), {
+    return y, {
         "aux_loss": aux_loss,
         "dropped_frac": dropped.float() / (T_all * K),
     }

@@ -28,6 +28,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.obs import span
+
 from .common import ArchConfig
 from .transformer import Model
 
@@ -96,7 +98,8 @@ def prefill(
     cfg = model.cfg
     if cfg.encoder_layers and frames is None:
         raise ValueError(f"{cfg.name}: an encoder-decoder prefills with frames")
-    x = model.embed(params, tokens)
+    with span("embed"):
+        x = model.embed(params, tokens)
     if prefix is not None:
         x = torch.cat([prefix.to(x.dtype), x], dim=1)
     B, L, _ = x.shape
@@ -108,7 +111,8 @@ def prefill(
         new_state["memory_kv"] = cross_kvs = model.memory_kv(params, new_state["memory"])
     x, _, caches = model.trunk(params, x, positions, caches=state["caches"], kernels=kernels,
                                cross_kvs=cross_kvs)
-    logits = model.logits(params, x[:, -1:])[:, 0]
+    with span("head"):
+        logits = model.logits(params, x[:, -1:])[:, 0]
     return logits, {"caches": caches, **new_state}
 
 
@@ -121,12 +125,14 @@ def decode_step(
 ):
     """One autoregressive step against the KV / SSM caches (and the encoder
     memory's K/V that prefill kept)."""
-    x = model.embed(params, tokens)
+    with span("embed"):
+        x = model.embed(params, tokens)
     B = tokens.shape[0]
     positions = torch.full((B, 1), state["t"], dtype=torch.int64, device=tokens.device)
     x, _, caches = model.trunk(params, x, positions, caches=state["caches"], kernels=kernels,
                                cross_kvs=state.get("memory_kv"))
-    logits = model.logits(params, x)[:, 0]  # (B, V)
+    with span("head"):
+        logits = model.logits(params, x)[:, 0]  # (B, V)
     return logits, {**state, "caches": caches, "t": state["t"] + 1}
 
 

@@ -45,6 +45,7 @@ import torch
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from repro_torch.kernels.ops import kernel_set
+from repro_torch.obs import span
 
 from . import attention as attn
 from . import mamba as mb
@@ -66,7 +67,8 @@ from .common import (
 
 def _rms(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     # as the reference: the norm's cotangent is cast to the activation dtype
-    return grad_cast(rms_norm(x, w, eps))
+    with span("norm"):
+        return grad_cast(rms_norm(x, w, eps))
 
 
 def init_layer(pb: ParamBuilder, cfg: ArchConfig, spec: LayerSpec, cross: bool = False) -> dict:
@@ -106,23 +108,29 @@ def apply_layer(
         cross_kv = attn.memory_kv(p["cross"], memory)
     h = _rms(x, p["ln1"], cfg.norm_eps)
     if spec.mixer == "mamba":
-        y, new_cache = mb.mamba_block(p["mixer"], cfg, h, positions, cache, kernels=kernels)
+        with span("mamba"):
+            y, new_cache = mb.mamba_block(p["mixer"], cfg, h, positions, cache, kernels=kernels)
     elif cfg.attention == "mla":
-        y, new_cache = attn.mla_block(p["mixer"], cfg, h, positions, cache, kernels=kernels)
+        with span("mla"):
+            y, new_cache = attn.mla_block(p["mixer"], cfg, h, positions, cache, kernels=kernels)
     else:
-        y, new_cache = attn.attention_block(p["mixer"], cfg, h, positions, cache, kernels=kernels)
+        with span("attention"):
+            y, new_cache = attn.attention_block(p["mixer"], cfg, h, positions, cache, kernels=kernels)
     x = x + y
     if "cross" in p and cross_kv is not None:
         h = _rms(x, p["ln_cross"], cfg.norm_eps)
-        y, _ = attn.attention_block(p["cross"], cfg, h, positions, cross_kv=cross_kv, kernels=kernels)
+        with span("cross"):
+            y, _ = attn.attention_block(p["cross"], cfg, h, positions, cross_kv=cross_kv, kernels=kernels)
         x = x + y
     if "ffn" in p:
         h = _rms(x, p["ln2"], cfg.norm_eps)
         if spec.ffn == "moe":
-            y, mo = moe_mod.moe_ffn(p["ffn"], cfg, h, kernels=kernels)
+            with span("moe"):
+                y, mo = moe_mod.moe_ffn(p["ffn"], cfg, h, kernels=kernels)
             aux = mo["aux_loss"]
         else:
-            y = moe_mod.dense_ffn(p["ffn"], h)
+            with span("ffn"):
+                y = moe_mod.dense_ffn(p["ffn"], h)
         x = x + y
     return x, new_cache, aux
 
