@@ -49,7 +49,10 @@ on, so that their numbers are still printed):
      kernel launches of that run (every bf16 launch on its tensor-core
      route), then run prefill and the first decode steps again through the
      plain versions on the card and compare logits and greedy tokens; steady
-     and profiled serve times;
+     and profiled serve times, eager and through the serve functions' decode
+     (a CUDA graph for a plain K/V or Mamba state), whose profiled round
+     must hold each kernel's launches as device kernels
+     (``ops.calls_in_trace``);
   3b. serve jamba-v0.1-52b at full width, cut to one layout period (8 of its
      32 layers: the full depth does not fit the card's 80 GB), bf16, batch 4,
      prompt 512, 32 tokens, through ``repro_torch.launch.serve.run``: exact
@@ -60,7 +63,7 @@ on, so that their numbers are still printed):
      the plain run dispatched through the kernels run's routing, which gates
      (``forced_routing_gate``: logits, greedy tokens, and the router
      probabilities of the two runs, whose hidden states differ by arithmetic
-     alone); steady and profiled serve times;
+     alone); steady and profiled serve times as phase 3;
   3c. the Koalja circuit on the card: a ``repro_torch.workspace.Workspace``
      (flat, inline executor, default store) with one task ``normalize``;
      push B14's wave of 64 card-resident f32 tensors of 4.5 MiB, the same
@@ -108,7 +111,8 @@ on, so that their numbers are still printed):
      every bf16 launch on its tensor-core route, no plain version called, the
      calls of each kernel by input shape; kernels vs plain versions in bf16
      and f32 as phase 3b (mixtral gated on the kernels' routing; the f32
-     comparison of mixtral peaks at ~63 GiB); steady and profiled serve times;
+     comparison of mixtral peaks at ~63 GiB); steady and profiled serve times
+     as phase 3;
   4. time each kernel at the shapes of its main path (CUDA events, L2
      flushed before each launch by writing 256 MiB) beside its plain
      version, one PyTorch library call that computes the same function (three
@@ -3214,8 +3218,8 @@ def serve_mesh_expect(cfg, spec) -> dict:
 
 def serve_mesh_rank(rank: int, world: int) -> list:
     """Phase 6d on one of the ranks sharing the card: for each run of this
-    world size, rank 0 serves alone on one device (its logits, greedy tokens,
-    router choices and probabilities kept), then every rank serves on the mesh
+    world size, rank 0 serves alone on one device, decoding eagerly (its
+    logits, greedy tokens, router choices and probabilities kept), then every rank serves on the mesh
     through ``make_serve_fns`` with the params placed by
     ``place_serve_params`` (the ranks init and place in turns: a whole jamba
     cut to 8 layers and its shard would not fit twice beside each other) and
@@ -3231,7 +3235,7 @@ def serve_mesh_rank(rank: int, world: int) -> list:
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.common import parallel
-    from repro_torch.models.registry import build_model, init_serve_state
+    from repro_torch.models.registry import build_model, decode_step, init_serve_state
 
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")  # the ranks share the card
     torch.cuda.set_device(0)
@@ -3278,7 +3282,9 @@ def serve_mesh_rank(rank: int, world: int) -> list:
         if rank == 0:  # alone on the card: the other ranks wait at the broadcast
             torch.cuda.reset_peak_memory_stats()
             params = model.init(spec["seed"], dev)
-            fns = make_serve_fns(model, dev, max_len=max_len, global_batch=B)
+            prefill_fn, _ = make_serve_fns(model, dev, max_len=max_len, global_batch=B)
+            # decoded eagerly: the routing is recorded a call at a time, which a CUDA graph's replays do not run
+            fns = (prefill_fn, lambda p, tok, st: decode_step(model, p, tok, st))
             moe_mod.route = recording_route
             try:
                 with torch.inference_mode():
@@ -3870,6 +3876,7 @@ def main() -> int:
     from repro_torch.kernels.moe_gmm import moe_gmm
     from repro_torch.kernels.moe_gmm import _route as gmm_route
     import repro_torch.kernels.moe_gmm as gmm_module
+    from repro_torch.dist.step import make_serve_fns, takes_graph
     from repro_torch.launch import serve
     from repro_torch.models import moe as moe_mod
     from repro_torch.models.registry import build_model, decode_step, init_serve_state, prefill
@@ -4252,26 +4259,15 @@ def main() -> int:
         """Drive the serve entry once with every count at 0; returns (tokens,
         launches). Fails if a plain version ran (``PlainSpy``). With a dict
         ``shapes``, also counts each kernel's calls by its inputs' shapes
-        there, {name: {shapes: calls}} (each call is one launch: the totals
+        there, {name: {shapes: calls}} (``ops.count_calls``: a replayed decode
+        graph adds the calls it captured; each call is one launch: the totals
         must equal the launch counts)."""
-        calls_by_shape: dict = {}
         ops.reset_launch_counts()
-        saved = dict(ops.KERNELS)
-        if shapes is not None:
-            for name in ("flash_attention", "flash_decode", "moe_gmm"):
-                def counted(*args, _fn=saved[name], _name=name, **kwargs):
-                    key = tuple(tuple(a.shape) for a in args[:3])
-                    per = calls_by_shape.setdefault(_name, {})
-                    per[key] = per.get(key, 0) + 1
-                    return _fn(*args, **kwargs)
-
-                ops.KERNELS[name] = counted
-        try:
-            with PlainSpy() as spy:
-                tokens = run_serve()
-                torch.cuda.synchronize()
-        finally:
-            ops.KERNELS.update(saved)
+        counted = ("flash_attention", "flash_decode", "moe_gmm") if shapes is not None else ()
+        with ops.count_calls(counted) as calls, PlainSpy() as spy:
+            tokens = run_serve()
+            torch.cuda.synchronize()
+        calls_by_shape = {name: per for name, per in calls.items() if per}
         launches = ops.launch_counts()
         routes_run = {"flash_attention": dict(flash_attention.route_launches),
                       "moe_gmm": dict(moe_gmm.route_launches)}
@@ -4427,7 +4423,12 @@ def main() -> int:
         """Warm serve times and the device's busy share (not part of the counted
         run: the launch counts are final). Returns {"prefill_s", "decode_tok_s",
         "decode_step_s" (the mean of N_STEADY warm steps), "prefill_idle",
-        "decode_idle"}."""
+        "decode_idle", "served_step_s", "served_idle"}. The "served" pair is
+        the serve functions' decode (a CUDA graph where ``takes_graph``
+        holds), whose profiled round is held against the launch counters:
+        each kernel's calls in the trace (``ops.calls_in_trace``) must equal
+        the launches counted or added for the round, so a kernel missing
+        from a replay fails."""
         model = build_model(cfg)
         params = model.init(spec["seed"], dev)
         frames, prefix = frontend
@@ -4463,6 +4464,27 @@ def main() -> int:
                 print(f"  {cfg.name} profiled {name}: wall {t * 1e3:.2f} ms, device busy {busy * 1e3:.2f} ms "
                       f"(idle share {1 - busy / t:.3f}), {len(kern)} kernels; top ms: "
                       + "; ".join(f"{n} {ms:.3f}" for n, ms in top))
+            _, served_decode = make_serve_fns(model, dev, max_len=max_len, global_batch=spec["batch"])
+
+            def run_served():
+                for _ in range(N_STEADY):
+                    lg, box["state"] = served_decode(params, box["tok"], box["state"])
+                    box["tok"] = lg.argmax(-1)[:, None]
+
+            for _ in range(2):  # the first round warms up and captures; the second replays
+                run_prefill()
+                path = "graph" if takes_graph(box["state"]) else "eager"
+                served_s = wall(run_served)
+            run_prefill()
+            before = ops.launch_state()
+            t, busy, kern, _ = device_profile(run_served)
+            added = {k: n for k, (n, _) in ops.launches_since(before).items()}
+            ran = ops.calls_in_trace(e.name for e in kern)
+            out.update(served_step_s=served_s / N_STEADY, served_idle=1 - busy / t)
+            print(f"  {cfg.name} served decode ({path}): {served_s / N_STEADY * 1e3:.2f} ms/step; profiled: idle "
+                  f"share {1 - busy / t:.3f}, launches counted {added}, calls in the trace {ran}")
+            if any(ran[k] != added.get(k, 0) for k in ran):  # (MLA decodes with none of them)
+                fail(f"{cfg.name}: the served decode's trace holds calls {ran}, the counters {added}")
         del params, box
         torch.cuda.empty_cache()
         return out

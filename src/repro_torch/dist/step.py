@@ -44,7 +44,10 @@ placements, as the reference does:
     a placed tree), and AdamW updates each rank's shards in place.
 
 ``make_serve_fns(model, device, ...)`` are the one-device serve functions.
-Given a DeviceMesh, they serve on it and come back with the state's shapes
+On a CUDA device the decode function replays the decode step as one CUDA
+graph (``DecodeGraph``) for a state of plain K/V caches and Mamba states
+(``takes_graph``); other states, and other devices, decode eagerly. Given a
+DeviceMesh, they serve on it and come back with the state's shapes
 and placements, as the reference's do: the serve rules (no FSDP; where the
 KV heads do not divide ``model`` or the global batch does not fill the data
 axes, the caches' slots go over ``kv_seq``, the flash-decoding fallback);
@@ -68,7 +71,8 @@ import torch.distributed as dist
 from repro_torch.models import attention as attn
 from repro_torch.models.common import axis_rules, get_axis_rules, resolve_device
 from repro_torch.models.registry import decode_step, prefill, train_loss
-from repro_torch.obs import span
+from repro_torch.kernels import ops
+from repro_torch.obs import count, span
 from repro_torch.optim import adamw_update, ef_compress, global_norm
 from repro_torch.optim.adamw import _spec_leaves, tree_leaves, tree_map
 
@@ -599,6 +603,13 @@ def make_serve_fns(model, device="cuda", *, max_len: int, global_batch: int, rul
 
     On a device (``device``): (prefill_fn, decode_fn), for states made by
     ``init_serve_state(model, global_batch, max_len, device)``; logits (B, V).
+    On a CUDA device ``decode_fn`` serves a state ``takes_graph`` accepts
+    through a ``DecodeGraph``: it returns states that hold the graph's
+    buffers, so decode each sequence from the state its latest step returned
+    (or a copy of it), one sequence at a time: a state that later steps
+    overwrote is refused, where the eager path lets two take turns; under
+    the profiler it counts each step by path (``repro_torch.obs``'s
+    ``graph.*`` counters).
 
     On a DeviceMesh (``device``): ``(prefill_fn, decode_fn, state_shapes, shards)``, as the
     reference returns them. ``rules`` default to ``make_rules(cfg, mesh,
@@ -700,6 +711,103 @@ def _mesh_serve_fns(model, mesh, *, max_len: int, global_batch: int, rules: Opti
     return prefill_fn, decode_fn, state_shapes, shards
 
 
+PLAIN_KV = frozenset(("k", "v", "index"))
+MAMBA_STATE = frozenset(("h", "conv"))
+
+
+def takes_graph(state: dict) -> bool:
+    """Whether a one-device decode from ``state`` replays a CUDA graph: a
+    state of plain K/V caches and Mamba states alone. A ring's slot
+    positions, MLA latents or an encoder's memory K/V keep the step eager."""
+    return set(state) == {"caches", "t"} and all(set(c) in (PLAIN_KV, MAMBA_STATE) for c in state["caches"])
+
+
+def cuda_capture(fn: Callable):
+    """Capture ``fn()`` in a CUDA graph: (the graph's replay, fn's result)."""
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn()
+    return g.replay, out
+
+
+class DecodeGraph:
+    """The one-device decode step as one CUDA graph, for one model, batch and
+    max_len (those of the serve functions that hold it); for the states that
+    ``takes_graph`` accepts.
+
+    ``step(params, tokens, state)``: the first call for a params tree runs
+    the step eagerly (the warm-up: kernel builds, ``flash_decode``'s
+    occupancy query); the next captures it once (``capture``), against the
+    graph's own buffers: a copy of every cache tensor, the position ``t``
+    and the tokens; from then on each call replays it. Before a replay the
+    tokens and the position are copied into the buffers, and a state whose
+    tensors are not the graph's is copied in (once a round, at its first
+    decode step). The state returned holds the graph's buffers: a state
+    that holds them, the latest one returned or a copy of it, replays
+    directly; one whose buffers later steps overwrote (an older position) is
+    refused. So two sequences cannot take turns on one graph, as they can
+    on the eager path. The logits are a fresh copy each step. A replay adds
+    the kernel launches counted at capture to ``kernels.ops``' counters, and
+    the calls by input shapes to any open ``ops.count_calls`` block. The
+    KV-cache-full refusal runs on the host at every call, as the serve
+    functions' check does."""
+
+    def __init__(self, model, capture: Callable = cuda_capture):
+        self.model, self.capture = model, capture
+        self.leaves: list = []  # the params' tensors the graph reads (kept alive with it)
+        self.replay = None
+
+    def step(self, params, tokens: torch.Tensor, state: dict):
+        leaves = tree_leaves(params)
+        if len(leaves) != len(self.leaves) or any(a is not b for a, b in zip(leaves, self.leaves)):
+            self.leaves, self.replay = leaves, None  # a new params tree: warm up now, capture at the next call
+            count("graph.eager")
+            return decode_step(self.model, params, tokens, state)
+        t, caches = state["t"], state["caches"]
+        for c in caches:
+            refused = attn.decode_refusal(t, c["k"].shape[1]) if "k" in c else None
+            if refused:
+                raise ValueError(refused)
+        if self.replay is None:
+            self._capture(params, tokens, state)
+        held = [c[k] is b for buf, c in zip(self.bufs, caches) for k, b in buf.items()]
+        if any(held) and not (all(held) and t == self.t_next):
+            raise ValueError("decode from the state that the latest decode step returned: "
+                             "later steps overwrote this state's buffers")
+        if not any(held):
+            for buf, c in zip(self.bufs, caches):
+                for k, b in buf.items():
+                    b.copy_(c[k])
+            count("graph.copy_in")
+        self.tok.copy_(tokens)
+        self.t.fill_(t)
+        self.replay()
+        ops.add_launches(self.launches)
+        ops.add_calls(self.calls)
+        count("graph.replay")
+        self.t_next = t + 1
+        caches = [dict(b, index=t + 1) if "k" in b else dict(b) for b in self.bufs]
+        return self.logits.clone(), {"caches": caches, "t": t + 1}
+
+    def _capture(self, params, tokens: torch.Tensor, state: dict) -> None:
+        # zeros, not empty: what a capture reads is never garbage (the copy-in follows it)
+        self.bufs = [{k: torch.zeros_like(a) for k, a in c.items() if k != "index"} for c in state["caches"]]
+        self.tok = torch.zeros_like(tokens)
+        self.t = torch.zeros((1,), dtype=torch.int64, device=tokens.device)
+        self.t_next = None  # the position of the state the latest replay returned
+        t = state["t"]
+        view = {"caches": [dict(b, index=t) if "k" in b else b for b in self.bufs], "t": t}
+        before = ops.launch_state()
+        with ops.count_calls(ops.DEVICE_KERNELS) as calls:
+            self.replay, self.logits = self.capture(
+                lambda: decode_step(self.model, params, self.tok, view, t=self.t)[0])
+        self.launches, self.calls = ops.launches_since(before), calls
+        # counted by the wrappers (and by any count_calls block) while capturing; nothing ran
+        ops.add_launches(self.launches, -1)
+        ops.add_calls(self.calls, -1)
+        count("graph.capture")
+
+
 def _device_serve_fns(model, device, *, max_len: int, global_batch: int):
     dev = resolve_device(device)
     cfg = model.cfg
@@ -749,6 +857,8 @@ def _device_serve_fns(model, device, *, max_len: int, global_batch: int):
                 _check(tokens, state, frames, prefix)
             return prefill(model, params, tokens, state, frames=frames, prefix=prefix)
 
+    graph = DecodeGraph(model) if dev.type == "cuda" else None
+
     @torch.inference_mode()
     def decode_fn(params, tokens, state):
         with span("serve.decode", phase="decode"):
@@ -756,6 +866,9 @@ def _device_serve_fns(model, device, *, max_len: int, global_batch: int):
                 raise ValueError(f"{cfg.name}: decode needs the encoder memory that prefill keeps")
             with span("serve.check"):
                 _check(tokens, state)
+            if graph is not None and takes_graph(state):
+                return graph.step(params, tokens, state)
+            count("graph.eager")
             return decode_step(model, params, tokens, state)
 
     return prefill_fn, decode_fn

@@ -251,18 +251,28 @@ def _cached_attention(p, q, k, v, positions, cache: dict, par, window: int, kern
         kq, vq = _local_kv(par, kq, vq, q.shape[2])
         out = kernels["flash_attention"](q, kq, vq, causal=True, window=window)
     else:
-        if kpos is None and idx + 1 > S:
-            raise ValueError(f"KV cache full: {idx} + 1 tokens > {S} slots")
-        slot = idx % S if kpos is not None else idx
-        written = min(idx + 1, S)  # slots written after this step, from slot 0 on
-        if base <= slot < base + S_loc:
-            ck[:, slot - base] = k[:, 0]
-            cv[:, slot - base] = v[:, 0]
-            if kpos is not None:
-                kpos[:, slot - base] = positions[:, 0]
+        refused = None if kpos is not None else decode_refusal(idx, S)
+        if refused:
+            raise ValueError(refused)
         i32 = dict(dtype=torch.int32, device=q.device)
+        if n == 1 and kpos is None:
+            # a plain cache of its own slots: the slot written and the count
+            # follow from the step's position on the device (= idx), so that
+            # a CUDA graph captured once replays every step
+            slot = positions[:1, 0].long()
+            ck.index_copy_(1, slot, k)
+            cv.index_copy_(1, slot, v)
+            n_valid = (positions[:, 0] + 1).to(torch.int32)
+        else:
+            slot = idx % S if kpos is not None else idx
+            written = min(idx + 1, S)  # slots written after this step, from slot 0 on
+            if base <= slot < base + S_loc:
+                ck[:, slot - base] = k[:, 0]
+                cv[:, slot - base] = v[:, 0]
+                if kpos is not None:
+                    kpos[:, slot - base] = positions[:, 0]
+            n_valid = torch.full((B,), max(0, min(written - base, S_loc)), **i32)
         k_pos = kpos if kpos is not None else (base + torch.arange(S_loc, **i32)).expand(B, S_loc).contiguous()
-        n_valid = torch.full((B,), max(0, min(written - base, S_loc)), **i32)
         gathered = par is not None and not par.sharded("kv_heads")  # every query head attends here
         qd = par.comm.all_gather(q, 2, ("model",)) if gathered else q
         args = (qd, ck, cv, k_pos, positions[:, 0].to(torch.int32), n_valid)
@@ -319,6 +329,14 @@ def prefill_refusal(n_tokens: int, slots: int, ring: bool) -> Optional[str]:
     defined order, and has no answer to match)."""
     if n_tokens > slots:
         return f"prefill of {n_tokens} tokens into {'a ring of ' if ring else ''}{slots} slots"
+    return None
+
+
+def decode_refusal(index: int, slots: int) -> Optional[str]:
+    """Why a decode step at ``index`` into a plain cache of ``slots`` is
+    refused, or None: a full cache (a ring never fills)."""
+    if index + 1 > slots:
+        return f"KV cache full: {index} + 1 tokens > {slots} slots"
     return None
 
 

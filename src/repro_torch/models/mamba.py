@@ -27,6 +27,9 @@ over ``inner`` is this rank's x and z columns ``[x_r | z_r]``
 columns once, and no call gathers the weight). The decode and
 prefill-into-state branches then run on the local channels, with the cached
 (h, conv window) of those channels and ``x_proj`` row-parallel.
+
+Decode writes the new (h, conv window) into the cache's tensors in place;
+prefill returns new ones.
 """
 
 from __future__ import annotations
@@ -153,7 +156,8 @@ def mamba_block(
         y, _ = selective_scan(kernels, xc, dt, Bm, Cm, a, chunk_len=min(256, L))
         new_cache = None
     elif L == 1:
-        # decode: single-token affine update
+        # decode: single-token affine update, written into the cache's own
+        # tensors (a CUDA graph replays the step against the same buffers)
         conv_win = torch.cat([cache["conv"], xr], dim=1)  # (B, K, Di)
         xc = F.silu(torch.einsum("bkd,kd->bd", conv_win, p["conv_w"]) + p["conv_b"])[:, None]
         dt, Bm, Cm = _ssm_params(p, cfg, xc, par)
@@ -161,7 +165,9 @@ def mamba_block(
             ..., None
         ] * Bm[:, 0, None, :]
         y = torch.einsum("bin,bn->bi", h, Cm[:, 0])[:, None]  # (B, 1, Di)
-        new_cache = {"h": h, "conv": conv_win[:, 1:]}
+        cache["h"].copy_(h)
+        cache["conv"].copy_(conv_win[:, 1:])
+        new_cache = {"h": cache["h"], "conv": cache["conv"]}
     else:
         # prefill into an existing state: conv seeded from the cached window,
         # scan seeded from the cached h

@@ -10,8 +10,13 @@ the memory that each decoder layer's cross-attention reads) and a vision
 prefix (the batch's ``prefix`` before the tokens, its labels -1), as the
 reference's does. The state holds
 one cache per layer, of that layer's mixer: an attention layer's K/V (or MLA
-latents) are updated in place, a Mamba layer's (h, conv window) state is
-replaced. The state's ``t`` and each cache's ``index`` are host ``int``s.
+latents) and, at decode, a Mamba layer's (h, conv window) state are updated
+in place (prefill replaces the Mamba state). The state's ``t`` and each
+cache's ``index`` are host ``int``s, for the checks and the refusals; a
+decode step reads its position from a device tensor (``decode_step``'s
+``t``), from which a plain K/V cache's written slot and count follow, so
+that the step can be captured in a CUDA graph and replayed
+(``dist.step.DecodeGraph``).
 
 Serving an encoder-decoder, ``prefill`` encodes the frames into
 ``state["memory"]``, as the reference does, and also keeps each decoder
@@ -122,13 +127,18 @@ def decode_step(
     tokens: torch.Tensor,  # (B, 1) the latest sampled token
     state: dict,
     kernels: Optional[dict] = None,
+    t: Optional[torch.Tensor] = None,  # (1,) int64 on the tokens' device: the step's position
 ):
     """One autoregressive step against the KV / SSM caches (and the encoder
-    memory's K/V that prefill kept)."""
+    memory's K/V that prefill kept). The position comes from ``t``, a
+    device tensor (by default made from ``state["t"]``): a CUDA graph hands
+    in its own buffer, which it sets before each replay."""
     with span("embed"):
         x = model.embed(params, tokens)
     B = tokens.shape[0]
-    positions = torch.full((B, 1), state["t"], dtype=torch.int64, device=tokens.device)
+    if t is None:
+        t = torch.full((1,), state["t"], dtype=torch.int64, device=tokens.device)
+    positions = t.view(1, 1).expand(B, 1).contiguous()
     x, _, caches = model.trunk(params, x, positions, caches=state["caches"], kernels=kernels,
                                cross_kvs=state.get("memory_kv"))
     with span("head"):

@@ -10,7 +10,17 @@ keyed by the enclosing serve phase (``"prefill"``, ``"decode"``, or ``""``
 outside both: ``dist.step``'s ``serve.prefill`` and ``serve.decode`` spans
 set it) and the span's name. Otherwise it costs that one check and returns a
 shared ``nullcontext``. There is no other switch. Nothing of a span reaches
-the device, so a CUDA graph captured around a serve step records none.
+the device, so a CUDA graph captured around a serve step records none; a
+step served by replaying one runs only the spans outside the graph
+(``serve.decode``, ``serve.check``), not those of the layers inside it.
+
+``count(name)`` adds one to the counter ``repro_torch.<name>`` in a second
+registry, in the same way: only while a profiler records, under the serve
+phase open at the time (``count_totals()``). ``dist.step``'s decode counts
+its steps by path: ``graph.replay`` (a step served by replaying the decode
+step's CUDA graph), ``graph.eager`` (a step run eagerly), and, of the
+replayed steps, ``graph.capture`` (captured first) and ``graph.copy_in``
+(the state copied into the graph's buffers first).
 
 Spans (all ``repro_torch.``): ``serve.prefill``, ``serve.decode`` and
 ``serve.check`` (``dist/step.py``); ``embed`` and ``head``
@@ -35,7 +45,7 @@ An operator profiles a serve loop and reads the registry or the trace::
     moe_ms = 1e3 * decode["repro_torch.moe"][1] / n_steps  # host ms a step in the MoE FFNs
     prof.export_chrome_trace("serve.json")  # the same spans on the host's rows
 
-The registry belongs to the process and assumes one serving thread.
+The registries belong to the process and assume one serving thread.
 """
 
 from __future__ import annotations
@@ -51,6 +61,7 @@ PREFIX = "repro_torch."
 
 _OFF = contextlib.nullcontext()
 _totals: dict = {}  # phase -> {span name: [count, host ns]}
+_counts: dict = {}  # phase -> {counter name: count}
 _phase = ""
 
 
@@ -104,6 +115,19 @@ def spanned(name: str):
     return wrap
 
 
+def count(name: str) -> None:
+    """Add one to ``repro_torch.<name>`` under the open serve phase while the
+    profiler records (see the module note)."""
+    if _profiler_enabled():
+        by_name = _counts.setdefault(_phase, {})
+        by_name[PREFIX + name] = by_name.get(PREFIX + name, 0) + 1
+
+
+def count_totals() -> dict:
+    """{phase: {counter name: count}} since the last ``reset_spans()``."""
+    return {ph: dict(by_name) for ph, by_name in _counts.items()}
+
+
 def span_totals() -> dict:
     """{phase: {span name: (count, host seconds)}} since the last
     ``reset_spans()``."""
@@ -111,4 +135,6 @@ def span_totals() -> dict:
 
 
 def reset_spans() -> None:
+    """Empty both registries, the spans' and the counters'."""
     _totals.clear()
+    _counts.clear()

@@ -6,7 +6,9 @@ and dense FFN layers) serves a prefill and a few decode steps through
 ``torch.profiler`` each layer kind's span counts once a step per layer of
 that kind, every span is a host operation inside its step, the logits do
 not change, and the benchmark's five ``*_host_ms.decode`` readers read the
-registry per step.
+registry per step. ``graph_share.decode`` reads the counters of the decode
+paths (``obs.count``): the share of the traced steps a CUDA graph's replay
+served, 0 for the CPU's eager steps.
 """
 
 import dataclasses
@@ -147,7 +149,7 @@ def test_logits_bit_equal_with_and_without_the_profiler(served):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("name", READERS)
+@pytest.mark.parametrize("name", READERS + ["graph_share.decode"])
 def test_reader_gives_none_on_an_empty_registry(name):
     obs.reset_spans()
     assert harness.reader(name).read({}) is None
@@ -174,3 +176,19 @@ def test_reader_reads_host_ms_a_step(served, name):
     parts = sum(harness.reader(n).read({}) for n in ("moe_host_ms.decode", "mamba_host_ms.decode",
                                                      "attn_host_ms.decode", "rest_host_ms.decode"))
     assert parts == pytest.approx(ms["repro_torch.serve.decode"], rel=1e-9)
+
+
+def test_graph_share_reads_the_replayed_share(served):
+    obs.reset_spans()
+    _serve(served, 3, traced=True)  # on the CPU every step is eager
+    assert obs.count_totals() == {"decode": {"repro_torch.graph.eager": 3}}
+    assert harness.reader("graph_share.decode").read({}) == 0.0
+    obs.reset_spans()
+    with profile(activities=[ProfilerActivity.CPU]):
+        obs.count("graph.eager")  # outside a serve phase: not a decode step
+        with obs.span("serve.decode", phase="decode"):
+            for name in ("graph.eager", "graph.capture", "graph.copy_in", "graph.replay", "graph.replay",
+                         "graph.replay"):
+                obs.count(name)
+    assert obs.count_totals()["decode"]["repro_torch.graph.replay"] == 3
+    assert harness.reader("graph_share.decode").read({}) == 75.0
