@@ -19,12 +19,16 @@ port's own counts (``repro_torch/roofline/``) do not move it. Sources:
   final state, and the carried-in state where one is given.
 - Whole steps: 2 N operations a token, N the parameters that multiply
   (embedding rows are gathered, not multiplied); attention's products
-  beside them (4 H Dh a causal pair).
+  beside them (2 (Dk + Dv) a head and causal pair at prefill), each block's
+  from its file (``portbench/blocks/``; MLA's says which of its two forms
+  it counts at each phase, and why).
 
 Byte counts take each input read once and each output written once.
 """
 
 from __future__ import annotations
+
+from portbench import blocks
 
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12
@@ -66,72 +70,46 @@ def mamba_scan(B: int, L: int, Di: int, N: int, x_elt: int = 2, h0: bool = False
 # ---------------------------------------------------------------------------
 
 
-def _layers(cfg: dict) -> list:
-    layout = cfg["layout"]
-    return [layout[i % len(layout)] for i in range(cfg["num_hidden_layers"])]
-
-
-def _mixer_params(cfg: dict, mixer: str) -> int:
-    d = cfg["hidden_size"]
-    if mixer == "attention":
-        dh = d // cfg["num_attention_heads"]
-        return 2 * d * cfg["num_attention_heads"] * dh + 2 * d * cfg["num_key_value_heads"] * dh
-    di, n, r, k = cfg["mamba_expand"] * d, cfg["mamba_d_state"], cfg["mamba_dt_rank"], cfg["mamba_d_conv"]
-    return 2 * d * di + k * di + di * (r + 2 * n) + r * di + di * d
-
-
-def _ffn_params(cfg: dict, ffn: str, active: bool) -> int:
-    d, f = cfg["hidden_size"], cfg["intermediate_size"]
-    if ffn == "moe":
-        experts = cfg["num_experts_per_tok"] if active else cfg["num_experts"]
-        return d * cfg["num_experts"] + experts * 3 * d * f
-    return 3 * d * f
+def _blocks(cfg: dict) -> list:
+    """The block module of every slot of every layer."""
+    return [block for layer in blocks.layers(cfg) for _, _, block in layer]
 
 
 def matmul_params(cfg: dict, active: bool = True, head: bool = True) -> int:
     """Parameters that multiply a token: every layer's products (the top-k
     experts where ``active``), the output head where ``head``; norms and the
     embedding's gathered rows are not products."""
-    total = sum(_mixer_params(cfg, k["mixer"]) + _ffn_params(cfg, k["ffn"], active) for k in _layers(cfg))
+    total = sum(block.products(cfg, active) for block in _blocks(cfg))
     if head:
         total += cfg["hidden_size"] * cfg["vocab_size"]
     return total
 
 
-def attention_layers(cfg: dict) -> int:
-    return sum(k["mixer"] == "attention" for k in _layers(cfg))
+def attention_shapes(cfg: dict) -> list:
+    """(H, KVH, Dk, Dv) of each layer's causal attention at prefill."""
+    return [block.attention_shape(cfg) for block in _blocks(cfg) if hasattr(block, "attention_shape")]
 
 
-def moe_layers(cfg: dict) -> int:
-    return sum(k["ffn"] == "moe" for k in _layers(cfg))
-
-
-def mamba_layers(cfg: dict) -> int:
-    return sum(k["mixer"] == "mamba" for k in _layers(cfg))
+def routed_slots(cfg: dict) -> int:
+    """Expert slots a token takes over the layers."""
+    return sum(block.routed(cfg) for block in _blocks(cfg) if hasattr(block, "routed"))
 
 
 def prefill_flops(cfg: dict, B: int, L: int) -> float:
-    """2 N_active B L over the layers, attention's causal products, and the
-    head at the last position only (the port's prefill keeps those logits)."""
-    H = cfg["num_attention_heads"]
-    dh = cfg["hidden_size"] // H
-    return (2.0 * matmul_params(cfg, head=False) * B * L + 4.0 * attention_layers(cfg) * B * causal_pairs(L) * H * dh
-            + 2.0 * B * cfg["hidden_size"] * cfg["vocab_size"])
+    """2 N_active B L over the layers, each attention's causal products (2 B
+    H pairs (Dk + Dv)), and the head at the last position only (the port's
+    prefill keeps those logits)."""
+    attn = sum(2 * B * H * causal_pairs(L) * (dk + dv) for H, _, dk, dv in attention_shapes(cfg))
+    return 2.0 * matmul_params(cfg, head=False) * B * L + attn + 2.0 * B * cfg["hidden_size"] * cfg["vocab_size"]
 
 
 def decode_step(cfg: dict, B: int, context: float, elt: int = 2) -> tuple:
     """(flops, bytes) of one decode step of B tokens against ``context``
     cached positions: every weight that multiplies read once (all experts,
-    each touched at these batches), the embedding's B rows, each attention
-    layer's K and V cache, each Mamba layer's f32 state and conv window read
-    and written."""
-    d, H, KVH = cfg["hidden_size"], cfg["num_attention_heads"], cfg["num_key_value_heads"]
-    dh = d // H
-    n_att = attention_layers(cfg)
-    flops = 2.0 * matmul_params(cfg) * B + 4.0 * n_att * B * context * H * dh
-    nbytes = elt * matmul_params(cfg, active=False) + elt * B * d
-    nbytes += n_att * 2 * B * context * KVH * dh * elt
-    if mamba_layers(cfg):
-        di = cfg["mamba_expand"] * d
-        nbytes += mamba_layers(cfg) * B * di * (2 * cfg["mamba_d_state"] * 4 + 2 * (cfg["mamba_d_conv"] - 1) * elt)
+    each touched at these batches), the embedding's B rows, and each block's
+    own (``decode_extra``: attention's products and the cache it reads, a
+    state read and written)."""
+    extra = [block.decode_extra(cfg, B, context, elt) for block in _blocks(cfg) if hasattr(block, "decode_extra")]
+    flops = 2.0 * matmul_params(cfg) * B + sum(f for f, _ in extra)
+    nbytes = elt * matmul_params(cfg, active=False) + elt * B * cfg["hidden_size"] + sum(b for _, b in extra)
     return flops, nbytes

@@ -165,6 +165,8 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float) -> di
             ttft += [f - s] * srv.B
             prefill_s.append(f - s)
     e2e = {"serve_tokens_per_s": work * srv.B * srv.G / seconds, "setup_s": setup_s}
+    harness.say(f"rounds: {len(rounds)} started, {len(finished)} finished in the window; their first tokens "
+                + ", ".join(f"{s * 1e3:.1f}" for s in prefill_s) + " ms")
     if ttft:
         e2e["ttft_p95_ms"] = harness.p95(ttft) * 1e3
     if itl:
@@ -198,9 +200,11 @@ def run(cell, seed: int, seconds: float, trace: bool, dev, t_start: float) -> di
     picked = random.Random(seed).sample(range(len(pool)), min(t["check_rounds"], len(pool)))
     checked = [pool[i] for i in sorted(picked)]
     srv.free()
+    t_check = time.perf_counter()
     worst, mean, dropped = served_gaps(cell, seed, dev, checked)
+    harness.say(f"the comparison with the reference {time.perf_counter() - t_check:.2f} s")
     attempted = len(rounds) * srv.B
-    prefill_slots = conf.get("num_experts_per_tok", 1) * max(1, costs.moe_layers(conf))  # a prompt token's
+    prefill_slots = max(1, costs.routed_slots(conf))  # a prompt token's expert slots over the layers
     numbers = {"max_logit_gap": worst, "mean_logit_gap": mean}
     return {
         "end_to_end": e2e, "attempted": attempted, "failed": 0, "device": memory, "profile": profile,

@@ -17,6 +17,8 @@ import sys
 import time
 from pathlib import Path
 
+from portbench import blocks
+
 ROOT = Path(__file__).resolve().parents[1]
 PKG = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "repro")
@@ -83,45 +85,56 @@ def reader(metric: str):
 # The port's configuration, held to the cell's file
 # ---------------------------------------------------------------------------
 
-# the cell file's key -> the port's ArchConfig field
-CONFIG_FIELDS = {
-    "num_hidden_layers": "n_layers", "hidden_size": "d_model", "num_attention_heads": "n_heads",
-    "num_key_value_heads": "n_kv_heads", "intermediate_size": "d_ff", "vocab_size": "vocab",
-    "rope_theta": "rope_theta", "torch_dtype": "dtype",
-    "tie_word_embeddings": "tie_embeddings", "num_experts": "n_experts", "num_experts_per_tok": "top_k",
-    "capacity_factor": "capacity_factor", "moe_exact_tokens": "moe_exact_tokens", "mamba_d_state": "ssm_state",
-    "mamba_d_conv": "ssm_conv", "mamba_expand": "ssm_expand",
-}
-# the cell file's key -> an option of the port's ArchConfig that the file sets
-CONFIG_OPTIONS = {"rms_norm_eps": "norm_eps", "use_qkv_bias": "qkv_bias"}
+# the model's own keys (depth, widths of the embedding and the head, dtype) -> the port's ArchConfig field;
+# each layer block's keys are its file's (``portbench/blocks/``)
+MODEL_KEYS = {"num_hidden_layers": "n_layers", "hidden_size": "d_model", "vocab_size": "vocab",
+              "torch_dtype": "dtype", "tie_word_embeddings": "tie_embeddings"}
+MODEL_OPTIONS = {"rms_norm_eps": "norm_eps"}  # keys that set an option of the port's
+FILE_KEYS = {"arch", "source", "layout", "first_layers", "reduced", "assumed", "deployment", "smoke"}  # not the model's
 
 
 def arch_config(config: dict):
     """The port's ArchConfig for the cell's file: its registered
-    architecture cut to the file's depth; every size the file states must
-    be the port's, and the layout, Mamba's dt rank and the head size too;
-    the options the port offers (``CONFIG_OPTIONS``) are set from it. A file with ``"smoke": true`` (the tests' files) starts from the
-    architecture's tiny CPU preset (``ArchConfig.reduced``) and takes the
-    file's sizes."""
+    architecture cut to the file's depth, the options the port offers set
+    from the file. The check is strict: each of the port's layers must run
+    the blocks the file's layer list names (``blocks.mismatch``), every
+    key the file states must be owned by the model or by a block it names,
+    and every owned value must be the port's. A file with ``"smoke": true``
+    (the tests' files) starts from the architecture's tiny CPU preset
+    (``ArchConfig.reduced``) and takes the file's sizes."""
     from repro_torch.configs import get_config
 
+    named = blocks.named(config)
+    owners = {"the model": MODEL_KEYS | MODEL_OPTIONS}
+    options = dict(MODEL_OPTIONS)
+    for name, block in named.items():
+        owners[name] = block.KEYS | getattr(block, "OPTIONS", {})
+        options |= getattr(block, "OPTIONS", {})
     cfg = get_config(config["arch"])
     if config.get("smoke"):
-        cfg = dataclasses.replace(cfg.reduced(), **{f: config[k] for k, f in CONFIG_FIELDS.items() if k in config})
+        fields = {k: f for table in owners.values() for k, f in table.items() if isinstance(f, str)}
+        cfg = dataclasses.replace(cfg.reduced(), **{f: config[k] for k, f in fields.items() if k in config})
     cfg = dataclasses.replace(cfg, n_layers=config["num_hidden_layers"],
-                              **{f: config[k] for k, f in CONFIG_OPTIONS.items() if k in config})
+                              **{f: config[k] for k, f in options.items() if k in config})
     cfg = dataclasses.replace(cfg, remat="none")  # serving keeps no activations for a backward
-    wrong = [f"{k}: file {config[k]!r}, port {getattr(cfg, f)!r}" for k, f in CONFIG_FIELDS.items()
-             if k in config and config[k] != getattr(cfg, f)]
-    layout = [{"mixer": s.mixer, "ffn": s.ffn} for s in cfg.layout]
-    if layout != config["layout"]:
-        wrong.append(f"layout: file {config['layout']}, port {layout}")
-    if cfg.head_dim != config["hidden_size"] // config["num_attention_heads"]:
-        wrong.append(f"head_dim: port {cfg.head_dim}")
-    if "mamba_dt_rank" in config and cfg.dt_rank != config["mamba_dt_rank"]:
-        wrong.append(f"mamba_dt_rank: file {config['mamba_dt_rank']}, port {cfg.dt_rank}")
-    if cfg.attention != "full" or (cfg.qkv_bias and not config.get("use_qkv_bias")) or cfg.pad_heads or cfg.encoder_layers or cfg.frontend != "none":
-        wrong.append("the port's block has parts the cell's file does not state")
+    owned = set().union(*owners.values())
+    wrong = [f"{k}: no block that the file names owns it" for k in sorted(set(config) - FILE_KEYS - owned)]
+    for owner, table in owners.items():
+        for k in sorted(table.keys() & config.keys()):
+            port = getattr(cfg, table[k]) if isinstance(table[k], str) else table[k](cfg)
+            if config[k] != port:
+                wrong.append(f"{k}: file {config[k]!r}, port {port!r} ({owner})")
+    want, specs = blocks.layer_list(config), cfg.layer_specs()
+    if len(want) != len(specs):
+        wrong.append(f"layers: {len(want)} in the file, {len(specs)} in the port")
+    for i, (layer, spec) in enumerate(zip(want, specs)):
+        if why := blocks.mismatch(layer, spec, cfg):
+            wrong.append(f"first difference at layer {i}: " + "; ".join(why))
+            break
+    for block in named.values():
+        wrong += block.refuse(config, cfg) if hasattr(block, "refuse") else []
+    if cfg.pad_heads or cfg.encoder_layers or cfg.frontend != "none":
+        wrong.append("the port's model has parts the file does not state (padded heads, an encoder or a frontend)")
     if wrong:
         raise SystemExit("the port's configuration is not the cell's file:\n  " + "\n  ".join(wrong))
     return cfg

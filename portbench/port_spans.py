@@ -6,7 +6,7 @@ alone. A program without the spans (no ``repro_torch.obs``, or no decode
 step recorded) gives None, never an error."""
 
 STEP = "repro_torch.serve.decode"
-BLOCKS = ("repro_torch.moe", "repro_torch.mamba", "repro_torch.attention")
+BLOCKS = ("repro_torch.moe", "repro_torch.mamba", "repro_torch.attention", "repro_torch.mla")
 
 
 def decode_spans():
@@ -30,8 +30,8 @@ def ms_per_step(names) -> float | None:
 
 
 def rest_ms_per_step() -> float | None:
-    """Host ms a step inside ``serve.decode`` and outside its MoE, Mamba and
-    attention spans."""
+    """Host ms a step inside ``serve.decode`` and outside its MoE, Mamba,
+    attention and MLA spans."""
     spans = decode_spans()
     if spans is None:
         return None

@@ -28,7 +28,8 @@ def run_cell(name: str, trace: bool, capsys):
 
 
 @pytest.mark.parametrize("trace", [False, True])
-@pytest.mark.parametrize("name", ["jamba-serve-prefill-4096", "jamba-serve-decode-b64", "stablelm-serve-prefill-4096"])
+@pytest.mark.parametrize("name", ["jamba-serve-prefill-4096", "jamba-serve-decode-b64", "stablelm-serve-prefill-4096",
+                                  "minicpm3-serve-mla"])
 def test_a_cell_runs_and_prints_its_line(name, trace, capsys):
     cell, out, line = run_cell(name, trace, capsys)
     for key in ("correct", "attempted", "failed", "metrics", "device"):

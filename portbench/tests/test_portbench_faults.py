@@ -17,12 +17,14 @@ def correct(name: str) -> bool:
     return harness.judge(out["checks"])
 
 
-@pytest.mark.parametrize("name", ["jamba-serve-prefill-4096", "jamba-serve-decode-b64", "stablelm-serve-prefill-4096"])
+@pytest.mark.parametrize("name", ["jamba-serve-prefill-4096", "jamba-serve-decode-b64", "stablelm-serve-prefill-4096",
+                                  "minicpm3-serve-mla"])
 def test_sound_runs_are_correct(name):
     assert correct(name)
 
 
-@pytest.mark.parametrize("name", ["jamba-serve-prefill-4096", "jamba-serve-decode-b64", "stablelm-serve-prefill-4096"])
+@pytest.mark.parametrize("name", ["jamba-serve-prefill-4096", "jamba-serve-decode-b64", "stablelm-serve-prefill-4096",
+                                  "minicpm3-serve-mla"])
 def test_serve_token_altered(name, monkeypatch):
     import repro_torch.dist.step as step
 
@@ -38,7 +40,7 @@ def test_serve_token_altered(name, monkeypatch):
     assert not correct(name)
 
 
-@pytest.mark.parametrize("name", ["jamba-serve-prefill-4096", "stablelm-serve-prefill-4096"])
+@pytest.mark.parametrize("name", ["jamba-serve-prefill-4096", "stablelm-serve-prefill-4096", "minicpm3-serve-mla"])
 def test_serve_decode_state_left_unchanged(name, monkeypatch):
     import repro_torch.dist.step as step
 

@@ -1,7 +1,8 @@
 """Nothing of the benchmark imports jax, jaxlib, flax or the JAX package
 (top-level names compared whole: the port's name begins with the JAX
-package's), nothing reads the old benchmarks' folder, the reference imports
-nothing of the port, and a run without a card prints no result."""
+package's), nothing reads the old benchmarks' folder, the reference and
+the block files import nothing of the port, and a run without a card prints
+no result."""
 
 import ast
 import subprocess
@@ -34,8 +35,8 @@ def test_no_jax_and_no_old_benchmarks(path):
 
 
 def test_the_reference_imports_nothing_of_the_port():
-    for path in sorted((PKG / "reference").glob("*.py")):
-        assert not imported(path) & {"repro_torch", "portbench", "repro"}, path
+    for path in sorted((PKG / "reference").glob("*.py")) + sorted((PKG / "blocks").glob("*.py")):
+        assert not imported(path) & {"repro_torch", "repro"}, path
 
 
 def test_without_a_card_no_result(tmp_path):

@@ -1,6 +1,7 @@
 """The plain reference agrees with the port at a tiny size on the CPU (f32
 both): served logits and tokens through the caches, with capacity drops at
-prefill and the q, k and v biases."""
+prefill, the q, k and v biases, and MLA's absorbed decode over its latent
+cache."""
 
 import pytest
 import torch
@@ -11,7 +12,7 @@ from portbench.tests.smoke import control_cell, smoke_cell
 from portbench.weights import make_params
 
 
-@pytest.mark.parametrize("name", ["jamba-serve-prefill-4096", "stablelm-serve-prefill-4096"])
+@pytest.mark.parametrize("name", ["jamba-serve-prefill-4096", "stablelm-serve-prefill-4096", "minicpm3-serve-mla"])
 def test_served_logits_follow_the_port_through_its_caches(name):
     from repro_torch.dist.step import make_serve_fns
     from repro_torch.models.registry import build_model, init_serve_state
@@ -21,7 +22,7 @@ def test_served_logits_follow_the_port_through_its_caches(name):
     moe = conf["arch"] == "jamba-v0.1-52b"
     if moe:
         conf["capacity_factor"] = 0.5  # bins of 16 slots for the prefill's 120: the capacity rule drops
-    else:
+    elif conf["arch"] == "stablelm-1.6b":
         assert conf["use_qkv_bias"]
     cfg = harness.arch_config(conf)
     model = build_model(cfg)
@@ -71,7 +72,8 @@ def _control_reading(name: str, seed: int) -> dict:
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("name", ["jamba-serve-prefill-4096", "jamba-serve-decode-b64", "stablelm-serve-prefill-4096"])
+@pytest.mark.parametrize("name", ["jamba-serve-prefill-4096", "jamba-serve-decode-b64", "stablelm-serve-prefill-4096",
+                                  "minicpm3-serve-mla"])
 def test_the_control_fails_at_the_cells_size(name, card):
     """On the card, at the cell's own size: the program is within every
     limit and the control is beyond one of them."""
@@ -82,7 +84,8 @@ def test_the_control_fails_at_the_cells_size(name, card):
     assert not harness.judge(compared(line["control"]))
 
 
-@pytest.mark.parametrize("name", ["jamba-serve-prefill-4096", "jamba-serve-decode-b64", "stablelm-serve-prefill-4096"])
+@pytest.mark.parametrize("name", ["jamba-serve-prefill-4096", "jamba-serve-decode-b64", "stablelm-serve-prefill-4096",
+                                  "minicpm3-serve-mla"])
 def test_the_control_study_at_cpu_size(name):
     """``control.py``'s readings on a cell cut to CPU size, against the
     cell's own limits: the program (f32 here) within every one and the
